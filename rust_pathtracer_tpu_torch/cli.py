@@ -1,0 +1,108 @@
+"""Command-line entry point: render one frame of a named scene to a PNG.
+
+Counterpart of ``rust_pathtracer_tpu/cli.py``; plain host code.
+
+    python -m rust_pathtracer_tpu_torch.cli --scene CornellBox \\
+        --width 256 --height 256 --spp 64 --output-dir ./output
+
+The default device is ``cuda``; ``--device cuda`` where there is no GPU
+exits non-zero (there is no CPU fallback).  Prints the ray segments
+traced, the wall seconds of the render (the kernel's first-use build
+is done before the clock starts) and segments per second.
+
+Not ported yet (ROADMAP queue 1 item 13): ``--scene-json``, animation
+frames and GIFs, ``--mesh``, ``--regen``, ``--cascade``,
+``--checkpoint``, profiling and metrics files.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+import time
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="rust_pathtracer_tpu_torch",
+        description="path tracer on PyTorch + CUDA (forward render)",
+    )
+    p.add_argument("--scene", required=True, help="named scene")
+    p.add_argument("--output-dir", default="./output")
+    p.add_argument("--width", type=int)
+    p.add_argument("--height", type=int)
+    p.add_argument("--spp", type=int, help="samples per pixel override")
+    p.add_argument("--max-bounces", type=int)
+    p.add_argument("--spp-chunk", type=int, help="samples per wavefront chunk")
+    p.add_argument("--seed", type=int, default=0, help="RNG key seed")
+    p.add_argument(
+        "--russian-roulette", type=int, default=None, metavar="START_BOUNCE",
+        help="enable russian roulette from this bounce (off by default: "
+             "reference semantics)",
+    )
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+
+    import torch
+
+    from rust_pathtracer_tpu_torch.models import get_scene
+    from rust_pathtracer_tpu_torch.render import render_radiance
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+    from rust_pathtracer_tpu_torch.utils.image import frame_path, to_rgb8, write_png
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("error: --device cuda, but torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+
+    sd = get_scene(args.scene)
+    settings = sd.output.image
+    overrides = {}
+    if args.width:
+        overrides["width"] = args.width
+    if args.height:
+        overrides["height"] = args.height
+    if args.spp:
+        overrides["samples_per_pixel"] = args.spp
+    if args.max_bounces:
+        overrides["max_bounces"] = args.max_bounces
+    if args.spp_chunk:
+        overrides["spp_chunk"] = args.spp_chunk
+    if args.russian_roulette is not None:
+        overrides["russian_roulette_start"] = args.russian_roulette
+    if overrides:
+        settings = dataclasses.replace(settings, **overrides)
+
+    scene = sd.build(device=args.device)
+    cam = sd.camera_at(0.0, device=args.device)
+    key = prng_key(args.seed, device=args.device)
+    if args.device == "cuda":
+        from rust_pathtracer_tpu_torch.ops._build import load_library
+
+        load_library("fused_bounce")  # first-use build: set-up, not render time
+
+    t0 = time.perf_counter()
+    img, stats = render_radiance(scene, cam, settings, key, device=args.device)
+    img = img.cpu().numpy()  # waits for the device
+    seconds = time.perf_counter() - t0
+
+    path = frame_path(args.output_dir, 0)
+    write_png(path, to_rgb8(img))
+    segments = float(stats.segments)
+    device_name = (torch.cuda.get_device_name(0) if args.device == "cuda"
+                   else "cpu")
+    print(f"wrote {path}")
+    print(f"{sd.name} {settings.width}x{settings.height} "
+          f"spp={settings.samples_per_pixel} bounces={settings.max_bounces} "
+          f"on {device_name}: segments={segments:.0f} seconds={seconds:.3f} "
+          f"segments/s={segments / seconds:.4g}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

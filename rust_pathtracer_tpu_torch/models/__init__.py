@@ -1,0 +1,19 @@
+from rust_pathtracer_tpu_torch.models.scenes import (
+    SCENES,
+    SceneDef,
+    cornell_box_scene,
+    get_scene,
+    light_test_scene,
+    triangle_test_scene,
+    two_sphere_checkers_scene,
+)
+
+__all__ = [
+    "SCENES",
+    "SceneDef",
+    "cornell_box_scene",
+    "get_scene",
+    "light_test_scene",
+    "triangle_test_scene",
+    "two_sphere_checkers_scene",
+]

@@ -1,0 +1,428 @@
+// K1: one whole wavefront bounce per launch, for NVIDIA Hopper (sm_90a).
+//
+// Replaces rust_pathtracer_tpu/ops/fused_bounce.py::_kernel (the Pallas
+// TPU kernel, want_residuals=False).  Per lane: closest hit over the
+// static primitive list (sphere half-b nearest root, rect plane solve,
+// one-sided Moller-Trumbore with det >= TRI_DET_EPS, strict t < best),
+// front-face flip, texture (solid / checker sin-product / perlin
+// marble), background banking on a miss and emission banking on a
+// front-face light, lambertian / metal / dielectric scatter from raw
+// uniforms, and the state commit.  The plain PyTorch twin is
+// fused_bounce_cols_plain in ../fused_bounce.py.
+//
+// What bounds it on the card: every lane reads 19 f32 columns (13 state,
+// 6 uniforms) and writes 13, 128 B per lane-bounce, so about 0.12 GB per
+// 960k-lane bounce.  The arithmetic is about 20 primitive tests per lane
+// on CornellBox; the perlin marble (7 octaves x 8 hashed corners) is the
+// heaviest branch.
+//
+// Design, simple and right first:
+// * one thread per lane, a grid-stride loop, the ragged edge masked;
+// * the (32, P) table, P <= 128, is copied into shared memory at block
+//   start (at most 16 KB);
+// * the loop over primitives is the same for every thread, so the switch
+//   on the primitive kind does not diverge within a warp;
+// * material and texture branches run per lane, behind the scene's
+//   material and texture flags, as the Pallas kernel's static ifs do;
+// * dead lanes copy their state through; columns are SoA, out of place.
+// Later work: in-place columns, fewer bytes, persistent blocks.
+//
+// Numerics: build without --use_fast_math and with --fmad=false, so every
+// f32 op rounds as the plain version's does (IEEE division and sqrt, no
+// contraction, no flush to zero).  Integer powers are explicit multiplies,
+// as XLA's integer_pow expands them.  Only sinf / cosf / cbrtf differ from
+// the CPU's by an ulp.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int PRIM_SPHERE = 0, PRIM_RECT = 1, PRIM_TRIANGLE = 2;
+constexpr int MAT_LAMBERTIAN = 0, MAT_METAL = 1, MAT_DIELECTRIC = 2, MAT_LIGHT = 3;
+constexpr int TEX_CHECKER = 1, TEX_PERLIN = 2;
+
+// flag bits of mat_flags / tex_flags (ops/fused_bounce.py _MAT_BITS, _TEX_BITS)
+constexpr int MATF_LAMBERTIAN = 1, MATF_METAL = 2, MATF_DIELECTRIC = 4, MATF_LIGHT = 8;
+constexpr int TEXF_CHECKER = 2, TEXF_PERLIN = 4;
+
+// shading-table rows (ops/projected.py PAY_*)
+constexpr int PAY_KIND = 12, PAY_AUX = 13;
+constexpr int PAY_MKIND = 16, PAY_FUZZ = 17, PAY_IR = 18, PAY_TKIND = 19, PAY_TSCALE = 20;
+constexpr int PAY_COLOR = 21, PAY_ODD = 24, PAY_EVEN = 27;
+constexpr int PAY_W = 32;
+constexpr int MAX_PRIMS = 128;
+
+constexpr float T_MISS = 3.0e38f;
+constexpr float TRI_DET_EPS = 1e-4f;
+constexpr float NEAR_ZERO = 1e-8f;
+constexpr float SAFE_EPS = 1e-20f;
+constexpr float TWO_PI = 6.2831855f;  // 2 * float32(pi)
+constexpr int TURBULENCE_DEPTH = 7;
+
+constexpr int N_IN = 19;   // 13 state columns + 6 uniform columns
+constexpr int N_OUT = 13;  // 13 state columns
+constexpr int THREADS = 256;
+
+struct Columns {
+  // in: o0 o1 o2 d0 d1 d2 t0 t1 t2 r0 r1 r2 al su0 su1 bu0 bu1 bu2 coin
+  const float* in[N_IN];
+  // out: o0 o1 o2 d0 d1 d2 t0 t1 t2 r0 r1 r2 al
+  float* out[N_OUT];
+};
+
+// NaN-propagating max / min against a constant, as jnp.maximum / minimum
+__device__ __forceinline__ float max_nan(float x, float c) {
+  return (x != x || x > c) ? x : c;
+}
+__device__ __forceinline__ float min_nan(float x, float c) {
+  return (x != x || x < c) ? x : c;
+}
+
+// ---- perlin (rust_pathtracer_tpu/perlin.py, bit for bit) -----------------
+
+__device__ __forceinline__ float fade(float t) {
+  return t * t * t * (t * (t * 6.0f - 15.0f) + 10.0f);
+}
+
+__device__ __forceinline__ uint32_t hash3(int ix, int iy, int iz, uint32_t seed) {
+  uint32_t h = (((uint32_t)ix * 0x8DA6B343u) ^ ((uint32_t)iy * 0xD8163841u) ^
+                ((uint32_t)iz * 0xCB1AB31Fu)) + seed;
+  h = h ^ (h >> 15);
+  h = h * 0x2C1B3C6Du;
+  h = h ^ (h >> 12);
+  h = h * 0x297A2D39u;
+  h = h ^ (h >> 15);
+  return h;
+}
+
+__device__ __forceinline__ float grad(uint32_t hh, float x, float y, float z) {
+  const int h = (int)(hh & 15u);
+  const float u = h < 8 ? x : y;
+  const float v = h < 4 ? y : ((h == 12 || h == 14) ? x : z);
+  return ((h & 1) == 0 ? u : -u) + ((h & 2) == 0 ? v : -v);
+}
+
+__device__ __forceinline__ float lerp(float t, float lo, float hi) {
+  return lo + t * (hi - lo);
+}
+
+__device__ float noise3(float px, float py, float pz, uint32_t seed) {
+  const float xf = floorf(px), yf = floorf(py), zf = floorf(pz);
+  const int ix = (int)xf, iy = (int)yf, iz = (int)zf;
+  const float x = px - xf, y = py - yf, z = pz - zf;
+  const float u = fade(x), v = fade(y), w = fade(z);
+  const float n000 = grad(hash3(ix, iy, iz, seed), x, y, z);
+  const float n100 = grad(hash3(ix + 1, iy, iz, seed), x - 1.0f, y, z);
+  const float n010 = grad(hash3(ix, iy + 1, iz, seed), x, y - 1.0f, z);
+  const float n110 = grad(hash3(ix + 1, iy + 1, iz, seed), x - 1.0f, y - 1.0f, z);
+  const float n001 = grad(hash3(ix, iy, iz + 1, seed), x, y, z - 1.0f);
+  const float n101 = grad(hash3(ix + 1, iy, iz + 1, seed), x - 1.0f, y, z - 1.0f);
+  const float n011 = grad(hash3(ix, iy + 1, iz + 1, seed), x, y - 1.0f, z - 1.0f);
+  const float n111 = grad(hash3(ix + 1, iy + 1, iz + 1, seed), x - 1.0f, y - 1.0f, z - 1.0f);
+  return lerp(w,
+              lerp(v, lerp(u, n000, n100), lerp(u, n010, n110)),
+              lerp(v, lerp(u, n001, n101), lerp(u, n011, n111)));
+}
+
+__device__ float marble(float px, float py, float pz, uint32_t seed, float scale) {
+  const float z0 = pz;
+  float acc = 0.0f;
+  float weight = 1.0f;
+  for (int k = 0; k < TURBULENCE_DEPTH; ++k) {
+    acc = acc + weight * noise3(px, py, pz, seed);
+    weight *= 0.5f;
+    px = px * 2.0f;
+    py = py * 2.0f;
+    pz = pz * 2.0f;
+  }
+  const float turb = fabsf(acc);
+  return 0.5f * (1.0f - sinf(scale * z0 + 10.0f * turb));
+}
+
+// ---- the bounce --------------------------------------------------------
+
+__global__ void __launch_bounds__(THREADS)
+fused_bounce_kernel(const float* __restrict__ table, int n_prims,
+                    const float* __restrict__ bg, uint32_t seed, float t_min,
+                    int mat_flags, int tex_flags, Columns cols,
+                    int* __restrict__ winner, long long n) {
+  __shared__ float tab[PAY_W * MAX_PRIMS];
+  for (int i = threadIdx.x; i < PAY_W * n_prims; i += blockDim.x) tab[i] = table[i];
+  __syncthreads();
+  const int P = n_prims;
+  const float bg0 = bg[0], bg1 = bg[1], bg2 = bg[2];
+
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const float ox = cols.in[0][i], oy = cols.in[1][i], oz = cols.in[2][i];
+    const float dx = cols.in[3][i], dy = cols.in[4][i], dz = cols.in[5][i];
+    const float thx = cols.in[6][i], thy = cols.in[7][i], thz = cols.in[8][i];
+    float rdx = cols.in[9][i], rdy = cols.in[10][i], rdz = cols.in[11][i];
+    const bool alive = cols.in[12][i] > 0.5f;
+
+    if (!alive) {  // a dead lane keeps its state; alive-out is 0
+      cols.out[0][i] = ox; cols.out[1][i] = oy; cols.out[2][i] = oz;
+      cols.out[3][i] = dx; cols.out[4][i] = dy; cols.out[5][i] = dz;
+      cols.out[6][i] = thx; cols.out[7][i] = thy; cols.out[8][i] = thz;
+      cols.out[9][i] = rdx; cols.out[10][i] = rdy; cols.out[11][i] = rdz;
+      cols.out[12][i] = 0.0f;
+      if (winner) winner[i] = -1;
+      continue;
+    }
+
+    // ---- closest-hit sweep --------------------------------------------
+    const float a = dx * dx + dy * dy + dz * dz;
+    float best_t = T_MISS;
+    int best_i = -1;
+    float wnx = 0.0f, wny = 0.0f, wnz = 0.0f;
+
+    for (int p = 0; p < P; ++p) {
+      const int kind = (int)tab[PAY_KIND * P + p];
+      float t, nx, ny, nz;
+      bool valid;
+      if (kind == PRIM_SPHERE) {
+        const float cx = tab[0 * P + p], cy = tab[1 * P + p], cz = tab[2 * P + p];
+        const float r = tab[3 * P + p];
+        const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
+        const float half_b = dx * ocx + dy * ocy + dz * ocz;
+        const float c = ocx * ocx + ocy * ocy + ocz * ocz - r * r;
+        const float dis = half_b * half_b - a * c;
+        const float sqrtd = sqrtf(max_nan(dis, 0.0f));
+        const float root1 = (-half_b - sqrtd) / a;
+        const float root2 = (-half_b + sqrtd) / a;
+        const bool ok1 = (root1 >= t_min) & (root1 <= best_t);
+        const bool ok2 = (root2 >= t_min) & (root2 <= best_t);
+        t = ok1 ? root1 : root2;
+        valid = (dis >= 0.0f) & (ok1 | ok2);
+        const float inv_r = 1.0f / r;
+        nx = (ox + t * dx - cx) * inv_r;
+        ny = (oy + t * dy - cy) * inv_r;
+        nz = (oz + t * dz - cz) * inv_r;
+      } else if (kind == PRIM_RECT) {
+        const int aux = (int)tab[PAY_AUX * P + p];
+        const float k = tab[0 * P + p];
+        const float a0 = tab[1 * P + p], b0 = tab[2 * P + p];
+        const float a1 = tab[3 * P + p], b1 = tab[4 * P + p];
+        const float sgn = tab[5 * P + p];
+        // fixed axis aux; free axes (fa, fb) in ascending order
+        float of, df, oa, da, ob, db;
+        if (aux == 0) {
+          of = ox; df = dx; oa = oy; da = dy; ob = oz; db = dz;
+        } else if (aux == 1) {
+          of = oy; df = dy; oa = ox; da = dx; ob = oz; db = dz;
+        } else {
+          of = oz; df = dz; oa = ox; da = dx; ob = oy; db = dy;
+        }
+        t = (k - of) / df;
+        const float av = oa + t * da;
+        const float bv = ob + t * db;
+        valid = (t >= t_min) & (t <= best_t) & (av >= a0) & (av <= a1) &
+                (bv >= b0) & (bv <= b1);
+        nx = aux == 0 ? 1.0f * sgn : 0.0f;
+        ny = aux == 1 ? 1.0f * sgn : 0.0f;
+        nz = aux == 2 ? 1.0f * sgn : 0.0f;
+      } else {  // PRIM_TRIANGLE
+        const float p1x = tab[0 * P + p], p1y = tab[1 * P + p], p1z = tab[2 * P + p];
+        const float e1x = tab[3 * P + p], e1y = tab[4 * P + p], e1z = tab[5 * P + p];
+        const float e2x = tab[6 * P + p], e2y = tab[7 * P + p], e2z = tab[8 * P + p];
+        const float pvx = dy * e2z - dz * e2y;
+        const float pvy = dz * e2x - dx * e2z;
+        const float pvz = dx * e2y - dy * e2x;
+        const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+        const float inv_det = 1.0f / (fabsf(det) > 1e-30f ? det : 1.0f);
+        const float tvx = ox - p1x, tvy = oy - p1y, tvz = oz - p1z;
+        const float uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
+        const float qvx = tvy * e1z - tvz * e1y;
+        const float qvy = tvz * e1x - tvx * e1z;
+        const float qvz = tvx * e1y - tvy * e1x;
+        const float vv = (dx * qvx + dy * qvy + dz * qvz) * inv_det;
+        t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
+        valid = (det >= TRI_DET_EPS) & (uu >= 0.0f) & (uu <= 1.0f) & (vv >= 0.0f) &
+                (uu + vv <= 1.0f) & (t >= t_min) & (t <= best_t);
+        nx = 1.0f * tab[9 * P + p];
+        ny = 1.0f * tab[10 * P + p];
+        nz = 1.0f * tab[11 * P + p];
+      }
+      if (valid & (t < best_t)) {
+        best_t = t;
+        best_i = p;
+        wnx = nx;
+        wny = ny;
+        wnz = nz;
+      }
+    }
+
+    if (winner) winner[i] = best_i;
+
+    float o_out0 = ox, o_out1 = oy, o_out2 = oz;
+    float d_out0 = dx, d_out1 = dy, d_out2 = dz;
+    float t_out0 = thx, t_out1 = thy, t_out2 = thz;
+    bool cont = false;
+
+    if (best_i < 0) {  // miss: bank the background, the lane dies
+      rdx = rdx + thx * bg0;
+      rdy = rdy + thy * bg1;
+      rdz = rdz + thz * bg2;
+    } else {
+      const float t = best_t;
+      // ---- hit record (front-face flip, geometry.rs:29-41) ----------
+      const bool front = dx * wnx + dy * wny + dz * wnz < 0.0f;
+      const float flip = front ? 1.0f : -1.0f;
+      const float nx = wnx * flip, ny = wny * flip, nz = wnz * flip;
+      const float px = ox + t * dx, py = oy + t * dy, pz = oz + t * dz;
+
+      const int b = best_i;
+      const int mk = (int)tab[PAY_MKIND * P + b];
+      const int tk = (int)tab[PAY_TKIND * P + b];
+      const float ts = tab[PAY_TSCALE * P + b];
+
+      // ---- texture value --------------------------------------------
+      float v0 = tab[(PAY_COLOR + 0) * P + b];
+      float v1 = tab[(PAY_COLOR + 1) * P + b];
+      float v2 = tab[(PAY_COLOR + 2) * P + b];
+      if ((tex_flags & TEXF_CHECKER) && tk == TEX_CHECKER) {
+        const float sines = sinf(ts * px) * sinf(ts * py) * sinf(ts * pz);
+        const int row = sines < 0.0f ? PAY_ODD : PAY_EVEN;
+        v0 = tab[(row + 0) * P + b];
+        v1 = tab[(row + 1) * P + b];
+        v2 = tab[(row + 2) * P + b];
+      } else if ((tex_flags & TEXF_PERLIN) && tk == TEX_PERLIN) {
+        const float gray = marble(px, py, pz, seed, ts);
+        v0 = gray;
+        v1 = gray;
+        v2 = gray;
+      }
+
+      // ---- emission banking (ray.rs:26) -----------------------------
+      if ((mat_flags & MATF_LIGHT) && mk == MAT_LIGHT && front) {
+        rdx = rdx + thx * v0;
+        rdy = rdy + thy * v1;
+        rdz = rdz + thz * v2;
+      }
+
+      // ---- scatter (materials.py op for op) --------------------------
+      float sdx = 0.0f, sdy = 0.0f, sdz = 0.0f;
+      float at0 = 0.0f, at1 = 0.0f, at2 = 0.0f;
+      if ((mat_flags & MATF_LAMBERTIAN) && mk == MAT_LAMBERTIAN) {
+        const float s_z = 2.0f * cols.in[13][i] - 1.0f;
+        const float s_phi = TWO_PI * cols.in[14][i];
+        const float s_r = sqrtf(max_nan(1.0f - s_z * s_z, 0.0f));
+        float dlx = nx + s_r * cosf(s_phi);
+        float dly = ny + s_r * sinf(s_phi);
+        float dlz = nz + s_z;
+        if ((fabsf(dlx) < NEAR_ZERO) & (fabsf(dly) < NEAR_ZERO) & (fabsf(dlz) < NEAR_ZERO)) {
+          dlx = nx;
+          dly = ny;
+          dlz = nz;
+        }
+        cont = true;
+        sdx = dlx; sdy = dly; sdz = dlz;
+        at0 = v0; at1 = v1; at2 = v2;
+      } else if ((mat_flags & MATF_METAL) && mk == MAT_METAL) {
+        const float inv_len = 1.0f / sqrtf(max_nan(a, SAFE_EPS));
+        const float ux = dx * inv_len, uy = dy * inv_len, uz = dz * inv_len;
+        const float b_z = 2.0f * cols.in[15][i] - 1.0f;
+        const float b_phi = TWO_PI * cols.in[16][i];
+        const float b_rho = sqrtf(max_nan(1.0f - b_z * b_z, 0.0f));
+        const float b_s = cbrtf(cols.in[17][i]);
+        const float ball_x = b_rho * cosf(b_phi) * b_s;
+        const float ball_y = b_rho * sinf(b_phi) * b_s;
+        const float ball_z = b_z * b_s;
+        const float dn = ux * nx + uy * ny + uz * nz;
+        const float rfx = ux - 2.0f * dn * nx;
+        const float rfy = uy - 2.0f * dn * ny;
+        const float rfz = uz - 2.0f * dn * nz;
+        const float fz = tab[PAY_FUZZ * P + b];
+        cont = rfx * nx + rfy * ny + rfz * nz > 0.0f;  // absorbed at grazing
+        sdx = rfx + fz * ball_x;
+        sdy = rfy + fz * ball_y;
+        sdz = rfz + fz * ball_z;
+        at0 = v0; at1 = v1; at2 = v2;
+      } else if ((mat_flags & MATF_DIELECTRIC) && mk == MAT_DIELECTRIC) {
+        const float inv_len = 1.0f / sqrtf(max_nan(a, SAFE_EPS));
+        const float ux = dx * inv_len, uy = dy * inv_len, uz = dz * inv_len;
+        const float ir = tab[PAY_IR * P + b];
+        const float ratio = front ? 1.0f / ir : ir;
+        const float raw_cos = -(ux * nx + uy * ny + uz * nz);
+        const float cos_t = min_nan(raw_cos, 1.0f);
+        const float sin_t = sqrtf(max_nan(1.0f - cos_t * cos_t, 0.0f));
+        const bool cannot = ratio * sin_t > 1.0f;
+        float r0 = (1.0f - ratio) / (1.0f + ratio);
+        r0 = r0 * r0;                                  // XLA integer_pow(2)
+        const float one_c = 1.0f - cos_t;
+        const float one_c2 = one_c * one_c;
+        const float one_c5 = one_c * (one_c2 * one_c2);  // XLA integer_pow(5)
+        const float refl_p = r0 + (1.0f - r0) * one_c5;
+        const bool choose_reflect = cannot | (refl_p > cols.in[18][i]);
+        if (choose_reflect) {
+          const float dnu = ux * nx + uy * ny + uz * nz;
+          sdx = ux - 2.0f * dnu * nx;
+          sdy = uy - 2.0f * dnu * ny;
+          sdz = uz - 2.0f * dnu * nz;
+        } else {  // refract (vec3.rs:118-127 via vecmath.refract)
+          const float opx = ratio * (ux + cos_t * nx);
+          const float opy = ratio * (uy + cos_t * ny);
+          const float opz = ratio * (uz + cos_t * nz);
+          const float plen = fabsf(1.0f - (opx * opx + opy * opy + opz * opz));
+          const float par = -(plen <= 0.0f ? 0.0f : sqrtf(plen));  // safe_sqrt
+          sdx = opx + par * nx;
+          sdy = opy + par * ny;
+          sdz = opz + par * nz;
+        }
+        cont = true;
+        at0 = 1.0f; at1 = 1.0f; at2 = 1.0f;
+      }
+      // a light absorbs: cont stays false
+
+      // ---- state commit ---------------------------------------------
+      if (cont) {
+        t_out0 = thx * at0; t_out1 = thy * at1; t_out2 = thz * at2;
+        o_out0 = px; o_out1 = py; o_out2 = pz;
+        d_out0 = sdx; d_out1 = sdy; d_out2 = sdz;
+      }
+    }
+
+    cols.out[0][i] = o_out0; cols.out[1][i] = o_out1; cols.out[2][i] = o_out2;
+    cols.out[3][i] = d_out0; cols.out[4][i] = d_out1; cols.out[5][i] = d_out2;
+    cols.out[6][i] = t_out0; cols.out[7][i] = t_out1; cols.out[8][i] = t_out2;
+    cols.out[9][i] = rdx; cols.out[10][i] = rdy; cols.out[11][i] = rdz;
+    cols.out[12][i] = cont ? 1.0f : 0.0f;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch K1 on `stream`.  `table` (32, n_prims) f32, `bg` (3,) f32 and
+// every column are device pointers; `in_ptrs` / `out_ptrs` are HOST
+// arrays of 19 / 13 device column pointers (see Columns).  `winner`, an
+// optional (n_lanes,) int32 device array (NULL for none), receives each
+// alive lane's winning primitive, -1 on a miss or a dead lane.  Returns
+// cudaGetLastError() of the launch: nonzero means it never ran.
+int fused_bounce_launch(const float* table, int n_prims, const float* bg,
+                        unsigned int seed, float t_min, int mat_flags,
+                        int tex_flags, const void* const* in_ptrs,
+                        void* const* out_ptrs, int* winner, long long n_lanes,
+                        void* stream) {
+  if (n_prims <= 0 || n_prims > MAX_PRIMS || n_lanes < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n_lanes == 0) return (int)cudaSuccess;
+  Columns cols;
+  for (int k = 0; k < N_IN; ++k) cols.in[k] = static_cast<const float*>(in_ptrs[k]);
+  for (int k = 0; k < N_OUT; ++k) cols.out[k] = static_cast<float*>(out_ptrs[k]);
+  long long blocks = (n_lanes + THREADS - 1) / THREADS;
+  if (blocks > 132 * 16) blocks = 132 * 16;  // grid-stride past 16 blocks per SM
+  fused_bounce_kernel<<<(unsigned)blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      table, n_prims, bg, (uint32_t)seed, t_min, mat_flags, tex_flags, cols, winner,
+      n_lanes);
+  return (int)cudaGetLastError();
+}
+
+const char* error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,0 +1,499 @@
+"""One whole wavefront bounce per launch: the fused-bounce kernel K1.
+
+Counterpart of ``rust_pathtracer_tpu/ops/fused_bounce.py``.  This
+module wraps a CUDA kernel (``csrc/fused_bounce.cu``, which replaces
+the Pallas ``_kernel``) and holds its plain PyTorch twin.
+
+One bounce for a scene of at most 128 primitives whose shading is
+table-free (``fused_bounce_ok``):
+
+* closest hit over the primitive list (sphere half-b nearest root,
+  rect plane solve, one-sided Moller-Trumbore, strict ``t < best``);
+* front-face flip, texture (solid / checker / perlin marble);
+* background banking on a miss, emission banking on a front-face light;
+* lambertian / metal / dielectric scatter from raw uniforms;
+* the state commit.
+
+``fused_bounce_cols`` dispatches on where its tensors lie: CUDA
+tensors launch the kernel (and count in ``launches``); CPU tensors run
+``fused_bounce_cols_plain``, which follows the Pallas kernel op for op
+with ``want_residuals=False``.  The residual outputs that feed the
+backward kernel are not ported yet (ROADMAP queue 2, K1 residuals).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict, Sequence, Tuple
+
+import torch
+
+from rust_pathtracer_tpu_torch.perlin import marble_planes
+from rust_pathtracer_tpu_torch.scene.types import (
+    MAT_DIELECTRIC,
+    MAT_LAMBERTIAN,
+    MAT_LIGHT,
+    MAT_METAL,
+    PRIM_RECT,
+    PRIM_SPHERE,
+    PRIM_TRIANGLE,
+    TEX_CHECKER,
+    TEX_PERLIN,
+    TEX_SOLID,
+    SceneData,
+)
+from rust_pathtracer_tpu_torch.vecmath import _SAFE_EPS, NEAR_ZERO, sqrt
+
+# shading-table rows (rust_pathtracer_tpu/ops/projected.py PAY_*)
+PAY_MKIND, PAY_FUZZ, PAY_IR, PAY_TKIND, PAY_TSCALE = 16, 17, 18, 19, 20
+PAY_COLOR, PAY_ODD, PAY_EVEN = 21, 24, 27
+PAY_W = 32
+
+# sentinel "no hit" distance and the one-sided triangle cull
+# (rust_pathtracer_tpu/ops/intersect.py)
+T_MISS = 3.0e38
+TRI_DET_EPS = 1e-4
+
+MAX_PRIMS = 128
+
+# the 13 wavefront state columns, in kernel order (al is f32 0/1)
+_COL_KEYS = ("o0", "o1", "o2", "d0", "d1", "d2", "t0", "t1", "t2",
+             "r0", "r1", "r2", "al")
+
+_RECT_FREE = {0: (1, 2), 1: (0, 2), 2: (0, 1)}
+
+# kernel launches made by fused_bounce_cols (CUDA tensors only)
+launches = 0
+
+
+def fused_bounce_ok(scene: SceneData) -> bool:
+    """Can this scene's whole bounce run in the fused kernel?"""
+    return (
+        scene.kinds_static is not None
+        and scene.shade_static
+        and set(scene.tex_types) <= {TEX_SOLID, TEX_CHECKER, TEX_PERLIN}
+    )
+
+
+def pack_prims_shaded(scene: SceneData) -> torch.Tensor:
+    """(PAY_W, P) f32 table: per-primitive geometry plus the flattened
+    shading row.  Rows 0-11 prim data, 12 kind, 13 aux, 14 mat,
+    16 material kind, 17 fuzz, 18 ir, 19 texture kind, 20 scale,
+    21-23 solid color, 24-26 checker odd color, 27-29 checker even
+    color (``fused_bounce.pack_prims_shaded``)."""
+    prims, mats, texs = scene.prims, scene.materials, scene.textures
+    f32 = torch.float32
+    P = prims.kind.shape[0]
+    mat = prims.mat.long()
+    tex = mats.tex.long()[mat]
+    tkind = texs.kind[tex]
+    is_ck = tkind == TEX_CHECKER
+    child = texs.child.long()[tex]  # (P, 2)
+    zero = torch.zeros_like(child[:, 0])
+    odd = torch.where(is_ck, child[:, 0], zero)
+    even = torch.where(is_ck, child[:, 1], zero)
+    rows = torch.stack([
+        prims.kind.to(f32),            # 12
+        prims.aux.to(f32),             # 13
+        prims.mat.to(f32),             # 14
+        torch.zeros(P, dtype=f32, device=prims.data.device),  # 15
+        mats.kind[mat].to(f32),        # 16 PAY_MKIND
+        mats.fuzz[mat],                # 17 PAY_FUZZ
+        mats.ir[mat],                  # 18 PAY_IR
+        tkind.to(f32),                 # 19 PAY_TKIND
+        texs.scale[tex],               # 20 PAY_TSCALE
+    ])
+    color = texs.color[tex].T                                          # 21-23
+    oddc = torch.where(is_ck[None, :], texs.color[odd].T, 0.0)       # 24-26
+    evenc = torch.where(is_ck[None, :], texs.color[even].T, 0.0)     # 27-29
+    pad = torch.zeros((PAY_W - PAY_EVEN - 3, P), dtype=f32,
+                      device=prims.data.device)
+    return torch.cat([prims.data.T.to(f32), rows, color, oddc, evenc, pad],
+                     dim=0).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version (the Pallas _kernel op for op, want_residuals=False)
+# ---------------------------------------------------------------------------
+
+
+def _cbrt(x: torch.Tensor) -> torch.Tensor:
+    """Cube root of U[0,1) draws.  PyTorch has no cbrt: the f64 power
+    rounds to the nearest f32 (CUDA's cbrtf is within 1 ulp of it)."""
+    return torch.pow(x.to(torch.float64), 1.0 / 3.0).to(x.dtype)
+
+
+def fused_bounce_cols_plain(table, bg, seed, cols, su0, su1, bu0, bu1, bu2,
+                            coin, *, kinds, mat_types, tex_types, t_min,
+                            winner_out=None):
+    """One bounce in plain tensor ops; same arguments and result as
+    ``fused_bounce_cols``.  Runs on any device.
+
+    Every op rounds as the kernel's does (IEEE f32, no fused
+    multiply-adds, a correctly rounded sqrt), so the two agree bit for
+    bit apart from sin, cos and cbrt, where the libraries differ by an
+    ulp."""
+    f32 = torch.float32
+    ox, oy, oz = cols["o0"], cols["o1"], cols["o2"]
+    dx, dy, dz = cols["d0"], cols["d1"], cols["d2"]
+    alive = cols["al"] > 0.5
+    zeros = torch.zeros_like(ox)
+
+    def full(v):
+        return torch.full_like(ox, v)
+
+    # ---- closest-hit sweep: strict t < best update, outward normal
+    # kept at sweep time, the winner's shading row after the sweep ----
+    a = dx * dx + dy * dy + dz * dz
+    o_c = (ox, oy, oz)
+    d_c = (dx, dy, dz)
+
+    best_t = full(T_MISS)
+    best_i = torch.full(ox.shape, -1, dtype=torch.int64, device=ox.device)
+    wnx, wny, wnz = zeros, zeros, zeros
+
+    for p, (kind, aux) in enumerate(kinds):
+        def s(row):
+            return table[row, p]
+
+        if kind == PRIM_SPHERE:
+            cx, cy, cz, r = s(0), s(1), s(2), s(3)
+            ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
+            half_b = dx * ocx + dy * ocy + dz * ocz
+            c = ocx * ocx + ocy * ocy + ocz * ocz - r * r
+            dis = half_b * half_b - a * c
+            sqrtd = sqrt(torch.clamp(dis, min=0.0))
+            root1 = (-half_b - sqrtd) / a
+            root2 = (-half_b + sqrtd) / a
+            ok1 = (root1 >= t_min) & (root1 <= best_t)
+            ok2 = (root2 >= t_min) & (root2 <= best_t)
+            t = torch.where(ok1, root1, root2)
+            valid = (dis >= 0.0) & (ok1 | ok2)
+            inv_r = torch.reciprocal(r)
+            nx = (ox + t * dx - cx) * inv_r
+            ny = (oy + t * dy - cy) * inv_r
+            nz = (oz + t * dz - cz) * inv_r
+        elif kind == PRIM_RECT:
+            k, a0, b0, a1, b1, sgn = s(0), s(1), s(2), s(3), s(4), s(5)
+            fa, fb = _RECT_FREE[aux]
+            t = (k - o_c[aux]) / d_c[aux]
+            av = o_c[fa] + t * d_c[fa]
+            bv = o_c[fb] + t * d_c[fb]
+            valid = (
+                (t >= t_min) & (t <= best_t)
+                & (av >= a0) & (av <= a1) & (bv >= b0) & (bv <= b1)
+            )
+            comp = [zeros, zeros, zeros]
+            comp[aux] = full(1.0) * sgn
+            nx, ny, nz = comp
+        elif kind == PRIM_TRIANGLE:
+            p1x, p1y, p1z = s(0), s(1), s(2)
+            e1x, e1y, e1z = s(3), s(4), s(5)
+            e2x, e2y, e2z = s(6), s(7), s(8)
+            pvx = dy * e2z - dz * e2y
+            pvy = dz * e2x - dx * e2z
+            pvz = dx * e2y - dy * e2x
+            det = e1x * pvx + e1y * pvy + e1z * pvz
+            inv_det = torch.reciprocal(
+                torch.where(torch.abs(det) > 1e-30, det, full(1.0)))
+            tvx, tvy, tvz = ox - p1x, oy - p1y, oz - p1z
+            uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
+            qvx = tvy * e1z - tvz * e1y
+            qvy = tvz * e1x - tvx * e1z
+            qvz = tvx * e1y - tvy * e1x
+            vv = (dx * qvx + dy * qvy + dz * qvz) * inv_det
+            t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
+            valid = (
+                (det >= TRI_DET_EPS)
+                & (uu >= 0.0) & (uu <= 1.0) & (vv >= 0.0) & (uu + vv <= 1.0)
+                & (t >= t_min) & (t <= best_t)
+            )
+            nx = full(1.0) * s(9)
+            ny = full(1.0) * s(10)
+            nz = full(1.0) * s(11)
+        else:
+            raise ValueError(f"unknown static kind {kind}")
+
+        upd = valid & (t < best_t)
+        best_t = torch.where(upd, t, best_t)
+        best_i = torch.where(upd, p, best_i)
+        wnx = torch.where(upd, nx, wnx)
+        wny = torch.where(upd, ny, wny)
+        wnz = torch.where(upd, nz, wnz)
+
+    found = best_i >= 0
+    if winner_out is not None:
+        winner_out.copy_(torch.where(alive, best_i, -1))
+    # the winner's shading row; zeros on a miss, as the kernel's
+    # zero-initialized accumulators leave it
+    shade = torch.where(found[None, :], table[:, best_i.clamp(min=0)],
+                        torch.zeros((), dtype=f32, device=ox.device))
+    mk, fz, ir_, tk, ts = (shade[PAY_MKIND], shade[PAY_FUZZ], shade[PAY_IR],
+                           shade[PAY_TKIND], shade[PAY_TSCALE])
+    c0, c1, c2 = shade[PAY_COLOR], shade[PAY_COLOR + 1], shade[PAY_COLOR + 2]
+    od0, od1, od2 = shade[PAY_ODD], shade[PAY_ODD + 1], shade[PAY_ODD + 2]
+    ev0, ev1, ev2 = shade[PAY_EVEN], shade[PAY_EVEN + 1], shade[PAY_EVEN + 2]
+
+    hit = found & alive
+    t = torch.where(found, best_t, full(1.0))  # finite t for miss lanes
+
+    # ---- hit record (front-face flip, geometry.rs:29-41) ------------
+    front = dx * wnx + dy * wny + dz * wnz < 0.0
+    flip = torch.where(front, full(1.0), full(-1.0))
+    nx, ny, nz = wnx * flip, wny * flip, wnz * flip
+    px = ox + t * dx
+    py = oy + t * dy
+    pz = oz + t * dz
+
+    # ---- texture value ------------------------------------------------
+    v0, v1, v2 = c0, c1, c2  # TEX_SOLID
+    if TEX_CHECKER in tex_types:
+        sines = torch.sin(ts * px) * torch.sin(ts * py) * torch.sin(ts * pz)
+        is_ck = tk == float(TEX_CHECKER)
+        pick = sines < 0.0
+        v0 = torch.where(is_ck, torch.where(pick, od0, ev0), v0)
+        v1 = torch.where(is_ck, torch.where(pick, od1, ev1), v1)
+        v2 = torch.where(is_ck, torch.where(pick, od2, ev2), v2)
+    if TEX_PERLIN in tex_types:
+        gray = marble_planes(px, py, pz, seed, ts)
+        is_pl = tk == float(TEX_PERLIN)
+        v0 = torch.where(is_pl, gray, v0)
+        v1 = torch.where(is_pl, gray, v1)
+        v2 = torch.where(is_pl, gray, v2)
+
+    # ---- emitted + background banking (ray.rs:26,40) -----------------
+    thx, thy, thz = cols["t0"], cols["t1"], cols["t2"]
+    rdx, rdy, rdz = cols["r0"], cols["r1"], cols["r2"]
+    miss = alive & ~hit
+    rdx = rdx + torch.where(miss, thx * bg[0], zeros)
+    rdy = rdy + torch.where(miss, thy * bg[1], zeros)
+    rdz = rdz + torch.where(miss, thz * bg[2], zeros)
+    if MAT_LIGHT in mat_types:
+        em_on = hit & (mk == float(MAT_LIGHT)) & front
+        rdx = rdx + torch.where(em_on, thx * v0, zeros)
+        rdy = rdy + torch.where(em_on, thy * v1, zeros)
+        rdz = rdz + torch.where(em_on, thz * v2, zeros)
+
+    # ---- scatter (materials.py op for op) ----------------------------
+    did = torch.zeros_like(alive)
+    sdx, sdy, sdz = zeros, zeros, zeros
+    at0, at1, at2 = zeros, zeros, zeros
+
+    if MAT_METAL in mat_types or MAT_DIELECTRIC in mat_types:
+        inv_len = torch.reciprocal(sqrt(torch.clamp(a, min=_SAFE_EPS)))
+        ux, uy, uz = dx * inv_len, dy * inv_len, dz * inv_len
+
+    two_pi = 2.0 * math.pi
+    if MAT_LAMBERTIAN in mat_types:
+        s_z = 2.0 * su0 - 1.0
+        s_phi = two_pi * su1
+        s_r = sqrt(torch.clamp(1.0 - s_z * s_z, min=0.0))
+        sph_x = s_r * torch.cos(s_phi)
+        sph_y = s_r * torch.sin(s_phi)
+        sph_z = s_z
+    if MAT_METAL in mat_types:
+        b_z = 2.0 * bu0 - 1.0
+        b_phi = two_pi * bu1
+        b_rho = sqrt(torch.clamp(1.0 - b_z * b_z, min=0.0))
+        b_s = _cbrt(bu2)
+        ball_x = b_rho * torch.cos(b_phi) * b_s
+        ball_y = b_rho * torch.sin(b_phi) * b_s
+        ball_z = b_z * b_s
+
+    if MAT_LAMBERTIAN in mat_types:
+        dlx = nx + sph_x
+        dly = ny + sph_y
+        dlz = nz + sph_z
+        nz_mask = (
+            (torch.abs(dlx) < NEAR_ZERO) & (torch.abs(dly) < NEAR_ZERO)
+            & (torch.abs(dlz) < NEAR_ZERO)
+        )
+        dlx = torch.where(nz_mask, nx, dlx)
+        dly = torch.where(nz_mask, ny, dly)
+        dlz = torch.where(nz_mask, nz, dlz)
+        sel = mk == float(MAT_LAMBERTIAN)
+        did = did | sel
+        sdx = torch.where(sel, dlx, sdx)
+        sdy = torch.where(sel, dly, sdy)
+        sdz = torch.where(sel, dlz, sdz)
+        at0 = torch.where(sel, v0, at0)
+        at1 = torch.where(sel, v1, at1)
+        at2 = torch.where(sel, v2, at2)
+
+    if MAT_METAL in mat_types:
+        dn = ux * nx + uy * ny + uz * nz
+        rfx = ux - 2.0 * dn * nx
+        rfy = uy - 2.0 * dn * ny
+        rfz = uz - 2.0 * dn * nz
+        ok = rfx * nx + rfy * ny + rfz * nz > 0.0
+        sel = mk == float(MAT_METAL)
+        did = did | (sel & ok)
+        sdx = torch.where(sel, rfx + fz * ball_x, sdx)
+        sdy = torch.where(sel, rfy + fz * ball_y, sdy)
+        sdz = torch.where(sel, rfz + fz * ball_z, sdz)
+        at0 = torch.where(sel, v0, at0)
+        at1 = torch.where(sel, v1, at1)
+        at2 = torch.where(sel, v2, at2)
+
+    if MAT_DIELECTRIC in mat_types:
+        ratio = torch.where(front, torch.reciprocal(ir_), ir_)
+        raw_cos = -(ux * nx + uy * ny + uz * nz)
+        cos_t = torch.clamp(raw_cos, max=1.0)
+        sin_t = sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+        cannot = ratio * sin_t > 1.0
+        r0 = (1.0 - ratio) / (1.0 + ratio)
+        r0 = r0 * r0                       # XLA integer_pow(2)
+        one_c = 1.0 - cos_t
+        one_c2 = one_c * one_c
+        one_c5 = one_c * (one_c2 * one_c2)  # XLA integer_pow(5)
+        refl_p = r0 + (1.0 - r0) * one_c5
+        choose_reflect = cannot | (refl_p > coin)
+        dnu = ux * nx + uy * ny + uz * nz
+        rfx = ux - 2.0 * dnu * nx
+        rfy = uy - 2.0 * dnu * ny
+        rfz = uz - 2.0 * dnu * nz
+        # refract (vec3.rs:118-127 via vecmath.refract)
+        opx = ratio * (ux + cos_t * nx)
+        opy = ratio * (uy + cos_t * ny)
+        opz = ratio * (uz + cos_t * nz)
+        plen = torch.abs(1.0 - (opx * opx + opy * opy + opz * opz))
+        # vecmath.safe_sqrt: 0 at <= 0
+        par = -torch.where(plen <= 0.0, zeros,
+                           sqrt(torch.where(plen <= 0.0, full(1.0), plen)))
+        rrx = opx + par * nx
+        rry = opy + par * ny
+        rrz = opz + par * nz
+        ddx = torch.where(choose_reflect, rfx, rrx)
+        ddy = torch.where(choose_reflect, rfy, rry)
+        ddz = torch.where(choose_reflect, rfz, rrz)
+        sel = mk == float(MAT_DIELECTRIC)
+        did = did | sel
+        sdx = torch.where(sel, ddx, sdx)
+        sdy = torch.where(sel, ddy, sdy)
+        sdz = torch.where(sel, ddz, sdz)
+        one = full(1.0)
+        at0 = torch.where(sel, one, at0)
+        at1 = torch.where(sel, one, at1)
+        at2 = torch.where(sel, one, at2)
+
+    # ---- state commit (integrator._bounce_step tail) -----------------
+    cont = hit & did
+    return {
+        "o0": torch.where(cont, px, ox),
+        "o1": torch.where(cont, py, oy),
+        "o2": torch.where(cont, pz, oz),
+        "d0": torch.where(cont, sdx, dx),
+        "d1": torch.where(cont, sdy, dy),
+        "d2": torch.where(cont, sdz, dz),
+        "t0": torch.where(cont, thx * at0, thx),
+        "t1": torch.where(cont, thy * at1, thy),
+        "t2": torch.where(cont, thz * at2, thz),
+        "r0": rdx,
+        "r1": rdy,
+        "r2": rdz,
+        "al": cont.to(f32),
+    }
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel wrapper
+# ---------------------------------------------------------------------------
+
+_MAT_BITS = {MAT_LAMBERTIAN: 1, MAT_METAL: 2, MAT_DIELECTRIC: 4, MAT_LIGHT: 8}
+_TEX_BITS = {TEX_SOLID: 1, TEX_CHECKER: 2, TEX_PERLIN: 4}
+
+
+def _type_flags(types: Sequence[int], bits: Dict[int, int], what: str) -> int:
+    flags = 0
+    for t in types:
+        if t not in bits:
+            raise ValueError(f"the fused-bounce kernel has no {what} {t}")
+        flags |= bits[t]
+    return flags
+
+
+def _check_inputs(table, bg, tensors) -> Tuple[torch.device, int]:
+    dev = table.device
+    R = tensors[0].shape[0]
+    for x in (table, bg, *tensors):
+        if x.device != dev:
+            raise ValueError(
+                f"fused_bounce_cols: tensors on {x.device} and {dev}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"fused_bounce_cols: dtype {x.dtype}, want float32")
+    for x in tensors:
+        if x.shape != (R,):
+            raise ValueError(
+                f"fused_bounce_cols: column of shape {tuple(x.shape)}, want ({R},)")
+    if table.dim() != 2 or table.shape[0] != PAY_W or not 0 < table.shape[1] <= MAX_PRIMS:
+        raise ValueError(
+            f"fused_bounce_cols: table of shape {tuple(table.shape)}, want "
+            f"({PAY_W}, P) with 0 < P <= {MAX_PRIMS}")
+    if bg.shape != (3,):
+        raise ValueError(f"fused_bounce_cols: bg of shape {tuple(bg.shape)}")
+    return dev, R
+
+
+def fused_bounce_cols(table, bg, seed, cols, su0, su1, bu0, bu1, bu2, coin,
+                      *, kinds, mat_types, tex_types, t_min, winner_out=None):
+    """One fused bounce over R lanes.
+
+    ``table`` (32, P) from ``pack_prims_shaded``; ``bg`` (3,) the
+    background; ``seed`` the perlin seed (int); ``cols`` the 13 (R,)
+    f32 state columns keyed by ``_COL_KEYS``; ``su0 .. coin`` the 6
+    (R,) uniform columns.  ``kinds``, ``mat_types`` and ``tex_types``
+    are the scene's static fields.  Returns the 13 new columns, in new
+    tensors.  ``winner_out``, an optional (R,) int32 tensor, receives
+    each alive lane's winning primitive (-1 on a miss or a dead lane),
+    for checking the kernel.  CUDA tensors launch the kernel; CPU
+    tensors run the plain version; anything else raises.
+    """
+    uni = (su0, su1, bu0, bu1, bu2, coin)
+    ins = tuple(cols[k] for k in _COL_KEYS) + uni
+    dev, R = _check_inputs(table, bg, ins)
+    if len(kinds) != table.shape[1]:
+        raise ValueError("fused_bounce_cols: kinds do not match the table")
+    if winner_out is not None and (
+            winner_out.shape != (R,) or winner_out.dtype != torch.int32
+            or winner_out.device != dev or not winner_out.is_contiguous()):
+        raise ValueError("fused_bounce_cols: winner_out must be a contiguous "
+                         f"({R},) int32 tensor on {dev}")
+    if dev.type == "cpu":
+        return fused_bounce_cols_plain(
+            table, bg, seed, cols, *uni, kinds=kinds, mat_types=mat_types,
+            tex_types=tex_types, t_min=t_min, winner_out=winner_out)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_bounce_cols: no kernel for device {dev}")
+    return _launch(table, bg, seed, ins, R, mat_types, tex_types, t_min,
+                   winner_out)
+
+
+def _launch(table, bg, seed, ins, R, mat_types, tex_types, t_min, winner_out):
+    global launches
+    from rust_pathtracer_tpu_torch.ops._build import load_library
+
+    lib = load_library("fused_bounce")
+    table = table.contiguous()
+    bg = bg.contiguous()
+    ins = [x.contiguous() for x in ins]
+    outs = torch.empty((len(_COL_KEYS), R), dtype=torch.float32,
+                       device=table.device)
+    in_ptrs = (ctypes.c_void_p * len(ins))(*[x.data_ptr() for x in ins])
+    out_ptrs = (ctypes.c_void_p * len(_COL_KEYS))(
+        *[outs[i].data_ptr() for i in range(len(_COL_KEYS))])
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fused_bounce_launch(
+            table.data_ptr(), table.shape[1], bg.data_ptr(),
+            int(seed) & 0xFFFFFFFF, float(t_min),
+            _type_flags(mat_types, _MAT_BITS, "material"),
+            _type_flags(tex_types, _TEX_BITS, "texture"),
+            in_ptrs, out_ptrs,
+            None if winner_out is None else winner_out.data_ptr(), R, stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"fused_bounce kernel launch failed: {lib.error_string(err).decode()}")
+    launches += 1
+    return dict(zip(_COL_KEYS, outs.unbind(0)))

@@ -1,0 +1,280 @@
+"""Host-side scene assembly: Python API -> ``SceneData`` tables.
+
+Counterpart of ``rust_pathtracer_tpu/scene/builder.py``; plain host
+code (numpy, then tensors on the requested device).  Boxes are lowered
+to 6 rects exactly as ``AABox::new`` does (geometry.rs:391-446).
+
+Not ported yet: the BVH (``use_bvh=True``, or ``"auto"`` past 64
+primitives, ROADMAP queue 1 item 10), scenes of more than 128
+primitives (item 11), image textures (item 8) and OBJ meshes (item 10).
+Each raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from rust_pathtracer_tpu_torch.scene.types import (
+    MAT_DIELECTRIC,
+    MAT_LAMBERTIAN,
+    MAT_LIGHT,
+    MAT_METAL,
+    PRIM_RECT,
+    PRIM_SPHERE,
+    PRIM_TRIANGLE,
+    TEX_CHECKER,
+    TEX_PERLIN,
+    TEX_SOLID,
+    Materials,
+    Primitives,
+    SceneData,
+    Textures,
+)
+
+# fixed-axis codes for rects; the two free axes (a, b) in ascending order
+_RECT_FREE_AXES = {0: (1, 2), 1: (0, 2), 2: (0, 1)}
+_RECT_NAME_TO_AXIS = {"yz": 0, "xz": 1, "xy": 2}
+
+ColorLike = Union[Sequence[float], np.ndarray]
+
+# the JAX builder switches to a BVH past this count under use_bvh="auto"
+BVH_AUTO_THRESHOLD = 64
+# largest static primitive list (the fused-bounce kernel's table width)
+MAX_STATIC_PRIMS = 128
+
+
+class SceneBuilder:
+    def __init__(self, perlin_seed: int = 0):
+        self._tex_kind: List[int] = []
+        self._tex_color: List[np.ndarray] = []
+        self._tex_child: List[tuple] = []
+        self._tex_scale: List[float] = []
+
+        self._mat_kind: List[int] = []
+        self._mat_tex: List[int] = []
+        self._mat_fuzz: List[float] = []
+        self._mat_ir: List[float] = []
+
+        self._prim_kind: List[int] = []
+        self._prim_mat: List[int] = []
+        self._prim_aux: List[int] = []
+        self._prim_data: List[np.ndarray] = []
+
+        self.perlin_seed = perlin_seed
+
+    # ------------------------------------------------------------------
+    # textures
+    # ------------------------------------------------------------------
+    def solid_texture(self, color: ColorLike) -> int:
+        """SolidColorTexture (texture.rs:9-23)."""
+        return self._push_tex(TEX_SOLID, color=color)
+
+    def checker_texture(self, odd: int, even: int, frequency: float = 10.0) -> int:
+        """CheckerTexture over two texture ids (texture.rs:25-45):
+        sign(sin(f x) sin(f y) sin(f z)) < 0 selects ``odd``."""
+        for child in (odd, even):
+            if not 0 <= child < len(self._tex_kind):
+                raise ValueError(f"unknown child texture id {child}")
+        return self._push_tex(TEX_CHECKER, child=(odd, even), scale=frequency)
+
+    def perlin_texture(self, scale: float) -> int:
+        """PerlinNoiseTexture marble pattern (texture.rs:47-81)."""
+        return self._push_tex(TEX_PERLIN, scale=scale)
+
+    def image_texture(self, image: np.ndarray) -> int:
+        raise NotImplementedError(
+            "image textures are not ported yet (ROADMAP queue 1 item 8)")
+
+    def _push_tex(self, kind, color=(0, 0, 0), child=(0, 0), scale=0.0) -> int:
+        self._tex_kind.append(kind)
+        self._tex_color.append(np.asarray(color, np.float32))
+        self._tex_child.append(tuple(child))
+        self._tex_scale.append(float(scale))
+        return len(self._tex_kind) - 1
+
+    # ------------------------------------------------------------------
+    # materials
+    # ------------------------------------------------------------------
+    def _tex_or_color(self, tex: Union[int, ColorLike]) -> int:
+        if isinstance(tex, (int, np.integer)):
+            return int(tex)
+        return self.solid_texture(tex)
+
+    def lambertian(self, albedo: Union[int, ColorLike]) -> int:
+        """LambertianMaterial (material.rs:24-56); albedo = texture id or color."""
+        return self._push_mat(MAT_LAMBERTIAN, tex=self._tex_or_color(albedo))
+
+    def metal(self, albedo: Union[int, ColorLike], fuzz: float) -> int:
+        """MetalMaterial (material.rs:58-94)."""
+        return self._push_mat(MAT_METAL, tex=self._tex_or_color(albedo), fuzz=fuzz)
+
+    def dielectric(self, index_of_refraction: float) -> int:
+        """DielectricMaterial (material.rs:96-144)."""
+        return self._push_mat(MAT_DIELECTRIC, ir=index_of_refraction)
+
+    def diffuse_light(self, emit: Union[int, ColorLike]) -> int:
+        """DiffuseLightMaterial, one-sided emitter (material.rs:146-167)."""
+        return self._push_mat(MAT_LIGHT, tex=self._tex_or_color(emit))
+
+    def _push_mat(self, kind, tex=0, fuzz=0.0, ir=1.0) -> int:
+        self._mat_kind.append(kind)
+        self._mat_tex.append(int(tex))
+        self._mat_fuzz.append(float(fuzz))
+        self._mat_ir.append(float(ir))
+        return len(self._mat_kind) - 1
+
+    # ------------------------------------------------------------------
+    # primitives
+    # ------------------------------------------------------------------
+    def add_sphere(self, center: ColorLike, radius: float, material: int) -> int:
+        """Sphere; a negative radius gives a hollow-glass inner shell whose
+        normals point inward (geometry.rs:104-171)."""
+        data = np.zeros(12, np.float32)
+        data[0:3] = np.asarray(center, np.float32)
+        data[3] = float(radius)
+        return self._push_prim(PRIM_SPHERE, material, 0, data)
+
+    def add_rect(
+        self, plane: str, start: ColorLike, end: ColorLike, direction: float, material: int
+    ) -> int:
+        """Axis-aligned rectangle; ``plane`` in {"xy", "xz", "yz"}
+        (RectangleXY/XZ/YZ::new, geometry.rs:189-207): min/max corners
+        canonicalized, sign(direction) stored as the outward-normal sign."""
+        start = np.asarray(start, np.float64)
+        end = np.asarray(end, np.float64)
+        fixed = _RECT_NAME_TO_AXIS[plane.lower()]
+        a_ax, b_ax = _RECT_FREE_AXES[fixed]
+        if start[fixed] != end[fixed]:
+            raise ValueError(f"rectangle is not axis aligned on {'xyz'[fixed]}")
+        a0, a1 = sorted((float(start[a_ax]), float(end[a_ax])))
+        b0, b1 = sorted((float(start[b_ax]), float(end[b_ax])))
+        data = np.zeros(12, np.float32)
+        data[0] = float(start[fixed])
+        data[1], data[2] = a0, b0
+        data[3], data[4] = a1, b1
+        data[5] = np.sign(direction) if direction != 0 else 0.0
+        return self._push_prim(PRIM_RECT, material, fixed, data)
+
+    def add_box(self, start: ColorLike, end: ColorLike, material: int) -> List[int]:
+        """Axis-aligned box lowered to 6 outward-facing rects
+        (AABox::new, geometry.rs:391-446)."""
+        start = np.asarray(start, np.float64)
+        end = np.asarray(end, np.float64)
+        mn = np.minimum(start, end)
+        mx = np.maximum(start, end)
+        return [
+            self.add_rect("xy", (mn[0], mn[1], mn[2]), (mx[0], mx[1], mn[2]), -1.0, material),
+            self.add_rect("xy", (mn[0], mn[1], mx[2]), (mx[0], mx[1], mx[2]), 1.0, material),
+            self.add_rect("xz", (mn[0], mn[1], mn[2]), (mx[0], mn[1], mx[2]), -1.0, material),
+            self.add_rect("xz", (mn[0], mx[1], mn[2]), (mx[0], mx[1], mx[2]), 1.0, material),
+            self.add_rect("yz", (mn[0], mn[1], mn[2]), (mn[0], mx[1], mx[2]), -1.0, material),
+            self.add_rect("yz", (mx[0], mn[1], mn[2]), (mx[0], mx[1], mx[2]), 1.0, material),
+        ]
+
+    def add_triangle(
+        self,
+        p1: ColorLike,
+        p2: ColorLike,
+        p3: ColorLike,
+        material: int,
+        normal: Optional[ColorLike] = None,
+    ) -> int:
+        """One-sided triangle (geometry.rs:466-589).  ``normal`` defaults
+        to the normalized geometric normal (p2-p1)x(p3-p1)."""
+        p1 = np.asarray(p1, np.float64)
+        p2 = np.asarray(p2, np.float64)
+        p3 = np.asarray(p3, np.float64)
+        if normal is None:
+            n = np.cross(p2 - p1, p3 - p1)
+            n = n / max(np.linalg.norm(n), 1e-30)
+        else:
+            n = np.asarray(normal, np.float64)
+        data = np.zeros(12, np.float32)
+        data[0:3] = p1
+        data[3:6] = p2 - p1
+        data[6:9] = p3 - p1
+        data[9:12] = n
+        return self._push_prim(PRIM_TRIANGLE, material, 0, data)
+
+    def _push_prim(self, kind, mat, aux, data) -> int:
+        self._prim_kind.append(kind)
+        self._prim_mat.append(int(mat))
+        self._prim_aux.append(int(aux))
+        self._prim_data.append(np.asarray(data, np.float32))
+        return len(self._prim_kind) - 1
+
+    # ------------------------------------------------------------------
+    # build
+    # ------------------------------------------------------------------
+    @property
+    def num_prims(self) -> int:
+        return len(self._prim_kind)
+
+    def build(self, use_bvh: Union[str, bool] = "auto", device="cpu") -> SceneData:
+        """Tables on ``device``, with the JAX builder's static fields."""
+        if not self._prim_kind:
+            raise ValueError("scene has no primitives")
+        if not self._mat_kind:
+            raise ValueError("scene has no materials")
+        n = len(self._prim_kind)
+        if use_bvh is True or (use_bvh == "auto" and n > BVH_AUTO_THRESHOLD):
+            raise NotImplementedError(
+                "BVH scenes are not ported yet (ROADMAP queue 1 item 10)")
+        if n > MAX_STATIC_PRIMS:
+            raise NotImplementedError(
+                "scenes of more than 128 primitives are not ported yet "
+                "(ROADMAP queue 1 item 11)")
+
+        prim_kind = np.asarray(self._prim_kind, np.int32)
+        prim_aux = np.asarray(self._prim_aux, np.int32)
+
+        # shading is table-free (fused-bounce eligible) when every
+        # texture is solid / perlin / a checker of two solid leaves
+        shade_static = all(
+            k in (TEX_SOLID, TEX_PERLIN)
+            or (
+                k == TEX_CHECKER
+                and self._tex_kind[c0] == TEX_SOLID
+                and self._tex_kind[c1] == TEX_SOLID
+            )
+            for k, (c0, c1) in zip(self._tex_kind, self._tex_child)
+        )
+
+        def t(x, dtype):
+            return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+        i32, f32 = torch.int32, torch.float32
+        return SceneData(
+            prims=Primitives(
+                kind=t(prim_kind, i32),
+                mat=t(np.asarray(self._prim_mat, np.int32), i32),
+                aux=t(prim_aux, i32),
+                data=t(np.stack(self._prim_data), f32),
+            ),
+            materials=Materials(
+                kind=t(np.asarray(self._mat_kind, np.int32), i32),
+                tex=t(np.asarray(self._mat_tex, np.int32), i32),
+                fuzz=t(np.asarray(self._mat_fuzz, np.float32), f32),
+                ir=t(np.asarray(self._mat_ir, np.float32), f32),
+            ),
+            textures=Textures(
+                kind=t(np.asarray(self._tex_kind, np.int32), i32),
+                color=t(np.stack(self._tex_color)
+                        if self._tex_color else np.zeros((1, 3), np.float32), f32),
+                child=t(np.asarray(self._tex_child, np.int32).reshape(-1, 2)
+                        if self._tex_child else np.zeros((1, 2), np.int32), i32),
+                scale=t(np.asarray(self._tex_scale, np.float32)
+                        if self._tex_scale else np.zeros(1, np.float32), f32),
+                perlin_seed=int(self.perlin_seed),
+            ),
+            prim_types=tuple(sorted(set(int(k) for k in prim_kind))),
+            tex_types=tuple(sorted(set(self._tex_kind))) if self._tex_kind else (),
+            mat_types=tuple(sorted(set(self._mat_kind))),
+            kinds_static=tuple(
+                (int(k), int(a)) for k, a in zip(prim_kind, prim_aux)
+            ),
+            shade_static=shade_static,
+        )

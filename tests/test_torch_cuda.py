@@ -1,0 +1,125 @@
+"""K1 on the card against its plain PyTorch version.
+
+Imports no jax, so that it runs on the machine with the card, which has
+none; there, skip this directory's conftest.py (it sets up JAX):
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+Tests marked ``cuda`` skip where there is no GPU.  The helpers here
+also feed ``test_torch_fused_bounce.py``.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from rust_pathtracer_tpu_torch.integrator import T_MIN
+from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
+from rust_pathtracer_tpu_torch.scene import SceneBuilder
+
+
+def t_full_scene():
+    """tests/test_fused_bounce.py::_full_scene on the port's builder."""
+    b = SceneBuilder()
+    checker = b.checker_texture(
+        b.solid_texture((0.2, 0.3, 0.1)), b.solid_texture((0.9, 0.9, 0.9))
+    )
+    perlin = b.perlin_texture(4.0)
+    b.add_sphere((0, -100.5, -3), 100.0, b.lambertian(checker))
+    b.add_sphere((0, 0.5, -3), 0.5, b.lambertian(perlin))
+    b.add_sphere((1.2, 0.5, -3), 0.5, b.metal((0.8, 0.7, 0.6), fuzz=0.2))
+    b.add_sphere((-1.2, 0.5, -3), 0.5, b.dielectric(1.5))
+    b.add_sphere((-1.2, 0.5, -3), -0.4, b.dielectric(1.5))  # hollow shell
+    b.add_rect("xz", (-2, 3.0, -5), (2, 3.0, -1), -1.0,
+               b.diffuse_light((4, 4, 4)))
+    b.add_triangle((2.2, 0.0, -4), (3.2, 0.0, -4), (2.7, 1.2, -4),
+                   b.lambertian((0.6, 0.2, 0.2)))
+    return b.build(use_bvh=False)
+
+
+def _random_lanes(n, seed):
+    """(13, n) state columns and (6, n) uniforms: rays from in front of
+    the scene, from inside the glass shell and from under the light."""
+    rng = np.random.default_rng(seed)
+    o = np.array([0.0, 0.8, 1.5]) + rng.normal(0.0, 0.3, (n, 3))
+    ang = rng.uniform(-0.6, 0.6, n)
+    d = np.stack([np.sin(ang), rng.uniform(-0.9, 0.5, n), -np.cos(ang)], 1)
+    d *= rng.uniform(0.5, 2.0, n)[:, None]
+    k = n // 8
+    o[:k] = np.array([-1.2, 0.5, -3.0]) + rng.uniform(-0.3, 0.3, (k, 3))
+    d[:k] = rng.normal(0.0, 1.0, (k, 3))
+    o[k:2 * k] = np.array([0.0, 1.5, -3.0]) + rng.uniform(-1.5, 1.5, (k, 3))
+    d[k:2 * k] = np.array([0.0, 1.0, 0.0]) + rng.normal(0.0, 0.4, (k, 3))
+    thr = rng.uniform(0.2, 1.0, (n, 3))
+    rad = rng.uniform(0.0, 0.5, (n, 3))
+    alive = (rng.random(n) < 0.9).astype(np.float64)
+    cols = np.concatenate([o, d, thr, rad, alive[:, None]], 1).T
+    return cols.astype(np.float32), rng.random((6, n)).astype(np.float32)
+
+
+def _t_inputs(cols, uni, device="cpu"):
+    c = torch.as_tensor(cols, device=device)
+    u = torch.as_tensor(uni, device=device)
+    return dict(zip(fb._COL_KEYS, c.unbind(0))), u.unbind(0)
+
+
+def _run_plain(scene, cols, uni, bg):
+    tcols, tuni = _t_inputs(cols, uni)
+    win = torch.empty(cols.shape[1], dtype=torch.int32)
+    out = fb.fused_bounce_cols(
+        fb.pack_prims_shaded(scene), torch.tensor(bg), scene.textures.perlin_seed,
+        tcols, *tuni, kinds=scene.kinds_static, mat_types=scene.mat_types,
+        tex_types=scene.tex_types, t_min=T_MIN, winner_out=win)
+    return np.stack([out[k].numpy() for k in fb._COL_KEYS]), win.numpy()
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_gpu():
+    """K1 on the card against the plain version on the CPU: masks and
+    winners exact, floats within 1e-5 rel + 1e-6 abs (sin/cos/cbrt
+    differ by an ulp between CUDA and the CPU)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    scene = t_full_scene()
+    cols, uni = _random_lanes(4096, seed=21)
+    bg = (0.2, 0.1, 0.05)
+    p_out, p_win = _run_plain(scene, cols, uni, bg)
+    gscene = scene.to("cuda")
+    tcols, tuni = _t_inputs(cols, uni, device="cuda")
+    win = torch.empty(4096, dtype=torch.int32, device="cuda")
+    before = fb.launches
+    out = fb.fused_bounce_cols(
+        fb.pack_prims_shaded(gscene), torch.tensor(bg, device="cuda"),
+        0, tcols, *tuni, kinds=scene.kinds_static, mat_types=scene.mat_types,
+        tex_types=scene.tex_types, t_min=T_MIN, winner_out=win)
+    torch.cuda.synchronize()
+    assert fb.launches == before + 1
+    k_out = np.stack([out[k].cpu().numpy() for k in fb._COL_KEYS])
+    np.testing.assert_array_equal(win.cpu().numpy(), p_win)
+    np.testing.assert_array_equal(k_out[12], p_out[12])
+    np.testing.assert_allclose(k_out, p_out, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cornellbox_golden_on_gpu():
+    """The CornellBox golden configuration rendered on the card, through
+    K1, under the image contract; every bounce launched K1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from rust_pathtracer_tpu_torch.models import get_scene
+    from rust_pathtracer_tpu_torch.render import RenderSettings, render_radiance
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+    from rust_pathtracer_tpu_torch.utils.image import image_agreement
+
+    sd = get_scene("CornellBox")
+    settings = RenderSettings(64, 64, 16, 12, (0.0, 0.0, 0.0), spp_chunk=16)
+    before = fb.launches
+    img, stats = render_radiance(sd.build(), sd.camera_at(0.0), settings,
+                                 prng_key(1234), device="cuda")
+    assert fb.launches - before == stats.bounces > 0
+    want = np.load(os.path.join(os.path.dirname(__file__), "goldens",
+                                "CornellBox.npy"))
+    a = image_agreement(img.cpu().numpy(), want)
+    assert a["ok"], a
