@@ -13,14 +13,17 @@ peels one bounce per iteration:
     radiance += throughput * background         (miss lanes; lane dies)
     throughput *= attenuation                   (scatter lanes)
 
-The loop is ``_trace_fused_cols``' non-differentiable while loop: it
-stops at ``max_bounces`` or once no lane is alive.  Optional russian
-roulette (off by default; the reference has none) runs between
-bounces.  t_min = 0.001 (ray.rs:25) is in units of |direction|.
+The non-differentiable loop is ``_trace_fused_cols``' while loop: it
+stops at ``max_bounces`` or once no lane is alive.  The differentiable
+one is the whole-scan ``autograd.Function`` of ``ops/fused_bounce.py``
+(``fused_scan_trace``): exactly ``max_bounces`` bounces through K1 with
+residuals, and K2 in the backward.  Optional russian roulette (off by
+default; the reference has none) runs between bounces.  t_min = 0.001
+(ray.rs:25) is in units of |direction|.
 
-Not ported yet: the differentiable scan and its custom VJP (ROADMAP
-queue 1 item 6), the generic bounce path for scenes the fused kernel
-refuses (item 8), the regen wavefront (item 9) and the cascade
+Not ported yet: the generic bounce path for scenes the fused kernels
+refuse (ROADMAP queue 1 item 8; in differentiable mode that includes
+perlin), its remat modes, the regen wavefront (item 9) and the cascade
 (item 11).
 """
 
@@ -34,8 +37,11 @@ from rust_pathtracer_tpu_torch import sampling
 from rust_pathtracer_tpu_torch.ops.fused_bounce import (
     _COL_KEYS,
     fused_bounce_cols,
+    fused_bounce_diff_ok,
     fused_bounce_ok,
+    fused_scan_trace,
     pack_prims_shaded,
+    roulette,
 )
 
 T_MIN = 1e-3  # ray.rs:25
@@ -91,17 +97,19 @@ def trace(
     origins, directions: (R, 3) f32; lane_keys: (R, 2) lane keys;
     background: (3,) miss color.  All on one device, which the scene
     must share.  Returns (radiance (R, 3), TraceStats).
+
+    ``differentiable`` runs the whole-scan ``autograd.Function``:
+    gradients reach origins, directions, ``scene.textures.color`` and
+    the background (the detached-sampling estimator of the JAX package;
+    hit distances do not differentiate through the primitive data).
     """
-    if differentiable:
-        raise NotImplementedError(
-            "the differentiable trace is not ported yet (ROADMAP queue 1 "
-            "item 6, the next PR: K1 residuals, K2 and the whole-scan "
-            "autograd.Function)")
-    if not fused_bounce_ok(scene):
+    ok = fused_bounce_diff_ok if differentiable else fused_bounce_ok
+    if not ok(scene):
         raise NotImplementedError(
             "this scene needs the generic bounce path, which is not ported "
             "yet (ROADMAP queue 1 item 8): only scenes of at most 128 "
-            "primitives with solid / checker / perlin textures render")
+            "primitives with solid / checker / perlin textures render, and "
+            "in differentiable mode solid / checker only")
     dev = origins.device
     if scene.device != dev:
         raise ValueError(f"scene on {scene.device}, rays on {dev}")
@@ -111,8 +119,6 @@ def trace(
         else russian_roulette_start
     )
 
-    table = pack_prims_shaded(scene)
-    seed = scene.textures.perlin_seed
     zeros = torch.zeros_like(origins[:, 0])
     ones = torch.ones_like(zeros)
     cols = dict(zip(_COL_KEYS, (
@@ -120,10 +126,20 @@ def trace(
         directions[:, 0], directions[:, 1], directions[:, 2],
         ones, ones, ones, zeros, zeros, zeros, ones,
     )))
-    segments = torch.zeros((), dtype=torch.float32, device=dev)
-    occupancy = torch.zeros(MAX_BOUNCE_STATS, dtype=torch.float32, device=dev)
     draws = _precompute_draws(lane_keys, max_bounces, rr_start)
 
+    if differentiable:
+        cols, segments, occupancy = fused_scan_trace(
+            scene, cols, draws, background, T_MIN, max_bounces, rr_start,
+            MAX_BOUNCE_STATS)
+        rad = torch.stack([cols["r0"], cols["r1"], cols["r2"]], dim=1)
+        return rad, TraceStats(segments=segments, bounces=max_bounces,
+                               occupancy=occupancy)
+
+    table = pack_prims_shaded(scene)
+    seed = scene.textures.perlin_seed
+    segments = torch.zeros((), dtype=torch.float32, device=dev)
+    occupancy = torch.zeros(MAX_BOUNCE_STATS, dtype=torch.float32, device=dev)
     bounce = 0
     while bounce < max_bounces and bool((cols["al"] > 0.5).any()):
         n_alive = cols["al"].sum()
@@ -137,25 +153,9 @@ def trace(
             tex_types=scene.tex_types, t_min=T_MIN,
         )
         if bounce >= rr_start:
-            cols = _roulette(cols, draws["roulette"][bounce])
+            cols = roulette(cols, draws["roulette"][bounce])[0]
         bounce += 1
 
     rad = torch.stack([cols["r0"], cols["r1"], cols["r2"]], dim=1)
     return rad, TraceStats(segments=segments, bounces=bounce,
                            occupancy=occupancy)
-
-
-def _roulette(cols, u):
-    """Russian roulette (``_trace_fused_cols`` :845-869): survivors are
-    boosted by 1/p, p = clip(max throughput, 0.05, 1)."""
-    t0, t1, t2, al = cols["t0"], cols["t1"], cols["t2"], cols["al"]
-    p = torch.clamp(torch.maximum(torch.maximum(t0, t1), t2), 0.05, 1.0)
-    live = al > 0.5
-    act = live & (u < p)
-    return dict(
-        cols,
-        t0=torch.where(act, t0 / p, t0),
-        t1=torch.where(act, t1 / p, t1),
-        t2=torch.where(act, t2 / p, t2),
-        al=torch.where(live, act.to(al.dtype), al),
-    )

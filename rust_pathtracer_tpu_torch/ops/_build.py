@@ -42,11 +42,24 @@ _c_void_p, _c_int, _c_uint = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
     "fused_bounce": {
         # table, n_prims, bg, seed, t_min, mat_flags, tex_flags,
-        # in_ptrs[19], out_ptrs[13], winner (or NULL), n_lanes, stream
+        # in_ptrs[19], out_ptrs[13], res_ptrs[10] (or NULL),
+        # winner (or NULL), n_lanes, stream
         "fused_bounce_launch": (
             [_c_void_p, _c_int, _c_void_p, _c_uint, ctypes.c_float, _c_int,
-             _c_int, _c_void_p, _c_void_p, _c_void_p, ctypes.c_longlong,
-             _c_void_p],
+             _c_int, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+             ctypes.c_longlong, _c_void_p],
+            _c_int,
+        ),
+        "error_string": ([_c_int], ctypes.c_char_p),
+    },
+    "fused_bounce_bwd": {
+        # n_lanes -> blocks of the launch (rows of the partials scratch)
+        "fused_bounce_bwd_blocks": ([ctypes.c_longlong], _c_int),
+        # in_ptrs[28], out_ptrs[9], bg, mat_flags, n_prims, partials,
+        # reduced, n_lanes, stream
+        "fused_bounce_bwd_launch": (
+            [_c_void_p, _c_void_p, _c_void_p, _c_int, _c_int, _c_void_p,
+             _c_void_p, ctypes.c_longlong, _c_void_p],
             _c_int,
         ),
         "error_string": ([_c_int], ctypes.c_char_p),

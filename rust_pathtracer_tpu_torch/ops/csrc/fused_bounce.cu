@@ -27,6 +27,16 @@
 // * dead lanes copy their state through; columns are SoA, out of place.
 // Later work: in-place columns, fewer bytes, persistent blocks.
 //
+// Residual outputs (want_residuals=True in the Pallas kernel, :464-485),
+// for the backward kernel K2 (fused_bounce_bwd.cu): a second
+// instantiation of the same kernel (template flag RES) also writes nine
+// f32 planes and an int32 flags word.  They must hold on EVERY lane the
+// values the Pallas kernel writes, dead and missed lanes included, so in
+// that instantiation dead lanes run the sweep too, and write_residuals
+// recomputes the hit record on every lane from the sweep's result.  The
+// RES=false instantiation is the serving kernel, unchanged: no residual
+// work, and the same arithmetic for the 13 columns.
+//
 // Numerics: build without --use_fast_math and with --fmad=false, so every
 // f32 op rounds as the plain version's does (IEEE division and sqrt, no
 // contraction, no flush to zero).  Integer powers are explicit multiplies,
@@ -62,13 +72,24 @@ constexpr int TURBULENCE_DEPTH = 7;
 
 constexpr int N_IN = 19;   // 13 state columns + 6 uniform columns
 constexpr int N_OUT = 13;  // 13 state columns
+constexpr int N_RES = 9;   // residual f32 planes
 constexpr int THREADS = 256;
+
+// residual flags bits (ops/fused_bounce.py FLG_*)
+constexpr int FLG_HIT = 1, FLG_FRONT = 2, FLG_CONT = 4, FLG_REFLECT = 8;
+constexpr int FLG_SINES_NEG = 16, FLG_SEL_L = 32, FLG_SEL_M = 64, FLG_SEL_D = 128;
+constexpr int FLG_LIGHT_ON = 256, FLG_COS_CLAMP = 512, FLG_REFR_ZERO = 1024;
+constexpr int FLG_L_NEG = 2048, FLG_IS_CK = 4096, FLG_ALIVE = 8192;
+constexpr int FLG_BESTI_SHIFT = 16;
 
 struct Columns {
   // in: o0 o1 o2 d0 d1 d2 t0 t1 t2 r0 r1 r2 al su0 su1 bu0 bu1 bu2 coin
   const float* in[N_IN];
   // out: o0 o1 o2 d0 d1 d2 t0 t1 t2 r0 r1 r2 al
   float* out[N_OUT];
+  // residuals (RES only): t nx ny nz v0 v1 v2 ratio invr, then flags
+  float* res[N_RES];
+  int* flags;
 };
 
 // NaN-propagating max / min against a constant, as jnp.maximum / minimum
@@ -140,8 +161,95 @@ __device__ float marble(float px, float py, float pz, uint32_t seed, float scale
   return 0.5f * (1.0f - sinf(scale * z0 + 10.0f * turb));
 }
 
+// ---- residual outputs ----------------------------------------------------
+
+// The Pallas kernel's residual planes for one lane, op for op from the
+// sweep's result (best_t, best_i, the outward normal wn, the winning
+// sphere's 1/r): the hit record, texture value, flags and dielectric
+// terms as the Pallas kernel computes them on every lane.  A miss reads
+// an all-zero shading row (material 0, ir 0, texture 0).
+__device__ void write_residuals(const float* tab, int P, uint32_t seed,
+                                int mat_flags, int tex_flags, float ox, float oy,
+                                float oz, float dx, float dy, float dz, float a,
+                                bool alive, float best_t, int best_i, float wnx,
+                                float wny, float wnz, float w_invr, float coin,
+                                bool cont, const Columns& cols, long long i) {
+  const bool found = best_i >= 0;
+  const bool hit = found & alive;
+  const float t = found ? best_t : 1.0f;  // finite t for miss lanes
+  const bool front = dx * wnx + dy * wny + dz * wnz < 0.0f;
+  const float flip = front ? 1.0f : -1.0f;
+  const float nx = wnx * flip, ny = wny * flip, nz = wnz * flip;
+  const float px = ox + t * dx, py = oy + t * dy, pz = oz + t * dz;
+
+  const int b = found ? best_i : 0;
+  const auto row = [&](int r) { return found ? tab[r * P + b] : 0.0f; };
+  const float mk = row(PAY_MKIND), tk = row(PAY_TKIND), ts = row(PAY_TSCALE);
+  int flags = (hit ? FLG_HIT : 0) | (front ? FLG_FRONT : 0);
+
+  float v0 = row(PAY_COLOR), v1 = row(PAY_COLOR + 1), v2 = row(PAY_COLOR + 2);
+  if ((tex_flags & TEXF_CHECKER) && tk == (float)TEX_CHECKER) {
+    const bool pick = sinf(ts * px) * sinf(ts * py) * sinf(ts * pz) < 0.0f;
+    flags |= FLG_IS_CK | (pick ? FLG_SINES_NEG : 0);
+    const int r0 = pick ? PAY_ODD : PAY_EVEN;
+    v0 = row(r0);
+    v1 = row(r0 + 1);
+    v2 = row(r0 + 2);
+  } else if ((tex_flags & TEXF_PERLIN) && tk == (float)TEX_PERLIN) {
+    v0 = v1 = v2 = marble(px, py, pz, seed, ts);
+  }
+
+  if ((mat_flags & MATF_LIGHT) && hit && mk == (float)MAT_LIGHT && front) {
+    flags |= FLG_LIGHT_ON;
+  }
+  if ((mat_flags & MATF_LAMBERTIAN) && mk == (float)MAT_LAMBERTIAN) flags |= FLG_SEL_L;
+  if ((mat_flags & MATF_METAL) && mk == (float)MAT_METAL) flags |= FLG_SEL_M;
+
+  float ratio = 1.0f;
+  if (mat_flags & MATF_DIELECTRIC) {  // on every lane, as the Pallas kernel
+    const float ir = row(PAY_IR);
+    ratio = front ? 1.0f / ir : ir;
+    const float inv_len = 1.0f / sqrtf(max_nan(a, SAFE_EPS));
+    const float ux = dx * inv_len, uy = dy * inv_len, uz = dz * inv_len;
+    const float raw_cos = -(ux * nx + uy * ny + uz * nz);
+    const float cos_t = min_nan(raw_cos, 1.0f);
+    const float sin_t = sqrtf(max_nan(1.0f - cos_t * cos_t, 0.0f));
+    const bool cannot = ratio * sin_t > 1.0f;
+    float r0 = (1.0f - ratio) / (1.0f + ratio);
+    r0 = r0 * r0;
+    const float one_c = 1.0f - cos_t;
+    const float one_c2 = one_c * one_c;
+    const float one_c5 = one_c * (one_c2 * one_c2);
+    const float refl_p = r0 + (1.0f - r0) * one_c5;
+    const bool choose_reflect = cannot | (refl_p > coin);
+    const float opx = ratio * (ux + cos_t * nx);
+    const float opy = ratio * (uy + cos_t * ny);
+    const float opz = ratio * (uz + cos_t * nz);
+    const float raw_l = 1.0f - (opx * opx + opy * opy + opz * opz);
+    const float plen = fabsf(raw_l);
+    if (mk == (float)MAT_DIELECTRIC) flags |= FLG_SEL_D;
+    if (choose_reflect) flags |= FLG_REFLECT;
+    if (raw_cos >= 1.0f) flags |= FLG_COS_CLAMP;
+    if (plen <= 0.0f) flags |= FLG_REFR_ZERO;
+    if (raw_l < 0.0f) flags |= FLG_L_NEG;
+  }
+  flags |= (cont ? FLG_CONT : 0) | (alive ? FLG_ALIVE : 0) | (b << FLG_BESTI_SHIFT);
+
+  cols.res[0][i] = t;
+  cols.res[1][i] = nx;
+  cols.res[2][i] = ny;
+  cols.res[3][i] = nz;
+  cols.res[4][i] = v0;
+  cols.res[5][i] = v1;
+  cols.res[6][i] = v2;
+  cols.res[7][i] = ratio;
+  cols.res[8][i] = flip * w_invr;
+  cols.flags[i] = flags;
+}
+
 // ---- the bounce --------------------------------------------------------
 
+template <bool RES>
 __global__ void __launch_bounds__(THREADS)
 fused_bounce_kernel(const float* __restrict__ table, int n_prims,
                     const float* __restrict__ bg, uint32_t seed, float t_min,
@@ -161,7 +269,9 @@ fused_bounce_kernel(const float* __restrict__ table, int n_prims,
     float rdx = cols.in[9][i], rdy = cols.in[10][i], rdz = cols.in[11][i];
     const bool alive = cols.in[12][i] > 0.5f;
 
-    if (!alive) {  // a dead lane keeps its state; alive-out is 0
+    // a dead lane keeps its state; alive-out is 0.  With residuals it
+    // runs the sweep too: the Pallas kernel's residuals cover every lane.
+    if (!RES && !alive) {
       cols.out[0][i] = ox; cols.out[1][i] = oy; cols.out[2][i] = oz;
       cols.out[3][i] = dx; cols.out[4][i] = dy; cols.out[5][i] = dz;
       cols.out[6][i] = thx; cols.out[7][i] = thy; cols.out[8][i] = thz;
@@ -176,10 +286,12 @@ fused_bounce_kernel(const float* __restrict__ table, int n_prims,
     float best_t = T_MISS;
     int best_i = -1;
     float wnx = 0.0f, wny = 0.0f, wnz = 0.0f;
+    float w_invr = 0.0f;  // the winning sphere's 1/r (RES only)
 
     for (int p = 0; p < P; ++p) {
       const int kind = (int)tab[PAY_KIND * P + p];
       float t, nx, ny, nz;
+      float cand_invr = 0.0f;
       bool valid;
       if (kind == PRIM_SPHERE) {
         const float cx = tab[0 * P + p], cy = tab[1 * P + p], cz = tab[2 * P + p];
@@ -196,6 +308,7 @@ fused_bounce_kernel(const float* __restrict__ table, int n_prims,
         t = ok1 ? root1 : root2;
         valid = (dis >= 0.0f) & (ok1 | ok2);
         const float inv_r = 1.0f / r;
+        cand_invr = inv_r;
         nx = (ox + t * dx - cx) * inv_r;
         ny = (oy + t * dy - cy) * inv_r;
         nz = (oz + t * dz - cz) * inv_r;
@@ -250,17 +363,20 @@ fused_bounce_kernel(const float* __restrict__ table, int n_prims,
         wnx = nx;
         wny = ny;
         wnz = nz;
+        if (RES) w_invr = cand_invr;
       }
     }
 
-    if (winner) winner[i] = best_i;
+    if (winner) winner[i] = alive ? best_i : -1;
 
     float o_out0 = ox, o_out1 = oy, o_out2 = oz;
     float d_out0 = dx, d_out1 = dy, d_out2 = dz;
     float t_out0 = thx, t_out1 = thy, t_out2 = thz;
     bool cont = false;
 
-    if (best_i < 0) {  // miss: bank the background, the lane dies
+    if (RES && !alive) {
+      // dead lane with residuals: the state passes through
+    } else if (best_i < 0) {  // miss: bank the background, the lane dies
       rdx = rdx + thx * bg0;
       rdy = rdy + thy * bg1;
       rdz = rdz + thz * bg2;
@@ -388,6 +504,12 @@ fused_bounce_kernel(const float* __restrict__ table, int n_prims,
     cols.out[6][i] = t_out0; cols.out[7][i] = t_out1; cols.out[8][i] = t_out2;
     cols.out[9][i] = rdx; cols.out[10][i] = rdy; cols.out[11][i] = rdz;
     cols.out[12][i] = cont ? 1.0f : 0.0f;
+
+    if (RES) {
+      write_residuals(tab, P, seed, mat_flags, tex_flags, ox, oy, oz, dx, dy, dz, a,
+                      alive, best_t, best_i, wnx, wny, wnz, w_invr, cols.in[18][i],
+                      cont, cols, i);
+    }
   }
 }
 
@@ -397,15 +519,17 @@ extern "C" {
 
 // Launch K1 on `stream`.  `table` (32, n_prims) f32, `bg` (3,) f32 and
 // every column are device pointers; `in_ptrs` / `out_ptrs` are HOST
-// arrays of 19 / 13 device column pointers (see Columns).  `winner`, an
-// optional (n_lanes,) int32 device array (NULL for none), receives each
-// alive lane's winning primitive, -1 on a miss or a dead lane.  Returns
+// arrays of 19 / 13 device column pointers (see Columns).  `res_ptrs`,
+// NULL for none, is a HOST array of 10 device pointers: the nine f32
+// residual planes, then the int32 flags.  `winner`, an optional
+// (n_lanes,) int32 device array (NULL for none), receives each alive
+// lane's winning primitive, -1 on a miss or a dead lane.  Returns
 // cudaGetLastError() of the launch: nonzero means it never ran.
 int fused_bounce_launch(const float* table, int n_prims, const float* bg,
                         unsigned int seed, float t_min, int mat_flags,
                         int tex_flags, const void* const* in_ptrs,
-                        void* const* out_ptrs, int* winner, long long n_lanes,
-                        void* stream) {
+                        void* const* out_ptrs, void* const* res_ptrs, int* winner,
+                        long long n_lanes, void* stream) {
   if (n_prims <= 0 || n_prims > MAX_PRIMS || n_lanes < 0) {
     return (int)cudaErrorInvalidValue;
   }
@@ -413,11 +537,22 @@ int fused_bounce_launch(const float* table, int n_prims, const float* bg,
   Columns cols;
   for (int k = 0; k < N_IN; ++k) cols.in[k] = static_cast<const float*>(in_ptrs[k]);
   for (int k = 0; k < N_OUT; ++k) cols.out[k] = static_cast<float*>(out_ptrs[k]);
+  for (int k = 0; k < N_RES; ++k) {
+    cols.res[k] = res_ptrs ? static_cast<float*>(res_ptrs[k]) : nullptr;
+  }
+  cols.flags = res_ptrs ? static_cast<int*>(res_ptrs[N_RES]) : nullptr;
   long long blocks = (n_lanes + THREADS - 1) / THREADS;
   if (blocks > 132 * 16) blocks = 132 * 16;  // grid-stride past 16 blocks per SM
-  fused_bounce_kernel<<<(unsigned)blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      table, n_prims, bg, (uint32_t)seed, t_min, mat_flags, tex_flags, cols, winner,
-      n_lanes);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (res_ptrs) {
+    fused_bounce_kernel<true><<<(unsigned)blocks, THREADS, 0, s>>>(
+        table, n_prims, bg, (uint32_t)seed, t_min, mat_flags, tex_flags, cols, winner,
+        n_lanes);
+  } else {
+    fused_bounce_kernel<false><<<(unsigned)blocks, THREADS, 0, s>>>(
+        table, n_prims, bg, (uint32_t)seed, t_min, mat_flags, tex_flags, cols, winner,
+        n_lanes);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -16,14 +16,19 @@ table-free (``fused_bounce_ok``):
 
 ``fused_bounce_cols`` dispatches on where its tensors lie: CUDA
 tensors launch the kernel (and count in ``launches``); CPU tensors run
-``fused_bounce_cols_plain``, which follows the Pallas kernel op for op
-with ``want_residuals=False``.  The residual outputs that feed the
-backward kernel are not ported yet (ROADMAP queue 2, K1 residuals).
+``fused_bounce_cols_plain``, which follows the Pallas kernel op for op.
+With ``want_residuals`` both also return the residual planes that the
+backward kernel K2 (``fused_bounce_bwd.py``) reads.
+
+The differentiable bounce loop is one ``torch.autograd.Function``,
+``FusedScanTrace`` (``fused_scan_trace``): K1 with residuals forward,
+K2 backward, for scenes that ``fused_bounce_diff_ok`` admits.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 from typing import Dict, Sequence, Tuple
 
@@ -61,10 +66,35 @@ MAX_PRIMS = 128
 _COL_KEYS = ("o0", "o1", "o2", "d0", "d1", "d2", "t0", "t1", "t2",
              "r0", "r1", "r2", "al")
 
+# the residual outputs (want_residuals=True): nine f32 planes and the
+# int32 flags word, in kernel order
+_RES_KEYS = ("t", "nx", "ny", "nz", "v0", "v1", "v2", "ratio", "invr",
+             "flags")
+
+# residual flags bits (rust_pathtracer_tpu/ops/fused_bounce.py FLG_*)
+FLG_HIT = 1
+FLG_FRONT = 2
+FLG_CONT = 4
+FLG_REFLECT = 8       # dielectric chose reflect
+FLG_SINES_NEG = 16    # checker picked the odd child
+FLG_SEL_L = 32
+FLG_SEL_M = 64
+FLG_SEL_D = 128
+FLG_LIGHT_ON = 256    # front-face light emission fired
+FLG_COS_CLAMP = 512   # dielectric cos_t hit the min(., 1) clamp
+FLG_REFR_ZERO = 1024  # refract safe_sqrt at <= 0 (zero gradient)
+FLG_L_NEG = 2048      # refract 1 - |perp|^2 < 0 (abs() flips the sign)
+FLG_IS_CK = 4096      # winning prim's texture is a checker
+FLG_ALIVE = 8192      # lane was alive entering the bounce
+# bits 16 and up: max(best_i, 0), the winning primitive (0 on a miss)
+FLG_BESTI_SHIFT = 16
+
 _RECT_FREE = {0: (1, 2), 1: (0, 2), 2: (0, 1)}
 
-# kernel launches made by fused_bounce_cols (CUDA tensors only)
+# kernel launches made by fused_bounce_cols (CUDA tensors only): all of
+# them, and those with residual outputs
 launches = 0
+residual_launches = 0
 
 
 def fused_bounce_ok(scene: SceneData) -> bool:
@@ -74,6 +104,13 @@ def fused_bounce_ok(scene: SceneData) -> bool:
         and scene.shade_static
         and set(scene.tex_types) <= {TEX_SOLID, TEX_CHECKER, TEX_PERLIN}
     )
+
+
+def fused_bounce_diff_ok(scene: SceneData) -> bool:
+    """Can this scene's differentiable bounce run in K1 + K2?  Perlin's
+    d(value)/d(point) has no backward, so solid and checker only."""
+    return (fused_bounce_ok(scene)
+            and set(scene.tex_types) <= {TEX_SOLID, TEX_CHECKER})
 
 
 def pack_prims_shaded(scene: SceneData) -> torch.Tensor:
@@ -114,7 +151,7 @@ def pack_prims_shaded(scene: SceneData) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# plain PyTorch version (the Pallas _kernel op for op, want_residuals=False)
+# plain PyTorch version (the Pallas _kernel op for op)
 # ---------------------------------------------------------------------------
 
 
@@ -126,7 +163,7 @@ def _cbrt(x: torch.Tensor) -> torch.Tensor:
 
 def fused_bounce_cols_plain(table, bg, seed, cols, su0, su1, bu0, bu1, bu2,
                             coin, *, kinds, mat_types, tex_types, t_min,
-                            winner_out=None):
+                            winner_out=None, want_residuals=False):
     """One bounce in plain tensor ops; same arguments and result as
     ``fused_bounce_cols``.  Runs on any device.
 
@@ -152,6 +189,7 @@ def fused_bounce_cols_plain(table, bg, seed, cols, su0, su1, bu0, bu1, bu2,
     best_t = full(T_MISS)
     best_i = torch.full(ox.shape, -1, dtype=torch.int64, device=ox.device)
     wnx, wny, wnz = zeros, zeros, zeros
+    w_invr = zeros  # the winning sphere's 1/r, 0 for rects and triangles
 
     for p, (kind, aux) in enumerate(kinds):
         def s(row):
@@ -221,6 +259,9 @@ def fused_bounce_cols_plain(table, bg, seed, cols, su0, su1, bu0, bu1, bu2,
         wnx = torch.where(upd, nx, wnx)
         wny = torch.where(upd, ny, wny)
         wnz = torch.where(upd, nz, wnz)
+        if want_residuals:
+            w_invr = torch.where(upd, inv_r if kind == PRIM_SPHERE else zeros,
+                                 w_invr)
 
     found = best_i >= 0
     if winner_out is not None:
@@ -246,12 +287,18 @@ def fused_bounce_cols_plain(table, bg, seed, cols, su0, su1, bu0, bu1, bu2,
     py = oy + t * dy
     pz = oz + t * dz
 
+    def flag(mask, bit):
+        return mask.to(torch.int32) * bit
+
+    flags = flag(hit, FLG_HIT) | flag(front, FLG_FRONT)
+
     # ---- texture value ------------------------------------------------
     v0, v1, v2 = c0, c1, c2  # TEX_SOLID
     if TEX_CHECKER in tex_types:
         sines = torch.sin(ts * px) * torch.sin(ts * py) * torch.sin(ts * pz)
         is_ck = tk == float(TEX_CHECKER)
         pick = sines < 0.0
+        flags = flags | flag(is_ck & pick, FLG_SINES_NEG) | flag(is_ck, FLG_IS_CK)
         v0 = torch.where(is_ck, torch.where(pick, od0, ev0), v0)
         v1 = torch.where(is_ck, torch.where(pick, od1, ev1), v1)
         v2 = torch.where(is_ck, torch.where(pick, od2, ev2), v2)
@@ -271,6 +318,7 @@ def fused_bounce_cols_plain(table, bg, seed, cols, su0, su1, bu0, bu1, bu2,
     rdz = rdz + torch.where(miss, thz * bg[2], zeros)
     if MAT_LIGHT in mat_types:
         em_on = hit & (mk == float(MAT_LIGHT)) & front
+        flags = flags | flag(em_on, FLG_LIGHT_ON)
         rdx = rdx + torch.where(em_on, thx * v0, zeros)
         rdy = rdy + torch.where(em_on, thy * v1, zeros)
         rdz = rdz + torch.where(em_on, thz * v2, zeros)
@@ -313,6 +361,7 @@ def fused_bounce_cols_plain(table, bg, seed, cols, su0, su1, bu0, bu1, bu2,
         dly = torch.where(nz_mask, ny, dly)
         dlz = torch.where(nz_mask, nz, dlz)
         sel = mk == float(MAT_LAMBERTIAN)
+        flags = flags | flag(sel, FLG_SEL_L)
         did = did | sel
         sdx = torch.where(sel, dlx, sdx)
         sdy = torch.where(sel, dly, sdy)
@@ -328,6 +377,7 @@ def fused_bounce_cols_plain(table, bg, seed, cols, su0, su1, bu0, bu1, bu2,
         rfz = uz - 2.0 * dn * nz
         ok = rfx * nx + rfy * ny + rfz * nz > 0.0
         sel = mk == float(MAT_METAL)
+        flags = flags | flag(sel, FLG_SEL_M)
         did = did | (sel & ok)
         sdx = torch.where(sel, rfx + fz * ball_x, sdx)
         sdy = torch.where(sel, rfy + fz * ball_y, sdy)
@@ -336,6 +386,7 @@ def fused_bounce_cols_plain(table, bg, seed, cols, su0, su1, bu0, bu1, bu2,
         at1 = torch.where(sel, v1, at1)
         at2 = torch.where(sel, v2, at2)
 
+    ratio = full(1.0)
     if MAT_DIELECTRIC in mat_types:
         ratio = torch.where(front, torch.reciprocal(ir_), ir_)
         raw_cos = -(ux * nx + uy * ny + uz * nz)
@@ -357,7 +408,8 @@ def fused_bounce_cols_plain(table, bg, seed, cols, su0, su1, bu0, bu1, bu2,
         opx = ratio * (ux + cos_t * nx)
         opy = ratio * (uy + cos_t * ny)
         opz = ratio * (uz + cos_t * nz)
-        plen = torch.abs(1.0 - (opx * opx + opy * opy + opz * opz))
+        raw_l = 1.0 - (opx * opx + opy * opy + opz * opz)
+        plen = torch.abs(raw_l)
         # vecmath.safe_sqrt: 0 at <= 0
         par = -torch.where(plen <= 0.0, zeros,
                            sqrt(torch.where(plen <= 0.0, full(1.0), plen)))
@@ -368,6 +420,11 @@ def fused_bounce_cols_plain(table, bg, seed, cols, su0, su1, bu0, bu1, bu2,
         ddy = torch.where(choose_reflect, rfy, rry)
         ddz = torch.where(choose_reflect, rfz, rrz)
         sel = mk == float(MAT_DIELECTRIC)
+        flags = (flags | flag(sel, FLG_SEL_D)
+                 | flag(choose_reflect, FLG_REFLECT)
+                 | flag(raw_cos >= 1.0, FLG_COS_CLAMP)
+                 | flag(plen <= 0.0, FLG_REFR_ZERO)
+                 | flag(raw_l < 0.0, FLG_L_NEG))
         did = did | sel
         sdx = torch.where(sel, ddx, sdx)
         sdy = torch.where(sel, ddy, sdy)
@@ -379,7 +436,7 @@ def fused_bounce_cols_plain(table, bg, seed, cols, su0, su1, bu0, bu1, bu2,
 
     # ---- state commit (integrator._bounce_step tail) -----------------
     cont = hit & did
-    return {
+    out = {
         "o0": torch.where(cont, px, ox),
         "o1": torch.where(cont, py, oy),
         "o2": torch.where(cont, pz, oz),
@@ -394,6 +451,13 @@ def fused_bounce_cols_plain(table, bg, seed, cols, su0, su1, bu0, bu1, bu2,
         "r2": rdz,
         "al": cont.to(f32),
     }
+    if not want_residuals:
+        return out
+    flags = (flags | flag(cont, FLG_CONT) | flag(alive, FLG_ALIVE)
+             | (best_i.clamp(min=0).to(torch.int32) << FLG_BESTI_SHIFT))
+    res = dict(zip(_RES_KEYS, (t, nx, ny, nz, v0, v1, v2, ratio,
+                               flip * w_invr, flags)))
+    return out, res
 
 
 # ---------------------------------------------------------------------------
@@ -436,7 +500,8 @@ def _check_inputs(table, bg, tensors) -> Tuple[torch.device, int]:
 
 
 def fused_bounce_cols(table, bg, seed, cols, su0, su1, bu0, bu1, bu2, coin,
-                      *, kinds, mat_types, tex_types, t_min, winner_out=None):
+                      *, kinds, mat_types, tex_types, t_min, winner_out=None,
+                      want_residuals=False):
     """One fused bounce over R lanes.
 
     ``table`` (32, P) from ``pack_prims_shaded``; ``bg`` (3,) the
@@ -448,6 +513,14 @@ def fused_bounce_cols(table, bg, seed, cols, su0, su1, bu0, bu1, bu2, coin,
     each alive lane's winning primitive (-1 on a miss or a dead lane),
     for checking the kernel.  CUDA tensors launch the kernel; CPU
     tensors run the plain version; anything else raises.
+
+    With ``want_residuals`` the result is ``(cols, res)``: ``res`` maps
+    ``_RES_KEYS`` to what the backward kernel K2 reads, on every lane
+    (dead and missed ones included): nine (R,) f32 planes ``t`` (1.0 on
+    a miss), the flipped normal, the texture value, the dielectric
+    ``ratio`` (1.0 in a scene without a dielectric), ``invr`` (flip / r
+    of a winning sphere, 0 otherwise), and the (R,) int32 ``flags``
+    (``FLG_*``).  The 13 columns are the same either way.
     """
     uni = (su0, su1, bu0, bu1, bu2, coin)
     ins = tuple(cols[k] for k in _COL_KEYS) + uni
@@ -462,15 +535,17 @@ def fused_bounce_cols(table, bg, seed, cols, su0, su1, bu0, bu1, bu2, coin,
     if dev.type == "cpu":
         return fused_bounce_cols_plain(
             table, bg, seed, cols, *uni, kinds=kinds, mat_types=mat_types,
-            tex_types=tex_types, t_min=t_min, winner_out=winner_out)
+            tex_types=tex_types, t_min=t_min, winner_out=winner_out,
+            want_residuals=want_residuals)
     if dev.type != "cuda":
         raise ValueError(f"fused_bounce_cols: no kernel for device {dev}")
     return _launch(table, bg, seed, ins, R, mat_types, tex_types, t_min,
-                   winner_out)
+                   winner_out, want_residuals)
 
 
-def _launch(table, bg, seed, ins, R, mat_types, tex_types, t_min, winner_out):
-    global launches
+def _launch(table, bg, seed, ins, R, mat_types, tex_types, t_min, winner_out,
+            want_residuals):
+    global launches, residual_launches
     from rust_pathtracer_tpu_torch.ops._build import load_library
 
     lib = load_library("fused_bounce")
@@ -482,6 +557,13 @@ def _launch(table, bg, seed, ins, R, mat_types, tex_types, t_min, winner_out):
     in_ptrs = (ctypes.c_void_p * len(ins))(*[x.data_ptr() for x in ins])
     out_ptrs = (ctypes.c_void_p * len(_COL_KEYS))(
         *[outs[i].data_ptr() for i in range(len(_COL_KEYS))])
+    res_ptrs = None
+    if want_residuals:
+        res_f = torch.empty((len(_RES_KEYS) - 1, R), dtype=torch.float32,
+                            device=table.device)
+        flags = torch.empty(R, dtype=torch.int32, device=table.device)
+        res = [*res_f.unbind(0), flags]
+        res_ptrs = (ctypes.c_void_p * len(res))(*[x.data_ptr() for x in res])
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fused_bounce_launch(
@@ -489,11 +571,155 @@ def _launch(table, bg, seed, ins, R, mat_types, tex_types, t_min, winner_out):
             int(seed) & 0xFFFFFFFF, float(t_min),
             _type_flags(mat_types, _MAT_BITS, "material"),
             _type_flags(tex_types, _TEX_BITS, "texture"),
-            in_ptrs, out_ptrs,
+            in_ptrs, out_ptrs, res_ptrs,
             None if winner_out is None else winner_out.data_ptr(), R, stream,
         )
     if err != 0:
         raise RuntimeError(
             f"fused_bounce kernel launch failed: {lib.error_string(err).decode()}")
     launches += 1
-    return dict(zip(_COL_KEYS, outs.unbind(0)))
+    cols_out = dict(zip(_COL_KEYS, outs.unbind(0)))
+    if not want_residuals:
+        return cols_out
+    residual_launches += 1
+    return cols_out, dict(zip(_RES_KEYS, res))
+
+
+# ---------------------------------------------------------------------------
+# the bounce loop with its backward: one autograd.Function
+# ---------------------------------------------------------------------------
+
+
+def roulette(cols, u):
+    """Russian roulette (``_trace_fused_cols`` :845-869): survivors are
+    boosted by 1/p, p = clip(max throughput, 0.05, 1).  Returns
+    ``(cols, p, act)``; ``act`` marks the lanes that were boosted."""
+    t0, t1, t2, al = cols["t0"], cols["t1"], cols["t2"], cols["al"]
+    p = torch.clamp(torch.maximum(torch.maximum(t0, t1), t2), 0.05, 1.0)
+    live = al > 0.5
+    act = live & (u < p)
+    cols = dict(
+        cols,
+        t0=torch.where(act, t0 / p, t0),
+        t1=torch.where(act, t1 / p, t1),
+        t2=torch.where(act, t2 / p, t2),
+        al=torch.where(live, act.to(al.dtype), al),
+    )
+    return cols, p, act
+
+
+@dataclasses.dataclass(frozen=True)
+class _ScanSpec:
+    """The static arguments of one whole-scan trace."""
+
+    kinds: Tuple[Tuple[int, int], ...]
+    mat_types: Tuple[int, ...]
+    tex_types: Tuple[int, ...]
+    t_min: float
+    max_bounces: int
+    rr_start: int
+    stats_slots: int
+
+
+class FusedScanTrace(torch.autograd.Function):
+    """All ``max_bounces`` bounces of a fused-diff scene, forward and
+    backward (``_make_fused_scan_vjp``, the JAX whole-scan custom VJP).
+
+    Forward: exactly ``max_bounces`` bounces, no early exit (dead lanes
+    pass through, so the image equals the early-exit loop's).  Each
+    bounce counts its alive lanes (detached statistics), runs K1 with
+    residuals, then roulette from ``rr_start`` on.  It saves the ten
+    residual planes, the incoming d and thr, and roulette's (p, act):
+    16 (R,) planes a bounce, plus p and act where roulette ran.
+
+    Backward: the bounces in reverse.  Each undoes roulette
+    (``where(act, g / p, g)``, a division as in the JAX transpose),
+    runs K2 and adds the bounce's texture-colour and background
+    gradients.  The radiance cotangent passes through unchanged, alive
+    gets none, and neither do the draws.
+
+    ``apply(spec, draws, table, bg, *cols)`` with the 13 columns in
+    ``_COL_KEYS`` order returns the 13 final columns, the segment count
+    and the occupancy histogram.
+    """
+
+    @staticmethod
+    def forward(ctx, spec, draws, table, bg, *cols):
+        cols = dict(zip(_COL_KEYS, cols))
+        dev = table.device
+        segments = torch.zeros((), dtype=torch.float32, device=dev)
+        occupancy = torch.zeros(spec.stats_slots, dtype=torch.float32, device=dev)
+        saved = []
+        for b in range(spec.max_bounces):
+            n_alive = cols["al"].sum()
+            segments = segments + n_alive
+            occupancy[min(b, spec.stats_slots - 1)] = n_alive
+            d_thr = torch.stack([cols[k] for k in ("d0", "d1", "d2", "t0", "t1", "t2")])
+            su, bu = draws["sphere_u"][b], draws["ball_u"][b]
+            cols, res = fused_bounce_cols(
+                table, bg, 0, cols, su[:, 0], su[:, 1], bu[:, 0], bu[:, 1],
+                bu[:, 2], draws["coin"][b], kinds=spec.kinds,
+                mat_types=spec.mat_types, tex_types=spec.tex_types,
+                t_min=spec.t_min, want_residuals=True)
+            rr = None
+            if b >= spec.rr_start:
+                cols, p, act = roulette(cols, draws["roulette"][b])
+                rr = (p, act)
+            saved.append((res, d_thr, rr))
+        ctx.spec = spec
+        ctx.bounces = saved
+        ctx.save_for_backward(table, bg)
+        ctx.mark_non_differentiable(segments, occupancy)
+        return (*[cols[k] for k in _COL_KEYS], segments, occupancy)
+
+    @staticmethod
+    def backward(ctx, *g_out):
+        from rust_pathtracer_tpu_torch.ops.fused_bounce_bwd import fused_bounce_bwd
+
+        table, bg = ctx.saved_tensors
+        P = table.shape[1]
+        g = dict(zip(_COL_KEYS, g_out[:len(_COL_KEYS)]))
+        d_tex = torch.zeros((9, P), dtype=torch.float32, device=table.device)
+        d_bg = torch.zeros(3, dtype=torch.float32, device=table.device)
+        saved, ctx.bounces = ctx.bounces, None
+        if saved is None:
+            raise RuntimeError("FusedScanTrace: a second backward through one "
+                               "graph; the saved bounces went with the first")
+        while saved:  # last bounce first; each bounce's tensors go as it is done
+            res, d_thr, rr = saved.pop()
+            if rr is not None:
+                p, act = rr
+                g = dict(g, **{k: torch.where(act, g[k] / p, g[k])
+                               for k in ("t0", "t1", "t2")})
+            grads, g_tex, g_bg = fused_bounce_bwd(
+                res, d_thr[0:3].unbind(0), d_thr[3:6].unbind(0), g, bg,
+                mat_types=ctx.spec.mat_types, n_prims=P)
+            g = dict(g, **grads)  # the radiance cotangent passes through
+            d_tex = d_tex + g_tex
+            d_bg = d_bg + g_bg
+        d_table = torch.zeros_like(table)
+        d_table[PAY_COLOR:PAY_EVEN + 3] = d_tex
+        g_cols = [g[k] for k in _COL_KEYS[:-1]] + [None]  # alive: none
+        return (None, None, d_table, d_bg, *g_cols)
+
+
+def fused_scan_trace(scene, cols, draws, background, t_min, max_bounces,
+                     rr_start, stats_slots):
+    """Differentiable whole-scan trace of a fused-diff scene
+    (``fused_bounce_diff_ok``): ``FusedScanTrace`` over the packed table.
+
+    ``cols`` the 13 state columns; ``draws`` the hoisted uniforms of
+    ``integrator._precompute_draws``; ``background`` a (3,) tensor.
+    Returns ``(cols_final, segments, occupancy)``.  Gradients reach the
+    columns, ``scene.textures.color`` (through ``pack_prims_shaded``) and
+    ``background``.
+    """
+    spec = _ScanSpec(
+        kinds=scene.kinds_static, mat_types=scene.mat_types,
+        tex_types=scene.tex_types, t_min=float(t_min),
+        max_bounces=int(max_bounces), rr_start=int(rr_start),
+        stats_slots=int(stats_slots))
+    out = FusedScanTrace.apply(spec, draws, pack_prims_shaded(scene),
+                               background, *[cols[k] for k in _COL_KEYS])
+    n = len(_COL_KEYS)
+    return dict(zip(_COL_KEYS, out[:n])), out[n], out[n + 1]

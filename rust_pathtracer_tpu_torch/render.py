@@ -12,9 +12,11 @@ around the integrator.
   gives the same image under any chunking.
 
 Every entry point takes an explicit ``device``; asking for ``"cuda"``
-where there is no GPU raises.  Not ported yet: the cascade renderer
-(``cascade`` / ``cascade_schedule``, ROADMAP queue 1 item 11) and the
-differentiable render (item 6).
+where there is no GPU raises.  With ``RenderSettings.differentiable``
+the chunk loop runs with autograd live: the image is differentiable in
+the camera, the texture colours and the background (see ``grad.py``).
+Not ported yet: the cascade renderer (``cascade`` /
+``cascade_schedule``, ROADMAP queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -42,8 +44,9 @@ class RenderSettings:
     spp_chunk: Optional[int] = None
     # optional russian roulette start bounce (None = off, reference behavior)
     russian_roulette_start: Optional[int] = None
-    # not ported yet: raise in render_radiance
+    # run the differentiable trace (K1 with residuals, K2 backward)
     differentiable: bool = False
+    # not ported yet: raise in render_radiance
     cascade: bool = False
     cascade_schedule: Optional[str] = None
 
@@ -117,7 +120,7 @@ def _make_lanes(cam: Camera, base_key, pix, sample_offset: int, *, width,
 def trace_pixel_lanes(scene, cam: Camera, base_key, pix, sample_offset: int,
                       background, *, width: int, height: int, spp_chunk: int,
                       spp_total: int, max_bounces: int,
-                      rr_start: Optional[int]):
+                      rr_start: Optional[int], differentiable: bool = False):
     """Trace len(pix)*spp_chunk lanes for the given pixel ids.
     Returns (sum_radiance (len(pix), 3), stats)."""
     npix = pix.shape[0]
@@ -126,7 +129,8 @@ def trace_pixel_lanes(scene, cam: Camera, base_key, pix, sample_offset: int,
         spp_chunk=spp_chunk, spp_total=spp_total,
     )
     rad, stats = trace(scene, o, d, lkeys, background,
-                       max_bounces=max_bounces, russian_roulette_start=rr_start)
+                       max_bounces=max_bounces, russian_roulette_start=rr_start,
+                       differentiable=differentiable)
     # mask samples beyond spp_total (padded final chunk)
     rad = rad * in_range.to(torch.float32)[:, None]
     return rad.reshape(npix, spp_chunk, 3).sum(dim=1), stats
@@ -134,7 +138,8 @@ def trace_pixel_lanes(scene, cam: Camera, base_key, pix, sample_offset: int,
 
 def _render_chunk(scene, cam: Camera, base_key, sample_offset: int,
                   background, *, width: int, height: int, spp_chunk: int,
-                  spp_total: int, max_bounces: int, rr_start: Optional[int]):
+                  spp_total: int, max_bounces: int, rr_start: Optional[int],
+                  differentiable: bool = False):
     """Trace width*height*spp_chunk lanes on the scene's device;
     returns (sum_radiance (H*W, 3), stats)."""
     pix = torch.arange(width * height, dtype=torch.int64, device=scene.device)
@@ -142,6 +147,7 @@ def _render_chunk(scene, cam: Camera, base_key, sample_offset: int,
         scene, cam, base_key, pix, sample_offset, background,
         width=width, height=height, spp_chunk=spp_chunk,
         spp_total=spp_total, max_bounces=max_bounces, rr_start=rr_start,
+        differentiable=differentiable,
     )
 
 
@@ -161,6 +167,7 @@ def _render_frame(scene, cam, settings: RenderSettings, key, bg, spp: int,
             spp_chunk=chunk, spp_total=spp,
             max_bounces=settings.max_bounces,
             rr_start=settings.russian_roulette_start,
+            differentiable=settings.differentiable,
         )
         acc = acc + part
         total_segments = total_segments + stats.segments
@@ -177,11 +184,9 @@ def render_radiance(scene, cam: Camera, settings: RenderSettings, key,
                     background=None, *, device):
     """Linear-space mean radiance image (H, W, 3) + TraceStats, rendered
     on ``device``.  ``key`` is the (2,) raw key (``sampling.prng_key``);
-    scene, camera and key are moved to ``device``."""
-    if settings.differentiable:
-        raise NotImplementedError(
-            "differentiable rendering is not ported yet (ROADMAP queue 1 "
-            "item 6)")
+    scene, camera and key are moved to ``device``.  With
+    ``settings.differentiable`` the image carries gradients to the
+    scene's texture colours, the camera's tensors and ``background``."""
     if settings.cascade or settings.cascade_schedule is not None:
         raise NotImplementedError(
             "the cascade renderer is not ported yet (ROADMAP queue 1 item 11)")

@@ -1,4 +1,4 @@
-"""K1 on the card against its plain PyTorch version.
+"""K1 and K2 on the card against their plain PyTorch versions.
 
 Imports no jax, so that it runs on the machine with the card, which has
 none; there, skip this directory's conftest.py (it sets up JAX):
@@ -6,7 +6,8 @@ none; there, skip this directory's conftest.py (it sets up JAX):
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tests marked ``cuda`` skip where there is no GPU.  The helpers here
-also feed ``test_torch_fused_bounce.py``.
+also feed ``test_torch_fused_bounce.py`` and
+``test_torch_fused_bounce_bwd.py``.
 """
 
 import os
@@ -17,6 +18,7 @@ import torch
 
 from rust_pathtracer_tpu_torch.integrator import T_MIN
 from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
+from rust_pathtracer_tpu_torch.ops import fused_bounce_bwd as fbb
 from rust_pathtracer_tpu_torch.scene import SceneBuilder
 
 
@@ -63,6 +65,23 @@ def _t_inputs(cols, uni, device="cpu"):
     c = torch.as_tensor(cols, device=device)
     u = torch.as_tensor(uni, device=device)
     return dict(zip(fb._COL_KEYS, c.unbind(0))), u.unbind(0)
+
+
+def _bwd_inputs(res_np, cols, bg, seed, device="cpu"):
+    """K2's arguments from numpy residuals (``fb._RES_KEYS``) and the
+    bounce's (13, n) input columns, with normal cotangents from numpy.
+    Returns (res, d, thr, cots, bg, the (12, n) numpy cotangents)."""
+    n = cols.shape[1]
+    cot = np.random.default_rng(seed).normal(size=(12, n)).astype(np.float32)
+
+    def t(x):
+        return torch.tensor(np.asarray(x), device=device)
+
+    res = {k: t(v) for k, v in res_np.items()}
+    d = tuple(t(cols[3 + c]) for c in range(3))
+    thr = tuple(t(cols[6 + c]) for c in range(3))
+    cots = dict(zip(fbb._COT_KEYS, (t(c) for c in cot)))
+    return res, d, thr, cots, torch.tensor(bg, device=device), cot
 
 
 def _run_plain(scene, cols, uni, bg):
@@ -123,3 +142,86 @@ def test_cornellbox_golden_on_gpu():
                                 "CornellBox.npy"))
     a = image_agreement(img.cpu().numpy(), want)
     assert a["ok"], a
+
+
+@pytest.mark.cuda
+def test_bwd_kernel_matches_plain_on_gpu():
+    """K1 with residuals, then K2, on the card against the plain versions
+    on the CPU.  Residual flags exact (no checker lane of this input lies
+    near a sign change of its sin-product), floats within 1e-5 rel +
+    1e-6 abs.  K2 and its plain version fed the same residuals: the 9
+    outputs within 1e-5 rel + 1e-5 of the largest (the same IEEE
+    expressions), the reductions within 1e-5 of the largest (another
+    sum order) and bitwise equal on a second run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    scene = t_full_scene()
+    cols, uni = _random_lanes(4096, seed=21)
+    bg = (0.2, 0.1, 0.05)
+    kw = dict(kinds=scene.kinds_static, mat_types=scene.mat_types,
+              tex_types=scene.tex_types, t_min=T_MIN, want_residuals=True)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        tcols, tuni = _t_inputs(cols, uni, device=dev)
+        table = fb.pack_prims_shaded(scene.to(dev))
+        out, res = fb.fused_bounce_cols(table, torch.tensor(bg, device=dev), 0,
+                                        tcols, *tuni, **kw)
+        runs[dev] = {k: v.cpu().numpy() for k, v in res.items()}
+    np.testing.assert_array_equal(runs["cuda"]["flags"], runs["cpu"]["flags"])
+    for k in fb._RES_KEYS[:-1]:
+        np.testing.assert_allclose(runs["cuda"][k], runs["cpu"][k], rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
+
+    kw = dict(mat_types=scene.mat_types, n_prims=scene.num_prims)
+    p_g, p_tex, p_bg = fbb.fused_bounce_bwd(*_bwd_inputs(runs["cpu"], cols, bg, 3)[:5], **kw)
+    args = _bwd_inputs(runs["cpu"], cols, bg, 3, device="cuda")[:5]
+    before = fbb.launches
+    k_g, k_tex, k_bg = fbb.fused_bounce_bwd(*args, **kw)
+    _, k_tex2, k_bg2 = fbb.fused_bounce_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert fbb.launches == before + 2
+    got = np.stack([k_g[k].cpu().numpy() for k in fbb._GRAD_KEYS])
+    want = np.stack([p_g[k].numpy() for k in fbb._GRAD_KEYS])
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+    red = np.concatenate([p_tex.numpy().ravel(), p_bg.numpy()])
+    k_red = np.concatenate([k_tex.cpu().numpy().ravel(), k_bg.cpu().numpy()])
+    np.testing.assert_allclose(k_red, red, rtol=1e-5, atol=1e-5 * np.abs(red).max())
+    assert torch.equal(k_tex, k_tex2) and torch.equal(k_bg, k_bg2)
+
+
+@pytest.mark.cuda
+def test_diff_step_on_gpu_matches_cpu():
+    """A small differentiable CornellBox step on the card (K1 with
+    residuals and K2 launched once per bounce) against the same step on
+    the CPU: loss within 2e-3 rel, every gradient leaf within rtol 0.05
+    and 2e-3 of the largest gradient (an ulp of sin/cos on the card can
+    reroute a lane's path)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from rust_pathtracer_tpu_torch.grad import (
+        CameraParams, DiffParams, render_loss_and_grad,
+    )
+    from rust_pathtracer_tpu_torch.models import get_scene
+    from rust_pathtracer_tpu_torch.render import RenderSettings
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+
+    scene = get_scene("CornellBox").build()
+    cam = CameraParams.create((278.0, 278.0, -800.0), (278.0, 278.0, 0.0),
+                              (0.0, 1.0, 0.0), 40.0, 1.0, 0.0, 10.0)
+    settings = RenderSettings(16, 16, 4, 8, (0.5, 0.5, 0.5), spp_chunk=4,
+                              russian_roulette_start=4)
+    params = DiffParams.from_scene(scene, cam, settings.background)
+    target = torch.zeros(16, 16, 3)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        k1, k2 = fb.residual_launches, fbb.launches
+        out[dev] = render_loss_and_grad(params, scene, settings, prng_key(7),
+                                        target, device=dev)
+        if dev == "cuda":
+            assert fb.residual_launches - k1 == fbb.launches - k2 == 8
+    (l0, g0), (l1, g1) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(float(l1), float(l0), rtol=2e-3)
+    f0 = torch.cat([x.reshape(-1) for x in g0.leaves()]).numpy()
+    f1 = torch.cat([x.cpu().reshape(-1) for x in g1.leaves()]).numpy()
+    assert np.abs(f0).max() > 0 and np.isfinite(f1).all()
+    np.testing.assert_allclose(f1, f0, rtol=0.05, atol=2e-3 * np.abs(f0).max())

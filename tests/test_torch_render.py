@@ -147,15 +147,25 @@ def test_no_fallback_without_gpu(tmp_path):
 
 
 def test_not_ported_settings_raise():
+    """The cascade raises; a differentiable render of CornellBox runs,
+    and one of a perlin scene (TwoSphereCheckers) raises, naming the
+    generic bounce path it needs."""
     sd = get_scene("CornellBox")
     base = RenderSettings(4, 4, 1, 2, (0.0, 0.0, 0.0))
-    for kw, item in (({"differentiable": True}, "item 6"),
-                     ({"cascade": True}, "item 11"),
+    for kw, item in (({"cascade": True}, "item 11"),
                      ({"cascade_schedule": "5:8"}, "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             render_radiance(sd.build(), sd.camera_at(0.0),
                             dataclasses.replace(base, **kw), prng_key(0),
                             device="cpu")
+    diff = dataclasses.replace(base, differentiable=True)
+    img, _ = render_radiance(sd.build(), sd.camera_at(0.0), diff, prng_key(0),
+                             device="cpu")
+    assert img.shape == (4, 4, 3) and torch.isfinite(img).all()
+    perlin = get_scene("TwoSphereCheckers")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        render_radiance(perlin.build(), perlin.camera_at(0.0), diff,
+                        prng_key(0), device="cpu")
 
 
 def _imported_modules(path):
