@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py
 
-Drives ``rust_pathtracer_tpu_torch`` (never JAX) through its two main
-paths, the forward render and the differentiable step of ``bench.py``'s
-shape, and checks them:
+Drives ``rust_pathtracer_tpu_torch`` (never JAX) through its paths:
+the fused forward render and differentiable step of ``bench.py``'s
+shape (K1, K2), and the generic bounce path (K3, K4) forward and
+differentiable, whose main path is the differentiable TwoSphereCheckers
+step at the scene's own width (phase 12).  It checks them:
 
 1. device: a CUDA GPU must be present (no CPU fallback); prints the
    card's name and power limit and the torch and nvcc versions;
-2. build: builds K1 (``ops/csrc/fused_bounce.cu``) and K2
-   (``ops/csrc/fused_bounce_bwd.cu``) with nvcc for sm_90a, in parallel;
+2. build: builds K1 (``ops/csrc/fused_bounce.cu``), K2
+   (``ops/csrc/fused_bounce_bwd.cu``) and K3/K4
+   (``ops/csrc/closest_hit.cu``) with nvcc for sm_90a, in parallel;
 3. K1 against its plain PyTorch version on 1,000,000 random lanes of a
    scene that covers every branch: alive mask, hit mask and winning
    primitive equal on every lane, floats within 1e-5 relative + 1e-6
@@ -39,10 +42,33 @@ shape, and checks them:
    median time over batches as bench.py takes it, segments/s, finite
    gradients, K1 with residuals and K2 launched 20 times a step; the
    step's split by CUDA events; K1-with-residuals and K2 per launch
-   beside K1 and the plain versions at 1,048,576 lanes.
+   beside K1 and the plain versions at 1,048,576 lanes;
+10. K4 and K3 against their plain versions on phase 3's 1,000,000 lanes,
+    on the same CUDA tensors: hit, idx, the winner's kind, mat and front
+    exact, floats within 1e-5 rel + 1e-6 abs apart from at most 10
+    sphere-uv seam lanes; each timed beside its plain version;
+11. the non-differentiable generic render of an image-textured scene
+    (``tests/test_grad.py::_scene_simple``) at 854x480, 2 spp, 20
+    bounces, one chunk: finite, >= 0, deterministic, K3 launched once a
+    bounce; 64x36 on the card against the CPU under the image contract;
+    K3 against its plain version and timed at the first bounce;
+12. the main path: the differentiable TwoSphereCheckers step at
+    854x480, 2 spp, 20 bounces, one chunk of 819,840 lanes, loss =
+    mean(img), backward: K4 launched 20 times, finite gradients, camera
+    and background gradients non-zero, two steps on one key bit for bit
+    equal, peak memory and the bytes remat "none" keeps a lane-bounce,
+    the median step over batches as bench.py takes it (shorter batches)
+    and its split by CUDA events; K4 against its plain version and timed
+    at the first bounce; a 16x9 step on the card against the CPU;
+13. the differentiable LightTest step at 854x480, 2 spp, 50 bounces,
+    remat "auto" (which must checkpoint): K4 launched 50 times over
+    forward and backward, finite gradients, time and peak memory of a
+    first and a second step.
 
-Any failed check exits non-zero.  On success the last two lines are a
-JSON object of the kernels' numbers and the JSON verdict
+Each path runs with every launch count set to 0 just before it and
+read just after.  Any failed check exits non-zero.  On success the last
+two lines are a JSON object of the kernels' numbers (time, launches,
+bound, plain and library times) and the JSON verdict
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -90,7 +116,31 @@ SMALL_STEP = dict(width=64, height=64, spp=4, bounces=8, rr_start=4)
 STEP = dict(reps=5, batches=5, max_batches=12, spread_tol=0.10)
 CORNELL_CAM = ((278.0, 278.0, -800.0), (278.0, 278.0, 0.0), (0.0, 1.0, 0.0),
                40.0, 1.0, 0.0, 10.0)
-KERNELS = ("fused_bounce", "fused_bounce_bwd")
+KERNELS = ("fused_bounce", "fused_bounce_bwd", "closest_hit")
+LEAF_NAMES = ("tex_color", "tex_images", "background", "lookfrom", "lookat", "up",
+              "vfov_deg", "aspect", "aperture", "focus_dist")
+
+# K3 / K4 vs plain on the same CUDA tensors: the same IEEE expressions,
+# so floats within 1e-5 rel + 1e-6 abs; a sphere-uv seam lane (atan2 at
+# +-pi: u = 0 on one side, 1 on the other) may flip, at most this many
+CH_RTOL, CH_ATOL = 1e-5, 1e-6
+MAX_SEAM_LANES = 10
+# phase 11: tests/test_grad.py::_scene_simple at full width
+GENERIC = dict(width=854, height=480, spp=2, bounces=20, seed=0)
+SIMPLE_CAM = ((0.0, 1.0, 2.0), (0.0, 0.5, -3.0), (0.0, 1.0, 0.0), 50.0, 854.0 / 480.0,
+              0.0, 10.0)
+SIMPLE_BG = (0.1, 0.1, 0.1)
+# phase 12 (main path): TwoSphereCheckers at the scene's own width; the
+# timed batches are shorter than bench.py's (each step takes seconds)
+MAIN = dict(width=854, height=480, spp=2, bounces=20, seed=0)
+MAIN_STEP = dict(reps=2, batches=3, max_batches=6, spread_tol=0.10)
+TSC_CAM = ((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), 20.0, 854.0 / 480.0,
+           0.0, 10.0)
+TSC_BG = (1.0, 1.0, 1.0)
+# phase 13: LightTest at the scene's own width and depth
+LIGHT = dict(width=854, height=480, spp=2, bounces=50, seed=0)
+LIGHT_CAM = ((26.0, 3.0, 6.0), (0.0, 2.0, 0.0), (0.0, 1.0, 0.0), 20.0, 854.0 / 480.0,
+             0.0, 10.0)
 
 
 def fail(msg: str):
@@ -134,7 +184,7 @@ def phase_device(torch):
 
 
 def phase_build():
-    log("== phase 2: build K1 and K2")
+    log("== phase 2: build K1, K2 and K3/K4")
     from concurrent.futures import ThreadPoolExecutor
 
     from rust_pathtracer_tpu_torch.ops import _build
@@ -327,13 +377,14 @@ def phase_serve(torch, device, card, serve, bench, time_reps):
     lanes = W * H * serve["spp_chunk"]
 
     _sync(torch, device)
-    fb.launches = fb.residual_launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     img, stats = render_radiance(scene, cam, settings, key, device=device)
     _sync(torch, device)
     wall = time.perf_counter() - t0
-    k1_launches = fb.launches
-    check(fb.residual_launches == 0, "the serving render wrote residuals")
+    counts = read_counts()
+    k1_launches = counts["K1"]
+    check(counts["K1-res"] == 0, "the serving render wrote residuals")
 
     img_np = img.cpu().numpy()
     segments = float(stats.segments)
@@ -408,15 +459,17 @@ def phase_serve(torch, device, card, serve, bench, time_reps):
         return fb.fused_bounce_cols_plain(table, bg, scene.textures.perlin_seed,
                                           cols, *uni, **kw)
 
-    res = {}
-    for name, fn in (("plain", plain), ("kernel", k1), ("kernel", k1),
-                     ("plain", plain)):
-        res.setdefault(name, []).append(_time_ms(torch, device, fn, time_reps))
+    res = time_pair(torch, device, k1, plain, time_reps)
     k_ms, p_ms = statistics.mean(res["kernel"]), statistics.mean(res["plain"])
+    # each input column read once, each of the 13 output columns written once
+    b_ms, b_by = bound(nbytes(table, bg, *cols.values(), *uni) + 13 * 4 * lanes,
+                       sweep_ops(scene.kinds_static, lanes))
     log(f"K1 at {lanes} lanes on {card}: {k_ms:.4f} ms per launch "
         f"(blocks {[round(x, 4) for x in res['kernel']]}); plain version on the "
-        f"same CUDA tensors {p_ms:.4f} ms ({[round(x, 4) for x in res['plain']]})")
-    return k1_launches, k_ms, p_ms
+        f"same CUDA tensors {p_ms:.4f} ms ({[round(x, 4) for x in res['plain']]}); "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    return dict(launches=k1_launches, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by)
 
 
 def _checker_near_zero(np_flags, t, cols_np, table, fb):
@@ -547,6 +600,19 @@ def _grad_leaves(g):
     return [x.detach().cpu().numpy().astype(np.float64).ravel() for x in g.leaves()]
 
 
+def _leaf_grads(leaves):
+    """The .grad of each leaf as a numpy array; zeros where the step
+    left none (a leaf the scene does not use, as the image texels of a
+    scene without an image texture)."""
+    return [np.zeros(x.shape, np.float32) if x.grad is None
+            else x.grad.detach().cpu().numpy() for x in leaves]
+
+
+def _zero_grads(leaves):
+    for x in leaves:
+        x.grad = None
+
+
 def phase_small_step(torch, device):
     cfg = SMALL_STEP
     log(f"== phase 8: differentiable step on the card vs the CPU "
@@ -584,9 +650,7 @@ def phase_small_step(torch, device):
         out[dev] = (float(loss), _grad_leaves(g))
     (l0, g0), (l1, g1) = out["cpu"], out[device]
     scale = max(np.abs(x).max() for x in g0)
-    names = ("tex_color", "background", "lookfrom", "lookat", "up", "vfov_deg",
-             "aspect", "aperture", "focus_dist")
-    for name, a, b in zip(names, g1, g0):
+    for name, a, b in zip(LEAF_NAMES, g1, g0):
         err = np.abs(a - b)
         log(f"  {name}: max |grad| {np.abs(b).max():.4e}, max abs diff {err.max():.3e}")
         check(np.isfinite(a).all(), f"non-finite gradient of {name} on the card")
@@ -627,8 +691,7 @@ def phase_bench_step(torch, device, card, time_reps):
         return img.mean(), stats
 
     def step():
-        for x in leaves:
-            x.grad = None
+        _zero_grads(leaves)
         loss, stats = forward()
         loss.backward()
         return loss, stats
@@ -636,53 +699,27 @@ def phase_bench_step(torch, device, card, time_reps):
     step()  # warm-up
     _sync(torch, device)
     torch.cuda.reset_peak_memory_stats()
-    fb.launches = fb.residual_launches = fbb.launches = 0
+    reset_counts()
     loss, stats = step()
     _sync(torch, device)
     counts = (fb.launches, fb.residual_launches, fbb.launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    grads = [x.grad.detach().cpu().numpy() for x in leaves]
+    grads = _leaf_grads(leaves)
     segments = float(stats.segments)
     log(f"one step: loss {float(loss.detach()):.7f}, segments {segments:.0f} (mean depth "
         f"{segments / lanes:.4f}), launches K1 {counts[0]}, K1-res {counts[1]}, "
         f"K2 {counts[2]}, peak memory {peak_gb:.3f} GB")
-    log("gradients: " + ", ".join(f"|{n}| {np.abs(g).sum():.6e}" for n, g in zip(
-        ("tex_color", "background", "camera"), (grads[0], grads[1],
-                                               np.concatenate([g.ravel() for g in grads[2:]])))))
+    log("gradients: " + _grad_sums(grads))
     check(counts[1] == nb and counts[2] == nb and counts[0] == nb,
           f"a step launched K1 {counts[0]}, K1-res {counts[1]}, K2 {counts[2]} "
           f"times, want {nb} each")
     check(all(np.isfinite(g).all() for g in grads), "non-finite gradients")
     check(np.abs(grads[0]).sum() > 0, "tex_color's gradient is zero")
 
-    def batch():
-        t0 = time.perf_counter()
-        for _ in range(STEP["reps"]):
-            loss, _ = step()
-        sum(float(x.grad.abs().sum()) for x in leaves)  # device -> host
-        float(loss.detach())
-        return (time.perf_counter() - t0) / STEP["reps"]
-
-    times = sorted(batch() for _ in range(STEP["batches"]))
-    while ((times[-1] - times[0]) / times[len(times) // 2] > STEP["spread_tol"]
-           and len(times) < STEP["max_batches"]):
-        times.append(batch())
-        times.sort()
-    med = times[len(times) // 2]
-    spread = (times[-1] - times[0]) / med
+    med, spread, times = _batch_median(step, leaves, STEP)
     log(f"bench-shaped step on {card}: median {med * 1e3:.2f} ms over "
         f"{len(times)} batches of {STEP['reps']} (spread {spread:.3f}; batches "
         f"{[round(t * 1e3, 2) for t in times]} ms), segments/s {segments / med:.4e}")
-
-    # the step's split, CUDA events, median of 3
-    def events_ms(fn):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = fn()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b), out
 
     cam = DiffParams.from_leaves(leaves).camera.build()
     pix = torch.arange(W * H, dtype=torch.int64, device=device)
@@ -691,22 +728,11 @@ def phase_bench_step(torch, device, card, time_reps):
         return _make_lanes(cam, key, pix, 0, width=W, height=H, spp_chunk=spp,
                            spp_total=spp)
 
-    split = {"lanes": [], "draws": [], "forward": [], "backward": []}
-    for _ in range(3):
-        ms, lk = events_ms(lanes_fn)
-        split["lanes"].append(ms)
-        split["draws"].append(events_ms(lambda: _precompute_draws(lk[0], nb, nb + 1))[0])
-        for x in leaves:
-            x.grad = None
-        ms, (loss, _) = events_ms(forward)
-        split["forward"].append(ms)
-        split["backward"].append(events_ms(loss.backward)[0])
-    split = {k: statistics.median(v) for k, v in split.items()}
-    scan = split["forward"] - split["lanes"] - split["draws"]
+    split = _step_split(torch, leaves, forward, lanes_fn, nb)
     log(f"step split on {card} (CUDA events, median of 3): forward "
         f"{split['forward']:.2f} ms = lanes {split['lanes']:.2f} + RNG draws "
         f"{split['draws']:.2f} + bounce loop with residuals and the rest "
-        f"{scan:.2f}; backward {split['backward']:.2f} ms")
+        f"{split['loop']:.2f}; backward {split['backward']:.2f} ms")
 
     # K1, K1 with residuals, K2 and the plain versions at the step's width:
     # the first bounce of the bench chunk
@@ -749,8 +775,512 @@ def phase_bench_step(torch, device, card, time_reps):
     for name, v in ms.items():
         log(f"{name} at {lanes} lanes on {card}: {statistics.mean(v):.4f} ms per "
             f"launch (blocks {[round(x, 4) for x in v]})")
+    # K1-res: 19 columns in, 13 columns and 10 residual planes out; K2: 28
+    # columns in, 9 columns and the (9P + 3) reductions out
+    ins = nbytes(table, bg, *cols.values(), *uni)
+    k1res_bound = bound(ins + (13 + 10) * 4 * lanes, sweep_ops(scene.kinds_static, lanes))
+    k2_bound = bound((28 + 9) * 4 * lanes + (9 * scene.num_prims + 3) * 4 + nbytes(bg),
+                     K2_LANE_OPS * lanes)
+    log(f"bounds at {lanes} lanes: K1-res {k1res_bound[0]:.4f} ms ({k1res_bound[1]}), "
+        f"K2 {k2_bound[0]:.4f} ms ({k2_bound[1]})")
     return dict(k1res_launches=counts[1], k2_launches=counts[2],
-                ms={k: statistics.mean(v) for k, v in ms.items()})
+                ms={k: statistics.mean(v) for k, v in ms.items()},
+                bounds={"K1-res": k1res_bound, "K2": k2_bound})
+
+
+# ---------------------------------------------------------------------------
+# phases 10-13: the generic bounce path (K3, K4)
+# ---------------------------------------------------------------------------
+
+
+def _hit_columns(rec_or_t, hit, idx, kinds):
+    """(exact, floats) numpy views of a K4 result (hit, t, idx) or a K3
+    result (hit, t, idx, rec): the exact part is hit, idx, the winner's
+    kind (-1 on a miss) and, for K3, mat and front; the floats are t and,
+    for K3, point, normal, u, v as (lanes, k) columns."""
+    hit_np, idx_np = hit.cpu().numpy(), idx.cpu().numpy()
+    kind = np.where(hit_np, kinds[idx_np], -1)
+    if not hasattr(rec_or_t, "point"):
+        return [hit_np, idx_np, kind], rec_or_t.cpu().numpy()[:, None]
+    rec = rec_or_t
+    exact = [hit_np, idx_np, kind, rec.mat.cpu().numpy(), rec.front_face.cpu().numpy()]
+    floats = np.concatenate([rec.t.cpu().numpy()[:, None], rec.point.cpu().numpy(),
+                             rec.normal.cpu().numpy(), rec.u.cpu().numpy()[:, None],
+                             rec.v.cpu().numpy()[:, None]], 1)
+    return exact, floats
+
+
+def compare_hits(name, kernel_out, plain_out, kinds):
+    """Hold a K3 / K4 result against its plain version's: the exact part
+    equal on every lane; the floats within CH_RTOL rel + CH_ATOL abs,
+    apart from at most MAX_SEAM_LANES sphere-uv seam lanes (u = 0 on one
+    side, 1 on the other, where atan2 meets +-pi).  Returns the max abs
+    error outside the seam lanes."""
+    k_ex, k_fl = _hit_columns(kernel_out[3] if len(kernel_out) == 4 else kernel_out[1],
+                              kernel_out[0], kernel_out[2], kinds)
+    p_ex, p_fl = _hit_columns(plain_out[3] if len(plain_out) == 4 else plain_out[1],
+                              plain_out[0], plain_out[2], kinds)
+    for label, a, b in zip(("hit", "idx", "kind", "mat", "front"), k_ex, p_ex):
+        bad = a != b
+        log(f"{name} {label}: {int(bad.sum())} mismatches")
+        check(not bad.any(), f"{name}: {label} differs from the plain version")
+    err = np.abs(k_fl.astype(np.float64) - p_fl)
+    bad = (err > CH_ATOL + CH_RTOL * np.abs(p_fl)).any(axis=1)
+    seam = np.zeros_like(bad)
+    if k_fl.shape[1] > 1:  # K3: u is column 7
+        seam = bad & (k_ex[2] == 0) & (np.abs(k_fl[:, 7] - p_fl[:, 7]) > 0.5)
+    max_abs = float(err[~seam].max()) if (~seam).any() else 0.0
+    hits = p_ex[0]
+    log(f"{name}: {len(hits)} lanes, {int(hits.sum())} hits; float mismatches "
+        f"{int(bad.sum())} (sphere-uv seam {int(seam.sum())}), max abs err "
+        f"{max_abs:.3e}")
+    for i in np.nonzero(bad & ~seam)[0][:5]:
+        log(f"  lane {i}: kernel {k_fl[i].tolist()} plain {p_fl[i].tolist()}")
+    check(not (bad & ~seam).any(),
+          f"{name}: floats differ beyond {CH_RTOL} rel + {CH_ATOL} abs")
+    check(int(seam.sum()) <= MAX_SEAM_LANES,
+          f"{name}: {int(seam.sum())} seam lanes > {MAX_SEAM_LANES}")
+    return max_abs
+
+
+def time_hits(torch, device, card, name, kernel, plain, args, kw, record, reps):
+    """Time one of K3 / K4 against its plain version on ``args`` and
+    compute its bound; returns a dict of ms, plain_ms, blocks, bound."""
+    table, o, d = args
+    lanes = o.shape[0]
+    ms = time_pair(torch, device, lambda: kernel(*args, **kw),
+                   lambda: plain(*args, **kw), reps)
+    out_bytes = (46 if record else 9) * lanes
+    b_ms, b_by = bound(nbytes(table, o, d) + out_bytes,
+                       sweep_ops(kw["kinds"], lanes, record=record))
+    k_ms, p_ms = statistics.mean(ms["kernel"]), statistics.mean(ms["plain"])
+    log(f"{name} at {lanes} lanes ({table.shape[1]} primitives) on {card}: "
+        f"{k_ms:.4f} ms per launch (blocks of {reps}: "
+        f"{[round(x, 4) for x in ms['kernel']]}, spread {_spread(ms['kernel']):.3f}); "
+        f"plain on the same CUDA tensors {p_ms:.4f} ms "
+        f"({[round(x, 4) for x in ms['plain']]}); bound {b_ms:.4f} ms ({b_by})")
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_closest_hit_vs_plain(torch, device, card, n_lanes, time_reps):
+    log(f"== phase 10: K3 and K4 vs plain on {n_lanes} lanes")
+    from rust_pathtracer_tpu_torch.integrator import T_MIN
+    from rust_pathtracer_tpu_torch.ops import closest_hit as ch
+
+    cols_np, _ = random_lanes(n_lanes)
+    scene = full_scene(device)
+    args = (ch.pack_prims(scene.prims),
+            torch.tensor(np.ascontiguousarray(cols_np[0:3].T), device=device),
+            torch.tensor(np.ascontiguousarray(cols_np[3:6].T), device=device))
+    kw = dict(kinds=scene.kinds_static, t_min=T_MIN)
+    kinds = scene.prims.kind.cpu().numpy()
+    out = {}
+    for name, kernel, plain, record in (
+            ("K4", ch.closest_hit, ch.closest_hit_plain, False),
+            ("K3", ch.closest_hit_record, ch.closest_hit_record_plain, True)):
+        k, p = kernel(*args, **kw), plain(*args, **kw)
+        _sync(torch, device)
+        err = compare_hits(name, k, p, kinds)
+        out[name] = dict(time_hits(torch, device, card, name, kernel, plain, args, kw,
+                                   record, time_reps), max_abs_err=err)
+    return out
+
+
+def simple_scene(device):
+    """tests/test_grad.py::_scene_simple: a lambertian sphere, a ground
+    sphere with an 8x8 image ramp, a rect light."""
+    from rust_pathtracer_tpu_torch.scene.builder import SceneBuilder
+
+    b = SceneBuilder()
+    b.add_sphere((0.0, 0.5, -3.0), 0.5, b.lambertian((0.4, 0.5, 0.6)))
+    ramp = np.linspace(0.1, 0.9, 8 * 8 * 3).reshape(8, 8, 3).astype(np.float32)
+    b.add_sphere((0.0, -100.0, -3.0), 100.0, b.lambertian(b.image_texture(ramp)))
+    b.add_rect("xz", (-2.0, 4.0, -5.0), (2.0, 4.0, -1.0), -1.0,
+               b.diffuse_light((5.0, 5.0, 5.0)))
+    return b.build(use_bvh=False, device=device)
+
+
+def _first_bounce(torch, device, cam, key, cfg):
+    """The camera rays of a one-chunk frame (its first bounce)."""
+    from rust_pathtracer_tpu_torch.render import _make_lanes
+
+    W, H, spp = cfg["width"], cfg["height"], cfg["spp"]
+    pix = torch.arange(W * H, dtype=torch.int64, device=device)
+    with torch.no_grad():
+        _, o, d, _ = _make_lanes(cam, key, pix, 0, width=W, height=H, spp_chunk=spp,
+                                 spp_total=spp)
+    return o.contiguous(), d.contiguous()
+
+
+def phase_generic_forward(torch, device, card, time_reps):
+    cfg = GENERIC
+    W, H, spp, nb = cfg["width"], cfg["height"], cfg["spp"], cfg["bounces"]
+    lanes = W * H * spp
+    log(f"== phase 11: non-differentiable generic render, image-textured scene "
+        f"{W}x{H}, {spp} spp, {nb} bounces, one chunk of {lanes} lanes")
+    from rust_pathtracer_tpu_torch.camera import make_camera
+    from rust_pathtracer_tpu_torch.integrator import T_MIN
+    from rust_pathtracer_tpu_torch.ops import closest_hit as ch
+    from rust_pathtracer_tpu_torch.ops.fused_bounce import fused_bounce_ok
+    from rust_pathtracer_tpu_torch.render import RenderSettings, render_radiance
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+    from rust_pathtracer_tpu_torch.utils.image import image_agreement, to_rgb8, write_png
+
+    scene = simple_scene(device)
+    check(not fused_bounce_ok(scene), "the image scene would take the fused route")
+    cam = make_camera(*SIMPLE_CAM, device=device)
+    key = prng_key(cfg["seed"], device=device)
+    settings = RenderSettings(W, H, spp, nb, SIMPLE_BG)
+    check(settings.resolve_chunk() == spp, "the frame is not one chunk")
+
+    _sync(torch, device)
+    reset_counts()
+    t0 = time.perf_counter()
+    img, stats = render_radiance(scene, cam, settings, key, device=device)
+    _sync(torch, device)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    img_np = img.cpu().numpy()
+    segments = float(stats.segments)
+    log(f"{W}x{H} on {card}: wall {wall:.3f} s, segments {segments:.0f}, segments/s "
+        f"{segments / wall:.4e}, bounces {stats.bounces}, launches {counts}, image mean "
+        f"{img_np.mean():.6f}")
+    check(np.isfinite(img_np).all(), "the generic render has non-finite pixels")
+    check((img_np >= 0).all(), "the generic render has negative pixels")
+    check(counts["K3"] == stats.bounces > 0,
+          f"K3 launched {counts['K3']} times in {stats.bounces} bounces")
+    check(counts["K1"] == counts["K4"] == 0, "the generic forward left its route")
+    img2, _ = render_radiance(scene, cam, settings, key, device=device)
+    check(torch.equal(img, img2), "the generic render twice differs")
+    log("rendered twice: bitwise equal")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    png = os.path.join(OUT_DIR, f"image_scene_{W}x{H}_{spp}spp.png")
+    write_png(png, to_rgb8(img_np))
+    log(f"wrote {png}")
+
+    small = RenderSettings(64, 36, 8, 8, SIMPLE_BG)
+    imgs = [render_radiance(simple_scene(dev), make_camera(*SIMPLE_CAM, device=dev),
+                            small, prng_key(cfg["seed"], device=dev), device=dev)[0]
+            for dev in (device, "cpu")]
+    a = image_agreement(imgs[0].cpu().numpy(), imgs[1].numpy())
+    log(f"64x36, 8 spp, 8 bounces, card vs CPU: mean rel {a['mean_rel']:.2e}, pixels "
+        f"close {a['frac_close']:.4f}, nan {a['has_nan']}")
+    check(a["ok"], "the card's generic render breaks the image contract against the CPU")
+
+    # K3 against its plain version at this path's shape: the first bounce
+    args = (ch.pack_prims(scene.prims), *_first_bounce(torch, device, cam, key, cfg))
+    kw = dict(kinds=scene.kinds_static, t_min=T_MIN)
+    err = compare_hits("K3", ch.closest_hit_record(*args, **kw),
+                       ch.closest_hit_record_plain(*args, **kw),
+                       scene.prims.kind.cpu().numpy())
+    return dict(time_hits(torch, device, card, "K3", ch.closest_hit_record,
+                          ch.closest_hit_record_plain, args, kw, True, time_reps),
+                launches=counts["K3"], max_abs_err=err)
+
+
+def _diff_leaves(torch, scene, cam, bg, device):
+    from rust_pathtracer_tpu_torch.grad import CameraParams, DiffParams
+
+    params = DiffParams.from_scene(scene, CameraParams.create(*cam, device=device), bg)
+    return [x.detach().clone().requires_grad_(True) for x in params.leaves()]
+
+
+def _diff_forward(scene, leaves, settings, key, device):
+    from rust_pathtracer_tpu_torch.grad import DiffParams, apply_params
+    from rust_pathtracer_tpu_torch.render import render_radiance
+
+    p = DiffParams.from_leaves(leaves)
+    img, stats = render_radiance(apply_params(scene, p), p.camera.build(), settings, key,
+                                 background=p.background, device=device)
+    return img.mean(), stats
+
+
+def phase_main_step(torch, device, card, time_reps):
+    cfg = MAIN
+    W, H, spp, nb = cfg["width"], cfg["height"], cfg["spp"], cfg["bounces"]
+    lanes = W * H * spp
+    log(f"== phase 12 (main path): differentiable TwoSphereCheckers step {W}x{H}, "
+        f"{spp} spp, {nb} bounces, one chunk of {lanes} lanes, loss = mean(img)")
+    from rust_pathtracer_tpu_torch.grad import (
+        CameraParams, DiffParams, render_loss_and_grad,
+    )
+    from rust_pathtracer_tpu_torch.integrator import T_MIN, resolve_remat_mode
+    from rust_pathtracer_tpu_torch.models import get_scene
+    from rust_pathtracer_tpu_torch.ops import closest_hit as ch
+    from rust_pathtracer_tpu_torch.render import RenderSettings, _make_lanes
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+
+    scene = get_scene("TwoSphereCheckers").build(device=device)
+    settings = RenderSettings(W, H, spp, nb, TSC_BG, differentiable=True)
+    check(settings.resolve_chunk() == spp, "the frame is not one chunk")
+    mode = resolve_remat_mode(settings.remat, lanes, nb)
+    check(mode == "none", f"remat auto resolved to {mode!r}, want 'none'")
+    key = prng_key(cfg["seed"], device=device)
+    leaves = _diff_leaves(torch, scene, TSC_CAM, TSC_BG, device)
+
+    def forward():
+        return _diff_forward(scene, leaves, settings, key, device)
+
+    def step():
+        _zero_grads(leaves)
+        loss, stats = forward()
+        loss.backward()
+        return loss, stats
+
+    t0 = time.perf_counter()
+    loss0, _ = step()  # warm-up, and the first of two steps on one key
+    _sync(torch, device)
+    log(f"first step {time.perf_counter() - t0:.3f} s")
+    grads0 = _leaf_grads(leaves)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    loss, stats = step()
+    _sync(torch, device)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    grads = _leaf_grads(leaves)
+    segments = float(stats.segments)
+    kept = (peak - base) / (lanes * nb)
+    log(f"one step: loss {float(loss.detach()):.7f}, segments {segments:.0f} (mean depth "
+        f"{segments / lanes:.4f}), launches {counts}, peak memory {peak / 1e9:.3f} GB "
+        f"({(peak - base) / 1e9:.3f} GB above the {base / 1e9:.3f} GB before the step: "
+        f"{kept:.1f} B a lane-bounce with remat 'none')")
+    log("gradients: " + _grad_sums(grads))
+    check(counts["K4"] == nb, f"K4 launched {counts['K4']} times, want {nb}")
+    check(counts["K1"] == counts["K1-res"] == counts["K2"] == counts["K3"] == 0,
+          "the generic step left its route")
+    check(all(np.isfinite(g).all() for g in grads), "non-finite gradients")
+    check(np.abs(grads[2]).min() > 0, "a background gradient is zero")
+    check(np.abs(np.concatenate([g.ravel() for g in grads[3:]])).max() > 0,
+          "the camera gradients are zero")
+    same = (float(loss0.detach()) == float(loss.detach())
+            and all(np.array_equal(a, b) for a, b in zip(grads0, grads)))
+    log(f"two steps on one key: loss and gradients bitwise equal: {same}")
+    check(same, "two steps on one key differ")
+
+    med, spread, times = _batch_median(step, leaves, MAIN_STEP)
+    log(f"TwoSphereCheckers step on {card}: median {med * 1e3:.2f} ms over "
+        f"{len(times)} batches of {MAIN_STEP['reps']} (spread {spread:.3f}; batches "
+        f"{[round(t * 1e3, 2) for t in times]} ms), segments/s {segments / med:.4e}")
+    cam = DiffParams.from_leaves(leaves).camera.build()
+    pix = torch.arange(W * H, dtype=torch.int64, device=device)
+
+    def lanes_fn():
+        return _make_lanes(cam, key, pix, 0, width=W, height=H, spp_chunk=spp,
+                           spp_total=spp)
+
+    split = _step_split(torch, leaves, forward, lanes_fn, nb)
+    log(f"step split on {card} (CUDA events, median of 3): forward "
+        f"{split['forward']:.2f} ms = lanes {split['lanes']:.2f} + RNG draws "
+        f"{split['draws']:.2f} + bounce loop and the rest {split['loop']:.2f}; "
+        f"backward {split['backward']:.2f} ms")
+
+    # K4 against its plain version at this path's shape: the first bounce
+    args = (ch.pack_prims(scene.prims), *_first_bounce(torch, device, cam, key, cfg))
+    kw = dict(kinds=scene.kinds_static, t_min=T_MIN)
+    err = compare_hits("K4", ch.closest_hit(*args, **kw), ch.closest_hit_plain(*args, **kw),
+                       scene.prims.kind.cpu().numpy())
+    k4 = dict(time_hits(torch, device, card, "K4", ch.closest_hit, ch.closest_hit_plain,
+                        args, kw, False, time_reps),
+              launches=counts["K4"], max_abs_err=err)
+
+    # the same step at 16x9 on the card against the CPU
+    small = RenderSettings(16, 9, 4, 6, TSC_BG)
+    cpu_scene = get_scene("TwoSphereCheckers").build()
+    params = DiffParams.from_scene(cpu_scene, CameraParams.create(*TSC_CAM), TSC_BG)
+    out = {dev: render_loss_and_grad(params, cpu_scene, small, prng_key(cfg["seed"]),
+                                     torch.zeros(9, 16, 3), device=dev)
+           for dev in ("cpu", device)}
+    (l0, g0), (l1, g1) = out["cpu"], out[device]
+    g0, g1 = _grad_leaves(g0), _grad_leaves(g1)
+    scale = max(np.abs(x).max() for x in g0)
+    log(f"16x9 step, card vs CPU: loss {float(l1):.7f} vs {float(l0):.7f}, max abs "
+        f"gradient difference {max(np.abs(a - b).max() for a, b in zip(g1, g0)):.3e} "
+        f"(largest gradient {scale:.4e})")
+    check(abs(float(l1) - float(l0)) <= STEP_LOSS_RTOL * abs(float(l0)),
+          "the card's 16x9 loss differs")
+    for name, a, b in zip(LEAF_NAMES, g1, g0):
+        check((np.abs(a - b) <= STEP_GRAD_ATOL_REL * scale
+               + STEP_GRAD_RTOL * np.abs(b)).all(),
+              f"the card's 16x9 gradient of {name} differs from the CPU's")
+    return k4
+
+
+def phase_light_step(torch, device, card):
+    cfg = LIGHT
+    W, H, spp, nb = cfg["width"], cfg["height"], cfg["spp"], cfg["bounces"]
+    lanes = W * H * spp
+    log(f"== phase 13: differentiable LightTest step {W}x{H}, {spp} spp, {nb} "
+        f"bounces, one chunk of {lanes} lanes, remat 'auto'")
+    from rust_pathtracer_tpu_torch.integrator import resolve_remat_mode
+    from rust_pathtracer_tpu_torch.models import get_scene
+    from rust_pathtracer_tpu_torch.render import RenderSettings
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+
+    scene = get_scene("LightTest").build(device=device)
+    settings = RenderSettings(W, H, spp, nb, (0.0, 0.0, 0.0), differentiable=True,
+                              remat="auto")
+    check(settings.resolve_chunk() == spp, "the frame is not one chunk")
+    mode = resolve_remat_mode(settings.remat, lanes, nb)
+    check(mode != "none", "remat auto did not resolve to a checkpointed mode")
+    leaves = _diff_leaves(torch, scene, LIGHT_CAM, (0.0, 0.0, 0.0), device)
+    key = prng_key(cfg["seed"], device=device)
+    for run in ("first (warm-up of this route)", "second"):
+        _zero_grads(leaves)
+        _sync(torch, device)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        t0 = time.perf_counter()
+        loss, stats = _diff_forward(scene, leaves, settings, key, device)
+        loss.backward()
+        _sync(torch, device)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        segments = float(stats.segments)
+        log(f"{run} step (remat {mode!r}) on {card}: {wall:.3f} s, loss "
+            f"{float(loss.detach()):.7f}, segments {segments:.0f} (mean depth "
+            f"{segments / lanes:.4f}), segments/s {segments / wall:.4e}, launches "
+            f"{counts}, peak memory {peak / 1e9:.3f} GB ({(peak - base) / 1e9:.3f} GB "
+            f"above the {base / 1e9:.3f} GB before the step)")
+    grads = _leaf_grads(leaves)
+    log("gradients: " + _grad_sums(grads))
+    check(counts["K4"] == nb,
+          f"K4 launched {counts['K4']} times over forward and backward, want {nb}")
+    check(all(np.isfinite(g).all() for g in grads), "non-finite gradients")
+    check(np.abs(grads[0]).sum() > 0, "tex_color's gradient is zero")
+
+
+# ---------------------------------------------------------------------------
+# shared helpers: launch counts, batches, splits, bounds
+# ---------------------------------------------------------------------------
+
+
+def reset_counts():
+    """Every kernel's launch count to 0."""
+    from rust_pathtracer_tpu_torch.ops import closest_hit as ch
+    from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
+    from rust_pathtracer_tpu_torch.ops import fused_bounce_bwd as fbb
+
+    fb.launches = fb.residual_launches = fbb.launches = 0
+    ch.hit_launches = ch.record_launches = 0
+
+
+def read_counts():
+    from rust_pathtracer_tpu_torch.ops import closest_hit as ch
+    from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
+    from rust_pathtracer_tpu_torch.ops import fused_bounce_bwd as fbb
+
+    return {"K1": fb.launches - fb.residual_launches, "K1-res": fb.residual_launches,
+            "K2": fbb.launches, "K3": ch.record_launches, "K4": ch.hit_launches}
+
+
+def _grad_sums(grads):
+    return ", ".join(f"|{n}| {np.abs(g).sum():.6e}" for n, g in zip(
+        ("tex_color", "tex_images", "background", "camera"),
+        (*grads[:3], np.concatenate([g.ravel() for g in grads[3:]]))))
+
+
+def _batch_median(step, leaves, cfg):
+    """bench.py's protocol: batches of ``reps`` steps, each closed by a
+    device -> host fetch of a gradient checksum and the loss; more
+    batches while (max - min) / median > spread_tol.  Returns (median
+    seconds a step, spread, sorted batch times)."""
+    def batch():
+        t0 = time.perf_counter()
+        for _ in range(cfg["reps"]):
+            loss, _ = step()
+        sum(float(x.grad.abs().sum()) for x in leaves if x.grad is not None)
+        float(loss.detach())
+        return (time.perf_counter() - t0) / cfg["reps"]
+
+    times = sorted(batch() for _ in range(cfg["batches"]))
+    while ((times[-1] - times[0]) / times[len(times) // 2] > cfg["spread_tol"]
+           and len(times) < cfg["max_batches"]):
+        times.append(batch())
+        times.sort()
+    med = times[len(times) // 2]
+    return med, (times[-1] - times[0]) / med, times
+
+
+def _events_ms(torch, fn):
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b), out
+
+
+def _step_split(torch, leaves, forward, lanes_fn, nb):
+    """A step's split by CUDA events, median of 3: lanes, RNG draws,
+    the bounce loop (the forward less the two), the backward."""
+    from rust_pathtracer_tpu_torch.integrator import _precompute_draws
+
+    split = {"lanes": [], "draws": [], "forward": [], "backward": []}
+    for _ in range(3):
+        ms, lk = _events_ms(torch, lanes_fn)
+        split["lanes"].append(ms)
+        split["draws"].append(_events_ms(
+            torch, lambda: _precompute_draws(lk[0], nb, nb + 1))[0])
+        _zero_grads(leaves)
+        ms, (loss, _) = _events_ms(torch, forward)
+        split["forward"].append(ms)
+        split["backward"].append(_events_ms(torch, loss.backward)[0])
+    split = {k: statistics.median(v) for k, v in split.items()}
+    split["loop"] = split["forward"] - split["lanes"] - split["draws"]
+    return split
+
+
+def time_pair(torch, device, kernel, plain, reps):
+    """A kernel and its plain version on the same inputs, in turns
+    (plain, kernel, kernel, plain), blocks of ``reps`` launches each;
+    CUDA events.  Returns {name: [ms a launch of each block]}."""
+    ms = {"kernel": [], "plain": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        ms[name].append(_time_ms(torch, device, kernel if name == "kernel" else plain,
+                                 reps))
+    return ms
+
+
+def _spread(v):
+    return (max(v) - min(v)) / statistics.mean(v)
+
+
+# The card's peaks (NVIDIA H100 SXM data sheet)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+# f32 operations a lane spends on one primitive in the sweep of K1, K3
+# and K4, counted from the kernel sources (divisions and square roots
+# count one; compares and selects none): a lower bound of the work
+SWEEP_OPS = {0: 24, 1: 6, 2: 46}
+# K3's record on top: a sphere's normal, a rect's uv, and per lane the
+# front test, the point, the flip and the sphere uv
+RECORD_OPS = {0: 12, 1: 6, 2: 0}
+RECORD_LANE_OPS = 20
+# K2 per lane (the per-lane VJP, fused_bounce_bwd.cu's header)
+K2_LANE_OPS = 150
+
+
+def bound(n_bytes, n_ops):
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the f32 operations over the f32 peak."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_F32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sweep_ops(kinds, lanes, record=False):
+    per_lane = 5 + sum(SWEEP_OPS[k] + (RECORD_OPS[k] if record else 0)
+                       for k, _ in kinds)
+    return lanes * (per_lane + (RECORD_LANE_OPS if record else 0))
+
+
+def nbytes(*tensors):
+    return sum(x.numel() * x.element_size() for x in tensors)
 
 
 def _time_ms(torch, device, fn, reps):
@@ -786,42 +1316,40 @@ def main() -> int:
     phase_build()
     max_abs = phase_kernel_vs_plain(torch, device, K1_LANES)
     phase_goldens(torch, device)
-    launches, k_ms, p_ms = phase_serve(torch, device, card, SERVE, BENCH,
-                                       time_reps=20)
+    k1 = phase_serve(torch, device, card, SERVE, BENCH, time_reps=20)
     res_err, cols_np, res_np = phase_residuals(torch, device, K1_LANES)
     k2_err = phase_bwd_vs_plain(torch, device, cols_np, res_np)
     phase_small_step(torch, device)
     step = phase_bench_step(torch, device, card, time_reps=20)
+    ch10 = phase_closest_hit_vs_plain(torch, device, card, K1_LANES, time_reps=20)
+    k3 = phase_generic_forward(torch, device, card, time_reps=20)
+    k4 = phase_main_step(torch, device, card, time_reps=20)
+    phase_light_step(torch, device, card)
 
-    k1_src = "rust_pathtracer_tpu_torch/ops/csrc/fused_bounce.cu"
-    kernels = {"kernels": [{
-        "name": "fused_bounce (K1)",
-        "route": "cuda",
-        "source": k1_src,
-        "replaces": "rust_pathtracer_tpu/ops/fused_bounce.py:169",
-        "launches": launches,
-        "max_abs_err": max_abs,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }, {
-        "name": "fused_bounce with residuals (K1-res)",
-        "route": "cuda",
-        "source": k1_src,
-        "replaces": "rust_pathtracer_tpu/ops/fused_bounce.py:464",
-        "launches": step["k1res_launches"],
-        "max_abs_err": res_err,
-        "ms": step["ms"]["K1-res"],
-        "plain_ms": step["ms"]["K1-res plain"],
-    }, {
-        "name": "fused_bounce_bwd (K2)",
-        "route": "cuda",
-        "source": "rust_pathtracer_tpu_torch/ops/csrc/fused_bounce_bwd.cu",
-        "replaces": "rust_pathtracer_tpu/ops/fused_bounce.py:618",
-        "launches": step["k2_launches"],
-        "max_abs_err": k2_err,
-        "ms": step["ms"]["K2"],
-        "plain_ms": step["ms"]["K2 plain"],
-    }]}
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bound_):
+        return {"name": name, "route": "cuda",
+                "source": f"rust_pathtracer_tpu_torch/ops/csrc/{source}",
+                "replaces": f"rust_pathtracer_tpu/ops/{replaces}", "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_[0], "bound_by": bound_[1], "library_ms": None}
+
+    kernels = {"kernels": [
+        entry("fused_bounce (K1)", "fused_bounce.cu", "fused_bounce.py:169",
+              k1["launches"], max_abs, k1["ms"], k1["plain_ms"],
+              (k1["bound_ms"], k1["bound_by"])),
+        entry("fused_bounce with residuals (K1-res)", "fused_bounce.cu",
+              "fused_bounce.py:464", step["k1res_launches"], res_err,
+              step["ms"]["K1-res"], step["ms"]["K1-res plain"], step["bounds"]["K1-res"]),
+        entry("fused_bounce_bwd (K2)", "fused_bounce_bwd.cu", "fused_bounce.py:618",
+              step["k2_launches"], k2_err, step["ms"]["K2"], step["ms"]["K2 plain"],
+              step["bounds"]["K2"]),
+        entry("closest_hit_record (K3)", "closest_hit.cu", "pallas_intersect.py:196",
+              k3["launches"], max(k3["max_abs_err"], ch10["K3"]["max_abs_err"]),
+              k3["ms"], k3["plain_ms"], (k3["bound_ms"], k3["bound_by"])),
+        entry("closest_hit (K4)", "closest_hit.cu", "pallas_intersect.py:64",
+              k4["launches"], max(k4["max_abs_err"], ch10["K4"]["max_abs_err"]),
+              k4["ms"], k4["plain_ms"], (k4["bound_ms"], k4["bound_by"])),
+    ]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,17 +5,22 @@ Pallas kernels rewritten by hand for NVIDIA Hopper (sm_90a).  The JAX
 package stays the reference: every module here names its counterpart
 there, and ``tests/test_torch_*.py`` hold each one against it.
 
-This slice covers the non-differentiable forward render of the scenes
-whose whole bounce fits the fused-bounce kernel (CornellBox,
-TriangleTest, TwoSphereCheckers, LightTest):
+It renders and differentiates every scene of at most 128 primitives:
 
 * counter-based threefry RNG, legacy stream, bit-exact (sampling)
-* scene tables and the packed shading table (scene, ops.fused_bounce)
+* scene tables, image textures included, and the packed kernel tables
+  (scene, ops.fused_bounce, ops.closest_hit)
 * camera lanes and the chunked frame loop (camera, render)
-* the bounce loop with russian roulette (integrator)
-* one whole bounce per launch in the CUDA kernel K1
-  (ops/csrc/fused_bounce.cu), with a plain PyTorch twin for CPU tensors
+* the bounce loops with russian roulette (integrator): the fused route,
+  one whole bounce per launch of the CUDA kernel K1
+  (ops/csrc/fused_bounce.cu) and, differentiable, K1 with residuals and
+  the backward kernel K2 (ops/csrc/fused_bounce_bwd.cu); the generic
+  route for image textures, nested checkers and differentiable perlin,
+  with the searches K3 and K4 (ops/csrc/closest_hit.cu) and the shading
+  in tensor ops (textures, materials, ops.intersect)
+* image gradients for inverse rendering (grad)
 
+Every kernel has a plain PyTorch twin, which CPU tensors run.
 Everything takes an explicit ``device``; there is no global device state.
 """
 

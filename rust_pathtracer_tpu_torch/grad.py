@@ -2,8 +2,9 @@
 
 Counterpart of ``rust_pathtracer_tpu/grad.py``; plain tensor code.
 Image gradients with respect to the texture colours (albedo and
-emission both live in the texture table), the background and the seven
-camera parameters, by the detached-sampling estimator of the
+emission both live in the texture table), the image texels, the
+background and the seven camera parameters, by the detached-sampling
+estimator of the
 integrator: random decisions and the discrete hit search are fixed,
 while radiance stays differentiable through
 
@@ -12,15 +13,14 @@ while radiance stays differentiable through
 
 The parameters are frozen dataclasses of tensors (not ``nn.Module``s):
 set ``requires_grad`` on the leaves, or let ``render_loss_and_grad``
-do it.  The JAX ``DiffParams.tex_images`` leaf is left out: image
-textures are not ported yet (ROADMAP queue 1 item 8).
+do it.
 
 Typical use::
 
     params = DiffParams.from_scene(scene, CameraParams.create(...), background)
     loss, grads = render_loss_and_grad(params, scene, settings, key, target,
                                        device="cuda")
-    # grads.tex_color, grads.background, grads.camera.*
+    # grads.tex_color, grads.tex_images, grads.background, grads.camera.*
 """
 
 from __future__ import annotations
@@ -36,8 +36,6 @@ from rust_pathtracer_tpu_torch.render import RenderSettings, render_radiance
 
 _CAMERA_FIELDS = ("lookfrom", "lookat", "up", "vfov_deg", "aspect",
                   "aperture", "focus_dist")
-# JAX DiffParams leaves the port does not carry (image textures)
-_SKIPPED_LEAVES = ("tex_images",)
 
 
 def _f32(x, device="cpu") -> torch.Tensor:
@@ -72,38 +70,43 @@ class CameraParams:
 
 @dataclasses.dataclass(frozen=True)
 class DiffParams:
-    """The differentiable leaves: texture colours, background, camera."""
+    """The differentiable leaves: texture colours, image texels,
+    background, camera (the JAX ``DiffParams``, field for field)."""
 
     tex_color: torch.Tensor   # Textures.color, (T, 3)
+    tex_images: torch.Tensor  # Textures.images, (I, Hmax, Wmax, 3)
     background: torch.Tensor  # (3,)
     camera: CameraParams
 
     @classmethod
     def from_scene(cls, scene, camera: CameraParams, background) -> "DiffParams":
         return cls(tex_color=scene.textures.color,
+                   tex_images=scene.textures.images,
                    background=_f32(background, scene.device), camera=camera)
 
     def leaves(self) -> Tuple[torch.Tensor, ...]:
-        """tex_color, background, then the camera's 7, in field order."""
-        return (self.tex_color, self.background,
+        """tex_color, tex_images, background, then the camera's 7, in
+        field order."""
+        return (self.tex_color, self.tex_images, self.background,
                 *(getattr(self.camera, f) for f in _CAMERA_FIELDS))
 
     @classmethod
     def from_leaves(cls, leaves) -> "DiffParams":
-        tex_color, background, *cam = leaves
-        return cls(tex_color=tex_color, background=background,
-                   camera=CameraParams(*cam))
+        tex_color, tex_images, background, *cam = leaves
+        return cls(tex_color=tex_color, tex_images=tex_images,
+                   background=background, camera=CameraParams(*cam))
 
 
 def diff_params_from_numpy(arrays: Mapping[str, np.ndarray],
                            device="cpu") -> DiffParams:
     """The port's DiffParams from the JAX package's, leaf for leaf.
 
-    ``arrays`` maps ``"tex_color"``, ``"background"`` and
-    ``"camera.<field>"`` to numpy arrays (the JAX ``DiffParams`` leaf
-    paths); ``"tex_images"`` is skipped, anything else raises."""
-    known = {"tex_color", "background", *(f"camera.{f}" for f in _CAMERA_FIELDS)}
-    unknown = set(arrays) - known - set(_SKIPPED_LEAVES)
+    ``arrays`` maps ``"tex_color"``, ``"tex_images"``, ``"background"``
+    and ``"camera.<field>"`` to numpy arrays (the JAX ``DiffParams`` leaf
+    paths); an unknown or a missing leaf raises."""
+    known = {"tex_color", "tex_images", "background",
+             *(f"camera.{f}" for f in _CAMERA_FIELDS)}
+    unknown = set(arrays) - known
     missing = known - set(arrays)
     if unknown or missing:
         raise ValueError(f"DiffParams leaves: unknown {sorted(unknown)}, "
@@ -113,14 +116,16 @@ def diff_params_from_numpy(arrays: Mapping[str, np.ndarray],
         return torch.tensor(np.asarray(arrays[path], np.float32), device=device)
 
     return DiffParams(
-        tex_color=t("tex_color"), background=t("background"),
+        tex_color=t("tex_color"), tex_images=t("tex_images"),
+        background=t("background"),
         camera=CameraParams(*(t(f"camera.{f}") for f in _CAMERA_FIELDS)),
     )
 
 
 def apply_params(scene, params: DiffParams):
     """Swap the differentiable leaves into the scene."""
-    textures = dataclasses.replace(scene.textures, color=params.tex_color)
+    textures = dataclasses.replace(scene.textures, color=params.tex_color,
+                                   images=params.tex_images)
     return dataclasses.replace(scene, textures=textures)
 
 

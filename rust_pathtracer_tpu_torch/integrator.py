@@ -1,30 +1,40 @@
-"""Iterative wavefront integrator: the forward bounce loop.
+"""Iterative wavefront integrator: the bounce loops.
 
-Counterpart of ``rust_pathtracer_tpu/integrator.py``; plain tensor
-code around the fused-bounce kernel (``ops/fused_bounce.py``), which
-runs each bounce.
+Counterpart of ``rust_pathtracer_tpu/integrator.py``; plain tensor code
+around the kernels.
 
 The reference integrator is the recursive ``Ray::color``
 (ray.rs:20-41).  The wavefront form carries (origin, direction,
-throughput, radiance, alive) for every lane as 13 (R,) columns and
-peels one bounce per iteration:
+throughput, radiance, alive) for every lane and peels one bounce per
+iteration:
 
     radiance += throughput * emitted            (hit lanes)
     radiance += throughput * background         (miss lanes; lane dies)
     throughput *= attenuation                   (scatter lanes)
 
-The non-differentiable loop is ``_trace_fused_cols``' while loop: it
-stops at ``max_bounces`` or once no lane is alive.  The differentiable
-one is the whole-scan ``autograd.Function`` of ``ops/fused_bounce.py``
-(``fused_scan_trace``): exactly ``max_bounces`` bounces through K1 with
-residuals, and K2 in the backward.  Optional russian roulette (off by
-default; the reference has none) runs between bounces.  t_min = 0.001
-(ray.rs:25) is in units of |direction|.
+Two routes, chosen per scene as in the JAX package:
 
-Not ported yet: the generic bounce path for scenes the fused kernels
-refuse (ROADMAP queue 1 item 8; in differentiable mode that includes
-perlin), its remat modes, the regen wavefront (item 9) and the cascade
-(item 11).
+* **fused**, for the scenes ``fused_bounce_ok`` admits (and, when
+  differentiable, ``fused_bounce_diff_ok``): the state as 13 (R,)
+  columns and one launch of K1 a bounce (``ops/fused_bounce.py``); the
+  differentiable loop is the whole-scan ``autograd.Function``
+  ``fused_scan_trace`` (K1 with residuals forward, K2 backward);
+* **generic**, for every other scene of at most 128 primitives (image
+  textures, nested checkers, and perlin when differentiable):
+  ``_bounce_step`` on (R, 3) tensors.  The search is a kernel: K3
+  (search and hit record) when not differentiable, K4 (the detached
+  search) when differentiable, followed by ``record_from_rows`` on the
+  gathered primitive rows; shading and scatter are plain tensor ops
+  (``materials.py``, ``textures.py``) and autograd differentiates them.
+
+The non-differentiable loops stop at ``max_bounces`` or once no lane is
+alive; the differentiable ones run exactly ``max_bounces`` bounces.
+Optional russian roulette (off by default; the reference has none) runs
+between bounces.  t_min = 0.001 (ray.rs:25) is in units of |direction|.
+
+Not ported: the geometry-gradient re-derivation (``RPT_DIFF_T=rederive``),
+``remat="bf16"``, the diff cascade, the wavefront reorder (ROADMAP
+queue 1 items 8, 11 and 14), the regen wavefront (item 9).
 """
 
 from __future__ import annotations
@@ -32,8 +42,16 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from rust_pathtracer_tpu_torch import sampling
+from rust_pathtracer_tpu_torch import vecmath as vm
+from rust_pathtracer_tpu_torch.materials import emitted, scatter, shade_inputs
+from rust_pathtracer_tpu_torch.ops.closest_hit import (
+    closest_hit,
+    closest_hit_record,
+    pack_prims,
+)
 from rust_pathtracer_tpu_torch.ops.fused_bounce import (
     _COL_KEYS,
     fused_bounce_cols,
@@ -43,11 +61,28 @@ from rust_pathtracer_tpu_torch.ops.fused_bounce import (
     pack_prims_shaded,
     roulette,
 )
+from rust_pathtracer_tpu_torch.ops.intersect import (
+    PRIM_RECT,
+    PRIM_SPHERE,
+    PRIM_TRIANGLE,
+    axis_onehot,
+    gather_prim_rows,
+    record_from_rows,
+)
 
 T_MIN = 1e-3  # ray.rs:25
 
 # fixed histogram length, as in the JAX package
 MAX_BOUNCE_STATS = 64
+
+# remat="auto": the generic differentiable trace keeps every
+# intermediate ("none") up to this many lane-bounces, and checkpoints
+# each bounce ("mid") beyond.  "none" keeps 1,124.8 B a lane-bounce
+# (TwoSphereCheckers 854x480, 2 spp, 20 bounces: 18.44 GB; NVIDIA H100
+# 80GB HBM3, 700 W, chip_smoke.py phase 12); a budget of 30 GB, under
+# half the card, is 26.7 M lane-bounces.
+REMAT_AUTO_LANE_BOUNCES = 26_000_000
+REMAT_MODES = ("none", "mid", "names")
 
 
 class TraceStats(NamedTuple):
@@ -82,43 +117,181 @@ def _precompute_draws(lane_keys, max_bounces, rr_start, start_bounce=0):
     return out
 
 
-def trace(
-    scene,
-    origins: torch.Tensor,
-    directions: torch.Tensor,
-    lane_keys: torch.Tensor,
-    background,
-    max_bounces: int,
-    russian_roulette_start: Optional[int] = None,
-    differentiable: bool = False,
-):
-    """Estimate radiance for a wavefront of rays.
-
-    origins, directions: (R, 3) f32; lane_keys: (R, 2) lane keys;
-    background: (3,) miss color.  All on one device, which the scene
-    must share.  Returns (radiance (R, 3), TraceStats).
-
-    ``differentiable`` runs the whole-scan ``autograd.Function``:
-    gradients reach origins, directions, ``scene.textures.color`` and
-    the background (the detached-sampling estimator of the JAX package;
-    hit distances do not differentiate through the primitive data).
-    """
-    ok = fused_bounce_diff_ok if differentiable else fused_bounce_ok
-    if not ok(scene):
+def resolve_remat_mode(remat, lanes: int, max_bounces: int) -> str:
+    """The remat mode of a generic differentiable trace: ``remat``, or
+    for None / ``"auto"`` "none" up to ``REMAT_AUTO_LANE_BOUNCES``
+    lane-bounces and "mid" beyond (``_resolve_remat_mode``; the JAX
+    package's threshold is a TPU memory figure and is not carried)."""
+    mode = remat or "auto"
+    if mode == "auto":
+        return "none" if lanes * max_bounces <= REMAT_AUTO_LANE_BOUNCES else "mid"
+    if mode not in REMAT_MODES:
         raise NotImplementedError(
-            "this scene needs the generic bounce path, which is not ported "
-            "yet (ROADMAP queue 1 item 8): only scenes of at most 128 "
-            "primitives with solid / checker / perlin textures render, and "
-            "in differentiable mode solid / checker only")
-    dev = origins.device
-    if scene.device != dev:
-        raise ValueError(f"scene on {scene.device}, rays on {dev}")
-    background = torch.as_tensor(background, dtype=torch.float32, device=dev)
-    rr_start = (
-        max_bounces + 1 if russian_roulette_start is None
-        else russian_roulette_start
-    )
+            f"remat={mode!r}: the port has {REMAT_MODES} and 'auto' "
+            "('bf16' is not ported, ROADMAP queue 1 item 14)")
+    return mode
 
+
+# ---------------------------------------------------------------------------
+# the generic bounce
+# ---------------------------------------------------------------------------
+
+
+def _analytic_t(kind, aux, data, o, d, t_det, prim_types):
+    """Differentiable hit distance by the implicit function theorem.
+
+    For a hit on the surface F(x) = 0 at x = o + t d, dt = -(n.do +
+    t n.dd) / (n.d) with n = grad F at the hit, so
+
+        t(o, d) = t_det - (n.(o - o_det) + t_det n.(d - d_det)) / (n_det.d_det)
+
+    is bitwise ``t_det`` in the forward and carries the exact first-order
+    (o, d) derivative.  n per kind: the sphere's x - c, the rect's axis,
+    the triangle's e1 x e2; all detached (the geometry is no gradient
+    leaf, see ``trace``)."""
+    od, dd = o.detach(), d.detach()
+    point = od + t_det[..., None] * dd
+    n = torch.zeros_like(od)
+    if PRIM_SPHERE in prim_types:
+        n = vm.where(kind == PRIM_SPHERE, point - data[..., 0:3], n)
+    if PRIM_RECT in prim_types:
+        n = vm.where(kind == PRIM_RECT, axis_onehot(aux), n)
+    if PRIM_TRIANGLE in prim_types:
+        n = vm.where(kind == PRIM_TRIANGLE, vm.cross(data[..., 3:6], data[..., 6:9]), n)
+    den = vm.dot(n, dd)
+    den = torch.where(torch.abs(den) < 1e-30, torch.ones_like(den), den)
+    return t_det - (vm.dot(n, o - od) + t_det * vm.dot(n, d - dd)) / den
+
+
+def search_and_record(scene, table, o, d, alive):
+    """The non-differentiable route's closest hit and hit record, both
+    from K3.  Returns (hit & alive, HitRecord with valid = that mask).
+    The differentiable route runs K4 in ``_bounce_step`` and builds its
+    record in ``_record_diff``."""
+    hit, _, _, rec = closest_hit_record(table, o, d, kinds=scene.kinds_static,
+                                        t_min=T_MIN)
+    hit = hit & alive
+    return hit, rec._replace(valid=hit)
+
+
+def _record_diff(scene, o, d, alive, hit, t_search, idx):
+    """The differentiable route's record from K4's (hit, t, idx):
+    ``_analytic_t`` and ``record_from_rows`` on the winner's primitive
+    row, so autograd carries the (o, d) derivative."""
+    t_det = torch.where(hit, t_search, torch.ones_like(t_search))
+    kind, aux, data, mat = gather_prim_rows(scene.prims, idx)
+    t = _analytic_t(kind, aux, data, o, d, t_det, scene.prim_types)
+    hit = hit & alive
+    return hit, record_from_rows(kind, aux, data, mat, idx, o, d, t, hit,
+                                 scene.prim_types)
+
+
+def _call(fn, *args):
+    return fn(*args)
+
+
+def _checkpointed(fn, *args):
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _bounce_step(scene, table, state, draws_b, background, rr_u,
+                 differentiable=False, mode="none"):
+    """One generic bounce; ``state`` is (o, d, thr, rad, alive) with
+    (R, 3) vectors and a bool alive mask, ``draws_b`` this bounce's
+    uniforms, ``rr_u`` the roulette uniforms or None.  Returns the new
+    state.
+
+    Differentiable, the detached search K4 runs here, outside any
+    checkpoint, so that a backward never runs it again.  The remat
+    ``mode``: "none" keeps every intermediate for the backward; "mid"
+    checkpoints the record, the shading inputs and the scatter
+    separately, so only the values between them are kept; "names"
+    checkpoints the whole bounce after the search, so only its inputs
+    and the search's result are kept."""
+    o, d = state[0], state[1]
+    if not differentiable:
+        hit, rec = search_and_record(scene, table, o, d, state[4])
+        return _bounce_tail(scene, state, hit, rec, draws_b, background, rr_u, _call)
+    search = closest_hit(table, o.detach(), d.detach(), kinds=scene.kinds_static,
+                         t_min=T_MIN)
+    if mode == "names":
+        return _checkpointed(_bounce_diff, scene, state, search, draws_b,
+                             background, rr_u, _call)
+    return _bounce_diff(scene, state, search, draws_b, background, rr_u,
+                        _checkpointed if mode == "mid" else _call)
+
+
+def _bounce_diff(scene, state, search, draws_b, background, rr_u, stage):
+    o, d, _, _, alive = state
+    hit, rec = stage(_record_diff, scene, o, d, alive, *search)
+    return _bounce_tail(scene, state, hit, rec, draws_b, background, rr_u, stage)
+
+
+def _bounce_tail(scene, state, hit, rec, draws_b, background, rr_u, stage):
+    """The bounce after the hit record (JAX ``_bounce_step`` :562-631): the
+    shading inputs, background and emission banking, scatter, the state
+    commit and roulette.  ``stage(fn, *args)`` runs the shading inputs
+    and the scatter (directly, or checkpointed)."""
+    o, d, thr, rad, alive = state
+    si = stage(shade_inputs, scene, rec)
+
+    miss = alive & ~hit
+    rad = rad + torch.where(miss[..., None], thr * background, 0.0)  # ray.rs:40
+    em = emitted(scene, rec, si)                                     # ray.rs:26
+    rad = rad + torch.where(hit[..., None], thr * em, 0.0)
+
+    # detached sampling: the draws carry no gradient; their transforms
+    # run here, at the wavefront's shape
+    sphere_dir = sampling.on_unit_sphere_from_u(draws_b["sphere_u"])
+    ball_dir = sampling.in_unit_sphere_from_u(draws_b["ball_u"])
+    sc = stage(scatter, scene, rec, d, sphere_dir, ball_dir, draws_b["coin"], si)
+
+    cont = hit & sc.did_scatter
+    thr = torch.where(cont[..., None], thr * sc.attenuation, thr)
+    o = vm.where(cont, rec.point, o)
+    d = vm.where(cont, sc.direction, d)
+    alive = cont
+    if rr_u is not None:  # russian roulette (no reference counterpart)
+        p = torch.clamp(thr.detach().amax(dim=-1), 0.05, 1.0)
+        survive = rr_u < p
+        thr = torch.where((alive & survive)[..., None], thr / p[..., None], thr)
+        alive = alive & survive
+    return o, d, thr, rad, alive
+
+
+# ---------------------------------------------------------------------------
+# the loops
+# ---------------------------------------------------------------------------
+
+
+def _stats(alive, bounce, segments, occupancy):
+    n_alive = alive.sum()
+    occupancy[min(bounce, MAX_BOUNCE_STATS - 1)] = n_alive
+    return segments + n_alive
+
+
+def _trace_generic(scene, origins, directions, background, max_bounces,
+                   rr_start, draws, differentiable, mode):
+    dev = origins.device
+    table = pack_prims(scene.prims)
+    R = origins.shape[0]
+    state = (origins, directions, torch.ones((R, 3), device=dev),
+             torch.zeros((R, 3), device=dev), torch.ones(R, dtype=torch.bool, device=dev))
+    segments = torch.zeros((), dtype=torch.float32, device=dev)
+    occupancy = torch.zeros(MAX_BOUNCE_STATS, dtype=torch.float32, device=dev)
+    bounce = 0
+    while bounce < max_bounces and (differentiable or bool(state[4].any())):
+        segments = _stats(state[4].to(torch.float32), bounce, segments, occupancy)
+        draws_b = {k: v[bounce] for k, v in draws.items()}
+        rr_u = draws["roulette"][bounce] if bounce >= rr_start else None
+        state = _bounce_step(scene, table, state, draws_b, background, rr_u,
+                             differentiable, mode)
+        bounce += 1
+    return state[3], TraceStats(segments=segments, bounces=bounce, occupancy=occupancy)
+
+
+def _trace_fused(scene, origins, directions, background, max_bounces, rr_start,
+                 draws, differentiable):
     zeros = torch.zeros_like(origins[:, 0])
     ones = torch.ones_like(zeros)
     cols = dict(zip(_COL_KEYS, (
@@ -126,8 +299,6 @@ def trace(
         directions[:, 0], directions[:, 1], directions[:, 2],
         ones, ones, ones, zeros, zeros, zeros, ones,
     )))
-    draws = _precompute_draws(lane_keys, max_bounces, rr_start)
-
     if differentiable:
         cols, segments, occupancy = fused_scan_trace(
             scene, cols, draws, background, T_MIN, max_bounces, rr_start,
@@ -138,13 +309,12 @@ def trace(
 
     table = pack_prims_shaded(scene)
     seed = scene.textures.perlin_seed
-    segments = torch.zeros((), dtype=torch.float32, device=dev)
-    occupancy = torch.zeros(MAX_BOUNCE_STATS, dtype=torch.float32, device=dev)
+    segments = torch.zeros((), dtype=torch.float32, device=origins.device)
+    occupancy = torch.zeros(MAX_BOUNCE_STATS, dtype=torch.float32,
+                            device=origins.device)
     bounce = 0
     while bounce < max_bounces and bool((cols["al"] > 0.5).any()):
-        n_alive = cols["al"].sum()
-        segments = segments + n_alive
-        occupancy[min(bounce, MAX_BOUNCE_STATS - 1)] = n_alive
+        segments = _stats(cols["al"], bounce, segments, occupancy)
         su, bu = draws["sphere_u"][bounce], draws["ball_u"][bounce]
         cols = fused_bounce_cols(
             table, background, seed, cols, su[:, 0], su[:, 1],
@@ -157,5 +327,59 @@ def trace(
         bounce += 1
 
     rad = torch.stack([cols["r0"], cols["r1"], cols["r2"]], dim=1)
-    return rad, TraceStats(segments=segments, bounces=bounce,
-                           occupancy=occupancy)
+    return rad, TraceStats(segments=segments, bounces=bounce, occupancy=occupancy)
+
+
+def trace(
+    scene,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    lane_keys: torch.Tensor,
+    background,
+    max_bounces: int,
+    russian_roulette_start: Optional[int] = None,
+    differentiable: bool = False,
+    remat: Optional[str] = None,
+):
+    """Estimate radiance for a wavefront of rays.
+
+    origins, directions: (R, 3) f32; lane_keys: (R, 2) lane keys;
+    background: (3,) miss color.  All on one device, which the scene
+    must share.  Returns (radiance (R, 3), TraceStats).
+
+    ``differentiable`` runs exactly ``max_bounces`` bounces with autograd
+    live: gradients reach origins, directions, the texture colours and
+    image texels and the background (the detached-sampling estimator of
+    the JAX package).  A gradient of the primitive geometry
+    (``scene.prims.data.requires_grad``) raises: the hit distance is
+    linearised in (o, d) only, so it would come back zero.  ``remat``
+    ("none", "mid", "names", or None / "auto") applies to the generic
+    route (see ``resolve_remat_mode``); the fused route keeps its
+    residuals, 64-72 B a lane-bounce.
+    """
+    if scene.prims.data.requires_grad:
+        raise NotImplementedError(
+            "gradients of the primitive geometry (scene.prims.data) are not "
+            "ported: the hit distance is linearised in the ray only, so they "
+            "would come back zero (JAX RPT_DIFF_T=rederive; ROADMAP queue 1 "
+            "item 8)")
+    if scene.kinds_static is None:
+        raise NotImplementedError(
+            "scenes of more than 128 primitives are not ported yet "
+            "(ROADMAP queue 1 item 11)")
+    dev = origins.device
+    if scene.device != dev:
+        raise ValueError(f"scene on {scene.device}, rays on {dev}")
+    background = torch.as_tensor(background, dtype=torch.float32, device=dev)
+    rr_start = (
+        max_bounces + 1 if russian_roulette_start is None
+        else russian_roulette_start
+    )
+    mode = (resolve_remat_mode(remat, origins.shape[0], max_bounces)
+            if differentiable else None)
+    draws = _precompute_draws(lane_keys, max_bounces, rr_start)
+    if (fused_bounce_diff_ok if differentiable else fused_bounce_ok)(scene):
+        return _trace_fused(scene, origins, directions, background, max_bounces,
+                            rr_start, draws, differentiable)
+    return _trace_generic(scene, origins, directions, background, max_bounces,
+                          rr_start, draws, differentiable, mode)

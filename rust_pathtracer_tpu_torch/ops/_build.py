@@ -64,6 +64,16 @@ SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
         ),
         "error_string": ([_c_int], ctypes.c_char_p),
     },
+    "closest_hit": {
+        # table, n_prims, o, d, t_min, record (0: K4, 1: K3), out_ptrs,
+        # n_lanes, stream
+        "closest_hit_launch": (
+            [_c_void_p, _c_int, _c_void_p, _c_void_p, ctypes.c_float, _c_int,
+             _c_void_p, ctypes.c_longlong, _c_void_p],
+            _c_int,
+        ),
+        "error_string": ([_c_int], ctypes.c_char_p),
+    },
 }
 
 # name -> {"seconds": build seconds (0.0 when loaded from the cache),

@@ -34,33 +34,25 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
+from rust_pathtracer_tpu_torch.ops.closest_hit import prim_candidate
+from rust_pathtracer_tpu_torch.ops.intersect import MAX_PRIMS, T_MISS
 from rust_pathtracer_tpu_torch.perlin import marble_planes
 from rust_pathtracer_tpu_torch.scene.types import (
     MAT_DIELECTRIC,
     MAT_LAMBERTIAN,
     MAT_LIGHT,
     MAT_METAL,
-    PRIM_RECT,
-    PRIM_SPHERE,
-    PRIM_TRIANGLE,
     TEX_CHECKER,
     TEX_PERLIN,
     TEX_SOLID,
     SceneData,
 )
-from rust_pathtracer_tpu_torch.vecmath import _SAFE_EPS, NEAR_ZERO, sqrt
+from rust_pathtracer_tpu_torch.vecmath import _SAFE_EPS, NEAR_ZERO, cbrt, sqrt
 
 # shading-table rows (rust_pathtracer_tpu/ops/projected.py PAY_*)
 PAY_MKIND, PAY_FUZZ, PAY_IR, PAY_TKIND, PAY_TSCALE = 16, 17, 18, 19, 20
 PAY_COLOR, PAY_ODD, PAY_EVEN = 21, 24, 27
 PAY_W = 32
-
-# sentinel "no hit" distance and the one-sided triangle cull
-# (rust_pathtracer_tpu/ops/intersect.py)
-T_MISS = 3.0e38
-TRI_DET_EPS = 1e-4
-
-MAX_PRIMS = 128
 
 # the 13 wavefront state columns, in kernel order (al is f32 0/1)
 _COL_KEYS = ("o0", "o1", "o2", "d0", "d1", "d2", "t0", "t1", "t2",
@@ -88,8 +80,6 @@ FLG_IS_CK = 4096      # winning prim's texture is a checker
 FLG_ALIVE = 8192      # lane was alive entering the bounce
 # bits 16 and up: max(best_i, 0), the winning primitive (0 on a miss)
 FLG_BESTI_SHIFT = 16
-
-_RECT_FREE = {0: (1, 2), 1: (0, 2), 2: (0, 1)}
 
 # kernel launches made by fused_bounce_cols (CUDA tensors only): all of
 # them, and those with residual outputs
@@ -155,12 +145,6 @@ def pack_prims_shaded(scene: SceneData) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _cbrt(x: torch.Tensor) -> torch.Tensor:
-    """Cube root of U[0,1) draws.  PyTorch has no cbrt: the f64 power
-    rounds to the nearest f32 (CUDA's cbrtf is within 1 ulp of it)."""
-    return torch.pow(x.to(torch.float64), 1.0 / 3.0).to(x.dtype)
-
-
 def fused_bounce_cols_plain(table, bg, seed, cols, su0, su1, bu0, bu1, bu2,
                             coin, *, kinds, mat_types, tex_types, t_min,
                             winner_out=None, want_residuals=False):
@@ -192,67 +176,8 @@ def fused_bounce_cols_plain(table, bg, seed, cols, su0, su1, bu0, bu1, bu2,
     w_invr = zeros  # the winning sphere's 1/r, 0 for rects and triangles
 
     for p, (kind, aux) in enumerate(kinds):
-        def s(row):
-            return table[row, p]
-
-        if kind == PRIM_SPHERE:
-            cx, cy, cz, r = s(0), s(1), s(2), s(3)
-            ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
-            half_b = dx * ocx + dy * ocy + dz * ocz
-            c = ocx * ocx + ocy * ocy + ocz * ocz - r * r
-            dis = half_b * half_b - a * c
-            sqrtd = sqrt(torch.clamp(dis, min=0.0))
-            root1 = (-half_b - sqrtd) / a
-            root2 = (-half_b + sqrtd) / a
-            ok1 = (root1 >= t_min) & (root1 <= best_t)
-            ok2 = (root2 >= t_min) & (root2 <= best_t)
-            t = torch.where(ok1, root1, root2)
-            valid = (dis >= 0.0) & (ok1 | ok2)
-            inv_r = torch.reciprocal(r)
-            nx = (ox + t * dx - cx) * inv_r
-            ny = (oy + t * dy - cy) * inv_r
-            nz = (oz + t * dz - cz) * inv_r
-        elif kind == PRIM_RECT:
-            k, a0, b0, a1, b1, sgn = s(0), s(1), s(2), s(3), s(4), s(5)
-            fa, fb = _RECT_FREE[aux]
-            t = (k - o_c[aux]) / d_c[aux]
-            av = o_c[fa] + t * d_c[fa]
-            bv = o_c[fb] + t * d_c[fb]
-            valid = (
-                (t >= t_min) & (t <= best_t)
-                & (av >= a0) & (av <= a1) & (bv >= b0) & (bv <= b1)
-            )
-            comp = [zeros, zeros, zeros]
-            comp[aux] = full(1.0) * sgn
-            nx, ny, nz = comp
-        elif kind == PRIM_TRIANGLE:
-            p1x, p1y, p1z = s(0), s(1), s(2)
-            e1x, e1y, e1z = s(3), s(4), s(5)
-            e2x, e2y, e2z = s(6), s(7), s(8)
-            pvx = dy * e2z - dz * e2y
-            pvy = dz * e2x - dx * e2z
-            pvz = dx * e2y - dy * e2x
-            det = e1x * pvx + e1y * pvy + e1z * pvz
-            inv_det = torch.reciprocal(
-                torch.where(torch.abs(det) > 1e-30, det, full(1.0)))
-            tvx, tvy, tvz = ox - p1x, oy - p1y, oz - p1z
-            uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
-            qvx = tvy * e1z - tvz * e1y
-            qvy = tvz * e1x - tvx * e1z
-            qvz = tvx * e1y - tvy * e1x
-            vv = (dx * qvx + dy * qvy + dz * qvz) * inv_det
-            t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
-            valid = (
-                (det >= TRI_DET_EPS)
-                & (uu >= 0.0) & (uu <= 1.0) & (vv >= 0.0) & (uu + vv <= 1.0)
-                & (t >= t_min) & (t <= best_t)
-            )
-            nx = full(1.0) * s(9)
-            ny = full(1.0) * s(10)
-            nz = full(1.0) * s(11)
-        else:
-            raise ValueError(f"unknown static kind {kind}")
-
+        c = prim_candidate(table, p, kind, aux, o_c, d_c, a, t_min, best_t)
+        t, valid, (nx, ny, nz) = c["t"], c["valid"], c["n"]
         upd = valid & (t < best_t)
         best_t = torch.where(upd, t, best_t)
         best_i = torch.where(upd, p, best_i)
@@ -260,7 +185,7 @@ def fused_bounce_cols_plain(table, bg, seed, cols, su0, su1, bu0, bu1, bu2,
         wny = torch.where(upd, ny, wny)
         wnz = torch.where(upd, nz, wnz)
         if want_residuals:
-            w_invr = torch.where(upd, inv_r if kind == PRIM_SPHERE else zeros,
+            w_invr = torch.where(upd, zeros if c["inv_r"] is None else c["inv_r"],
                                  w_invr)
 
     found = best_i >= 0
@@ -344,7 +269,7 @@ def fused_bounce_cols_plain(table, bg, seed, cols, su0, su1, bu0, bu1, bu2,
         b_z = 2.0 * bu0 - 1.0
         b_phi = two_pi * bu1
         b_rho = sqrt(torch.clamp(1.0 - b_z * b_z, min=0.0))
-        b_s = _cbrt(bu2)
+        b_s = cbrt(bu2)
         ball_x = b_rho * torch.cos(b_phi) * b_s
         ball_y = b_rho * torch.sin(b_phi) * b_s
         ball_z = b_z * b_s

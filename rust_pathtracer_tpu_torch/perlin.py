@@ -3,7 +3,10 @@
 Counterpart of ``rust_pathtracer_tpu/perlin.py``; plain tensor code.
 ``marble_planes`` is the plain twin of the perlin branch of the
 fused-bounce kernel (``ops/csrc/fused_bounce.cu``), which ports the
-same formulas to CUDA.
+same formulas to CUDA; ``marble`` is the same over (R, 3) points, for
+the generic bounce path.  Both are differentiable in the points through
+the fractional parts; floor and the hash carry no gradient, as in the
+JAX package.
 
 The lattice hash is uint32 arithmetic.  PyTorch has no uint32 multiply
 on the CPU, so words live in int64 masked to 32 bits, and each 32x32
@@ -107,3 +110,8 @@ def marble_planes(px, py, pz, seed: int, scale):
     """
     t = turbulence_planes(px, py, pz, seed)
     return 0.5 * (1.0 - torch.sin(scale * pz + 10.0 * t))
+
+
+def marble(points: torch.Tensor, seed: int, scale):
+    """``marble_planes`` over (..., 3) points; returns (...,)."""
+    return marble_planes(points[..., 0], points[..., 1], points[..., 2], seed, scale)

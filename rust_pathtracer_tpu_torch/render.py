@@ -14,7 +14,9 @@ around the integrator.
 Every entry point takes an explicit ``device``; asking for ``"cuda"``
 where there is no GPU raises.  With ``RenderSettings.differentiable``
 the chunk loop runs with autograd live: the image is differentiable in
-the camera, the texture colours and the background (see ``grad.py``).
+the camera, the texture colours, the image texels and the background
+(see ``grad.py``); ``RenderSettings.remat`` picks the remat mode of the
+generic route (``integrator.resolve_remat_mode``).
 Not ported yet: the cascade renderer (``cascade`` /
 ``cascade_schedule``, ROADMAP queue 1 item 11).
 """
@@ -44,8 +46,12 @@ class RenderSettings:
     spp_chunk: Optional[int] = None
     # optional russian roulette start bounce (None = off, reference behavior)
     russian_roulette_start: Optional[int] = None
-    # run the differentiable trace (K1 with residuals, K2 backward)
+    # run the differentiable trace (fused: K1 with residuals and K2;
+    # generic: K4 and autograd)
     differentiable: bool = False
+    # remat mode of the generic differentiable trace: None / "auto",
+    # "none", "mid", "names"
+    remat: Optional[str] = None
     # not ported yet: raise in render_radiance
     cascade: bool = False
     cascade_schedule: Optional[str] = None
@@ -120,7 +126,8 @@ def _make_lanes(cam: Camera, base_key, pix, sample_offset: int, *, width,
 def trace_pixel_lanes(scene, cam: Camera, base_key, pix, sample_offset: int,
                       background, *, width: int, height: int, spp_chunk: int,
                       spp_total: int, max_bounces: int,
-                      rr_start: Optional[int], differentiable: bool = False):
+                      rr_start: Optional[int], differentiable: bool = False,
+                      remat: Optional[str] = None):
     """Trace len(pix)*spp_chunk lanes for the given pixel ids.
     Returns (sum_radiance (len(pix), 3), stats)."""
     npix = pix.shape[0]
@@ -130,7 +137,7 @@ def trace_pixel_lanes(scene, cam: Camera, base_key, pix, sample_offset: int,
     )
     rad, stats = trace(scene, o, d, lkeys, background,
                        max_bounces=max_bounces, russian_roulette_start=rr_start,
-                       differentiable=differentiable)
+                       differentiable=differentiable, remat=remat)
     # mask samples beyond spp_total (padded final chunk)
     rad = rad * in_range.to(torch.float32)[:, None]
     return rad.reshape(npix, spp_chunk, 3).sum(dim=1), stats
@@ -139,7 +146,7 @@ def trace_pixel_lanes(scene, cam: Camera, base_key, pix, sample_offset: int,
 def _render_chunk(scene, cam: Camera, base_key, sample_offset: int,
                   background, *, width: int, height: int, spp_chunk: int,
                   spp_total: int, max_bounces: int, rr_start: Optional[int],
-                  differentiable: bool = False):
+                  differentiable: bool = False, remat: Optional[str] = None):
     """Trace width*height*spp_chunk lanes on the scene's device;
     returns (sum_radiance (H*W, 3), stats)."""
     pix = torch.arange(width * height, dtype=torch.int64, device=scene.device)
@@ -147,7 +154,7 @@ def _render_chunk(scene, cam: Camera, base_key, sample_offset: int,
         scene, cam, base_key, pix, sample_offset, background,
         width=width, height=height, spp_chunk=spp_chunk,
         spp_total=spp_total, max_bounces=max_bounces, rr_start=rr_start,
-        differentiable=differentiable,
+        differentiable=differentiable, remat=remat,
     )
 
 
@@ -167,7 +174,7 @@ def _render_frame(scene, cam, settings: RenderSettings, key, bg, spp: int,
             spp_chunk=chunk, spp_total=spp,
             max_bounces=settings.max_bounces,
             rr_start=settings.russian_roulette_start,
-            differentiable=settings.differentiable,
+            differentiable=settings.differentiable, remat=settings.remat,
         )
         acc = acc + part
         total_segments = total_segments + stats.segments
@@ -186,7 +193,8 @@ def render_radiance(scene, cam: Camera, settings: RenderSettings, key,
     on ``device``.  ``key`` is the (2,) raw key (``sampling.prng_key``);
     scene, camera and key are moved to ``device``.  With
     ``settings.differentiable`` the image carries gradients to the
-    scene's texture colours, the camera's tensors and ``background``."""
+    scene's texture colours and image texels, the camera's tensors and
+    ``background``."""
     if settings.cascade or settings.cascade_schedule is not None:
         raise NotImplementedError(
             "the cascade renderer is not ported yet (ROADMAP queue 1 item 11)")

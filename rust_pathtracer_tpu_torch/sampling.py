@@ -3,6 +3,8 @@
 Counterpart of ``rust_pathtracer_tpu/sampling.py``; plain tensor code.
 Only the legacy per-purpose stream (the JAX code default,
 ``RPT_RNG_SCHEME`` unset) is ported; the opt-in packed scheme waits.
+The sphere and ball transforms of the uniforms run where the draws are
+used, at the wavefront's own shape, as in the JAX package.
 
 Every lane owns a threefry-2x32 key ``fold_in(base_key, counter)``
 and every bounce draws under ``fold_in(lane_key, bounce * 8 +
@@ -25,7 +27,7 @@ import math
 
 import torch
 
-from rust_pathtracer_tpu_torch.vecmath import sqrt
+from rust_pathtracer_tpu_torch.vecmath import cbrt, sqrt
 
 # purpose tags for per-bounce draws
 P_PIXEL_JITTER = 0  # 2 uniforms (renderer.rs:22-25)
@@ -125,6 +127,37 @@ def uniform2(keys: torch.Tensor) -> torch.Tensor:
 def uniform3(keys: torch.Tensor) -> torch.Tensor:
     """Three U[0,1) per lane, shape (..., 3)."""
     return _uniforms(keys, 3)
+
+
+def on_unit_sphere_from_u(u: torch.Tensor) -> torch.Tensor:
+    """Uniform direction on S^2 from (..., 2) uniforms, shape (..., 3):
+    z = 2u - 1, phi = 2 pi v, r = sqrt(1 - z^2) (``random_on_unitsphere``,
+    vec3.rs:51-53, computed analytically)."""
+    z = 2.0 * u[..., 0] - 1.0
+    phi = (2.0 * math.pi) * u[..., 1]
+    r = sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def in_unit_sphere_from_u(u: torch.Tensor) -> torch.Tensor:
+    """Uniform point in the unit ball from (..., 3) uniforms: a uniform
+    direction scaled by u^(1/3) (vec3.rs:41-49)."""
+    z = 2.0 * u[..., 0] - 1.0
+    phi = (2.0 * math.pi) * u[..., 1]
+    rho = sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    d = torch.stack([rho * torch.cos(phi), rho * torch.sin(phi), z], dim=-1)
+    return d * cbrt(u[..., 2])[..., None]
+
+
+def bounce_draws(lkeys: torch.Tensor, bounce, with_roulette: bool):
+    """One bounce's scatter uniforms (legacy scheme): (sphere_u (..., 2),
+    ball_u (..., 3), coin (...), roulette (...) or None)."""
+    su = uniform2(bounce_keys(lkeys, bounce, P_LAMBERT))
+    bu = uniform3(bounce_keys(lkeys, bounce, P_FUZZ))
+    cn = uniform(bounce_keys(lkeys, bounce, P_SCHLICK))
+    rl = (uniform(bounce_keys(lkeys, bounce, P_ROULETTE))
+          if with_roulette else None)
+    return su, bu, cn, rl
 
 
 def in_unit_disk_xy(keys: torch.Tensor) -> torch.Tensor:

@@ -6,8 +6,8 @@ to 6 rects exactly as ``AABox::new`` does (geometry.rs:391-446).
 
 Not ported yet: the BVH (``use_bvh=True``, or ``"auto"`` past 64
 primitives, ROADMAP queue 1 item 10), scenes of more than 128
-primitives (item 11), image textures (item 8) and OBJ meshes (item 10).
-Each raises NotImplementedError.
+primitives (item 11) and OBJ meshes (item 10).  Each raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from rust_pathtracer_tpu_torch.scene.types import (
     PRIM_SPHERE,
     PRIM_TRIANGLE,
     TEX_CHECKER,
+    TEX_IMAGE,
     TEX_PERLIN,
     TEX_SOLID,
     Materials,
@@ -52,6 +53,8 @@ class SceneBuilder:
         self._tex_color: List[np.ndarray] = []
         self._tex_child: List[tuple] = []
         self._tex_scale: List[float] = []
+        self._tex_image: List[int] = []
+        self._images: List[np.ndarray] = []
 
         self._mat_kind: List[int] = []
         self._mat_tex: List[int] = []
@@ -85,14 +88,22 @@ class SceneBuilder:
         return self._push_tex(TEX_PERLIN, scale=scale)
 
     def image_texture(self, image: np.ndarray) -> int:
-        raise NotImplementedError(
-            "image textures are not ported yet (ROADMAP queue 1 item 8)")
+        """Image texture sampled at (u, v) with bilinear filtering; no
+        reference counterpart (the JAX package's differentiable-texel
+        texture).  ``image``: float (H, W, 3) in linear colour."""
+        img = np.asarray(image, np.float32)
+        if img.ndim != 3 or img.shape[-1] != 3:
+            raise ValueError("image must be (H, W, 3)")
+        self._images.append(img)
+        return self._push_tex(TEX_IMAGE, image=len(self._images) - 1)
 
-    def _push_tex(self, kind, color=(0, 0, 0), child=(0, 0), scale=0.0) -> int:
+    def _push_tex(self, kind, color=(0, 0, 0), child=(0, 0), scale=0.0,
+                  image=0) -> int:
         self._tex_kind.append(kind)
         self._tex_color.append(np.asarray(color, np.float32))
         self._tex_child.append(tuple(child))
         self._tex_scale.append(float(scale))
+        self._tex_image.append(int(image))
         return len(self._tex_kind) - 1
 
     # ------------------------------------------------------------------
@@ -231,6 +242,28 @@ class SceneBuilder:
         prim_kind = np.asarray(self._prim_kind, np.int32)
         prim_aux = np.asarray(self._prim_aux, np.int32)
 
+        # the padded (N, Hmax, Wmax, 3) image stack and each image's (h, w)
+        if self._images:
+            hmax = max(im.shape[0] for im in self._images)
+            wmax = max(im.shape[1] for im in self._images)
+            images = np.zeros((len(self._images), hmax, wmax, 3), np.float32)
+            image_hw = np.zeros((len(self._images), 2), np.int32)
+            for i, im in enumerate(self._images):
+                images[i, : im.shape[0], : im.shape[1]] = im
+                image_hw[i] = im.shape[:2]
+        else:
+            images = np.zeros((1, 1, 1, 3), np.float32)
+            image_hw = np.ones((1, 2), np.int32)
+
+        # the deepest checker nesting (texture ids only reference earlier
+        # ids); eval_texture unrolls that many child resolutions
+        checker_depth = 0
+        depth_of: List[int] = []
+        for k, (c0, c1) in zip(self._tex_kind, self._tex_child):
+            depth_of.append(1 + max(depth_of[c0], depth_of[c1])
+                            if k == TEX_CHECKER else 0)
+            checker_depth = max(checker_depth, depth_of[-1])
+
         # shading is table-free (fused-bounce eligible) when every
         # texture is solid / perlin / a checker of two solid leaves
         shade_static = all(
@@ -268,6 +301,10 @@ class SceneBuilder:
                         if self._tex_child else np.zeros((1, 2), np.int32), i32),
                 scale=t(np.asarray(self._tex_scale, np.float32)
                         if self._tex_scale else np.zeros(1, np.float32), f32),
+                image_id=t(np.asarray(self._tex_image, np.int32)
+                           if self._tex_image else np.zeros(1, np.int32), i32),
+                images=t(images, f32),
+                image_hw=t(image_hw, i32),
                 perlin_seed=int(self.perlin_seed),
             ),
             prim_types=tuple(sorted(set(int(k) for k in prim_kind))),
@@ -277,4 +314,5 @@ class SceneBuilder:
                 (int(k), int(a)) for k, a in zip(prim_kind, prim_aux)
             ),
             shade_static=shade_static,
+            checker_depth=checker_depth,
         )

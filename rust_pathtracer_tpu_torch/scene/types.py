@@ -12,8 +12,8 @@ Primitive ``data`` layout (float32[P, 12]):
       free axes in ascending order; dir = outward-normal sign.
   triangle (kind 2): p1(3) e1(3) e2(3) n(3)
 
-Not ported yet: the BVH arrays, the projected-sweep tables and image
-textures (ROADMAP queue 1 items 8, 10 and 11).
+Not ported yet: the BVH arrays and the projected-sweep tables (ROADMAP
+queue 1 items 10 and 11).
 """
 
 from __future__ import annotations
@@ -78,6 +78,9 @@ class Textures:
     color: torch.Tensor  # float32[T, 3] solid color
     child: torch.Tensor  # int32[T, 2]  checker (odd, even) leaf ids
     scale: torch.Tensor  # float32[T]   perlin scale / checker frequency
+    image_id: torch.Tensor  # int32[T]    row into ``images``
+    images: torch.Tensor    # float32[I, Hmax, Wmax, 3] padded image stack
+    image_hw: torch.Tensor  # int32[I, 2]  valid (h, w) per image
     perlin_seed: int = 0  # perlin hash-stream seed (uint32)
 
     def to(self, device) -> "Textures":
@@ -91,7 +94,9 @@ class SceneData:
     ``kinds_static`` is the per-primitive (kind, aux) tuple for scenes
     of at most 128 primitives; ``shade_static`` is True when every
     texture is solid, perlin or a checker of two solids, so that the
-    whole bounce fits the fused-bounce kernel.
+    whole bounce fits the fused-bounce kernel; ``checker_depth`` is the
+    deepest checker nesting, the child resolutions ``eval_texture``
+    unrolls.
     """
 
     prims: Primitives
@@ -104,6 +109,7 @@ class SceneData:
     )
     kinds_static: Optional[Tuple[Tuple[int, int], ...]] = None
     shade_static: bool = False
+    checker_depth: int = 1
 
     @property
     def num_prims(self) -> int:
@@ -122,11 +128,6 @@ class SceneData:
         )
 
 
-# JAX SceneData leaves that hold image-texture data.  They are skipped:
-# a scene that uses an image texture is refused through ``tex_types``.
-_IMAGE_LEAVES = ("textures.image_id", "textures.images", "textures.image_hw")
-
-
 def scene_from_numpy(arrays: Mapping[str, np.ndarray], static: Mapping,
                      device="cpu") -> SceneData:
     """The port's SceneData from the JAX package's, carried across.
@@ -134,9 +135,10 @@ def scene_from_numpy(arrays: Mapping[str, np.ndarray], static: Mapping,
     ``arrays`` maps the JAX ``SceneData`` leaf paths (``"prims.kind"``,
     ``"materials.fuzz"``, ``"textures.perlin_seed"``, ...) to numpy
     arrays; ``static`` holds its static fields ``prim_types``,
-    ``tex_types``, ``mat_types``, ``kinds_static`` and ``shade_static``.
-    Raises NotImplementedError for what the port cannot render yet: a
-    BVH, image textures, or more than 128 primitives.
+    ``tex_types``, ``mat_types``, ``kinds_static``, ``shade_static`` and
+    ``checker_depth``.  Raises ValueError for an unknown or a missing
+    leaf, and NotImplementedError for what the port cannot render yet:
+    a BVH, or more than 128 primitives.
     """
     if any(k.startswith("bvh.") for k in arrays):
         raise NotImplementedError(
@@ -145,18 +147,16 @@ def scene_from_numpy(arrays: Mapping[str, np.ndarray], static: Mapping,
         raise NotImplementedError(
             "scenes of more than 128 primitives are not ported yet "
             "(ROADMAP queue 1 item 11)")
-    if TEX_IMAGE in static["tex_types"]:
-        raise NotImplementedError(
-            "image textures are not ported yet (ROADMAP queue 1 item 8)")
     known = {
         f"{group}.{f.name}"
         for group, cls in (("prims", Primitives), ("materials", Materials),
                            ("textures", Textures))
         for f in dataclasses.fields(cls)
     }
-    unknown = set(arrays) - known - set(_IMAGE_LEAVES)
-    if unknown:
-        raise ValueError(f"unknown SceneData leaves: {sorted(unknown)}")
+    unknown, missing = set(arrays) - known, known - set(arrays)
+    if unknown or missing:
+        raise ValueError(f"SceneData leaves: unknown {sorted(unknown)}, "
+                         f"missing {sorted(missing)}")
 
     def t(path, dtype):
         return torch.tensor(np.asarray(arrays[path]), dtype=dtype,
@@ -175,6 +175,8 @@ def scene_from_numpy(arrays: Mapping[str, np.ndarray], static: Mapping,
         textures=Textures(
             kind=t("textures.kind", i32), color=t("textures.color", f32),
             child=t("textures.child", i32), scale=t("textures.scale", f32),
+            image_id=t("textures.image_id", i32), images=t("textures.images", f32),
+            image_hw=t("textures.image_hw", i32),
             perlin_seed=int(np.asarray(arrays["textures.perlin_seed"])),
         ),
         prim_types=tuple(int(k) for k in static["prim_types"]),
@@ -184,4 +186,5 @@ def scene_from_numpy(arrays: Mapping[str, np.ndarray], static: Mapping,
             (int(k), int(a)) for k, a in static["kinds_static"]
         ),
         shade_static=bool(static["shade_static"]),
+        checker_depth=int(static["checker_depth"]),
     )

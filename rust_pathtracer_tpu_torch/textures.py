@@ -1,0 +1,89 @@
+"""Texture evaluation for a whole wavefront.
+
+Counterpart of ``rust_pathtracer_tpu/textures.py``; plain tensor code.
+Every texture kind of the scene is evaluated on every lane and ``where``
+picks by kind, as in the JAX package; the table lookups are gathers.
+Checker resolves its child ``checker_depth`` times (texture.rs:25-45
+children may themselves be checkers).
+
+Differentiable in the texture colours, the image texels, the hit point
+(perlin, and the image through u and v) and u, v.  On CUDA the backward
+of a gather accumulates in a fixed order (PyTorch sorts the indices),
+so the texture gradients repeat bit for bit.
+
+Not ported: ``eval_texture_payload``, which reads the projected-sweep
+payload (ROADMAP queue 1 item 11).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from rust_pathtracer_tpu_torch.perlin import marble
+from rust_pathtracer_tpu_torch.scene.types import (
+    TEX_CHECKER,
+    TEX_IMAGE,
+    TEX_PERLIN,
+    TEX_SOLID,
+    Textures,
+)
+
+
+def eval_texture(textures: Textures, tex_id, u, v, point, tex_types=None,
+                 checker_depth=1):
+    """value(u, v, p) for per-lane texture ids.
+
+    tex_id: (R,) int; u, v: (R,); point: (R, 3).  Returns (R, 3).
+    ``tex_types`` (the scene's static field) skips the kinds the scene
+    does not have; ``checker_depth`` is its deepest checker nesting."""
+    types = tex_types if tex_types is not None else (0, 1, 2, 3)
+    tex_id = tex_id.long()
+    kind, scale = textures.kind[tex_id], textures.scale[tex_id]
+
+    if TEX_CHECKER in types:
+        child = textures.child.long()
+        for _ in range(max(checker_depth, 1)):
+            # sines = sin(f x) sin(f y) sin(f z) < 0 picks the odd child
+            s = torch.sin(scale[..., None] * point)
+            sines = s[..., 0] * s[..., 1] * s[..., 2]
+            picked = torch.where(sines < 0.0, child[tex_id, 0], child[tex_id, 1])
+            tex_id = torch.where(kind == TEX_CHECKER, picked, tex_id)
+            kind, scale = textures.kind[tex_id], textures.scale[tex_id]
+
+    out = torch.zeros_like(point)
+    if TEX_SOLID in types:
+        out = torch.where((kind == TEX_SOLID)[..., None], textures.color[tex_id], out)
+    if TEX_PERLIN in types:
+        gray = marble(point, textures.perlin_seed, scale)
+        out = torch.where((kind == TEX_PERLIN)[..., None], gray[..., None], out)
+    if TEX_IMAGE in types:
+        img = sample_image(textures, textures.image_id[tex_id].long(), u, v)
+        out = torch.where((kind == TEX_IMAGE)[..., None], img, out)
+    return out
+
+
+def sample_image(textures: Textures, img_id, u, v):
+    """Bilinear sample of the padded image stack (``_sample_image_by_id``):
+    x = u (w - 1), y = (1 - v) (h - 1), u and v clamped to [0, 1].
+    Differentiable in the texels and in u, v."""
+    hw = textures.image_hw[img_id].long()
+    h = hw[..., 0].to(u.dtype)
+    w = hw[..., 1].to(u.dtype)
+    x = torch.clamp(u, 0.0, 1.0) * (w - 1.0)
+    y = (1.0 - torch.clamp(v, 0.0, 1.0)) * (h - 1.0)
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    x0i = x0.long()
+    y0i = y0.long()
+    x1i = torch.minimum(x0i + 1, hw[..., 1] - 1)
+    y1i = torch.minimum(y0i + 1, hw[..., 0] - 1)
+    images = textures.images
+    c00 = images[img_id, y0i, x0i]
+    c01 = images[img_id, y0i, x1i]
+    c10 = images[img_id, y1i, x0i]
+    c11 = images[img_id, y1i, x1i]
+    top = c00 * (1.0 - fx) + c01 * fx
+    bot = c10 * (1.0 - fx) + c11 * fx
+    return top * (1.0 - fy) + bot * fy

@@ -1,4 +1,4 @@
-"""K1 and K2 on the card against their plain PyTorch versions.
+"""K1, K2, K3 and K4 on the card against their plain PyTorch versions.
 
 Imports no jax, so that it runs on the machine with the card, which has
 none; there, skip this directory's conftest.py (it sets up JAX):
@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from rust_pathtracer_tpu_torch.integrator import T_MIN
+from rust_pathtracer_tpu_torch.ops import closest_hit as ch
 from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
 from rust_pathtracer_tpu_torch.ops import fused_bounce_bwd as fbb
 from rust_pathtracer_tpu_torch.scene import SceneBuilder
@@ -225,3 +226,73 @@ def test_diff_step_on_gpu_matches_cpu():
     f1 = torch.cat([x.cpu().reshape(-1) for x in g1.leaves()]).numpy()
     assert np.abs(f0).max() > 0 and np.isfinite(f1).all()
     np.testing.assert_allclose(f1, f0, rtol=0.05, atol=2e-3 * np.abs(f0).max())
+
+
+@pytest.mark.cuda
+def test_closest_hit_kernels_match_plain_on_gpu():
+    """K4 and K3 on the card against their plain versions on the CPU,
+    4096 random lanes of the every-kind scene: hit, idx, mat and front
+    exact; t, point, normal, u, v within 1e-5 rel + 1e-6 abs (acosf /
+    atan2f differ by an ulp from the CPU's)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    scene = t_full_scene()
+    cols, _ = _random_lanes(4096, seed=23)
+    o = torch.from_numpy(cols[0:3].T.copy())
+    d = torch.from_numpy(cols[3:6].T.copy())
+    kw = dict(kinds=scene.kinds_static, t_min=T_MIN)
+    table = ch.pack_prims(scene.prims)
+    before = (ch.hit_launches, ch.record_launches)
+    gpu = [x.cuda() for x in (table, o, d)]
+    k4 = ch.closest_hit(*gpu, **kw)
+    k3 = ch.closest_hit_record(*gpu, **kw)
+    torch.cuda.synchronize()
+    assert (ch.hit_launches, ch.record_launches) == (before[0] + 1, before[1] + 1)
+    p4 = ch.closest_hit_plain(table, o, d, **kw)
+    p3 = ch.closest_hit_record_plain(table, o, d, **kw)
+    for a, b in zip(k4[0:3:2], p4[0:3:2]):
+        assert torch.equal(a.cpu(), b)
+    torch.testing.assert_close(k4[1].cpu(), p4[1], rtol=1e-5, atol=1e-6)
+    for f in ("valid", "prim", "mat", "front_face"):
+        assert torch.equal(getattr(k3[3], f).cpu(), getattr(p3[3], f)), f
+    for f in ("t", "point", "normal", "u", "v"):
+        torch.testing.assert_close(getattr(k3[3], f).cpu(), getattr(p3[3], f),
+                                   rtol=1e-5, atol=1e-6, msg=f)
+
+
+@pytest.mark.cuda
+def test_generic_diff_step_on_gpu_matches_cpu():
+    """A small differentiable TwoSphereCheckers step (generic route: K4
+    once a bounce, never in the backward) on the card against the CPU:
+    loss within 2e-3 rel, every gradient leaf within rtol 0.05 and 2e-3
+    of the largest; bit for bit the same on a second run on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from rust_pathtracer_tpu_torch.grad import (
+        CameraParams, DiffParams, render_loss_and_grad,
+    )
+    from rust_pathtracer_tpu_torch.models import get_scene
+    from rust_pathtracer_tpu_torch.render import RenderSettings
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+
+    scene = get_scene("TwoSphereCheckers").build()
+    cam = CameraParams.create((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0),
+                              20.0, 854.0 / 480.0, 0.0, 10.0)
+    settings = RenderSettings(16, 9, 4, 6, (1.0, 1.0, 1.0))
+    params = DiffParams.from_scene(scene, cam, settings.background)
+    target = torch.zeros(9, 16, 3)
+    out = {}
+    for dev in ("cpu", "cuda", "cuda2"):
+        before = ch.hit_launches
+        out[dev] = render_loss_and_grad(params, scene, settings, prng_key(0), target,
+                                        device=dev[:4])
+        if dev != "cpu":
+            assert ch.hit_launches - before == settings.max_bounces
+    (l0, g0), (l1, g1), (l2, g2) = out["cpu"], out["cuda"], out["cuda2"]
+    np.testing.assert_allclose(float(l1), float(l0), rtol=2e-3)
+    f0 = torch.cat([x.reshape(-1) for x in g0.leaves()]).numpy()
+    f1 = torch.cat([x.cpu().reshape(-1) for x in g1.leaves()]).numpy()
+    assert np.abs(f0).max() > 0 and np.isfinite(f1).all()
+    np.testing.assert_allclose(f1, f0, rtol=0.05, atol=2e-3 * np.abs(f0).max())
+    assert torch.equal(l1, l2)
+    assert all(torch.equal(a, b) for a, b in zip(g1.leaves(), g2.leaves()))

@@ -158,14 +158,21 @@ def test_trace_matches_jax_trace(rr):
 
 
 def test_trace_refuses_what_is_not_ported():
+    """What the port still refuses: a remat mode it lacks ("bf16") and a
+    gradient of the primitive geometry, which the detached estimator
+    would return as zero.  Scenes the fused kernel refuses render on the
+    generic route (tests/test_torch_generic_grad.py)."""
+    import dataclasses
+
     scene = t_full_scene()
     o, d = _rays(8)
     keys = ts.lane_keys(ts.prng_key(0), torch.arange(8))
     args = (torch.from_numpy(o), torch.from_numpy(d), keys, (0.0, 0.0, 0.0), 4)
-    # perlin has no backward: the differentiable trace needs item 8 too
-    with pytest.raises(NotImplementedError, match="item 8"):
-        t_trace(scene, *args, differentiable=True)
-    import dataclasses
-
-    with pytest.raises(NotImplementedError, match="item 8"):
-        t_trace(dataclasses.replace(scene, shade_static=False), *args)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        t_trace(scene, *args, differentiable=True, remat="bf16")
+    prims = dataclasses.replace(scene.prims,
+                                data=scene.prims.data.clone().requires_grad_(True))
+    with pytest.raises(NotImplementedError, match="geometry"):
+        t_trace(dataclasses.replace(scene, prims=prims), *args, differentiable=True)
+    rad, st = t_trace(dataclasses.replace(scene, shade_static=False), *args)
+    assert torch.isfinite(rad).all() and st.bounces > 0

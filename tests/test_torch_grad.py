@@ -170,8 +170,7 @@ def test_loss_and_grad_match_jax(cornell, monkeypatch, rr):
                                    torch.from_numpy(target), device="cpu")
     np.testing.assert_allclose(float(loss), float(jloss), rtol=2e-3)
     want, got = leaves(jg), leaves(g)
-    del want["tex_images"]
-    assert set(got) == set(want)
+    assert set(got) == set(want) and not got["tex_images"].any()
     scale = max(np.abs(v).max() for v in want.values())
     assert np.abs(want["tex_color"]).max() > 0.01
     for k in want:
@@ -229,8 +228,8 @@ def test_camera_lanes_carry_gradients():
 
 
 def test_diff_params_from_numpy():
-    """The JAX DiffParams leaves carry across as numpy arrays; the
-    image-texel leaf is skipped and unknown or missing leaves raise."""
+    """The JAX DiffParams leaves carry across as numpy arrays, the
+    image texels included; unknown or missing leaves raise."""
     jscene = j_get_scene("CornellBox").build()
     jp = JDiffParams.from_scene(jscene, JCameraParams.create(*CORNELL_CAM),
                                 (0.1, 0.2, 0.3))
@@ -252,11 +251,15 @@ def test_diff_params_from_numpy():
 
 
 def test_differentiable_trace_refuses_perlin():
-    """Perlin has no backward: a differentiable trace of a scene with it
-    raises, naming the generic bounce path (ROADMAP queue 1 item 8)."""
+    """K1 and K2 refuse perlin (its d(value)/d(point) has no backward
+    kernel): a differentiable trace of a perlin scene takes the generic
+    route, K4 and autograd, and gradients reach the rays."""
     scene = get_scene("TwoSphereCheckers").build()
-    o = torch.zeros(4, 3)
-    d = torch.tensor([[0.0, 0.0, -1.0]]).repeat(4, 1)
+    assert not fb.fused_bounce_diff_ok(scene)
+    o = torch.tensor([[13.0, 2.0, 3.0]]).repeat(4, 1)
+    d = torch.tensor([[-13.0, -1.0, -3.0], [-13.0, 0.5, -3.0], [-13.0, -2.5, -3.0],
+                      [-13.0, 1.5, -2.5]], requires_grad=True)
     keys = sampling.lane_keys(sampling.prng_key(0), torch.arange(4))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        trace(scene, o, d, keys, (0.0, 0.0, 0.0), 2, differentiable=True)
+    rad, st = trace(scene, o, d, keys, (1.0, 1.0, 1.0), 2, differentiable=True)
+    (g,) = torch.autograd.grad(rad.sum(), [d])
+    assert st.bounces == 2 and torch.isfinite(g).all() and g.abs().sum() > 0

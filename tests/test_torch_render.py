@@ -147,9 +147,9 @@ def test_no_fallback_without_gpu(tmp_path):
 
 
 def test_not_ported_settings_raise():
-    """The cascade raises; a differentiable render of CornellBox runs,
-    and one of a perlin scene (TwoSphereCheckers) raises, naming the
-    generic bounce path it needs."""
+    """The cascade raises, and so does the remat mode the port lacks
+    ("bf16"); differentiable renders of CornellBox (fused route) and of a
+    perlin scene (TwoSphereCheckers, generic route) run."""
     sd = get_scene("CornellBox")
     base = RenderSettings(4, 4, 1, 2, (0.0, 0.0, 0.0))
     for kw, item in (({"cascade": True}, "item 11"),
@@ -163,9 +163,13 @@ def test_not_ported_settings_raise():
                              device="cpu")
     assert img.shape == (4, 4, 3) and torch.isfinite(img).all()
     perlin = get_scene("TwoSphereCheckers")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        render_radiance(perlin.build(), perlin.camera_at(0.0), diff,
-                        prng_key(0), device="cpu")
+    img, st = render_radiance(perlin.build(), perlin.camera_at(0.0), diff,
+                              prng_key(0), device="cpu")
+    assert torch.isfinite(img).all() and st.bounces == 2
+    with pytest.raises(NotImplementedError, match="bf16"):
+        render_radiance(perlin.build(), perlin.camera_at(0.0),
+                        dataclasses.replace(diff, remat="bf16"), prng_key(0),
+                        device="cpu")
 
 
 def _imported_modules(path):

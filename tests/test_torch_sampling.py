@@ -101,3 +101,32 @@ def test_precompute_draws_bit_equal(rr_start):
     assert ("roulette" in td) == (rr_start is not None)
     for name in jd:
         _eq(jd[name], td[name])
+
+
+@pytest.mark.parametrize("with_roulette", [False, True])
+def test_bounce_draws_bit_equal(with_roulette):
+    """One bounce's scatter uniforms, and the same as the hoisted draws'
+    row of that bounce."""
+    rng = np.random.default_rng(5)
+    jk, tk = _keys(rng, 300)
+    j = js.bounce_draws(jk, 7, with_roulette)
+    t = ts.bounce_draws(tk, 7, with_roulette)
+    assert (t[3] is None) == (not with_roulette)
+    for a, b in zip(j, t):
+        if b is not None:
+            _eq(a, b)
+    hoisted = t_precompute(tk, 8, 0 if with_roulette else 9)
+    _eq(np.asarray(j[0]), hoisted["sphere_u"][7])
+    _eq(np.asarray(j[2]), hoisted["coin"][7])
+
+
+def test_sphere_and_ball_transforms_close():
+    """on_unit_sphere_from_u / in_unit_sphere_from_u: cos, sin and cbrt
+    differ by an ulp between XLA and PyTorch, hence 4 ulp."""
+    u = np.random.default_rng(6).random((512, 3)).astype(np.float32)
+    np.testing.assert_allclose(
+        ts.on_unit_sphere_from_u(torch.from_numpy(u[:, :2])).numpy(),
+        np.asarray(js.on_unit_sphere_from_u(jnp.asarray(u[:, :2]))), rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(
+        ts.in_unit_sphere_from_u(torch.from_numpy(u)).numpy(),
+        np.asarray(js.in_unit_sphere_from_u(jnp.asarray(u))), rtol=1e-6, atol=1e-7)

@@ -28,7 +28,8 @@ from rust_pathtracer_tpu_torch.scene import SceneBuilder, scene_from_numpy
 torch.set_num_threads(2)
 
 SCENES = ("CornellBox", "TriangleTest", "TwoSphereCheckers", "LightTest")
-STATIC = ("prim_types", "tex_types", "mat_types", "kinds_static", "shade_static")
+STATIC = ("prim_types", "tex_types", "mat_types", "kinds_static", "shade_static",
+          "checker_depth")
 GROUPS = ("prims", "materials", "textures")
 
 
@@ -47,7 +48,7 @@ def _assert_tables_equal(jscene, tscene):
     for g in GROUPS:
         tgroup = getattr(tscene, g)
         for name in ("kind", "mat", "aux", "data", "tex", "fuzz", "ir",
-                     "color", "child", "scale"):
+                     "color", "child", "scale", "image_id", "images", "image_hw"):
             path = f"{g}.{name}"
             if not hasattr(tgroup, name):
                 continue
@@ -79,6 +80,33 @@ def test_scene_from_numpy_carries_jax_scene(name):
     np.testing.assert_array_equal(t_pack(carried).numpy(), t_pack(own).numpy())
 
 
+def test_image_scene_carries_jax_scene():
+    """An image-textured scene with a nested checker: the builders'
+    tables equal, and scene_from_numpy carries the JAX scene's image
+    leaves; an unknown or a missing leaf raises."""
+    from rust_pathtracer_tpu.scene.builder import SceneBuilder as JSceneBuilder
+
+    def build(builder):
+        b = builder()
+        ramp = np.linspace(0.1, 0.9, 4 * 6 * 3).reshape(4, 6, 3).astype(np.float32)
+        img = b.image_texture(ramp)
+        ck = b.checker_texture(b.solid_texture((0.1, 0.2, 0.3)), img, 4.0)
+        b.add_sphere((0, 0, -1), 0.5, b.lambertian(b.checker_texture(ck, img)))
+        b.add_sphere((0, -100.5, -1), 100.0, b.lambertian(img))
+        return b.build(use_bvh=False)
+
+    jscene, tscene = build(JSceneBuilder), build(SceneBuilder)
+    _assert_tables_equal(jscene, tscene)
+    assert tscene.checker_depth == 2 and not tscene.shade_static
+    arrays, static = _jax_leaves(jscene)
+    _assert_tables_equal(jscene, scene_from_numpy(arrays, static))
+    with pytest.raises(ValueError, match="unknown"):
+        scene_from_numpy({**arrays, "textures.extra": np.zeros(1)}, static)
+    with pytest.raises(ValueError, match="missing"):
+        scene_from_numpy({k: v for k, v in arrays.items() if k != "textures.images"},
+                         static)
+
+
 def test_not_ported_yet_raises():
     for name in ("SphereField", "ModelTest"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -87,8 +115,6 @@ def test_not_ported_yet_raises():
     b.add_sphere((0, 0, -1), 0.5, b.lambertian((0.5, 0.5, 0.5)))
     with pytest.raises(NotImplementedError, match="item 10"):
         b.build(use_bvh=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        b.image_texture(np.zeros((2, 2, 3), np.float32))
     for i in range(130):
         b.add_sphere((i, 0, -1), 0.5, 0)
     with pytest.raises(NotImplementedError, match="item 11"):
