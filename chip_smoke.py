@@ -5,15 +5,17 @@
 
 Drives ``rust_pathtracer_tpu_torch`` (never JAX) through its paths:
 the fused forward render and differentiable step of ``bench.py``'s
-shape (K1, K2), and the generic bounce path (K3, K4) forward and
-differentiable, whose main path is the differentiable TwoSphereCheckers
-step at the scene's own width (phase 12).  It checks them:
+shape (K1, K2), the generic bounce path (K3, K4) forward and
+differentiable, and the big-scene path (K5, K6, K7), whose main path is
+the SphereField forward render at the scene's own width (phase 15).  It
+checks them:
 
 1. device: a CUDA GPU must be present (no CPU fallback); prints the
    card's name and power limit and the torch and nvcc versions;
 2. build: builds K1 (``ops/csrc/fused_bounce.cu``), K2
-   (``ops/csrc/fused_bounce_bwd.cu``) and K3/K4
-   (``ops/csrc/closest_hit.cu``) with nvcc for sm_90a, in parallel;
+   (``ops/csrc/fused_bounce_bwd.cu``), K3/K4 (``ops/csrc/closest_hit.cu``)
+   and K5/K6/K7 (``ops/csrc/projected.cu``) with nvcc for sm_90a, in
+   parallel;
 3. K1 against its plain PyTorch version on 1,000,000 random lanes of a
    scene that covers every branch: alive mask, hit mask and winning
    primitive equal on every lane, floats within 1e-5 relative + 1e-6
@@ -63,7 +65,28 @@ step at the scene's own width (phase 12).  It checks them:
 13. the differentiable LightTest step at 854x480, 2 spp, 50 bounces,
     remat "auto" (which must checkpoint): K4 launched 50 times over
     forward and backward, finite gradients, time and peak memory of a
-    first and a second step.
+    first and a second step;
+14. K5, K6 and K7 against their plain versions on the same CUDA
+    tensors, on 1,000,000 lanes of each of three tables: ModelTest's
+    10,240 columns, SphereField's 640 and the streamed 20,480 of the
+    20,000-triangle mesh (first-bounce lanes, then random lanes in the
+    scene box, every tenth parked at 3e33): t, column and payload bit for
+    bit; each timed beside its plain version, with its bound, the
+    clusters a lane's slab test passes and the clusters it sweeps;
+15. the main path: SphereField forward at 854x480, 20 bounces, 2 spp
+    (one chunk of 819,840 lanes), K6 once a bounce: segments/s, wall,
+    finite, >= 0, deterministic; the 64x36 golden configuration on the
+    card against the golden and against the CPU; K6 and K5 timed at its
+    first bounce;
+16. ModelTest forward at 800x800, 20 bounces, 1 spp (K6 once a bounce);
+    the 20,000-triangle mesh through the pair route: K7 launches and K5
+    fallback launches (at least one K7 launch); K7 timed at its first
+    bounce;
+17. the differentiable SphereField step at 854x480, 2 spp, 20 bounces,
+    loss = mean(img), K5 the search once a bounce: finite gradients of
+    the texture colours and the background, two steps on one key bit
+    for bit equal, peak memory, the median step over batches as bench.py
+    takes it and its split by CUDA events.
 
 Each path runs with every launch count set to 0 just before it and
 read just after.  Any failed check exits non-zero.  On success the last
@@ -116,7 +139,7 @@ SMALL_STEP = dict(width=64, height=64, spp=4, bounces=8, rr_start=4)
 STEP = dict(reps=5, batches=5, max_batches=12, spread_tol=0.10)
 CORNELL_CAM = ((278.0, 278.0, -800.0), (278.0, 278.0, 0.0), (0.0, 1.0, 0.0),
                40.0, 1.0, 0.0, 10.0)
-KERNELS = ("fused_bounce", "fused_bounce_bwd", "closest_hit")
+KERNELS = ("fused_bounce", "fused_bounce_bwd", "closest_hit", "projected")
 LEAF_NAMES = ("tex_color", "tex_images", "background", "lookfrom", "lookat", "up",
               "vfov_deg", "aspect", "aperture", "focus_dist")
 
@@ -141,6 +164,28 @@ TSC_BG = (1.0, 1.0, 1.0)
 LIGHT = dict(width=854, height=480, spp=2, bounces=50, seed=0)
 LIGHT_CAM = ((26.0, 3.0, 6.0), (0.0, 2.0, 0.0), (0.0, 1.0, 0.0), 20.0, 854.0 / 480.0,
              0.0, 10.0)
+# phases 14-17: the big-scene path.  SphereField at its own width, cut
+# from 250 spp to 2 (one chunk); ModelTest at its own 800x800, cut to
+# 1 spp; the 20,000-triangle mesh of write_benchmark_obj(rows=101, cols=100)
+BIG_LANES = 1_000_000
+SF = dict(width=854, height=480, spp=2, bounces=20, seed=0)
+SF_CAM = ((12.0, 1.0, 0.0), (0.0, 0.5, 0.0), (0.0, 1.0, 0.0), 20.0, 854.0 / 480.0,
+          0.1, 10.0)
+SF_BG = (1.0, 1.0, 1.0)
+MT = dict(width=800, height=800, spp=1, bounces=20, seed=0)
+MESH_20K = dict(rows=101, cols=100)
+# random lanes of phase 14: the box around each scene's primitives
+SCENE_BOX = {"SphereField": ((-11.0, 0.05, -11.0), (11.0, 3.0, 11.0)),
+             "ModelTest": ((-3.0, 0.05, -3.0), (3.0, 3.5, 3.0))}
+PARKED = 3.0e33
+# f32 operations of the projected sweep, counted from csrc/projected.cu
+# (compares and selects none): a column of a sphere cluster (two 8-term
+# projections, the half-b quadratic), of a rect / triangle cluster (six
+# projections, the plane or Woop solve), a slab test, a lane's set-up
+SPHERE_COL_OPS, RECT_COL_OPS, TRI_COL_OPS = 40, 95, 97
+SLAB_OPS, PROJ_LANE_OPS = 12, 19
+# bytes a lane: rays in (24), t, column and payload out (4 + 4 + 128)
+PROJ_LANE_BYTES = 24 + 136
 
 
 def fail(msg: str):
@@ -1154,6 +1199,372 @@ def phase_light_step(torch, device, card):
 
 
 # ---------------------------------------------------------------------------
+# phases 14-17: the big-scene path (K5, K6, K7)
+# ---------------------------------------------------------------------------
+
+
+def big_scenes(device):
+    """SphereField, ModelTest on the 10,080-triangle asset and on the
+    20,000-triangle one, built on ``device``: name -> (SceneDef, scene).
+    The OBJ assets are written under OUT_DIR."""
+    from rust_pathtracer_tpu_torch.models import get_scene
+    from rust_pathtracer_tpu_torch.scene.obj_loader import write_benchmark_obj
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    out = {}
+    for name, kw in (("SphereField", None), ("ModelTest", {}),
+                     ("ModelTest 20k", MESH_20K)):
+        t0 = time.perf_counter()
+        if kw is None:
+            sd = get_scene(name)
+        else:
+            path = os.path.join(OUT_DIR, f"model_{'20k' if kw else '10k'}.obj")
+            tris = write_benchmark_obj(path, **kw)
+            sd = get_scene("ModelTest", obj_path=path)
+        scene = sd.build(device=device)
+        P = scene.proj
+        log(f"{name}: {scene.num_prims} primitives, {P.num_cols} columns, "
+            f"{sum(k != -1 for k in P.group_kinds)} real clusters, col_block "
+            f"{P.col_block}, built in {time.perf_counter() - t0:.2f} s"
+            + ("" if kw is None else f" ({tris} triangles)"))
+        out[name] = (sd, scene)
+    return out
+
+
+def big_lanes(torch, device, name, sd, cfg, n_lanes, seed=20261016):
+    """The first bounce of ``cfg``'s frame (its camera rays), then random
+    lanes in the scene box up to ``n_lanes``, every tenth parked at
+    PARKED (a dead lane of the forward route)."""
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+
+    cam = sd.camera_at(0.0, device=device)
+    o, d = _first_bounce(torch, device, cam, prng_key(cfg["seed"], device=device), cfg)
+    n_rand = max(n_lanes - o.shape[0], 0)
+    rng = np.random.default_rng(seed)
+    lo, hi = SCENE_BOX["SphereField" if name == "SphereField" else "ModelTest"]
+    ro = rng.uniform(lo, hi, (n_rand, 3))
+    ro[::10] = PARKED
+    rd = rng.normal(size=(n_rand, 3))
+    o = torch.cat([o, torch.tensor(ro, dtype=torch.float32, device=device)])
+    d = torch.cat([d, torch.tensor(rd, dtype=torch.float32, device=device)])
+    return o[:n_lanes].contiguous(), d[:n_lanes].contiguous()
+
+
+def _slab_passes(torch, tables, o, d):
+    """Mean count of clusters a lane's slab test passes (entry at t_min,
+    exit at T_MISS: the worklist's test)."""
+    from rust_pathtracer_tpu_torch.integrator import T_MIN
+    from rust_pathtracer_tpu_torch.ops.projected import slab_bounds
+
+    total = 0
+    for s0 in range(0, o.shape[0], 1 << 17):
+        lo, hi = slab_bounds(tables.cluster_bounds, o[s0:s0 + (1 << 17)],
+                             d[s0:s0 + (1 << 17)], T_MIN)
+        total += int((hi >= lo).sum())
+    return total / o.shape[0]
+
+
+def _sweep_fns(torch, tables, o, d):
+    """K5, K6 and K7 and their plain versions on (o, d), with the slot
+    tables of blocks of WL_RB lanes (K7: WL_KCAP slots where no block
+    overflows, else every cluster).  Returns {name: (kernel, plain,
+    slot bytes, note)}."""
+    from rust_pathtracer_tpu_torch.integrator import T_MIN
+    from rust_pathtracer_tpu_torch.ops import projected as P
+    from rust_pathtracer_tpu_torch.ops import resident as RS
+    from rust_pathtracer_tpu_torch.ops import worklist as WL
+
+    rb, n = WL.WL_RB, o.shape[0]
+    Rp = -(-n // rb) * rb
+    pad = torch.zeros((Rp - n, 3), device=o.device)
+    op, dp = torch.cat([o, pad]), torch.cat([d, pad])
+    G = tables.num_groups
+    meta6, _ = WL.build_pair_worklist(tables.cluster_bounds, tables.group_kinds, op, dp,
+                                      T_MIN, rb, G)
+    packed, counts = RS.pack_slots(meta6, Rp // rb)
+    meta7, ov = WL.build_pair_worklist(tables.cluster_bounds, tables.group_kinds, op,
+                                       dp, T_MIN, rb, WL.WL_KCAP)
+    note7 = f"kcap {min(WL.WL_KCAP, G)}"
+    if bool(ov):
+        meta7, note7 = meta6, f"kcap {G} (a block passes more than {WL.WL_KCAP})"
+    return {
+        "K5": (lambda: P.projected_sweep(tables, o, d, T_MIN),
+               lambda st=None: P.projected_sweep_plain(tables, o, d, T_MIN, stats=st),
+               0, "every cluster"),
+        "K6": (lambda: RS.resident_sweep(tables, o, d, T_MIN, packed, counts, rb),
+               lambda st=None: RS.resident_sweep_plain(tables, o, d, T_MIN, packed,
+                                                       counts, rb, stats=st),
+               nbytes(packed, counts), f"kcap {G}"),
+        "K7": (lambda: WL.pair_sweep(tables, o, d, T_MIN, meta7, rb),
+               lambda st=None: WL.pair_sweep_plain(tables, o, d, T_MIN, meta7, rb,
+                                                   stats=st),
+               nbytes(meta7), note7),
+    }
+
+
+def proj_bound(tables, n_lanes, stats, slot_bytes):
+    """The least time for one sweep: the bytes (rays in, outputs out, the
+    tables and slots read once) over the memory rate against the f32
+    operations these inputs need (the plain version's count of slab
+    tests and cluster sweeps) over the f32 peak."""
+    tab = nbytes(tables.a, tables.b, tables.const, tables.payload,
+                 tables.cluster_bounds)
+    ops = (stats.get("slab_tests", 0) * SLAB_OPS + n_lanes * PROJ_LANE_OPS
+           + 128 * (stats.get("swept_0", 0) * SPHERE_COL_OPS
+                    + stats.get("swept_1", 0) * RECT_COL_OPS
+                    + stats.get("swept_2", 0) * TRI_COL_OPS))
+    return bound(n_lanes * PROJ_LANE_BYTES + tab + slot_bytes, ops)
+
+
+def time_sweep(torch, device, card, label, fns, tables, n_lanes, reps):
+    """One of K5 / K6 / K7 (``fns`` = (kernel, plain, slot bytes, note))
+    against its plain version: bit-for-bit equal, then timed (plain,
+    kernel, kernel, plain) with the bound.  Returns a dict."""
+    kernel, plain, slot_bytes, note = fns
+    got = kernel()
+    stats = {}
+    want = plain(stats)
+    _sync(torch, device)
+    bad = sum(int((a != b).reshape(a.shape[0], -1).any(dim=1).sum())
+              for a, b in zip(got, want))
+    err = max(float(torch.where(a == b, 0.0, (a.double() - b.double()).abs()).max())
+              for a, b in zip(got, want))
+    hits = int((want[1] >= 0).sum())
+    swept = sum(v for k, v in stats.items() if k.startswith("swept_"))
+    ms = time_pair(torch, device, kernel, plain, reps)
+    k_ms, p_ms = statistics.mean(ms["kernel"]), statistics.mean(ms["plain"])
+    b_ms, b_by = proj_bound(tables, n_lanes, stats, slot_bytes)
+    log(f"{label} ({note}) on {n_lanes} lanes, {card}: {hits} hits, {bad} lanes differ "
+        f"from the plain version; slab tests {stats.get('slab_tests', 0) / n_lanes:.3f} "
+        f"a lane, clusters swept {swept / n_lanes:.3f} a lane; {k_ms:.4f} ms per launch "
+        f"(blocks of {reps}: {[round(x, 4) for x in ms['kernel']]}); plain {p_ms:.2f} ms "
+        f"({[round(x, 2) for x in ms['plain']]}); bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    check(bad == 0, f"{label}: t, column or payload differ from the plain version "
+                    f"on {bad} lanes")
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+
+
+def phase_projected_vs_plain(torch, device, card, scenes, reps):
+    log(f"== phase 14: K5, K6 and K7 vs plain on {BIG_LANES} lanes of three tables")
+    out = {}
+    for name, cfg in (("ModelTest", MT), ("SphereField", SF), ("ModelTest 20k", MT)):
+        sd, scene = scenes[name]
+        o, d = big_lanes(torch, device, name, sd, cfg, BIG_LANES)
+        passes = _slab_passes(torch, scene.proj, o, d)
+        log(f"{name}: {o.shape[0]} lanes ({cfg['width']}x{cfg['height']}x{cfg['spp']} "
+            f"first bounce, the rest random in the scene box, a tenth of those parked); "
+            f"a lane's slab test passes {passes:.3f} of "
+            f"{sum(k != -1 for k in scene.proj.group_kinds)} clusters on average")
+        for kname, fns in _sweep_fns(torch, scene.proj, o, d).items():
+            out[(name, kname)] = time_sweep(torch, device, card, f"{kname} {name}", fns,
+                                            scene.proj, o.shape[0], reps)
+    return out
+
+
+def phase_spherefield_forward(torch, device, card, scenes, reps):
+    cfg = SF
+    W, H, spp, nb = cfg["width"], cfg["height"], cfg["spp"], cfg["bounces"]
+    lanes = W * H * spp
+    log(f"== phase 15 (main path): SphereField forward {W}x{H}, {spp} spp, {nb} "
+        f"bounces, one chunk of {lanes} lanes, the resident route (K6)")
+    from rust_pathtracer_tpu_torch.models import get_scene
+    from rust_pathtracer_tpu_torch.ops.projected import default_route
+    from rust_pathtracer_tpu_torch.render import RenderSettings, render_radiance
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+    from rust_pathtracer_tpu_torch.utils.image import image_agreement, to_rgb8, write_png
+
+    sd, scene = scenes["SphereField"]
+    check(default_route(scene.proj) == "resident", "SphereField left the K6 route")
+    cam = sd.camera_at(0.0, device=device)
+    key = prng_key(cfg["seed"], device=device)
+    settings = RenderSettings(W, H, spp, nb, SF_BG)
+    check(settings.resolve_chunk() == spp, "the frame is not one chunk")
+    render_radiance(scene, cam, RenderSettings(64, 36, 1, 2, SF_BG), key, device=device)
+    _sync(torch, device)
+    reset_counts()
+    t0 = time.perf_counter()
+    img, stats = render_radiance(scene, cam, settings, key, device=device)
+    _sync(torch, device)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    img_np = img.cpu().numpy()
+    segments = float(stats.segments)
+    log(f"SphereField {W}x{H} spp={spp} bounces={nb} on {card}: wall {wall:.3f} s, "
+        f"segments {segments:.0f}, segments/s {segments / wall:.4e}, mean depth "
+        f"{segments / lanes:.4f}, bounces {stats.bounces}, launches {counts}, image "
+        f"mean {img_np.mean():.6f}")
+    check(np.isfinite(img_np).all() and (img_np >= 0).all(),
+          "the SphereField frame has non-finite or negative pixels")
+    check(counts["K6"] == stats.bounces > 0,
+          f"K6 launched {counts['K6']} times in {stats.bounces} bounces")
+    check(all(counts[k] == 0 for k in ("K1", "K1-res", "K2", "K3", "K4", "K5", "K7")),
+          "the SphereField forward left the resident route")
+    img2, _ = render_radiance(scene, cam, settings, key, device=device)
+    check(torch.equal(img, img2), "the SphereField frame twice differs")
+    log("rendered twice: bitwise equal")
+    png = os.path.join(OUT_DIR, f"SphereField_{W}x{H}_{spp}spp.png")
+    write_png(png, to_rgb8(img_np))
+    log(f"wrote {png}")
+
+    gw, gh, gspp, gnb = 64, 36, 8, 8  # tests/golden_utils.py GOLDEN_CONFIGS
+    gs = RenderSettings(gw, gh, gspp, gnb, SF_BG, spp_chunk=gspp)
+    imgs = [render_radiance(get_scene("SphereField").build(device=dev),
+                            sd.camera_at(0.0, device=dev), gs,
+                            prng_key(GOLDEN_SEED, device=dev), device=dev)[0].cpu().numpy()
+            for dev in (device, "cpu")]
+    for label, ref in (("golden", np.load(_golden_path("SphereField"))), ("CPU", imgs[1])):
+        a = image_agreement(imgs[0], ref)
+        log(f"SphereField {gw}x{gh} spp={gspp} bounces={gnb}, card vs {label}: mean rel "
+            f"{a['mean_rel']:.2e}, pixels close {a['frac_close']:.4f}, nan {a['has_nan']}")
+        check(a["ok"], f"the card's SphereField breaks the image contract against the {label}")
+
+    # K6 and K5 at the main paths' shape: the frame's first bounce
+    o, d = _first_bounce(torch, device, cam, key, cfg)
+    fns = _sweep_fns(torch, scene.proj, o, d)
+    k6 = time_sweep(torch, device, card, "K6 SphereField first bounce", fns["K6"],
+                    scene.proj, lanes, reps)
+    k5 = time_sweep(torch, device, card, "K5 SphereField first bounce", fns["K5"],
+                    scene.proj, lanes, reps)
+    return dict(k6, launches=counts["K6"]), k5
+
+
+def phase_modeltest_forward(torch, device, card, scenes, reps):
+    cfg = MT
+    W, H, spp, nb = cfg["width"], cfg["height"], cfg["spp"], cfg["bounces"]
+    lanes = W * H * spp
+    log(f"== phase 16: ModelTest forward {W}x{H}, {spp} spp, {nb} bounces, {lanes} "
+        f"lanes: the 10,080-triangle mesh (K6), the 20,000-triangle one (K7, K5)")
+    from rust_pathtracer_tpu_torch.ops.projected import default_route
+    from rust_pathtracer_tpu_torch.render import RenderSettings, render_radiance
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+    from rust_pathtracer_tpu_torch.utils.image import to_rgb8, write_png
+
+    settings = RenderSettings(W, H, spp, nb, (1.0, 1.0, 1.0))
+    out = {}
+    for name, route, kernel in (("ModelTest", "resident", "K6"),
+                                ("ModelTest 20k", "pairs", "K7")):
+        sd, scene = scenes[name]
+        check(default_route(scene.proj) == route, f"{name} left the {route} route")
+        cam = sd.camera_at(0.0, device=device)
+        key = prng_key(cfg["seed"], device=device)
+        _sync(torch, device)
+        reset_counts()
+        t0 = time.perf_counter()
+        img, stats = render_radiance(scene, cam, settings, key, device=device)
+        _sync(torch, device)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        img_np = img.cpu().numpy()
+        segments = float(stats.segments)
+        log(f"{name} {W}x{H} spp={spp} bounces={nb} on {card}: wall {wall:.3f} s, "
+            f"segments {segments:.0f}, segments/s {segments / wall:.4e}, bounces "
+            f"{stats.bounces}, launches {counts}, image mean {img_np.mean():.6f}")
+        check(np.isfinite(img_np).all() and (img_np >= 0).all(),
+              f"{name} has non-finite or negative pixels")
+        if kernel == "K6":
+            check(counts["K6"] == stats.bounces > 0 and counts["K5"] == counts["K7"] == 0,
+                  f"{name}: K6 launched {counts['K6']} times in {stats.bounces} bounces")
+        else:
+            check(counts["K7"] >= 1, f"{name}: K7 launched no time")
+            check(counts["K7"] + counts["K5-fallback"] == stats.bounces
+                  and counts["K5"] == counts["K5-fallback"] and counts["K6"] == 0,
+                  f"{name}: K7 {counts['K7']} + K5 fallback {counts['K5-fallback']} "
+                  f"launches in {stats.bounces} bounces")
+        write_png(os.path.join(OUT_DIR, f"{name.replace(' ', '_')}_{W}x{H}.png"),
+                  to_rgb8(img_np))
+        out[name] = counts
+
+    # K7 at its path's shape: the 20k mesh's first bounce (no block overflows)
+    sd, scene = scenes["ModelTest 20k"]
+    o, d = _first_bounce(torch, device, sd.camera_at(0.0, device=device),
+                         prng_key(cfg["seed"], device=device), cfg)
+    fns = _sweep_fns(torch, scene.proj, o, d)
+    k7 = time_sweep(torch, device, card, "K7 ModelTest 20k first bounce", fns["K7"],
+                    scene.proj, lanes, reps)
+    return dict(k7, launches=out["ModelTest 20k"]["K7"],
+                fallbacks=out["ModelTest 20k"]["K5-fallback"])
+
+
+def phase_spherefield_step(torch, device, card):
+    cfg = SF
+    W, H, spp, nb = cfg["width"], cfg["height"], cfg["spp"], cfg["bounces"]
+    lanes = W * H * spp
+    log(f"== phase 17: differentiable SphereField step {W}x{H}, {spp} spp, {nb} "
+        f"bounces, one chunk of {lanes} lanes, loss = mean(img), K5 the search")
+    from rust_pathtracer_tpu_torch.integrator import resolve_remat_mode
+    from rust_pathtracer_tpu_torch.models import get_scene
+    from rust_pathtracer_tpu_torch.render import RenderSettings, _make_lanes
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+
+    scene = get_scene("SphereField").build(device=device)
+    settings = RenderSettings(W, H, spp, nb, SF_BG, differentiable=True)
+    check(settings.resolve_chunk() == spp, "the frame is not one chunk")
+    mode = resolve_remat_mode(settings.remat, lanes, nb)
+    key = prng_key(cfg["seed"], device=device)
+    leaves = _diff_leaves(torch, scene, SF_CAM, SF_BG, device)
+
+    def forward():
+        return _diff_forward(scene, leaves, settings, key, device)
+
+    def step():
+        _zero_grads(leaves)
+        loss, stats = forward()
+        loss.backward()
+        return loss, stats
+
+    t0 = time.perf_counter()
+    loss0, _ = step()  # warm-up, and the first of two steps on one key
+    _sync(torch, device)
+    log(f"first step {time.perf_counter() - t0:.3f} s (remat {mode!r})")
+    grads0 = _leaf_grads(leaves)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    loss, stats = step()
+    _sync(torch, device)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    grads = _leaf_grads(leaves)
+    segments = float(stats.segments)
+    log(f"one step: loss {float(loss.detach()):.7f}, segments {segments:.0f} (mean depth "
+        f"{segments / lanes:.4f}), launches {counts}, peak memory {peak / 1e9:.3f} GB "
+        f"({(peak - base) / 1e9:.3f} GB above the {base / 1e9:.3f} GB before the step: "
+        f"{(peak - base) / (lanes * nb):.1f} B a lane-bounce)")
+    log("gradients: " + _grad_sums(grads))
+    check(counts["K5"] == nb, f"K5 launched {counts['K5']} times, want {nb}")
+    check(all(counts[k] == 0 for k in ("K1", "K1-res", "K2", "K3", "K4", "K6", "K7")),
+          "the SphereField step left its route")
+    check(all(np.isfinite(g).all() for g in grads), "non-finite gradients")
+    check(np.abs(grads[0]).sum() > 0, "tex_color's gradient is zero")
+    check(np.abs(grads[2]).min() > 0, "a background gradient is zero")
+    same = (float(loss0.detach()) == float(loss.detach())
+            and all(np.array_equal(a, b) for a, b in zip(grads0, grads)))
+    log(f"two steps on one key: loss and gradients bitwise equal: {same}")
+    check(same, "two SphereField steps on one key differ")
+
+    med, spread, times = _batch_median(step, leaves, MAIN_STEP)
+    log(f"SphereField step on {card}: median {med * 1e3:.2f} ms over {len(times)} "
+        f"batches of {MAIN_STEP['reps']} (spread {spread:.3f}; batches "
+        f"{[round(t * 1e3, 2) for t in times]} ms), segments/s {segments / med:.4e}")
+    from rust_pathtracer_tpu_torch.grad import DiffParams
+
+    cam = DiffParams.from_leaves(leaves).camera.build()
+    pix = torch.arange(W * H, dtype=torch.int64, device=device)
+
+    def lanes_fn():
+        return _make_lanes(cam, key, pix, 0, width=W, height=H, spp_chunk=spp,
+                           spp_total=spp)
+
+    split = _step_split(torch, leaves, forward, lanes_fn, nb)
+    log(f"step split on {card} (CUDA events, median of 3): forward "
+        f"{split['forward']:.2f} ms = lanes {split['lanes']:.2f} + RNG draws "
+        f"{split['draws']:.2f} + bounce loop and the rest {split['loop']:.2f}; "
+        f"backward {split['backward']:.2f} ms")
+    return counts["K5"]
+
+
+# ---------------------------------------------------------------------------
 # shared helpers: launch counts, batches, splits, bounds
 # ---------------------------------------------------------------------------
 
@@ -1163,18 +1574,26 @@ def reset_counts():
     from rust_pathtracer_tpu_torch.ops import closest_hit as ch
     from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
     from rust_pathtracer_tpu_torch.ops import fused_bounce_bwd as fbb
+    from rust_pathtracer_tpu_torch.ops import projected, resident, worklist
 
     fb.launches = fb.residual_launches = fbb.launches = 0
     ch.hit_launches = ch.record_launches = 0
+    projected.launches = resident.launches = 0
+    worklist.launches = worklist.fallback_launches = 0
 
 
 def read_counts():
+    """Launches by kernel; "K5-fallback" counts the K5 launches that
+    K7's wrapper made on an overflowing worklist (also in "K5")."""
     from rust_pathtracer_tpu_torch.ops import closest_hit as ch
     from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
     from rust_pathtracer_tpu_torch.ops import fused_bounce_bwd as fbb
+    from rust_pathtracer_tpu_torch.ops import projected, resident, worklist
 
     return {"K1": fb.launches - fb.residual_launches, "K1-res": fb.residual_launches,
-            "K2": fbb.launches, "K3": ch.record_launches, "K4": ch.hit_launches}
+            "K2": fbb.launches, "K3": ch.record_launches, "K4": ch.hit_launches,
+            "K5": projected.launches, "K6": resident.launches, "K7": worklist.launches,
+            "K5-fallback": worklist.fallback_launches}
 
 
 def _grad_sums(grads):
@@ -1325,6 +1744,15 @@ def main() -> int:
     k3 = phase_generic_forward(torch, device, card, time_reps=20)
     k4 = phase_main_step(torch, device, card, time_reps=20)
     phase_light_step(torch, device, card)
+    scenes = big_scenes(device)
+    ph14 = phase_projected_vs_plain(torch, device, card, scenes, reps=20)
+    k6, k5 = phase_spherefield_forward(torch, device, card, scenes, reps=20)
+    k7 = phase_modeltest_forward(torch, device, card, scenes, reps=20)
+    k5["launches"] = phase_spherefield_step(torch, device, card)
+
+    def sweep_err(kernel, main):
+        return max([main["max_abs_err"]] + [v["max_abs_err"] for (_, k), v in ph14.items()
+                                            if k == kernel])
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound_):
         return {"name": name, "route": "cuda",
@@ -1349,6 +1777,15 @@ def main() -> int:
         entry("closest_hit (K4)", "closest_hit.cu", "pallas_intersect.py:64",
               k4["launches"], max(k4["max_abs_err"], ch10["K4"]["max_abs_err"]),
               k4["ms"], k4["plain_ms"], (k4["bound_ms"], k4["bound_by"])),
+        entry("projected_sweep (K5)", "projected.cu", "projected.py:455",
+              k5["launches"], sweep_err("K5", k5), k5["ms"], k5["plain_ms"],
+              (k5["bound_ms"], k5["bound_by"])),
+        entry("resident_sweep (K6)", "projected.cu", "resident.py:69",
+              k6["launches"], sweep_err("K6", k6), k6["ms"], k6["plain_ms"],
+              (k6["bound_ms"], k6["bound_by"])),
+        entry("pair_sweep (K7)", "projected.cu", "worklist.py:169",
+              k7["launches"], sweep_err("K7", k7), k7["ms"], k7["plain_ms"],
+              (k7["bound_ms"], k7["bound_by"])),
     ]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

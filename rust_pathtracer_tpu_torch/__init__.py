@@ -5,11 +5,13 @@ Pallas kernels rewritten by hand for NVIDIA Hopper (sm_90a).  The JAX
 package stays the reference: every module here names its counterpart
 there, and ``tests/test_torch_*.py`` hold each one against it.
 
-It renders and differentiates every scene of at most 128 primitives:
+It renders and differentiates the six reference scenes and any scene
+the builder makes:
 
 * counter-based threefry RNG, legacy stream, bit-exact (sampling)
-* scene tables, image textures included, and the packed kernel tables
-  (scene, ops.fused_bounce, ops.closest_hit)
+* scene tables, image textures and OBJ meshes included, the BVH order
+  and the packed kernel tables (scene, bvh, ops.fused_bounce,
+  ops.closest_hit, ops.projected)
 * camera lanes and the chunked frame loop (camera, render)
 * the bounce loops with russian roulette (integrator): the fused route,
   one whole bounce per launch of the CUDA kernel K1
@@ -17,7 +19,9 @@ It renders and differentiates every scene of at most 128 primitives:
   the backward kernel K2 (ops/csrc/fused_bounce_bwd.cu); the generic
   route for image textures, nested checkers and differentiable perlin,
   with the searches K3 and K4 (ops/csrc/closest_hit.cu) and the shading
-  in tensor ops (textures, materials, ops.intersect)
+  in tensor ops (textures, materials, ops.intersect); past 128
+  primitives the searches are K5, K6 and K7 over the projected tables
+  (ops/csrc/projected.cu), with the payload shading
 * image gradients for inverse rendering (grad)
 
 Every kernel has a plain PyTorch twin, which CPU tensors run.

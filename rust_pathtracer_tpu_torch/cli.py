@@ -5,13 +5,17 @@ Counterpart of ``rust_pathtracer_tpu/cli.py``; plain host code.
     python -m rust_pathtracer_tpu_torch.cli --scene CornellBox \\
         --width 256 --height 256 --spp 64 --output-dir ./output
 
+    python -m rust_pathtracer_tpu_torch.cli --scene ModelTest \
+        --obj-path ./model.obj --spp 4
+
 The default device is ``cuda``; ``--device cuda`` where there is no GPU
-exits non-zero (there is no CPU fallback).  Prints the ray segments
-traced, the wall seconds of the render (the kernel's first-use build
-is done before the clock starts) and segments per second.
+exits non-zero (there is no CPU fallback).  One frame, the camera at
+t = 0.  Prints the ray segments traced, the wall seconds of the render
+(the kernels' first-use builds are done before the clock starts) and
+segments per second.
 
 Not ported yet (ROADMAP queue 1 item 13): ``--scene-json``, animation
-frames and GIFs, ``--mesh``, ``--regen``, ``--cascade``,
+frames and GIFs (``--frames``), ``--mesh``, ``--regen``, ``--cascade``,
 ``--checkpoint``, profiling and metrics files.
 """
 
@@ -29,6 +33,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="path tracer on PyTorch + CUDA (forward render)",
     )
     p.add_argument("--scene", required=True, help="named scene")
+    p.add_argument("--obj-path", default="./model.obj", help="OBJ for ModelTest")
     p.add_argument("--output-dir", default="./output")
     p.add_argument("--width", type=int)
     p.add_argument("--height", type=int)
@@ -36,6 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-bounces", type=int)
     p.add_argument("--spp-chunk", type=int, help="samples per wavefront chunk")
     p.add_argument("--seed", type=int, default=0, help="RNG key seed")
+    p.add_argument("--bvh", choices=["auto", "on", "off"], default="auto")
+    p.add_argument("--leaf-size", type=int, default=4)
     p.add_argument(
         "--russian-roulette", type=int, default=None, metavar="START_BOUNCE",
         help="enable russian roulette from this bounce (off by default: "
@@ -60,7 +67,9 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
 
-    sd = get_scene(args.scene)
+    kwargs = {"obj_path": args.obj_path} if args.scene == "ModelTest" else {}
+    use_bvh = {"auto": "auto", "on": True, "off": False}[args.bvh]
+    sd = get_scene(args.scene, use_bvh=use_bvh, leaf_size=args.leaf_size, **kwargs)
     settings = sd.output.image
     overrides = {}
     if args.width:
@@ -84,7 +93,12 @@ def main(argv=None) -> int:
     if args.device == "cuda":
         from rust_pathtracer_tpu_torch.ops._build import load_library
 
-        load_library("fused_bounce")  # first-use build: set-up, not render time
+        # first-use builds of the kernels the scene's routes launch:
+        # set-up, not render time
+        libs = (("fused_bounce", "closest_hit") if scene.kinds_static is not None
+                else ("projected",))
+        for name in libs:
+            load_library(name)
 
     t0 = time.perf_counter()
     img, stats = render_radiance(scene, cam, settings, key, device=args.device)

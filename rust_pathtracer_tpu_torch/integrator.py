@@ -19,13 +19,18 @@ Two routes, chosen per scene as in the JAX package:
   columns and one launch of K1 a bounce (``ops/fused_bounce.py``); the
   differentiable loop is the whole-scan ``autograd.Function``
   ``fused_scan_trace`` (K1 with residuals forward, K2 backward);
-* **generic**, for every other scene of at most 128 primitives (image
-  textures, nested checkers, and perlin when differentiable):
-  ``_bounce_step`` on (R, 3) tensors.  The search is a kernel: K3
-  (search and hit record) when not differentiable, K4 (the detached
-  search) when differentiable, followed by ``record_from_rows`` on the
-  gathered primitive rows; shading and scatter are plain tensor ops
-  (``materials.py``, ``textures.py``) and autograd differentiates them.
+* **generic**, for every other scene (image textures, nested
+  checkers, perlin when differentiable, and every scene of more than
+  128 primitives): ``_bounce_step`` on (R, 3) tensors.  The search is a
+  kernel.  Up to 128 primitives: K3 (search and hit record) when not
+  differentiable, K4 (the detached search) when differentiable.
+  Beyond, over the scene's projected tables (``ops/projected.py``): the
+  forward takes K6, K7 or K5 by the tables' size, with dead lanes
+  parked at an unhittable origin, and shades from the winner's payload
+  row; the differentiable search is K5.  The differentiable record is
+  ``record_from_rows`` on the gathered primitive rows; shading and
+  scatter are plain tensor ops (``materials.py``, ``textures.py``) and
+  autograd differentiates them.
 
 The non-differentiable loops stop at ``max_bounces`` or once no lane is
 alive; the differentiable ones run exactly ``max_bounces`` bounces.
@@ -33,8 +38,9 @@ Optional russian roulette (off by default; the reference has none) runs
 between bounces.  t_min = 0.001 (ray.rs:25) is in units of |direction|.
 
 Not ported: the geometry-gradient re-derivation (``RPT_DIFF_T=rederive``),
-``remat="bf16"``, the diff cascade, the wavefront reorder (ROADMAP
-queue 1 items 8, 11 and 14), the regen wavefront (item 9).
+``remat="bf16"``, the diff cascade, the between-bounce wavefront
+reorder of big scenes (ROADMAP queue 1 items 8, 11 and 14; the reorder
+changes no per-lane result), the regen wavefront (item 9).
 """
 
 from __future__ import annotations
@@ -61,6 +67,11 @@ from rust_pathtracer_tpu_torch.ops.fused_bounce import (
     pack_prims_shaded,
     roulette,
 )
+from rust_pathtracer_tpu_torch.ops.projected import (
+    PAY_IDX,
+    closest_hit_projected,
+    closest_hit_record_projected,
+)
 from rust_pathtracer_tpu_torch.ops.intersect import (
     PRIM_RECT,
     PRIM_SPHERE,
@@ -71,6 +82,9 @@ from rust_pathtracer_tpu_torch.ops.intersect import (
 )
 
 T_MIN = 1e-3  # ray.rs:25
+# a dead lane's origin in the big-scene forward: no cluster's slab test
+# passes it, so it visits no cluster (integrator.py:256-259)
+PARKED_ORIGIN = 3.0e33
 
 # fixed histogram length, as in the JAX package
 MAX_BOUNCE_STATS = 64
@@ -164,14 +178,34 @@ def _analytic_t(kind, aux, data, o, d, t_det, prim_types):
 
 
 def search_and_record(scene, table, o, d, alive):
-    """The non-differentiable route's closest hit and hit record, both
-    from K3.  Returns (hit & alive, HitRecord with valid = that mask).
-    The differentiable route runs K4 in ``_bounce_step`` and builds its
-    record in ``_record_diff``."""
-    hit, _, _, rec = closest_hit_record(table, o, d, kinds=scene.kinds_static,
-                                        t_min=T_MIN)
+    """The non-differentiable route's closest hit and hit record: K3 on
+    the packed table up to 128 primitives; beyond, the projected route
+    (K6, K7 or K5) with dead lanes parked at PARKED_ORIGIN and the
+    record from the winner's payload.  Returns (hit & alive, HitRecord
+    with valid = that mask, shade_row or None).  The differentiable
+    route searches in ``_bounce_step`` and builds its record in
+    ``_record_diff``."""
+    if scene.kinds_static is None:
+        o_live = vm.where(alive, o, torch.full_like(o, PARKED_ORIGIN))
+        hit, _, _, rec, shade_row = closest_hit_record_projected(scene, o_live, d, T_MIN)
+    else:
+        hit, _, _, rec = closest_hit_record(table, o, d, kinds=scene.kinds_static,
+                                            t_min=T_MIN)
+        shade_row = None
     hit = hit & alive
-    return hit, rec._replace(valid=hit)
+    return hit, rec._replace(valid=hit), shade_row
+
+
+def detached_search(scene, table, o, d):
+    """The differentiable route's detached closest hit (hit, t, idx), t =
+    T_MISS and idx = 0 on a miss: K4 on the packed table up to 128
+    primitives, K5 on the projected tables beyond (``intersect.closest_hit``
+    on the TPU)."""
+    if scene.kinds_static is not None:
+        return closest_hit(table, o, d, kinds=scene.kinds_static, t_min=T_MIN)
+    hit, t, pay = closest_hit_projected(table, o, d, T_MIN)
+    idx = torch.round(pay[:, PAY_IDX]).to(torch.int32).clamp(min=0)
+    return hit, t, idx
 
 
 def _record_diff(scene, o, d, alive, hit, t_search, idx):
@@ -201,7 +235,7 @@ def _bounce_step(scene, table, state, draws_b, background, rr_u,
     uniforms, ``rr_u`` the roulette uniforms or None.  Returns the new
     state.
 
-    Differentiable, the detached search K4 runs here, outside any
+    Differentiable, the detached search (K4 or K5) runs here, outside any
     checkpoint, so that a backward never runs it again.  The remat
     ``mode``: "none" keeps every intermediate for the backward; "mid"
     checkpoints the record, the shading inputs and the scatter
@@ -210,10 +244,10 @@ def _bounce_step(scene, table, state, draws_b, background, rr_u,
     and the search's result are kept."""
     o, d = state[0], state[1]
     if not differentiable:
-        hit, rec = search_and_record(scene, table, o, d, state[4])
-        return _bounce_tail(scene, state, hit, rec, draws_b, background, rr_u, _call)
-    search = closest_hit(table, o.detach(), d.detach(), kinds=scene.kinds_static,
-                         t_min=T_MIN)
+        hit, rec, shade_row = search_and_record(scene, table, o, d, state[4])
+        return _bounce_tail(scene, state, hit, rec, draws_b, background, rr_u, _call,
+                            shade_row)
+    search = detached_search(scene, table, o.detach(), d.detach())
     if mode == "names":
         return _checkpointed(_bounce_diff, scene, state, search, draws_b,
                              background, rr_u, _call)
@@ -227,13 +261,15 @@ def _bounce_diff(scene, state, search, draws_b, background, rr_u, stage):
     return _bounce_tail(scene, state, hit, rec, draws_b, background, rr_u, stage)
 
 
-def _bounce_tail(scene, state, hit, rec, draws_b, background, rr_u, stage):
+def _bounce_tail(scene, state, hit, rec, draws_b, background, rr_u, stage,
+                 shade_row=None):
     """The bounce after the hit record (JAX ``_bounce_step`` :562-631): the
-    shading inputs, background and emission banking, scatter, the state
-    commit and roulette.  ``stage(fn, *args)`` runs the shading inputs
-    and the scatter (directly, or checkpointed)."""
+    shading inputs (from the tables, or the payload ``shade_row``),
+    background and emission banking, scatter, the state commit and
+    roulette.  ``stage(fn, *args)`` runs the shading inputs and the
+    scatter (directly, or checkpointed)."""
     o, d, thr, rad, alive = state
-    si = stage(shade_inputs, scene, rec)
+    si = stage(shade_inputs, scene, rec, shade_row)
 
     miss = alive & ~hit
     rad = rad + torch.where(miss[..., None], thr * background, 0.0)  # ray.rs:40
@@ -273,7 +309,7 @@ def _stats(alive, bounce, segments, occupancy):
 def _trace_generic(scene, origins, directions, background, max_bounces,
                    rr_start, draws, differentiable, mode):
     dev = origins.device
-    table = pack_prims(scene.prims)
+    table = scene.proj if scene.kinds_static is None else pack_prims(scene.prims)
     R = origins.shape[0]
     state = (origins, directions, torch.ones((R, 3), device=dev),
              torch.zeros((R, 3), device=dev), torch.ones(R, dtype=torch.bool, device=dev))
@@ -363,10 +399,6 @@ def trace(
             "ported: the hit distance is linearised in the ray only, so they "
             "would come back zero (JAX RPT_DIFF_T=rederive; ROADMAP queue 1 "
             "item 8)")
-    if scene.kinds_static is None:
-        raise NotImplementedError(
-            "scenes of more than 128 primitives are not ported yet "
-            "(ROADMAP queue 1 item 11)")
     dev = origins.device
     if scene.device != dev:
         raise ValueError(f"scene on {scene.device}, rays on {dev}")

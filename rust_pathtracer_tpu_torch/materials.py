@@ -16,8 +16,8 @@ picks by material kind, as in the JAX package:
 * diffuse light: never scatters, emits on its front face only
   (material.rs:159-166).
 
-Only the table path of ``shade_inputs`` is ported; the projected
-payload's (``shade_row``) waits with ROADMAP queue 1 item 11.
+``shade_inputs`` reads the material and texture tables, or, for a big
+scene's forward route, the winner's payload shading row.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ from rust_pathtracer_tpu_torch.scene.types import (
     MAT_LIGHT,
     MAT_METAL,
 )
-from rust_pathtracer_tpu_torch.textures import eval_texture
+from rust_pathtracer_tpu_torch.textures import eval_texture, eval_texture_payload
 
 
 class ScatterResult(NamedTuple):
@@ -53,8 +53,15 @@ class ShadeInputs(NamedTuple):
     value: torch.Tensor  # f32 (R, 3) texture value at the hit
 
 
-def shade_inputs(scene, hit: HitRecord) -> ShadeInputs:
-    """ShadeInputs from the material and texture tables."""
+def shade_inputs(scene, hit: HitRecord, shade_row=None) -> ShadeInputs:
+    """ShadeInputs from the material and texture tables, or from a
+    payload ``shade_row`` (R, 16): payload columns 16-31 of the
+    projected sweep (``materials.shade_inputs``)."""
+    if shade_row is not None:
+        kind = torch.round(shade_row[:, 0]).to(torch.int32)
+        value = eval_texture_payload(scene.textures, shade_row, hit.u, hit.v,
+                                     hit.point, scene.tex_types)
+        return ShadeInputs(kind, shade_row[:, 1], shade_row[:, 2], value)
     mats = scene.materials
     m = hit.mat.long()
     kind, tex, fuzz, ir = mats.kind[m], mats.tex[m], mats.fuzz[m], mats.ir[m]

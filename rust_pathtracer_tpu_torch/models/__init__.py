@@ -4,6 +4,8 @@ from rust_pathtracer_tpu_torch.models.scenes import (
     cornell_box_scene,
     get_scene,
     light_test_scene,
+    model_test_scene,
+    sphere_field_scene,
     triangle_test_scene,
     two_sphere_checkers_scene,
 )
@@ -14,6 +16,8 @@ __all__ = [
     "cornell_box_scene",
     "get_scene",
     "light_test_scene",
+    "model_test_scene",
+    "sphere_field_scene",
     "triangle_test_scene",
     "two_sphere_checkers_scene",
 ]

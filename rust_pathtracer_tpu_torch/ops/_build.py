@@ -74,6 +74,17 @@ SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
         ),
         "error_string": ([_c_int], ctypes.c_char_p),
     },
+    "projected": {
+        # mode (0: K5, 1: K6, 2: K7), tab_ptrs[7], C, G, words, counts,
+        # kcap, rb, W, o, d, t_min, t_out, c_out, pay_out, n_lanes, stream
+        "projected_launch": (
+            [_c_int, _c_void_p, _c_int, _c_int, _c_void_p, _c_void_p, _c_int,
+             _c_int, ctypes.c_longlong, _c_void_p, _c_void_p, ctypes.c_float,
+             _c_void_p, _c_void_p, _c_void_p, ctypes.c_longlong, _c_void_p],
+            _c_int,
+        ),
+        "error_string": ([_c_int], ctypes.c_char_p),
+    },
 }
 
 # name -> {"seconds": build seconds (0.0 when loaded from the cache),

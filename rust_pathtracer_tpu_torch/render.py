@@ -67,10 +67,14 @@ class RenderSettings:
 
 @dataclasses.dataclass(frozen=True)
 class OutputSettings:
-    """OutputSettings (scene.rs:27-36).  The ported scenes are single
-    frames; animation (fps, duration) comes with SphereField."""
+    """OutputSettings (scene.rs:27-36): one static frame, or fps *
+    duration animation frames with the camera at t = frame / frames
+    (main.rs:51-53).  The port renders single frames (the CLI's t = 0);
+    the animation loop is not ported yet (ROADMAP queue 1 item 13)."""
 
     image: RenderSettings
+    fps: float = 0.0
+    duration: float = 0.0
 
 
 def resolve_device(device) -> torch.device:

@@ -2,12 +2,16 @@
 
 Counterpart of ``rust_pathtracer_tpu/scene/builder.py``; plain host
 code (numpy, then tensors on the requested device).  Boxes are lowered
-to 6 rects exactly as ``AABox::new`` does (geometry.rs:391-446).
+to 6 rects exactly as ``AABox::new`` does (geometry.rs:391-446); OBJ
+meshes to triangle rows (``obj_loader.py``).
 
-Not ported yet: the BVH (``use_bvh=True``, or ``"auto"`` past 64
-primitives, ROADMAP queue 1 item 10), scenes of more than 128
-primitives (item 11) and OBJ meshes (item 10).  Each raises
-NotImplementedError.
+Each primitive's AABB follows the reference's padding: a sphere's
+center +/- |r| (geometry.rs:165-170), a rect +/- 1e-4 on its thin axis
+(geometry.rs:232-242), a triangle +/- 1e-3 on a flat axis
+(geometry.rs:573-585).  Past BVH_AUTO_THRESHOLD primitives (or with
+``use_bvh=True``) the numpy BVH (``bvh.py``) permutes the primitives
+into leaf order; past 128, the projected-sweep tables
+(``ops/projected.build_projected``) replace the static kind list.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from rust_pathtracer_tpu_torch.bvh import build_bvh_numpy
 from rust_pathtracer_tpu_torch.scene.types import (
     MAT_DIELECTRIC,
     MAT_LAMBERTIAN,
@@ -29,6 +34,7 @@ from rust_pathtracer_tpu_torch.scene.types import (
     TEX_IMAGE,
     TEX_PERLIN,
     TEX_SOLID,
+    BvhArrays,
     Materials,
     Primitives,
     SceneData,
@@ -41,9 +47,10 @@ _RECT_NAME_TO_AXIS = {"yz": 0, "xz": 1, "xy": 2}
 
 ColorLike = Union[Sequence[float], np.ndarray]
 
-# the JAX builder switches to a BVH past this count under use_bvh="auto"
+# use_bvh="auto" builds a BVH past this many primitives
 BVH_AUTO_THRESHOLD = 64
-# largest static primitive list (the fused-bounce kernel's table width)
+# largest static primitive list (the table width of K1, K3 and K4);
+# bigger scenes carry the projected tables
 MAX_STATIC_PRIMS = 128
 
 
@@ -65,6 +72,8 @@ class SceneBuilder:
         self._prim_mat: List[int] = []
         self._prim_aux: List[int] = []
         self._prim_data: List[np.ndarray] = []
+        self._bbox_min: List[np.ndarray] = []
+        self._bbox_max: List[np.ndarray] = []
 
         self.perlin_seed = perlin_seed
 
@@ -143,10 +152,12 @@ class SceneBuilder:
     def add_sphere(self, center: ColorLike, radius: float, material: int) -> int:
         """Sphere; a negative radius gives a hollow-glass inner shell whose
         normals point inward (geometry.rs:104-171)."""
+        c = np.asarray(center, np.float32)
         data = np.zeros(12, np.float32)
-        data[0:3] = np.asarray(center, np.float32)
+        data[0:3] = c
         data[3] = float(radius)
-        return self._push_prim(PRIM_SPHERE, material, 0, data)
+        ar = abs(float(radius))
+        return self._push_prim(PRIM_SPHERE, material, 0, data, c - ar, c + ar)
 
     def add_rect(
         self, plane: str, start: ColorLike, end: ColorLike, direction: float, material: int
@@ -162,12 +173,18 @@ class SceneBuilder:
             raise ValueError(f"rectangle is not axis aligned on {'xyz'[fixed]}")
         a0, a1 = sorted((float(start[a_ax]), float(end[a_ax])))
         b0, b1 = sorted((float(start[b_ax]), float(end[b_ax])))
+        k = float(start[fixed])
         data = np.zeros(12, np.float32)
-        data[0] = float(start[fixed])
+        data[0] = k
         data[1], data[2] = a0, b0
         data[3], data[4] = a1, b1
         data[5] = np.sign(direction) if direction != 0 else 0.0
-        return self._push_prim(PRIM_RECT, material, fixed, data)
+        bmin = np.zeros(3, np.float32)
+        bmax = np.zeros(3, np.float32)
+        bmin[a_ax], bmax[a_ax] = a0, a1
+        bmin[b_ax], bmax[b_ax] = b0, b1
+        bmin[fixed], bmax[fixed] = k - 1e-4, k + 1e-4  # geometry.rs:236-241
+        return self._push_prim(PRIM_RECT, material, fixed, data, bmin, bmax)
 
     def add_box(self, start: ColorLike, end: ColorLike, material: int) -> List[int]:
         """Axis-aligned box lowered to 6 outward-facing rects
@@ -208,13 +225,54 @@ class SceneBuilder:
         data[3:6] = p2 - p1
         data[6:9] = p3 - p1
         data[9:12] = n
-        return self._push_prim(PRIM_TRIANGLE, material, 0, data)
+        bmin = np.minimum(np.minimum(p1, p2), p3)
+        bmax = np.maximum(np.maximum(p1, p2), p3)
+        flat = bmin == bmax
+        bmin = np.where(flat, bmin - 1e-3, bmin)  # geometry.rs:573-585
+        bmax = np.where(flat, bmax + 1e-3, bmax)
+        return self._push_prim(PRIM_TRIANGLE, material, 0, data,
+                               bmin.astype(np.float32), bmax.astype(np.float32))
 
-    def _push_prim(self, kind, mat, aux, data) -> int:
+    def add_triangles(self, vertices: np.ndarray, materials: np.ndarray,
+                      normals: Optional[np.ndarray] = None) -> None:
+        """Triangles in bulk (OBJ meshes): ``vertices`` (T, 3, 3),
+        ``materials`` (T,) ids, ``normals`` (T, 3) or None for the
+        normalized geometric normals."""
+        vertices = np.asarray(vertices, np.float64)
+        tcount = vertices.shape[0]
+        if normals is None:
+            n = np.cross(vertices[:, 1] - vertices[:, 0], vertices[:, 2] - vertices[:, 0])
+            n = n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-30)
+        else:
+            n = np.asarray(normals, np.float64)
+        data = np.zeros((tcount, 12), np.float32)
+        data[:, 0:3] = vertices[:, 0]
+        data[:, 3:6] = vertices[:, 1] - vertices[:, 0]
+        data[:, 6:9] = vertices[:, 2] - vertices[:, 0]
+        data[:, 9:12] = n
+        bmin = vertices.min(axis=1)
+        bmax = vertices.max(axis=1)
+        flat = bmin == bmax
+        bmin = np.where(flat, bmin - 1e-3, bmin)
+        bmax = np.where(flat, bmax + 1e-3, bmax)
+        for i in range(tcount):
+            self._push_prim(PRIM_TRIANGLE, int(materials[i]), 0, data[i],
+                            bmin[i].astype(np.float32), bmax[i].astype(np.float32))
+
+    def add_obj(self, path: str, default_material: Optional[int] = None) -> None:
+        """Load a Wavefront OBJ (+ MTL) as triangles, materials mapped as
+        obj_model.rs:28-50 does (``obj_loader.load_obj_into``)."""
+        from rust_pathtracer_tpu_torch.scene.obj_loader import load_obj_into
+
+        load_obj_into(self, path, default_material=default_material)
+
+    def _push_prim(self, kind, mat, aux, data, bmin, bmax) -> int:
         self._prim_kind.append(kind)
         self._prim_mat.append(int(mat))
         self._prim_aux.append(int(aux))
         self._prim_data.append(np.asarray(data, np.float32))
+        self._bbox_min.append(np.asarray(bmin, np.float32))
+        self._bbox_max.append(np.asarray(bmax, np.float32))
         return len(self._prim_kind) - 1
 
     # ------------------------------------------------------------------
@@ -224,23 +282,38 @@ class SceneBuilder:
     def num_prims(self) -> int:
         return len(self._prim_kind)
 
-    def build(self, use_bvh: Union[str, bool] = "auto", device="cpu") -> SceneData:
-        """Tables on ``device``, with the JAX builder's static fields."""
+    def build(self, use_bvh: Union[str, bool] = "auto", leaf_size: int = 4,
+              device="cpu") -> SceneData:
+        """Tables on ``device``, with the JAX builder's static fields.
+        ``use_bvh``: True, False, or "auto" (a BVH past
+        BVH_AUTO_THRESHOLD primitives); ``leaf_size``: primitives a BVH
+        leaf."""
         if not self._prim_kind:
             raise ValueError("scene has no primitives")
         if not self._mat_kind:
             raise ValueError("scene has no materials")
-        n = len(self._prim_kind)
-        if use_bvh is True or (use_bvh == "auto" and n > BVH_AUTO_THRESHOLD):
-            raise NotImplementedError(
-                "BVH scenes are not ported yet (ROADMAP queue 1 item 10)")
-        if n > MAX_STATIC_PRIMS:
-            raise NotImplementedError(
-                "scenes of more than 128 primitives are not ported yet "
-                "(ROADMAP queue 1 item 11)")
 
         prim_kind = np.asarray(self._prim_kind, np.int32)
+        prim_mat = np.asarray(self._prim_mat, np.int32)
         prim_aux = np.asarray(self._prim_aux, np.int32)
+        prim_data = np.stack(self._prim_data)
+
+        if use_bvh == "auto":
+            use_bvh = len(prim_kind) > BVH_AUTO_THRESHOLD
+        bvh = None
+        if use_bvh:
+            flat = build_bvh_numpy(np.stack(self._bbox_min), np.stack(self._bbox_max),
+                                   leaf_size=leaf_size)
+            order = flat.prim_order
+            prim_kind, prim_mat = prim_kind[order], prim_mat[order]
+            prim_aux, prim_data = prim_aux[order], prim_data[order]
+            bvh = BvhArrays(
+                bbox_min=torch.as_tensor(flat.bbox_min, device=device),
+                bbox_max=torch.as_tensor(flat.bbox_max, device=device),
+                miss=torch.as_tensor(flat.miss, device=device),
+                leaf_first=torch.as_tensor(flat.leaf_first, device=device),
+                leaf_count=torch.as_tensor(flat.leaf_count, device=device),
+            )
 
         # the padded (N, Hmax, Wmax, 3) image stack and each image's (h, w)
         if self._images:
@@ -276,43 +349,49 @@ class SceneBuilder:
             for k, (c0, c1) in zip(self._tex_kind, self._tex_child)
         )
 
+        mats = (np.asarray(self._mat_kind, np.int32), np.asarray(self._mat_tex, np.int32),
+                np.asarray(self._mat_fuzz, np.float32), np.asarray(self._mat_ir, np.float32))
+        texs = (
+            np.asarray(self._tex_kind, np.int32),
+            np.stack(self._tex_color) if self._tex_color else np.zeros((1, 3), np.float32),
+            np.asarray(self._tex_child, np.int32).reshape(-1, 2)
+            if self._tex_child else np.zeros((1, 2), np.int32),
+            np.asarray(self._tex_scale, np.float32)
+            if self._tex_scale else np.zeros(1, np.float32),
+            np.asarray(self._tex_image, np.int32)
+            if self._tex_image else np.zeros(1, np.int32),
+        )
+        big = len(prim_kind) > MAX_STATIC_PRIMS
+        proj = None
+        if big:
+            from rust_pathtracer_tpu_torch.ops.projected import build_projected
+
+            proj = build_projected(prim_kind, prim_aux, prim_data, prim_mat,
+                                   mats=mats, texs=texs, device=device)
+
         def t(x, dtype):
             return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
         i32, f32 = torch.int32, torch.float32
         return SceneData(
-            prims=Primitives(
-                kind=t(prim_kind, i32),
-                mat=t(np.asarray(self._prim_mat, np.int32), i32),
-                aux=t(prim_aux, i32),
-                data=t(np.stack(self._prim_data), f32),
-            ),
-            materials=Materials(
-                kind=t(np.asarray(self._mat_kind, np.int32), i32),
-                tex=t(np.asarray(self._mat_tex, np.int32), i32),
-                fuzz=t(np.asarray(self._mat_fuzz, np.float32), f32),
-                ir=t(np.asarray(self._mat_ir, np.float32), f32),
-            ),
+            prims=Primitives(kind=t(prim_kind, i32), mat=t(prim_mat, i32),
+                             aux=t(prim_aux, i32), data=t(prim_data, f32)),
+            materials=Materials(kind=t(mats[0], i32), tex=t(mats[1], i32),
+                                fuzz=t(mats[2], f32), ir=t(mats[3], f32)),
             textures=Textures(
-                kind=t(np.asarray(self._tex_kind, np.int32), i32),
-                color=t(np.stack(self._tex_color)
-                        if self._tex_color else np.zeros((1, 3), np.float32), f32),
-                child=t(np.asarray(self._tex_child, np.int32).reshape(-1, 2)
-                        if self._tex_child else np.zeros((1, 2), np.int32), i32),
-                scale=t(np.asarray(self._tex_scale, np.float32)
-                        if self._tex_scale else np.zeros(1, np.float32), f32),
-                image_id=t(np.asarray(self._tex_image, np.int32)
-                           if self._tex_image else np.zeros(1, np.int32), i32),
-                images=t(images, f32),
-                image_hw=t(image_hw, i32),
+                kind=t(texs[0], i32), color=t(texs[1], f32), child=t(texs[2], i32),
+                scale=t(texs[3], f32), image_id=t(texs[4], i32),
+                images=t(images, f32), image_hw=t(image_hw, i32),
                 perlin_seed=int(self.perlin_seed),
             ),
             prim_types=tuple(sorted(set(int(k) for k in prim_kind))),
             tex_types=tuple(sorted(set(self._tex_kind))) if self._tex_kind else (),
             mat_types=tuple(sorted(set(self._mat_kind))),
-            kinds_static=tuple(
-                (int(k), int(a)) for k, a in zip(prim_kind, prim_aux)
-            ),
+            kinds_static=None if big else tuple(
+                (int(k), int(a)) for k, a in zip(prim_kind, prim_aux)),
             shade_static=shade_static,
             checker_depth=checker_depth,
+            bvh=bvh,
+            leaf_size=int(leaf_size) if use_bvh else 0,
+            proj=proj,
         )

@@ -12,8 +12,10 @@ Primitive ``data`` layout (float32[P, 12]):
       free axes in ascending order; dir = outward-normal sign.
   triangle (kind 2): p1(3) e1(3) e2(3) n(3)
 
-Not ported yet: the BVH arrays and the projected-sweep tables (ROADMAP
-queue 1 items 10 and 11).
+A scene of more than 64 primitives is permuted into BVH-leaf order and
+carries the threaded BVH (``BvhArrays``); one of more than 128 carries
+the projected-sweep tables (``ops.projected.ProjTables``) instead of the
+static kind list.
 """
 
 from __future__ import annotations
@@ -88,11 +90,30 @@ class Textures:
 
 
 @dataclasses.dataclass(frozen=True)
+class BvhArrays:
+    """Threaded (skip-link) flattened BVH in DFS order (``bvh.FlatBvh``
+    without the permutation, which the primitives already carry): node
+    i's first child is i + 1, ``miss[i]`` jumps over its subtree, a leaf
+    holds ``leaf_count`` primitives from ``leaf_first``."""
+
+    bbox_min: torch.Tensor    # float32[N, 3]
+    bbox_max: torch.Tensor    # float32[N, 3]
+    miss: torch.Tensor        # int32[N]  (-1 ends the traversal)
+    leaf_first: torch.Tensor  # int32[N]
+    leaf_count: torch.Tensor  # int32[N]  (0: interior node)
+
+    def to(self, device) -> "BvhArrays":
+        return _to(self, device)
+
+
+@dataclasses.dataclass(frozen=True)
 class SceneData:
     """Complete scene: three tables plus the static routing fields.
 
     ``kinds_static`` is the per-primitive (kind, aux) tuple for scenes
-    of at most 128 primitives; ``shade_static`` is True when every
+    of at most 128 primitives (None beyond, where ``proj`` holds the
+    projected-sweep tables); ``bvh`` and ``leaf_size`` (0 without one)
+    describe the BVH the primitives were permuted by; ``shade_static`` is True when every
     texture is solid, perlin or a checker of two solids, so that the
     whole bounce fits the fused-bounce kernel; ``checker_depth`` is the
     deepest checker nesting, the child resolutions ``eval_texture``
@@ -110,6 +131,9 @@ class SceneData:
     kinds_static: Optional[Tuple[Tuple[int, int], ...]] = None
     shade_static: bool = False
     checker_depth: int = 1
+    bvh: Optional[BvhArrays] = None
+    leaf_size: int = 0
+    proj: Optional[object] = None  # ops.projected.ProjTables
 
     @property
     def num_prims(self) -> int:
@@ -125,7 +149,13 @@ class SceneData:
             prims=self.prims.to(device),
             materials=self.materials.to(device),
             textures=self.textures.to(device),
+            bvh=None if self.bvh is None else self.bvh.to(device),
+            proj=None if self.proj is None else self.proj.to(device),
         )
+
+
+_PROJ_ARRAYS = ("a", "b", "const", "payload", "cluster_bounds", "cluster_bounds_v")
+_PROJ_STATIC = ("group_kinds", "shade_ready", "col_block")
 
 
 def scene_from_numpy(arrays: Mapping[str, np.ndarray], static: Mapping,
@@ -133,26 +163,24 @@ def scene_from_numpy(arrays: Mapping[str, np.ndarray], static: Mapping,
     """The port's SceneData from the JAX package's, carried across.
 
     ``arrays`` maps the JAX ``SceneData`` leaf paths (``"prims.kind"``,
-    ``"materials.fuzz"``, ``"textures.perlin_seed"``, ...) to numpy
-    arrays; ``static`` holds its static fields ``prim_types``,
-    ``tex_types``, ``mat_types``, ``kinds_static``, ``shade_static`` and
-    ``checker_depth``.  Raises ValueError for an unknown or a missing
-    leaf, and NotImplementedError for what the port cannot render yet:
-    a BVH, or more than 128 primitives.
+    ``"materials.fuzz"``, ``"textures.perlin_seed"``, ``"bvh.miss"``,
+    ``"proj.payload"``, ...) to numpy arrays; the five ``bvh.*`` leaves
+    come all or none, and so do the six ``proj.*`` ones.  ``static``
+    holds the static fields ``prim_types``, ``tex_types``,
+    ``mat_types``, ``kinds_static`` (None beyond 128 primitives),
+    ``shade_static``, ``checker_depth``, ``leaf_size`` (default 0) and,
+    with the ``proj.*`` leaves, ``proj.group_kinds``,
+    ``proj.shade_ready`` and ``proj.col_block``.  Raises ValueError for
+    an unknown or a missing leaf.
     """
+    groups = [("prims", Primitives), ("materials", Materials),
+              ("textures", Textures)]
     if any(k.startswith("bvh.") for k in arrays):
-        raise NotImplementedError(
-            "BVH scenes are not ported yet (ROADMAP queue 1 item 10)")
-    if static["kinds_static"] is None:
-        raise NotImplementedError(
-            "scenes of more than 128 primitives are not ported yet "
-            "(ROADMAP queue 1 item 11)")
-    known = {
-        f"{group}.{f.name}"
-        for group, cls in (("prims", Primitives), ("materials", Materials),
-                           ("textures", Textures))
-        for f in dataclasses.fields(cls)
-    }
+        groups.append(("bvh", BvhArrays))
+    known = {f"{group}.{f.name}" for group, cls in groups
+             for f in dataclasses.fields(cls)}
+    if any(k.startswith("proj.") for k in arrays):
+        known |= {f"proj.{name}" for name in _PROJ_ARRAYS}
     unknown, missing = set(arrays) - known, known - set(arrays)
     if unknown or missing:
         raise ValueError(f"SceneData leaves: unknown {sorted(unknown)}, "
@@ -163,6 +191,23 @@ def scene_from_numpy(arrays: Mapping[str, np.ndarray], static: Mapping,
                             device=device)
 
     i32, f32 = torch.int32, torch.float32
+    bvh = proj = None
+    if "bvh.miss" in arrays:
+        bvh = BvhArrays(
+            bbox_min=t("bvh.bbox_min", f32), bbox_max=t("bvh.bbox_max", f32),
+            miss=t("bvh.miss", i32), leaf_first=t("bvh.leaf_first", i32),
+            leaf_count=t("bvh.leaf_count", i32),
+        )
+    if "proj.a" in arrays:
+        from rust_pathtracer_tpu_torch.ops.projected import ProjTables
+
+        proj = ProjTables(
+            **{name: t(f"proj.{name}", f32) for name in _PROJ_ARRAYS},
+            group_kinds=tuple(int(k) for k in static["proj.group_kinds"]),
+            shade_ready=bool(static["proj.shade_ready"]),
+            col_block=int(static["proj.col_block"]),
+        )
+    kinds = static["kinds_static"]
     return SceneData(
         prims=Primitives(
             kind=t("prims.kind", i32), mat=t("prims.mat", i32),
@@ -182,9 +227,11 @@ def scene_from_numpy(arrays: Mapping[str, np.ndarray], static: Mapping,
         prim_types=tuple(int(k) for k in static["prim_types"]),
         tex_types=tuple(int(k) for k in static["tex_types"]),
         mat_types=tuple(int(k) for k in static["mat_types"]),
-        kinds_static=tuple(
-            (int(k), int(a)) for k, a in static["kinds_static"]
-        ),
+        kinds_static=(None if kinds is None
+                      else tuple((int(k), int(a)) for k, a in kinds)),
         shade_static=bool(static["shade_static"]),
         checker_depth=int(static["checker_depth"]),
+        bvh=bvh,
+        leaf_size=int(static.get("leaf_size", 0)),
+        proj=proj,
     )

@@ -11,8 +11,8 @@ Differentiable in the texture colours, the image texels, the hit point
 of a gather accumulates in a fixed order (PyTorch sorts the indices),
 so the texture gradients repeat bit for bit.
 
-Not ported: ``eval_texture_payload``, which reads the projected-sweep
-payload (ROADMAP queue 1 item 11).
+``eval_texture_payload`` reads a big scene's texture from the winner's
+projected-sweep payload row instead (no table lookups).
 """
 
 from __future__ import annotations
@@ -58,6 +58,31 @@ def eval_texture(textures: Textures, tex_id, u, v, point, tex_types=None,
         out = torch.where((kind == TEX_PERLIN)[..., None], gray[..., None], out)
     if TEX_IMAGE in types:
         img = sample_image(textures, textures.image_id[tex_id].long(), u, v)
+        out = torch.where((kind == TEX_IMAGE)[..., None], img, out)
+    return out
+
+
+def eval_texture_payload(textures: Textures, row, u, v, point, tex_types=None):
+    """The texture value from a projected-payload shading row
+    (``ops/projected.py`` payload columns 16-31: material kind, fuzz,
+    ir, texture kind, scale, color x3, odd x3, even x3, image id,
+    spare).  The same values as ``eval_texture`` where every checker's
+    children are solid (the tables' ``shade_ready``)."""
+    types = tex_types if tex_types is not None else (0, 1, 2, 3)
+    kind = torch.round(row[:, 3]).to(torch.int32)
+    scale = row[:, 4]
+    out = row[:, 5:8]  # TEX_SOLID color
+    if TEX_CHECKER in types:
+        s = torch.sin(scale[..., None] * point)
+        sines = s[..., 0] * s[..., 1] * s[..., 2]
+        picked = torch.where((sines < 0.0)[..., None], row[:, 8:11], row[:, 11:14])
+        out = torch.where((kind == TEX_CHECKER)[..., None], picked, out)
+    if TEX_PERLIN in types:
+        gray = marble(point, textures.perlin_seed, scale)
+        out = torch.where((kind == TEX_PERLIN)[..., None], gray[..., None], out)
+    if TEX_IMAGE in types:
+        img_id = torch.round(row[:, 14]).to(torch.int64).clamp(min=0)
+        img = sample_image(textures, img_id, u, v)
         out = torch.where((kind == TEX_IMAGE)[..., None], img, out)
     return out
 

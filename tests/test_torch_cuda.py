@@ -1,4 +1,4 @@
-"""K1, K2, K3 and K4 on the card against their plain PyTorch versions.
+"""K1-K7 on the card against their plain PyTorch versions.
 
 Imports no jax, so that it runs on the machine with the card, which has
 none; there, skip this directory's conftest.py (it sets up JAX):
@@ -296,3 +296,146 @@ def test_generic_diff_step_on_gpu_matches_cpu():
     np.testing.assert_allclose(f1, f0, rtol=0.05, atol=2e-3 * np.abs(f0).max())
     assert torch.equal(l1, l2)
     assert all(torch.equal(a, b) for a, b in zip(g1.leaves(), g2.leaves()))
+
+
+def _mixed_scene(n_spheres, n_rects, n_tris, seed):
+    """tests/test_projected.py::_mixed_scene on the port's builder."""
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder()
+    m = b.lambertian((0.5, 0.5, 0.5))
+    for _ in range(n_spheres):
+        b.add_sphere(rng.uniform(-8, 8, 3), rng.uniform(0.3, 1.2), m)
+    for _ in range(n_rects):
+        plane = ["xy", "xz", "yz"][rng.integers(3)]
+        fixed = {"xy": 2, "xz": 1, "yz": 0}[plane]
+        st = rng.uniform(-8, 8, 3)
+        e = st + rng.uniform(0.5, 3.0, 3)
+        e[fixed] = st[fixed]
+        b.add_rect(plane, st, e, 1.0 if rng.random() < 0.5 else -1.0, m)
+    for _ in range(n_tris):
+        p0 = rng.uniform(-8, 8, 3)
+        b.add_triangle(p0, p0 + rng.uniform(-2, 2, 3), p0 + rng.uniform(-2, 2, 3), m)
+    return b.build(use_bvh=False)
+
+
+def _proj_rays(n, seed):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-10, 10, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    o[::7] = 3.0e33  # parked lanes
+    return torch.from_numpy(o), torch.from_numpy(d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("streamed", [False, True])
+def test_projected_kernels_match_plain_on_gpu(streamed):
+    """K5, K6 and K7 on the card against their plain versions on the
+    CPU, 4000 random lanes (every seventh parked) of a mixed scene, one
+    p-block or streamed: t, column and payload bit for bit (IEEE f32 on
+    both sides, one order of operations)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from rust_pathtracer_tpu_torch.ops import projected as P
+    from rust_pathtracer_tpu_torch.ops import resident as RS
+    from rust_pathtracer_tpu_torch.ops import worklist as WL
+
+    scene = _mixed_scene(*((1700, 30, 600) if streamed else (300, 40, 260)), seed=5)
+    pr = scene.prims
+    tables = P.build_projected(pr.kind.numpy(), pr.aux.numpy(), pr.data.numpy(),
+                               pr.mat.numpy(),
+                               max_single_cols=P.COL_BLOCK if streamed else P.MAX_SINGLE_COLS)
+    assert (tables.col_block < tables.num_cols) == streamed
+    o, d = _proj_rays(4000, seed=11)
+    rb = WL.WL_RB
+    Rp = -(-4000 // rb) * rb
+    pad = torch.zeros((Rp - 4000, 3))
+    meta, _ = WL.build_pair_worklist(tables.cluster_bounds, tables.group_kinds,
+                                     torch.cat([o, pad]), torch.cat([d, pad]), T_MIN,
+                                     rb, tables.num_groups)
+    packed, counts = RS.pack_slots(meta, Rp // rb)
+    gt = tables.to("cuda")
+    go, gd = o.cuda(), d.cuda()
+    runs = {
+        "K5": (P, lambda t, a, b, *w: P.projected_sweep(t, a, b, T_MIN), ()),
+        "K6": (RS, lambda t, a, b, p, c: RS.resident_sweep(t, a, b, T_MIN, p, c, rb),
+               (packed, counts)),
+        "K7": (WL, lambda t, a, b, m: WL.pair_sweep(t, a, b, T_MIN, m, rb), (meta,)),
+    }
+    for name, (mod, fn, extra) in runs.items():
+        before = mod.launches
+        got = fn(gt, go, gd, *(x.cuda() for x in extra))
+        torch.cuda.synchronize()
+        assert mod.launches == before + 1, name
+        want = fn(tables, o, d, *extra)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b), name
+    assert (want[1] >= 0).sum() > 500
+
+
+@pytest.mark.cuda
+def test_projected_wrappers_raise_on_gpu():
+    """The wrappers refuse what the kernels do not take: tables and rays
+    on two devices, f64 rays, a slot table of the wrong shape."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from rust_pathtracer_tpu_torch.ops import projected as P
+    from rust_pathtracer_tpu_torch.ops import worklist as WL
+
+    scene = _mixed_scene(200, 0, 0, seed=3)
+    pr = scene.prims
+    tables = P.build_projected(pr.kind.numpy(), pr.aux.numpy(), pr.data.numpy(),
+                               pr.mat.numpy(), device="cuda")
+    o, d = (x.cuda() for x in _proj_rays(64, seed=2))
+    with pytest.raises(ValueError, match="devices|on cpu|cuda"):
+        P.projected_sweep(tables, o.cpu(), d.cpu(), T_MIN)
+    with pytest.raises(TypeError, match="float32"):
+        P.projected_sweep(tables, o.double(), d.double(), T_MIN)
+    with pytest.raises(ValueError, match="slot table"):
+        WL.pair_sweep(tables, o, d, T_MIN, torch.zeros((2, 3), dtype=torch.int32,
+                                                       device="cuda"), 32)
+
+
+@pytest.mark.cuda
+def test_big_scene_on_gpu_matches_cpu():
+    """SphereField on the card against the CPU: the forward render (K6
+    once a bounce) under the image contract, and a small differentiable
+    step (K5 once a bounce) within test_diff_step_on_gpu_matches_cpu's
+    tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from rust_pathtracer_tpu_torch.grad import (
+        CameraParams, DiffParams, render_loss_and_grad,
+    )
+    from rust_pathtracer_tpu_torch.models import get_scene
+    from rust_pathtracer_tpu_torch.ops import projected as P
+    from rust_pathtracer_tpu_torch.ops import resident as RS
+    from rust_pathtracer_tpu_torch.render import RenderSettings, render_radiance
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+    from rust_pathtracer_tpu_torch.utils.image import image_agreement
+
+    sd = get_scene("SphereField")
+    scene = sd.build()
+    settings = RenderSettings(32, 18, 2, 6, (1.0, 1.0, 1.0))
+    before = RS.launches
+    gimg, gst = render_radiance(scene, sd.camera_at(0.0), settings, prng_key(0),
+                                device="cuda")
+    assert RS.launches - before == gst.bounces > 0
+    cimg, _ = render_radiance(scene, sd.camera_at(0.0), settings, prng_key(0),
+                              device="cpu")
+    a = image_agreement(gimg.cpu().numpy(), cimg.numpy())
+    assert a["ok"], a
+    cam = CameraParams.create((12.0, 1.0, 0.0), (0.0, 0.5, 0.0), (0.0, 1.0, 0.0), 20.0,
+                              854.0 / 480.0, 0.1, 10.0)
+    params = DiffParams.from_scene(scene, cam, settings.background)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        before = P.launches
+        out[dev] = render_loss_and_grad(params, scene, RenderSettings(16, 9, 2, 4, (1.0,) * 3),
+                                        prng_key(0), torch.zeros(9, 16, 3), device=dev)
+        if dev == "cuda":
+            assert P.launches - before == 4
+    (l0, g0), (l1, g1) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(float(l1), float(l0), rtol=2e-3)
+    f0 = torch.cat([x.reshape(-1) for x in g0.leaves()]).numpy()
+    f1 = torch.cat([x.cpu().reshape(-1) for x in g1.leaves()]).numpy()
+    np.testing.assert_allclose(f1, f0, rtol=0.05, atol=2e-3 * np.abs(f0).max())

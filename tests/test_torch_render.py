@@ -6,7 +6,9 @@ the image mean within 1% relative, at least 90% of pixels within
 random stream bit for bit; a pixel differs only where an ulp-level
 difference (sin/cos, XLA's fused multiply-adds) flipped a discrete
 choice on one of its samples.  The goldens are the JAX package's CPU
-renders that ``tests/test_goldens.py`` pins.
+renders that ``tests/test_goldens.py`` pins (SphereField's and
+ModelTest's by JAX's BVH walk; the port searches them with the plain
+versions of the projected kernels).
 """
 
 import ast
@@ -29,16 +31,18 @@ from rust_pathtracer_tpu_torch import cli
 from rust_pathtracer_tpu_torch.models import get_scene
 from rust_pathtracer_tpu_torch.render import RenderSettings, render_image, render_radiance
 from rust_pathtracer_tpu_torch.sampling import prng_key
+from rust_pathtracer_tpu_torch.scene.obj_loader import write_benchmark_obj
 from rust_pathtracer_tpu_torch.utils.image import image_agreement, to_rgb8, write_png
 
 torch.set_num_threads(2)
 
-PORTED_GOLDENS = ("CornellBox", "TriangleTest", "TwoSphereCheckers", "LightTest")
+PORTED_GOLDENS = ("CornellBox", "TriangleTest", "TwoSphereCheckers", "LightTest",
+                  "SphereField", "ModelTest")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _render(name, w, h, spp, nb, seed, spp_chunk=None):
-    sd = get_scene(name)
+def _render(name, w, h, spp, nb, seed, spp_chunk=None, **kw):
+    sd = get_scene(name, **kw)
     settings = RenderSettings(w, h, spp, nb, sd.output.image.background,
                               spp_chunk=spp if spp_chunk is None else spp_chunk)
     return render_radiance(sd.build(), sd.camera_at(0.0), settings,
@@ -46,9 +50,12 @@ def _render(name, w, h, spp, nb, seed, spp_chunk=None):
 
 
 @pytest.mark.parametrize("name", PORTED_GOLDENS)
-def test_golden_config_matches(name):
+def test_golden_config_matches(name, tmp_path):
     kw, w, h, spp, nb = GOLDEN_CONFIGS[name]
-    img, stats = _render(name, w, h, spp, nb, seed=1234)
+    if "obj_path" in kw:  # golden_utils.render_golden's asset
+        kw = dict(kw, obj_path=str(tmp_path / "golden_model.obj"))
+        write_benchmark_obj(kw["obj_path"])
+    img, stats = _render(name, w, h, spp, nb, seed=1234, **kw)
     assert img.shape == (h, w, 3) and img.dtype == torch.float32
     a = image_agreement(img.numpy(), np.load(golden_path(name)))
     assert a["ok"], a
@@ -183,11 +190,17 @@ def _imported_modules(path):
 
 def test_port_imports_no_jax():
     """No module of the port, nor chip_smoke.py, imports jax or the JAX
-    package: the machine with the card has neither."""
+    package, not even its numpy-only modules (bvh, obj_loader): the
+    machine with the card has neither.  The big-scene modules are among
+    those checked."""
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "rust_pathtracer_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    assert len(files) > 15
+    assert len(files) > 20
+    rel = {os.path.relpath(f, REPO) for f in files}
+    for mod in ("bvh.py", "scene/obj_loader.py", "ops/projected.py",
+                "ops/resident.py", "ops/worklist.py"):
+        assert f"rust_pathtracer_tpu_torch/{mod}" in rel, mod
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
