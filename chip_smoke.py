@@ -77,11 +77,12 @@ checks them:
     (one chunk of 819,840 lanes), K6 once a bounce: segments/s, wall,
     finite, >= 0, deterministic; the 64x36 golden configuration on the
     card against the golden and against the CPU; K6 and K5 timed at its
-    first bounce;
+    first bounce, and the whole search there by route (the worklist
+    build and K6 against K5 alone);
 16. ModelTest forward at 800x800, 20 bounces, 1 spp (K6 once a bounce);
     the 20,000-triangle mesh through the pair route: K7 launches and K5
     fallback launches (at least one K7 launch); K7 timed at its first
-    bounce;
+    bounce, and each mesh's search there by route against K5 alone;
 17. the differentiable SphereField step at 854x480, 2 spp, 20 bounces,
     loss = mean(img), K5 the search once a bounce: finite gradients of
     the texture colours and the background, two steps on one key bit
@@ -178,11 +179,14 @@ MESH_20K = dict(rows=101, cols=100)
 SCENE_BOX = {"SphereField": ((-11.0, 0.05, -11.0), (11.0, 3.0, 11.0)),
              "ModelTest": ((-3.0, 0.05, -3.0), (3.0, 3.5, 3.0))}
 PARKED = 3.0e33
-# f32 operations of the projected sweep, counted from csrc/projected.cu
-# (compares and selects none): a column of a sphere cluster (two 8-term
-# projections, the half-b quadratic), of a rect / triangle cluster (six
-# projections, the plane or Woop solve), a slab test, a lane's set-up
-SPHERE_COL_OPS, RECT_COL_OPS, TRI_COL_OPS = 40, 95, 97
+# f32 operations the projected sweep's function needs (compares and
+# selects none; see cluster_ops for the projections): a real column's
+# formula past its projections by type (a sphere's half-b quadratic and
+# two roots in the q domain, 2 divisions more in the t domain; a rect's
+# plane solve; a triangle's Woop solve and det), a slab test, a lane's
+# set-up (|o|^2, o.d, |d|^2, t_min |d|^2, 1 / d)
+FORMULA_OPS = {0: 10, 1: 5, 2: 7}
+SPHERE_T_OPS = 2
 SLAB_OPS, PROJ_LANE_OPS = 12, 19
 # bytes a lane: rays in (24), t, column and payload out (4 + 4 + 128)
 PROJ_LANE_BYTES = 24 + 136
@@ -1268,7 +1272,7 @@ def _sweep_fns(torch, tables, o, d):
     """K5, K6 and K7 and their plain versions on (o, d), with the slot
     tables of blocks of WL_RB lanes (K7: WL_KCAP slots where no block
     overflows, else every cluster).  Returns {name: (kernel, plain,
-    slot bytes, note)}."""
+    slot bytes, note, per-cluster q-domain flags)}."""
     from rust_pathtracer_tpu_torch.integrator import T_MIN
     from rust_pathtracer_tpu_torch.ops import projected as P
     from rust_pathtracer_tpu_torch.ops import resident as RS
@@ -1287,40 +1291,66 @@ def _sweep_fns(torch, tables, o, d):
     note7 = f"kcap {min(WL.WL_KCAP, G)}"
     if bool(ov):
         meta7, note7 = meta6, f"kcap {G} (a block passes more than {WL.WL_KCAP})"
+    q_always = tuple(k == 0 for k in tables.group_kinds)  # K6, K7: spheres in q
     return {
         "K5": (lambda: P.projected_sweep(tables, o, d, T_MIN),
                lambda st=None: P.projected_sweep_plain(tables, o, d, T_MIN, stats=st),
-               0, "every cluster"),
+               0, "every cluster", tables.dense_q),
         "K6": (lambda: RS.resident_sweep(tables, o, d, T_MIN, packed, counts, rb),
                lambda st=None: RS.resident_sweep_plain(tables, o, d, T_MIN, packed,
                                                        counts, rb, stats=st),
-               nbytes(packed, counts), f"kcap {G}"),
+               nbytes(packed, counts), f"kcap {G}", q_always),
         "K7": (lambda: WL.pair_sweep(tables, o, d, T_MIN, meta7, rb),
                lambda st=None: WL.pair_sweep_plain(tables, o, d, T_MIN, meta7, rb,
                                                    stats=st),
-               nbytes(meta7), note7),
+               nbytes(meta7), note7, q_always),
     }
 
 
-def proj_bound(tables, n_lanes, stats, slot_bytes):
+def cluster_ops(tables, q_flags):
+    """(G,) the f32 operations one lane's sweep of each cluster needs,
+    counted from the tables' sparsity: a projection takes a multiply for
+    each nonzero origin or direction coefficient other than +-1 and an
+    add for each nonzero term past the first (the ray's 1 adds the
+    constant, its 0 drops the eighth term); a real column adds its
+    type's FORMULA_OPS (SPHERE_T_OPS more for a sphere outside the q
+    domain), a padding column (K0 = 1e30) nothing; a q-domain sphere
+    cluster divides its winner once."""
+    G = tables.num_groups
+    rows = np.concatenate([tables.a.cpu().numpy(), tables.b.cpu().numpy()])[:, :7]
+    nz = rows != 0
+    ops = ((nz[:, :6] & (np.abs(rows[:, :6]) != 1)).sum(axis=(0, 1))
+           + np.maximum(nz.sum(axis=1) - 1, 0).sum(axis=0))
+    kinds = np.repeat(np.asarray(tables.group_kinds), 128)
+    q = np.repeat(np.asarray(q_flags, bool), 128)
+    form = np.select([kinds == 0, kinds == 1, kinds == 2],
+                     [FORMULA_OPS[0] + np.where(q, 0, SPHERE_T_OPS),
+                      FORMULA_OPS[1], FORMULA_OPS[2]], 0)
+    real = tables.const[0].cpu().numpy() != np.float32(1e30)
+    per_col = ops + np.where(real, form, 0)
+    winner = (np.asarray(tables.group_kinds) == 0) & np.asarray(q_flags, bool)
+    return per_col.reshape(G, 128).sum(axis=1) + winner
+
+
+def proj_bound(tables, n_lanes, stats, slot_bytes, q_flags):
     """The least time for one sweep: the bytes (rays in, outputs out, the
     tables and slots read once) over the memory rate against the f32
     operations these inputs need (the plain version's count of slab
-    tests and cluster sweeps) over the f32 peak."""
+    tests and of each cluster's sweeps, times ``cluster_ops``) over the
+    f32 peak."""
     tab = nbytes(tables.a, tables.b, tables.const, tables.payload,
                  tables.cluster_bounds)
+    swept = np.asarray(stats.get("swept", [0] * tables.num_groups), np.int64)
     ops = (stats.get("slab_tests", 0) * SLAB_OPS + n_lanes * PROJ_LANE_OPS
-           + 128 * (stats.get("swept_0", 0) * SPHERE_COL_OPS
-                    + stats.get("swept_1", 0) * RECT_COL_OPS
-                    + stats.get("swept_2", 0) * TRI_COL_OPS))
+           + int((swept * cluster_ops(tables, q_flags)).sum()))
     return bound(n_lanes * PROJ_LANE_BYTES + tab + slot_bytes, ops)
 
 
 def time_sweep(torch, device, card, label, fns, tables, n_lanes, reps):
-    """One of K5 / K6 / K7 (``fns`` = (kernel, plain, slot bytes, note))
-    against its plain version: bit-for-bit equal, then timed (plain,
-    kernel, kernel, plain) with the bound.  Returns a dict."""
-    kernel, plain, slot_bytes, note = fns
+    """One of K5 / K6 / K7 (``fns`` = (kernel, plain, slot bytes, note,
+    q flags)) against its plain version: bit-for-bit equal, then timed
+    (plain, kernel, kernel, plain) with the bound.  Returns a dict."""
+    kernel, plain, slot_bytes, note, q_flags = fns
     got = kernel()
     stats = {}
     want = plain(stats)
@@ -1330,10 +1360,10 @@ def time_sweep(torch, device, card, label, fns, tables, n_lanes, reps):
     err = max(float(torch.where(a == b, 0.0, (a.double() - b.double()).abs()).max())
               for a, b in zip(got, want))
     hits = int((want[1] >= 0).sum())
-    swept = sum(v for k, v in stats.items() if k.startswith("swept_"))
+    swept = sum(stats.get("swept", []))
     ms = time_pair(torch, device, kernel, plain, reps)
     k_ms, p_ms = statistics.mean(ms["kernel"]), statistics.mean(ms["plain"])
-    b_ms, b_by = proj_bound(tables, n_lanes, stats, slot_bytes)
+    b_ms, b_by = proj_bound(tables, n_lanes, stats, slot_bytes, q_flags)
     log(f"{label} ({note}) on {n_lanes} lanes, {card}: {hits} hits, {bad} lanes differ "
         f"from the plain version; slab tests {stats.get('slab_tests', 0) / n_lanes:.3f} "
         f"a lane, clusters swept {swept / n_lanes:.3f} a lane; {k_ms:.4f} ms per launch "
@@ -1343,6 +1373,30 @@ def time_sweep(torch, device, card, label, fns, tables, n_lanes, reps):
     check(bad == 0, f"{label}: t, column or payload differ from the plain version "
                     f"on {bad} lanes")
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+
+
+def time_routes(torch, device, card, label, tables, o, d, routes, reps):
+    """The forward route's whole search on the same lanes, by route: the
+    worklist build and K6 ("resident") or K7 ("pairs") against K5 alone
+    ("dense"), bit for bit equal on a one-p-block table (streamed tables:
+    K5 may compare a sphere cluster in t where K7 does in q).  CUDA
+    events; outside the paths' counted runs.  Returns {route: ms a call}."""
+    from rust_pathtracer_tpu_torch.integrator import T_MIN
+    from rust_pathtracer_tpu_torch.ops.projected import closest_hit_routed
+
+    outs = {r: closest_hit_routed(tables, o, d, T_MIN, r) for r in routes}
+    same = all(torch.equal(a, b) for r in routes[1:]
+               for a, b in zip(outs[routes[0]], outs[r]))
+    ms = {r: statistics.mean(_time_ms(torch, device,
+                                      lambda r=r: closest_hit_routed(tables, o, d, T_MIN, r),
+                                      reps) for _ in range(2))
+          for r in routes}
+    log(f"{label}, the search by route on {o.shape[0]} lanes, {card}: "
+        + ", ".join(f"{r} {ms[r]:.4f} ms" for r in routes)
+        + f" a call (two blocks of {reps}); results equal: {same}")
+    if tables.col_block == tables.num_cols:
+        check(same, f"{label}: the routes' results differ")
+    return ms
 
 
 def phase_projected_vs_plain(torch, device, card, scenes, reps):
@@ -1426,6 +1480,8 @@ def phase_spherefield_forward(torch, device, card, scenes, reps):
                     scene.proj, lanes, reps)
     k5 = time_sweep(torch, device, card, "K5 SphereField first bounce", fns["K5"],
                     scene.proj, lanes, reps)
+    time_routes(torch, device, card, "SphereField first bounce", scene.proj, o, d,
+                ("resident", "dense"), reps)
     return dict(k6, launches=counts["K6"]), k5
 
 
@@ -1467,23 +1523,26 @@ def phase_modeltest_forward(torch, device, card, scenes, reps):
                   f"{name}: K6 launched {counts['K6']} times in {stats.bounces} bounces")
         else:
             check(counts["K7"] >= 1, f"{name}: K7 launched no time")
-            check(counts["K7"] + counts["K5-fallback"] == stats.bounces
-                  and counts["K5"] == counts["K5-fallback"] and counts["K6"] == 0,
-                  f"{name}: K7 {counts['K7']} + K5 fallback {counts['K5-fallback']} "
+            check(counts["K7"] + counts["K5"] == stats.bounces and counts["K6"] == 0,
+                  f"{name}: K7 {counts['K7']} + K5 fallback {counts['K5']} "
                   f"launches in {stats.bounces} bounces")
         write_png(os.path.join(OUT_DIR, f"{name.replace(' ', '_')}_{W}x{H}.png"),
                   to_rgb8(img_np))
         out[name] = counts
 
-    # K7 at its path's shape: the 20k mesh's first bounce (no block overflows)
-    sd, scene = scenes["ModelTest 20k"]
-    o, d = _first_bounce(torch, device, sd.camera_at(0.0, device=device),
-                         prng_key(cfg["seed"], device=device), cfg)
+    # K7 at its path's shape: the 20k mesh's first bounce (no block
+    # overflows); each mesh's search by route there
+    for name, route in (("ModelTest", "resident"), ("ModelTest 20k", "pairs")):
+        sd, scene = scenes[name]
+        o, d = _first_bounce(torch, device, sd.camera_at(0.0, device=device),
+                             prng_key(cfg["seed"], device=device), cfg)
+        time_routes(torch, device, card, f"{name} first bounce", scene.proj, o, d,
+                    (route, "dense"), reps)
     fns = _sweep_fns(torch, scene.proj, o, d)
     k7 = time_sweep(torch, device, card, "K7 ModelTest 20k first bounce", fns["K7"],
                     scene.proj, lanes, reps)
     return dict(k7, launches=out["ModelTest 20k"]["K7"],
-                fallbacks=out["ModelTest 20k"]["K5-fallback"])
+                fallbacks=out["ModelTest 20k"]["K5"])
 
 
 def phase_spherefield_step(torch, device, card):
@@ -1579,12 +1638,12 @@ def reset_counts():
     fb.launches = fb.residual_launches = fbb.launches = 0
     ch.hit_launches = ch.record_launches = 0
     projected.launches = resident.launches = 0
-    worklist.launches = worklist.fallback_launches = 0
+    worklist.launches = 0
 
 
 def read_counts():
-    """Launches by kernel; "K5-fallback" counts the K5 launches that
-    K7's wrapper made on an overflowing worklist (also in "K5")."""
+    """Launches by kernel.  On the pair route K5 runs only as K7's
+    overflow fallback, so there "K5" counts the fallbacks."""
     from rust_pathtracer_tpu_torch.ops import closest_hit as ch
     from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
     from rust_pathtracer_tpu_torch.ops import fused_bounce_bwd as fbb
@@ -1592,8 +1651,7 @@ def read_counts():
 
     return {"K1": fb.launches - fb.residual_launches, "K1-res": fb.residual_launches,
             "K2": fbb.launches, "K3": ch.record_launches, "K4": ch.hit_launches,
-            "K5": projected.launches, "K6": resident.launches, "K7": worklist.launches,
-            "K5-fallback": worklist.fallback_launches}
+            "K5": projected.launches, "K6": resident.launches, "K7": worklist.launches}
 
 
 def _grad_sums(grads):

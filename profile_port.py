@@ -36,7 +36,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 # each scene's default shape: its own width, spp cut to one chunk
 SHAPES = {"SphereField": (854, 480, 2, 20), "ModelTest": (800, 800, 1, 20),
-          "TwoSphereCheckers": (854, 480, 2, 20), "CornellBox": (512, 512, 4, 20)}
+          "TwoSphereCheckers": (854, 480, 2, 20)}
 TOP = 20  # rows of each table
 
 
@@ -76,20 +76,6 @@ def main() -> int:
     print(card, flush=True)
 
     from rust_pathtracer_tpu_torch.grad import CameraParams, DiffParams, apply_params
-
-    def camera(*args):
-        return lambda device: CameraParams.create(*args, device=device)
-
-    CAMERAS = {  # models/scenes.py's cameras at t = 0
-        "SphereField": camera((12.0, 1.0, 0.0), (0.0, 0.5, 0.0), (0.0, 1.0, 0.0), 20.0,
-                              854.0 / 480.0, 0.1, 10.0),
-        "ModelTest": camera((0.0, 2.5, -7.0), (0.0, 1.5, 0.0), (0.0, 1.0, 0.0), 60.0,
-                            1.0, 0.0, 10.0),
-        "TwoSphereCheckers": camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0),
-                                    20.0, 854.0 / 480.0, 0.0, 10.0),
-        "CornellBox": camera((278.0, 278.0, -800.0), (278.0, 278.0, 0.0), (0.0, 1.0, 0.0),
-                             40.0, 1.0, 0.0, 10.0),
-    }
     from rust_pathtracer_tpu_torch.models import get_scene
     from rust_pathtracer_tpu_torch.render import RenderSettings, render_radiance
     from rust_pathtracer_tpu_torch.sampling import prng_key
@@ -111,7 +97,8 @@ def main() -> int:
     cam = sd.camera_at(0.0, device=dev)
     leaves = None
     if args.mode == "step":  # the camera's seven parameters as leaves too
-        params = DiffParams.from_scene(scene, CAMERAS[args.scene](dev), bg)
+        params = DiffParams.from_scene(
+            scene, sd.camera_at(0.0, device=dev, make=CameraParams.create), bg)
         leaves = [x.detach().clone().requires_grad_(True) for x in params.leaves()]
 
     def run():

@@ -27,9 +27,11 @@ class SceneDef:
     """Counterpart of the Scene trait (scene.rs:38-42).
 
     ``build(device="cpu")`` returns the scene tables on ``device``;
-    ``camera_at(t, device="cpu")`` the camera at animation time t.  Each
-    factory takes ``use_bvh`` ("auto", True, False) and ``leaf_size``
-    for the builder.
+    ``camera_at(t, device="cpu", make=make_camera)`` the camera at
+    animation time t, ``make`` applied to its seven parameters (pass
+    ``grad.CameraParams.create`` for differentiable ones).  Each factory
+    takes ``use_bvh`` ("auto", True, False) and ``leaf_size`` for the
+    builder.
     """
 
     name: str
@@ -89,14 +91,14 @@ def sphere_field_scene(seed: int = 0, use_bvh="auto",
         b.add_sphere((0.0, 1.0, 0.0), 1.0, b.metal((0.7, 0.6, 0.5), 0.0))
         return b.build(use_bvh=use_bvh, leaf_size=leaf_size, device=device)
 
-    def camera_at(t: float, device="cpu") -> Camera:
+    def camera_at(t: float, device="cpu", make=make_camera) -> Camera:
         # the orbiting camera (scene.rs:61-89); lens aperture 0.1
         lookfrom = (
             12.0 * math.cos(2.0 * math.pi * t),
             1.0 + 2.0 * math.sin(math.pi * t),
             12.0 * math.sin(2.0 * math.pi * t),
         )
-        return make_camera(
+        return make(
             lookfrom, (0.0, 0.5, 0.0), (0.0, 1.0, 0.0),
             20.0, 854.0 / 480.0, aperture=0.1, focus_dist=10.0, device=device,
         )
@@ -126,8 +128,8 @@ def two_sphere_checkers_scene(use_bvh="auto", leaf_size: int = 4) -> SceneDef:
         b.add_sphere((0.0, 10.0, 0.0), 10.0, b.lambertian(b.perlin_texture(4.0)))
         return b.build(use_bvh=use_bvh, leaf_size=leaf_size, device=device)
 
-    def camera_at(_t: float, device="cpu") -> Camera:
-        return make_camera(
+    def camera_at(_t: float, device="cpu", make=make_camera) -> Camera:
+        return make(
             (13.0, 2.0, 3.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0),
             20.0, 854.0 / 480.0, aperture=0.0, focus_dist=10.0, device=device,
         )
@@ -155,8 +157,8 @@ def light_test_scene(use_bvh="auto", leaf_size: int = 4) -> SceneDef:
         b.add_rect("yz", (-6.0, 1.0, -2.0), (-6.0, 3.0, 2.0), 1.0, light)
         return b.build(use_bvh=use_bvh, leaf_size=leaf_size, device=device)
 
-    def camera_at(_t: float, device="cpu") -> Camera:
-        return make_camera(
+    def camera_at(_t: float, device="cpu", make=make_camera) -> Camera:
+        return make(
             (26.0, 3.0, 6.0), (0.0, 2.0, 0.0), (0.0, 1.0, 0.0),
             20.0, 854.0 / 480.0, aperture=0.0, focus_dist=10.0, device=device,
         )
@@ -186,8 +188,8 @@ def _cornell_walls(b: SceneBuilder):
     return white
 
 
-def _cornell_camera(_t: float, device="cpu") -> Camera:
-    return make_camera(
+def _cornell_camera(_t: float, device="cpu", make=make_camera) -> Camera:
+    return make(
         (278.0, 278.0, -800.0), (278.0, 278.0, 0.0), (0.0, 1.0, 0.0),
         40.0, 1.0, aperture=0.0, focus_dist=10.0, device=device,
     )
@@ -253,8 +255,8 @@ def model_test_scene(obj_path: str = "./model.obj", use_bvh="auto",
         b.add_obj(obj_path)
         return b.build(use_bvh=use_bvh, leaf_size=leaf_size, device=device)
 
-    def camera_at(_t: float, device="cpu") -> Camera:
-        return make_camera(
+    def camera_at(_t: float, device="cpu", make=make_camera) -> Camera:
+        return make(
             (0.0, 2.5, -7.0), (0.0, 1.5, 0.0), (0.0, 1.0, 0.0),
             60.0, 1.0, aperture=0.0, focus_dist=10.0, device=device,
         )

@@ -446,7 +446,8 @@ def _sweep_plain(tables: ProjTables, o, d, t_min, *, q_flags, listed=None,
     chunk passes is skipped, and only the passing lanes are computed
     (the per-lane cull).  ``stats``, a dict, gets the work the kernel
     does on these inputs added in: "slab_tests" (lane-cluster slab
-    tests) and "swept_<kind>" (lane-cluster sweeps of 128 columns).
+    tests) and "swept" (per cluster, the lanes that sweep its 128
+    columns).
     Returns (t (R,), column (R,) int32, payload (R, 32))."""
     dev = o.device
     f32, i32 = torch.float32, torch.int32
@@ -480,8 +481,8 @@ def _sweep_plain(tables: ProjTables, o, d, t_min, *, q_flags, listed=None,
             if stats is not None:
                 n_tested = n if listed is None else int(tested.sum())
                 stats["slab_tests"] = stats.get("slab_tests", 0) + n_tested
-                key = f"swept_{kind}"
-                stats[key] = stats.get(key, 0) + idx.numel()
+                swept = stats.setdefault("swept", [0] * tables.num_groups)
+                swept[g] += idx.numel()
             if idx.numel() == 0:
                 continue
             sl = slice(g * GROUP, (g + 1) * GROUP)

@@ -48,9 +48,9 @@ M_CID, M_KIND = 0, 1  # slot table rows
 # lanes a slab chunk of the worklist build: bounds its (lanes, G) planes
 BUILD_CHUNK = 1 << 17
 
-# K7 launches, and K5 launches made as K7's overflow fallback (CUDA only)
+# K7 launches (CUDA tensors only); the overflow fallback's K5 launches
+# count in projected.launches
 launches = 0
-fallback_launches = 0
 
 
 def build_pair_worklist(cluster_bounds, group_kinds, o, d, t_min, rb, kcap):
@@ -145,7 +145,4 @@ def closest_hit_pairs(tables: ProjTables, o, d, t_min, kcap=WL_KCAP):
         torch.cat([d, pad]), t_min, rb, kcap)
     if not bool(overflow):
         return pair_sweep(tables, o, d, t_min, meta, rb)
-    if o.device.type == "cuda":
-        global fallback_launches
-        fallback_launches += 1
     return projected_sweep(tables, o, d, t_min)
