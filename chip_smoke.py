@@ -14,10 +14,11 @@ checks them:
    card's name and power limit and the torch and nvcc versions;
 2. build: builds K1 (``ops/csrc/fused_bounce.cu``), K2
    (``ops/csrc/fused_bounce_bwd.cu``), K3/K4 (``ops/csrc/closest_hit.cu``)
-   and K5/K6/K7 (``ops/csrc/projected.cu``) with nvcc for sm_90a, in
-   parallel;
-3. K1 against its plain PyTorch version on 1,000,000 random lanes of a
-   scene that covers every branch: alive mask, hit mask and winning
+   and K5/K6/K7 (``ops/csrc/projected.cu``) with nvcc for sm_90a, and
+   the native BVH builder (``native.py``) with g++, in parallel;
+3. K1 against its plain PyTorch version on the CPU on 1,000,000 random
+   lanes with random keys, at bounce 0, of a scene that covers every
+   branch: alive mask, hit mask and winning
    primitive equal on every lane, floats within 1e-5 relative + 1e-6
    absolute, apart from at most 10 checker lanes whose sin-product lies
    within 1e-6 of 0 (sin differs by ulps between the CPU and the card);
@@ -25,9 +26,12 @@ checks them:
    ``tests/goldens/*.npy`` (the JAX package's renders) under the image
    contract of ``utils/image.py``;
 5. the serving render at full size: CornellBox 400x400, 20 bounces,
-   960,000 lanes a chunk, 60 spp; finite, >= 0, deterministic, and every
-   bounce launched K1; then the bench-shaped forward (512^2, 4 spp, 20
-   bounces) and K1's time beside the plain version's at 960,000 lanes;
+   960,000 lanes a chunk, 60 spp; finite, >= 0, deterministic, every
+   bounce launched the keyed K1, and the bounce loops called the
+   tensor-op threefry (``sampling.threefry2x32``) no time; then the
+   bench-shaped forward (512^2, 4 spp, 20 bounces) and the keyed K1's
+   time (CUDA events around the wrapper, and the kernel's own device time
+   from ``torch.profiler``) beside the plain version's at 960,000 lanes;
 6. K1 with residuals against its plain version on the same 1,000,000
    lanes: flags exact apart from the checker flips of phase 3, residual
    floats within 1e-5 relative + 1e-6 absolute, and the 13 columns bit
@@ -42,9 +46,10 @@ checks them:
 9. the bench-shaped step at full width (CornellBox 512x512, 4 spp, 20
    bounces, one chunk of 1,048,576 lanes, loss = mean(img), backward):
    median time over batches as bench.py takes it, segments/s, finite
-   gradients, K1 with residuals and K2 launched 20 times a step; the
-   step's split by CUDA events; K1-with-residuals and K2 per launch
-   beside K1 and the plain versions at 1,048,576 lanes;
+   gradients, the keyed K1 with residuals and K2 launched 20 times a
+   step, no tensor-op threefry in the bounce loop; the step's split by
+   CUDA events; K1-with-residuals and K2 per launch (events and profiler
+   device time) beside K1 and the plain versions at 1,048,576 lanes;
 10. K4 and K3 against their plain versions on phase 3's 1,000,000 lanes,
     on the same CUDA tensors: hit, idx, the winner's kind, mat and front
     exact, floats within 1e-5 rel + 1e-6 abs apart from at most 10
@@ -87,7 +92,15 @@ checks them:
     loss = mean(img), K5 the search once a bounce: finite gradients of
     the texture colours and the background, two steps on one key bit
     for bit equal, peak memory, the median step over batches as bench.py
-    takes it and its split by CUDA events.
+    takes it and its split by CUDA events;
+18. K1 and K1-res (in-kernel threefry draws and roulette) against
+    their plain version (``sampling.bounce_draws``, the plain bounce on
+    those uniforms, ``roulette``) on the same CUDA tensors: the 13
+    columns, the winners, every residual plane and the flags bit for
+    bit, on 1,000,000 random
+    lanes with random keys at bounces 0 and 7, roulette and residuals
+    on and off, and at the serving and bench paths' first bounce (run
+    after phase 7).
 
 Each path runs with every launch count set to 0 just before it and
 read just after.  Any failed check exits non-zero.  On success the last
@@ -98,6 +111,8 @@ bound, plain and library times) and the JSON verdict
 
 from __future__ import annotations
 
+import contextlib
+import faulthandler
 import json
 import os
 import statistics
@@ -233,16 +248,23 @@ def phase_device(torch):
 
 
 def phase_build():
-    log("== phase 2: build K1, K2 and K3/K4")
+    log("== phase 2: build K1, K2, K3/K4, K5/K6/K7 and the native BVH builder")
     from concurrent.futures import ThreadPoolExecutor
 
     from rust_pathtracer_tpu_torch.ops import _build
 
+    from rust_pathtracer_tpu_torch import native
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
-        for fut in [pool.submit(_build.load_library, n) for n in KERNELS]:
-            fut.result()  # one nvcc a source, all at once; raises on failure
-    log(f"built {', '.join(KERNELS)} in {time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(max_workers=len(KERNELS) + 1) as pool:
+        # the host library (the BVH builder and OBJ parser) with g++ beside
+        futs = [pool.submit(native.build)] + [pool.submit(_build.load_library, n)
+                                              for n in KERNELS]
+        for fut in futs:
+            fut.result()  # one compiler a source, all at once; raises on failure
+    log(f"built {', '.join(KERNELS)} and {native.library_path().name} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    check(native.available(), "the native BVH builder does not load")
     for name in KERNELS:
         info = _build.build_info[name]
         log(f"{_build.CSRC / (name + '.cu')}: nvcc {info['seconds']:.2f} s")
@@ -276,7 +298,7 @@ def full_scene(device):
 
 
 def random_lanes(n: int, seed: int = 20261016):
-    """Rays, throughputs, radiance, alive flags and uniforms from numpy:
+    """Rays, throughputs, radiance, alive flags and lane keys from numpy:
     80% from a viewpoint in front of the scene, 10% from inside the glass
     shell, 10% from under the light looking up."""
     rng = np.random.default_rng(seed)
@@ -294,16 +316,16 @@ def random_lanes(n: int, seed: int = 20261016):
     rad = rng.uniform(0.0, 0.5, (n, 3))
     alive = (rng.random(n) < 0.9).astype(np.float64)
     cols = np.concatenate([o, d, thr, rad, alive[:, None]], 1).T  # (13, n)
-    uni = rng.random((6, n))
-    return cols.astype(np.float32), uni.astype(np.float32)
+    lane_keys = rng.integers(0, 2**32, (n, 2), dtype=np.int64)  # uint32 words
+    return cols.astype(np.float32), lane_keys
 
 
-def _cols_on(torch, cols_np, uni_np, device):
-    from rust_pathtracer_tpu_torch.ops.fused_bounce import _COL_KEYS
+def _keyed_on(torch, cols_np, keys_np, device):
+    """The keyed K1's (13, R) state and (2, R) key words on ``device``."""
+    from rust_pathtracer_tpu_torch.ops.fused_bounce import key_words
 
-    c = torch.as_tensor(cols_np, device=device)
-    u = torch.as_tensor(uni_np, device=device)
-    return dict(zip(_COL_KEYS, c.unbind(0))), u.unbind(0)
+    return (torch.as_tensor(cols_np, device=device),
+            key_words(torch.as_tensor(keys_np, device=device)))
 
 
 def phase_kernel_vs_plain(torch, device, n_lanes):
@@ -311,26 +333,24 @@ def phase_kernel_vs_plain(torch, device, n_lanes):
     from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
     from rust_pathtracer_tpu_torch.integrator import T_MIN
 
-    cols_np, uni_np = random_lanes(n_lanes)
+    cols_np, keys_np = random_lanes(n_lanes)
     bg = (0.2, 0.1, 0.05)
     runs = {}
     for where in ("kernel", "plain"):
         dev = device if where == "kernel" else "cpu"
         scene = full_scene(dev)
         table = fb.pack_prims_shaded(scene)
-        cols, uni = _cols_on(torch, cols_np, uni_np, dev)
+        state, keys = _keyed_on(torch, cols_np, keys_np, dev)
         win = torch.empty(n_lanes, dtype=torch.int32, device=dev)
-        kw = dict(kinds=scene.kinds_static, mat_types=scene.mat_types,
-                  tex_types=scene.tex_types, t_min=T_MIN, winner_out=win)
+        kw = dict(with_roulette=False, kinds=scene.kinds_static,
+                  mat_types=scene.mat_types, tex_types=scene.tex_types, t_min=T_MIN,
+                  winner_out=win)
         bgt = torch.tensor(bg, dtype=torch.float32, device=dev)
-        fn = fb.fused_bounce_cols if where == "kernel" else fb.fused_bounce_cols_plain
-        out = fn(table, bgt, scene.textures.perlin_seed, cols, *uni, **kw)
+        fn = fb.fused_bounce_keyed if where == "kernel" else fb.fused_bounce_keyed_plain
+        out = fn(table, bgt, scene.textures.perlin_seed, state, keys, 0, **kw)
         if dev != "cpu":
             torch.cuda.synchronize()
-        runs[where] = (
-            torch.stack([out[k] for k in fb._COL_KEYS]).cpu().numpy(),
-            win.cpu().numpy(),
-        )
+        runs[where] = (out.cpu().numpy(), win.cpu().numpy())
     (k_out, k_win), (p_out, p_win) = runs["kernel"], runs["plain"]
     table = fb.pack_prims_shaded(full_scene("cpu")).numpy()
 
@@ -406,7 +426,7 @@ def _sync(torch, device):
 
 def phase_serve(torch, device, card, serve, bench, time_reps):
     log("== phase 5: serving render at full size")
-    from rust_pathtracer_tpu_torch.integrator import T_MIN, _precompute_draws
+    from rust_pathtracer_tpu_torch.integrator import T_MIN
     from rust_pathtracer_tpu_torch.models import get_scene
     from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
     from rust_pathtracer_tpu_torch.render import (
@@ -427,13 +447,16 @@ def phase_serve(torch, device, card, serve, bench, time_reps):
 
     _sync(torch, device)
     reset_counts()
-    t0 = time.perf_counter()
-    img, stats = render_radiance(scene, cam, settings, key, device=device)
-    _sync(torch, device)
-    wall = time.perf_counter() - t0
+    with count_threefry() as tf:
+        t0 = time.perf_counter()
+        img, stats = render_radiance(scene, cam, settings, key, device=device)
+        _sync(torch, device)
+        wall = time.perf_counter() - t0
     counts = read_counts()
     k1_launches = counts["K1"]
     check(counts["K1-res"] == 0, "the serving render wrote residuals")
+    check(tf["loop"] == 0, f"the serving bounce loops called threefry2x32 "
+          f"{tf['loop']} times in tensor ops")
 
     img_np = img.cpu().numpy()
     segments = float(stats.segments)
@@ -442,7 +465,9 @@ def phase_serve(torch, device, card, serve, bench, time_reps):
         f"({n_chunks} chunks of {lanes} lanes) on {card}: wall {wall:.3f} s, "
         f"segments {segments:.0f}, segments/s {segments / wall:.4e}, mean depth "
         f"{segments / (W * H * serve['spp']):.4f}, bounces {stats.bounces}, "
-        f"K1 launches {k1_launches}, image mean {img_np.mean():.6f}")
+        f"K1 launches {k1_launches}, image mean "
+        f"{img_np.mean():.6f}; threefry2x32 in tensor ops: {tf['all']} calls "
+        f"making lanes, {tf['loop']} in the bounce loops")
     check(np.isfinite(img_np).all(), "serving render has non-finite pixels")
     check((img_np >= 0).all(), "serving render has negative pixels")
     if torch.device(device).type == "cuda":
@@ -470,10 +495,12 @@ def phase_serve(torch, device, card, serve, bench, time_reps):
     times = []
     for rep in range(bench["runs"] + 1):
         _sync(torch, device)
-        t0 = time.perf_counter()
-        bimg, bstats = render_radiance(scene, cam, bs, key, device=device)
-        bimg.sum().item()
-        times.append(time.perf_counter() - t0)
+        with count_threefry() as tf:
+            t0 = time.perf_counter()
+            bimg, bstats = render_radiance(scene, cam, bs, key, device=device)
+            bimg.sum().item()
+            times.append(time.perf_counter() - t0)
+        check(tf["loop"] == 0, "the bench-shaped forward's loop called threefry2x32")
     med = statistics.median(times[1:])
     bseg = float(bstats.segments)
     log(f"bench-shaped forward {bench['width']}^2 spp={bench['spp']} "
@@ -481,44 +508,36 @@ def phase_serve(torch, device, card, serve, bench, time_reps):
         f"{med * 1e3:.2f} ms (runs {[round(t * 1e3, 2) for t in times[1:]]}), "
         f"segments {bseg:.0f}, segments/s {bseg / med:.4e}")
 
-    # one K1 launch against the plain version at the serving width: the
-    # first bounce of chunk 0 (camera rays, bounce-0 draws)
+    # one keyed K1 launch against the keyed plain version at the serving
+    # width: the first bounce of chunk 0 (camera rays, bounce 0)
     pix = torch.arange(W * H, dtype=torch.int64, device=device)
     lk, o, d, _ = _make_lanes(cam, key, pix, 0, width=W, height=H,
                               spp_chunk=serve["spp_chunk"],
                               spp_total=serve["spp"])
-    dr = _precompute_draws(lk, 1, 2)
-    ones = torch.ones(lanes, device=device)
-    zeros = torch.zeros(lanes, device=device)
-    cols = dict(zip(fb._COL_KEYS, (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
-                                   d[:, 2], ones, ones, ones, zeros, zeros,
-                                   zeros, ones)))
-    uni = (dr["sphere_u"][0, :, 0], dr["sphere_u"][0, :, 1],
-           dr["ball_u"][0, :, 0], dr["ball_u"][0, :, 1], dr["ball_u"][0, :, 2],
-           dr["coin"][0])
+    state, keys = first_bounce_state(torch, o, d, lk)
     table = fb.pack_prims_shaded(scene)
-    kw = dict(kinds=scene.kinds_static, mat_types=scene.mat_types,
+    args = (table, bg, scene.textures.perlin_seed, state, keys, 0)
+    kw = dict(with_roulette=False, kinds=scene.kinds_static, mat_types=scene.mat_types,
               tex_types=scene.tex_types, t_min=T_MIN)
 
     def k1():
-        return fb.fused_bounce_cols(table, bg, scene.textures.perlin_seed,
-                                    cols, *uni, **kw)
+        return fb.fused_bounce_keyed(*args, **kw)
 
     def plain():
-        return fb.fused_bounce_cols_plain(table, bg, scene.textures.perlin_seed,
-                                          cols, *uni, **kw)
+        return fb.fused_bounce_keyed_plain(*args, **kw)
 
     res = time_pair(torch, device, k1, plain, time_reps)
     k_ms, p_ms = statistics.mean(res["kernel"]), statistics.mean(res["plain"])
-    # each input column read once, each of the 13 output columns written once
-    b_ms, b_by = bound(nbytes(table, bg, *cols.values(), *uni) + 13 * 4 * lanes,
-                       sweep_ops(scene.kinds_static, lanes))
-    log(f"K1 at {lanes} lanes on {card}: {k_ms:.4f} ms per launch "
-        f"(blocks {[round(x, 4) for x in res['kernel']]}); plain version on the "
+    dev_ms, dev_held = _device_ms(torch, k1, time_reps, "fused_bounce_kernel")
+    b_ms, b_by = k1_bound(torch, args, kw, scene, residual_planes=0)
+    log(f"K1 (keyed) at {lanes} lanes on {card}: {k_ms:.4f} ms per launch "
+        f"(blocks {[round(x, 4) for x in res['kernel']]}; events around the "
+        f"wrapper), {dev_ms:.4f} ms device time (profiler, {dev_held} of "
+        f"{time_reps} launches); plain version on the "
         f"same CUDA tensors {p_ms:.4f} ms ({[round(x, 4) for x in res['plain']]}); "
         f"bound {b_ms:.4f} ms ({b_by})")
-    return dict(launches=k1_launches, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                bound_by=b_by)
+    return dict(launches=k1_launches, ms=k_ms, device_ms=(dev_ms, dev_held, time_reps),
+                plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
 
 
 def _checker_near_zero(np_flags, t, cols_np, table, fb):
@@ -537,24 +556,22 @@ def phase_residuals(torch, device, n_lanes):
     from rust_pathtracer_tpu_torch.integrator import T_MIN
     from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
 
-    cols_np, uni_np = random_lanes(n_lanes)
+    cols_np, keys_np = random_lanes(n_lanes)
     bg = (0.2, 0.1, 0.05)
     runs = {}
     for where, dev in (("kernel", device), ("plain", "cpu")):
         scene = full_scene(dev)
-        cols, uni = _cols_on(torch, cols_np, uni_np, dev)
         args = (fb.pack_prims_shaded(scene),
                 torch.tensor(bg, dtype=torch.float32, device=dev),
-                scene.textures.perlin_seed, cols, *uni)
-        kw = dict(kinds=scene.kinds_static, mat_types=scene.mat_types,
-                  tex_types=scene.tex_types, t_min=T_MIN)
-        fn = fb.fused_bounce_cols if where == "kernel" else fb.fused_bounce_cols_plain
+                scene.textures.perlin_seed, *_keyed_on(torch, cols_np, keys_np, dev), 0)
+        kw = dict(with_roulette=False, kinds=scene.kinds_static,
+                  mat_types=scene.mat_types, tex_types=scene.tex_types, t_min=T_MIN)
+        fn = fb.fused_bounce_keyed if where == "kernel" else fb.fused_bounce_keyed_plain
         out, res = fn(*args, **kw, want_residuals=True)
-        run = {"cols": torch.stack([out[k] for k in fb._COL_KEYS]).cpu().numpy(),
+        run = {"cols": out.cpu().numpy(),
                "res": {k: v.cpu().numpy() for k, v in res.items()}}
         if where == "kernel":
-            out0 = fb.fused_bounce_cols(*args, **kw)
-            run["cols0"] = torch.stack([out0[k] for k in fb._COL_KEYS]).cpu().numpy()
+            run["cols0"] = fb.fused_bounce_keyed(*args, **kw).cpu().numpy()
         _sync(torch, dev)
         runs[where] = run
     k, p = runs["kernel"], runs["plain"]
@@ -590,6 +607,96 @@ def phase_residuals(torch, device, n_lanes):
     check(int(explained.sum()) <= MAX_EXPLAINED_FLIPS,
           f"{int(explained.sum())} checker flips > {MAX_EXPLAINED_FLIPS}")
     return max_abs, cols_np, p["res"]
+
+
+def _keyed_runs(torch, args, kw):
+    """The keyed K1 (a check launch) and its plain version on the same
+    tensors: {name: (state, winners, residuals)} as numpy, int32 views of
+    the floats."""
+    from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
+
+    state = args[3]
+    want_res = kw.get("want_residuals", False)
+    runs = {}
+    for name, fn in (("kernel", fb.fused_bounce_keyed),
+                     ("plain", fb.fused_bounce_keyed_plain)):
+        win = torch.empty(state.shape[1], dtype=torch.int32, device=state.device)
+        out = fn(*args, **kw, winner_out=win)
+        out, res = out if want_res else (out, {})
+        runs[name] = (out.cpu().numpy().view(np.int32), win.cpu().numpy(),
+                      {k: v.cpu().numpy().view(np.int32) for k, v in res.items()})
+    return runs
+
+
+def _keyed_mismatches(runs):
+    """Lanes where the kernel's state, winner or any residual differs in a
+    bit from the plain version's."""
+    (k_out, k_win, k_res), (p_out, p_win, p_res) = runs["kernel"], runs["plain"]
+    check(set(k_res) == set(p_res), f"residual planes differ: {set(k_res) ^ set(p_res)}")
+    lane = (k_out != p_out).any(axis=0) | (k_win != p_win)
+    for k in k_res:
+        lane |= k_res[k] != p_res[k]
+    return lane
+
+
+def phase_keyed_vs_plain(torch, device, n_lanes):
+    log(f"== phase 18: the keyed K1 and K1-res vs their plain version, bit for bit, "
+        f"on {n_lanes} lanes and at the serving and bench paths' first bounce")
+    from rust_pathtracer_tpu_torch.integrator import T_MIN
+    from rust_pathtracer_tpu_torch.models import get_scene
+    from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
+    from rust_pathtracer_tpu_torch.render import _make_lanes
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+
+    cols_np, _ = random_lanes(n_lanes)
+    rng = np.random.default_rng(18)
+    lk = torch.as_tensor(rng.integers(0, 2**32, (n_lanes, 2), dtype=np.int64),
+                         device=device)
+    scene = full_scene(device)
+    state = torch.as_tensor(cols_np, device=device)
+    args0 = (fb.pack_prims_shaded(scene), torch.tensor((0.2, 0.1, 0.05), device=device),
+             scene.textures.perlin_seed, state, fb.key_words(lk))
+    kw0 = dict(kinds=scene.kinds_static, mat_types=scene.mat_types,
+               tex_types=scene.tex_types, t_min=T_MIN)
+    cases = [(f"random lanes, bounce {b}, roulette {rr}, residuals {res}",
+              args0 + (b,), dict(kw0, with_roulette=rr, want_residuals=res))
+             for b in (0, 7) for rr in (False, True) for res in (False, True)]
+
+    sd = get_scene("CornellBox")
+    cb = sd.build(device=device)
+    cam = sd.camera_at(0.0, device=device)
+    for path, cfg, res in (("serving", SERVE, False), ("bench", BENCH, True)):
+        W, H = cfg["width"], cfg["height"]
+        chunk = cfg.get("spp_chunk", cfg["spp"])
+        pix = torch.arange(W * H, dtype=torch.int64, device=device)
+        plk, o, d, _ = _make_lanes(cam, prng_key(cfg.get("seed", 0), device=device), pix,
+                                   0, width=W, height=H, spp_chunk=chunk,
+                                   spp_total=cfg["spp"])
+        st, keys = first_bounce_state(torch, o, d, plk)
+        bg = torch.tensor(sd.output.image.background if path == "serving"
+                          else (0.0, 0.0, 0.0), dtype=torch.float32, device=device)
+        cases.append((f"{path} path's first bounce, {st.shape[1]} lanes",
+                      (fb.pack_prims_shaded(cb), bg, cb.textures.perlin_seed, st, keys, 0),
+                      dict(kinds=cb.kinds_static, mat_types=cb.mat_types,
+                           tex_types=cb.tex_types, t_min=T_MIN, with_roulette=False,
+                           want_residuals=res)))
+
+    max_abs = 0.0
+    for label, args, kw in cases:
+        runs = _keyed_runs(torch, args, kw)
+        _sync(torch, device)
+        bad = _keyed_mismatches(runs)
+        k_out, k_win, _ = runs["kernel"]
+        max_abs = max(max_abs, float(np.abs(k_out.view(np.float32).astype(np.float64)
+                                            - runs["plain"][0].view(np.float32)).max()))
+        alive = k_out[12].view(np.float32) > 0.5
+        log(f"{label}: lanes differing from the plain version {int(bad.sum())}; hits "
+            f"{int((k_win >= 0).sum())}, alive out {int(alive.sum())}")
+        for i in np.nonzero(bad)[0][:5]:
+            log(f"  lane {i}: kernel {runs['kernel'][0][:, i].view(np.float32).tolist()}; "
+                f"plain {runs['plain'][0][:, i].view(np.float32).tolist()}")
+        check(not bad.any(), f"{label}: the keyed K1 differs from its plain version")
+    return max_abs
 
 
 def _bwd_args(torch, res_np, cols_np, cot, bg, device):
@@ -715,7 +822,7 @@ def phase_bench_step(torch, device, card, time_reps):
     log(f"== phase 9: bench-shaped differentiable step, CornellBox {W}x{H}, "
         f"{spp} spp, {nb} bounces, {lanes} lanes, loss = mean(img)")
     from rust_pathtracer_tpu_torch.grad import CameraParams, DiffParams, apply_params
-    from rust_pathtracer_tpu_torch.integrator import T_MIN, _precompute_draws
+    from rust_pathtracer_tpu_torch.integrator import T_MIN
     from rust_pathtracer_tpu_torch.models import get_scene
     from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
     from rust_pathtracer_tpu_torch.ops import fused_bounce_bwd as fbb
@@ -749,15 +856,19 @@ def phase_bench_step(torch, device, card, time_reps):
     _sync(torch, device)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    loss, stats = step()
-    _sync(torch, device)
+    with count_threefry() as tf:
+        loss, stats = step()
+        _sync(torch, device)
     counts = (fb.launches, fb.residual_launches, fbb.launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     grads = _leaf_grads(leaves)
     segments = float(stats.segments)
     log(f"one step: loss {float(loss.detach()):.7f}, segments {segments:.0f} (mean depth "
-        f"{segments / lanes:.4f}), launches K1 {counts[0]}, K1-res {counts[1]}, "
-        f"K2 {counts[2]}, peak memory {peak_gb:.3f} GB")
+        f"{segments / lanes:.4f}), launches K1 {counts[0]}, "
+        f"K1-res {counts[1]}, K2 {counts[2]}, peak memory {peak_gb:.3f} GB; "
+        f"threefry2x32 in tensor ops: {tf['all']} calls making lanes, {tf['loop']} "
+        "in the bounce loop")
+    check(tf["loop"] == 0, "the step's bounce loop called threefry2x32 in tensor ops")
     log("gradients: " + _grad_sums(grads))
     check(counts[1] == nb and counts[2] == nb and counts[0] == nb,
           f"a step launched K1 {counts[0]}, K1-res {counts[1]}, K2 {counts[2]} "
@@ -777,41 +888,33 @@ def phase_bench_step(torch, device, card, time_reps):
         return _make_lanes(cam, key, pix, 0, width=W, height=H, spp_chunk=spp,
                            spp_total=spp)
 
-    split = _step_split(torch, leaves, forward, lanes_fn, nb)
+    split = _step_split(torch, leaves, forward, lanes_fn, nb, hoisted=False)
     log(f"step split on {card} (CUDA events, median of 3): forward "
-        f"{split['forward']:.2f} ms = lanes {split['lanes']:.2f} + RNG draws "
-        f"{split['draws']:.2f} + bounce loop with residuals and the rest "
-        f"{split['loop']:.2f}; backward {split['backward']:.2f} ms")
+        f"{split['forward']:.2f} ms = lanes {split['lanes']:.2f} + RNG draws in "
+        f"tensor ops {split['draws']:.2f} (none: K1 draws them) + bounce loop with "
+        f"residuals and the rest {split['loop']:.2f}; backward "
+        f"{split['backward']:.2f} ms")
 
     # K1, K1 with residuals, K2 and the plain versions at the step's width:
     # the first bounce of the bench chunk
     with torch.no_grad():
         lk, o, d, _ = lanes_fn()
-        dr = _precompute_draws(lk, 1, 2)
-    ones = torch.ones(lanes, device=device)
-    zeros = torch.zeros(lanes, device=device)
-    # contiguous columns, so that the timed calls launch the kernel alone
-    cols = dict(zip(fb._COL_KEYS, [x.contiguous() for x in (
-        o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2], ones, ones, ones,
-        zeros, zeros, zeros, ones)]))
-    uni = [x.contiguous() for x in (
-        dr["sphere_u"][0, :, 0], dr["sphere_u"][0, :, 1], dr["ball_u"][0, :, 0],
-        dr["ball_u"][0, :, 1], dr["ball_u"][0, :, 2], dr["coin"][0])]
+    state, keys = first_bounce_state(torch, o, d, lk)
     table = fb.pack_prims_shaded(scene)
     bg = torch.zeros(3, device=device)
-    kw = dict(kinds=scene.kinds_static, mat_types=scene.mat_types,
+    args = (table, bg, 0, state, keys, 0)
+    kw = dict(with_roulette=False, kinds=scene.kinds_static, mat_types=scene.mat_types,
               tex_types=scene.tex_types, t_min=T_MIN)
     fns = {
-        "K1": lambda: fb.fused_bounce_cols(table, bg, 0, cols, *uni, **kw),
-        "K1-res": lambda: fb.fused_bounce_cols(table, bg, 0, cols, *uni, **kw,
-                                               want_residuals=True),
-        "K1-res plain": lambda: fb.fused_bounce_cols_plain(
-            table, bg, 0, cols, *uni, **kw, want_residuals=True),
+        "K1": lambda: fb.fused_bounce_keyed(*args, **kw),
+        "K1-res": lambda: fb.fused_bounce_keyed(*args, **kw, want_residuals=True),
+        "K1-res plain": lambda: fb.fused_bounce_keyed_plain(*args, **kw,
+                                                            want_residuals=True),
     }
     _, res = fns["K1-res"]()
     cot = torch.tensor(np.random.default_rng(3).normal(size=(12, lanes)).astype(np.float32),
                        device=device)
-    bwd_args = (res, (cols["d0"], cols["d1"], cols["d2"]), (ones, ones, ones),
+    bwd_args = (res, tuple(state[3:6]), tuple(state[6:9]),
                 dict(zip(fbb._COT_KEYS, cot.unbind(0))), bg)
     bkw = dict(mat_types=scene.mat_types, n_prims=scene.num_prims)
     fns["K2"] = lambda: fbb.fused_bounce_bwd(*bwd_args, **bkw)
@@ -821,19 +924,24 @@ def phase_bench_step(torch, device, card, time_reps):
     ms = {}
     for name in order:
         ms.setdefault(name, []).append(_time_ms(torch, device, fns[name], time_reps))
+    dev_ms = {name: (*_device_ms(torch, fns[name], time_reps, kernel), time_reps)
+              for name, kernel in (("K1", "fused_bounce_kernel"),
+                                   ("K1-res", "fused_bounce_kernel"),
+                                   ("K2", "fused_bounce_bwd_kernel"))}
     for name, v in ms.items():
+        dev = (f", {dev_ms[name][0]:.4f} ms device time (profiler, {dev_ms[name][1]} "
+               f"of {time_reps} launches)" if name in dev_ms else "")
         log(f"{name} at {lanes} lanes on {card}: {statistics.mean(v):.4f} ms per "
-            f"launch (blocks {[round(x, 4) for x in v]})")
-    # K1-res: 19 columns in, 13 columns and 10 residual planes out; K2: 28
-    # columns in, 9 columns and the (9P + 3) reductions out
-    ins = nbytes(table, bg, *cols.values(), *uni)
-    k1res_bound = bound(ins + (13 + 10) * 4 * lanes, sweep_ops(scene.kinds_static, lanes))
+            f"launch (blocks {[round(x, 4) for x in v]}; events){dev}")
+    # K1-res: 13 columns and 2 key words in, 13 columns and 10 residual
+    # planes out; K2: 28 columns in, 9 columns and the (9P + 3) reductions out
+    k1res_bound = k1_bound(torch, args, kw, scene, residual_planes=10)
     k2_bound = bound((28 + 9) * 4 * lanes + (9 * scene.num_prims + 3) * 4 + nbytes(bg),
                      K2_LANE_OPS * lanes)
     log(f"bounds at {lanes} lanes: K1-res {k1res_bound[0]:.4f} ms ({k1res_bound[1]}), "
         f"K2 {k2_bound[0]:.4f} ms ({k2_bound[1]})")
     return dict(k1res_launches=counts[1], k2_launches=counts[2],
-                ms={k: statistics.mean(v) for k, v in ms.items()},
+                ms={k: statistics.mean(v) for k, v in ms.items()}, device_ms=dev_ms,
                 bounds={"K1-res": k1res_bound, "K2": k2_bound})
 
 
@@ -1692,9 +1800,11 @@ def _events_ms(torch, fn):
     return a.elapsed_time(b), out
 
 
-def _step_split(torch, leaves, forward, lanes_fn, nb):
-    """A step's split by CUDA events, median of 3: lanes, RNG draws,
-    the bounce loop (the forward less the two), the backward."""
+def _step_split(torch, leaves, forward, lanes_fn, nb, hoisted=True):
+    """A step's split by CUDA events, median of 3: lanes, RNG draws in
+    tensor ops (``_precompute_draws``, on a route that hoists them; 0 on
+    the fused route, whose K1 draws in the kernel), the bounce loop (the
+    forward less the two), the backward."""
     from rust_pathtracer_tpu_torch.integrator import _precompute_draws
 
     split = {"lanes": [], "draws": [], "forward": [], "backward": []}
@@ -1702,7 +1812,7 @@ def _step_split(torch, leaves, forward, lanes_fn, nb):
         ms, lk = _events_ms(torch, lanes_fn)
         split["lanes"].append(ms)
         split["draws"].append(_events_ms(
-            torch, lambda: _precompute_draws(lk[0], nb, nb + 1))[0])
+            torch, lambda: _precompute_draws(lk[0], nb, nb + 1))[0] if hoisted else 0.0)
         _zero_grads(leaves)
         ms, (loss, _) = _events_ms(torch, forward)
         split["forward"].append(ms)
@@ -1727,9 +1837,128 @@ def _spread(v):
     return (max(v) - min(v)) / statistics.mean(v)
 
 
+def _device_ms(torch, fn, reps, kernel):
+    """Device time of one launch of the CUDA kernel whose name holds
+    ``kernel``, from ``torch.profiler``'s ``key_averages`` over ``reps``
+    calls of ``fn`` after a warm-up: the kernel's own time, without the
+    wrapper's host work that ``_time_ms``'s events also take in.  The
+    trace should hold all ``reps`` launches; where it drops some (one
+    call saw 19 of 20), the reading is taken once more, and if that
+    drops some too, the mean is over the launches it holds.  Returns
+    (ms, the launches the trace held); the kernels line shows both."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(2):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [a for a in prof.key_averages()
+                if a.device_type.name == "CUDA" and kernel in a.key]
+        count = sum(a.count for a in rows)
+        if count == reps:
+            break
+        log(f"the profiler's trace held {count} of {reps} launches of {kernel}"
+            + ("; reading again" if attempt == 0 else "; the mean is over those"))
+    check(reps // 2 <= count <= reps,
+          f"the profiler saw {count} launches of {kernel}, want {reps}")
+    total = sum(getattr(a, "device_time_total", getattr(a, "cuda_time_total", 0.0))
+                for a in rows)
+    return total / 1e3 / count, count
+
+
+def first_bounce_state(torch, o, d, lane_keys):
+    """The keyed K1's inputs at a path's first bounce: the (13, R) state
+    (camera rays, throughput 1, radiance 0, alive) and the lanes' (2, R)
+    key words."""
+    from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
+
+    ones = torch.ones_like(o[:, 0])
+    zeros = torch.zeros_like(ones)
+    state = torch.stack([o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2], ones,
+                         ones, ones, zeros, zeros, zeros, ones])
+    return state, fb.key_words(lane_keys)
+
+
+@contextlib.contextmanager
+def count_threefry():
+    """Counts the calls of ``sampling.threefry2x32`` (the tensor-op
+    threefry): ``all`` of them, and ``loop``, those made inside
+    ``integrator._trace_fused`` (the fused route's bounce loops; the
+    lanes are made before it)."""
+    from rust_pathtracer_tpu_torch import integrator, sampling
+
+    counts = {"all": 0, "loop": 0}
+    inside = [False]
+    threefry, trace_fused = sampling.threefry2x32, integrator._trace_fused
+
+    def counted(*a):
+        counts["all"] += 1
+        counts["loop"] += inside[0]
+        return threefry(*a)
+
+    def loop(*a, **k):
+        inside[0] = True
+        try:
+            return trace_fused(*a, **k)
+        finally:
+            inside[0] = False
+
+    sampling.threefry2x32, integrator._trace_fused = counted, loop
+    try:
+        yield counts
+    finally:
+        sampling.threefry2x32, integrator._trace_fused = threefry, trace_fused
+
+
+def k1_bound(torch, args, kw, scene, residual_planes):
+    """The keyed K1's bound at one launch's inputs (``args``, ``kw`` of
+    ``fused_bounce_keyed``): bytes, each input read once (table, 13
+    columns, 2 key words) and each output written once (13 columns,
+    ``residual_planes``, roulette's p with residuals); operations, the
+    sweep's f32 ones and the threefry int32 ones these lanes need, from
+    their winners' materials (one check launch with ``winner_out``): a
+    lambertian lane draws 2 uniforms, a metal 3, a dielectric 1 (with
+    residuals every lane draws the coin in a scene with a dielectric),
+    a continuing lane 1 more under roulette."""
+    from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
+    from rust_pathtracer_tpu_torch.scene.types import (
+        MAT_DIELECTRIC, MAT_LAMBERTIAN, MAT_METAL,
+    )
+
+    table, bg, _, state, keys, _ = args
+    R = state.shape[1]
+    win = torch.empty(R, dtype=torch.int32, device=state.device)
+    out = fb.fused_bounce_keyed(*args, **dict(kw, with_roulette=False), winner_out=win)
+    mk = table[fb.PAY_MKIND][win.clamp(min=0).long()]
+    hit = win >= 0  # -1 on a miss or a dead lane
+
+    def lanes_of(m):
+        return int((hit & (mk == float(m))).sum())
+
+    coins = (R if residual_planes and MAT_DIELECTRIC in scene.mat_types
+             else lanes_of(MAT_DIELECTRIC))
+    rr = kw["with_roulette"]
+    int_ops = (lanes_of(MAT_LAMBERTIAN) * draw_ops(2) + lanes_of(MAT_METAL) * draw_ops(3)
+               + (coins + (int((out[12] > 0.5).sum()) if rr else 0)) * draw_ops(1))
+    planes_out = 13 + residual_planes + (1 if residual_planes and rr else 0)
+    return bound(nbytes(table, bg, state, keys) + planes_out * 4 * R,
+                 sweep_ops(scene.kinds_static, R), int_ops)
+
+
 # The card's peaks (NVIDIA H100 SXM data sheet)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+# int32 operations: 64 int32 lanes a clock on each of 132 SMs at the
+# 1.98 GHz boost clock (NVIDIA Hopper architecture white paper)
+PEAK_INT32_PER_S = 64 * 132 * 1.98e9
+# int32 operations of one threefry-2x32 block (ops/csrc/threefry.cuh: the
+# key schedule 2, the key added 2, 20 rounds of add, rotate and xor 60,
+# five injections of 3) and of turning its words into a uniform (xor,
+# shift, or)
+THREEFRY_BLOCK_OPS, THREEFRY_UNIFORM_OPS = 79, 3
 # f32 operations a lane spends on one primitive in the sweep of K1, K3
 # and K4, counted from the kernel sources (divisions and square roots
 # count one; compares and selects none): a lower bound of the work
@@ -1742,12 +1971,19 @@ RECORD_LANE_OPS = 20
 K2_LANE_OPS = 150
 
 
-def bound(n_bytes, n_ops):
+def bound(n_bytes, n_ops, n_int_ops=0):
     """The least time the card could take: the larger of the bytes over
-    the memory rate and the f32 operations over the f32 peak."""
+    the memory rate and the operations' time, the f32 operations over the
+    f32 peak plus the int32 operations over the int32 rate."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_F32_PER_S * 1e3
+    t_ops = (n_ops / PEAK_F32_PER_S + n_int_ops / PEAK_INT32_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def draw_ops(n_uniforms):
+    """int32 operations of drawing ``n_uniforms`` of one purpose: the
+    purpose's key (one block), then one block and its bits a uniform."""
+    return THREEFRY_BLOCK_OPS * (1 + n_uniforms) + THREEFRY_UNIFORM_OPS * n_uniforms
 
 
 def sweep_ops(kinds, lanes, record=False):
@@ -1781,6 +2017,7 @@ def _time_ms(torch, device, fn, reps):
 
 
 def main() -> int:
+    faulthandler.enable()  # a crash in native code prints the Python stack
     if not os.path.isdir(os.path.join(REPO, "rust_pathtracer_tpu_torch")):
         print("FAIL: run chip_smoke.py from a checkout of the repository: "
               "rust_pathtracer_tpu_torch/ is not beside it", flush=True)
@@ -1796,6 +2033,7 @@ def main() -> int:
     k1 = phase_serve(torch, device, card, SERVE, BENCH, time_reps=20)
     res_err, cols_np, res_np = phase_residuals(torch, device, K1_LANES)
     k2_err = phase_bwd_vs_plain(torch, device, cols_np, res_np)
+    keyed_err = phase_keyed_vs_plain(torch, device, K1_LANES)
     phase_small_step(torch, device)
     step = phase_bench_step(torch, device, card, time_reps=20)
     ch10 = phase_closest_hit_vs_plain(torch, device, card, K1_LANES, time_reps=20)
@@ -1812,23 +2050,31 @@ def main() -> int:
         return max([main["max_abs_err"]] + [v["max_abs_err"] for (_, k), v in ph14.items()
                                             if k == kernel])
 
-    def entry(name, source, replaces, launches, err, ms, plain_ms, bound_):
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bound_,
+              device_ms=None):
+        # ms: CUDA events around the wrapper; device_ms: the kernel's own
+        # device time (torch.profiler), where measured, and
+        # device_ms_launches: [launches in its trace, launches asked for]
+        dev = {} if device_ms is None else {"device_ms": device_ms[0],
+                                            "device_ms_launches": list(device_ms[1:])}
         return {"name": name, "route": "cuda",
                 "source": f"rust_pathtracer_tpu_torch/ops/csrc/{source}",
                 "replaces": f"rust_pathtracer_tpu/ops/{replaces}", "launches": launches,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_[0], "bound_by": bound_[1], "library_ms": None}
+                "max_abs_err": err, "ms": ms, **dev,
+                "plain_ms": plain_ms, "bound_ms": bound_[0], "bound_by": bound_[1],
+                "library_ms": None}
 
     kernels = {"kernels": [
         entry("fused_bounce (K1)", "fused_bounce.cu", "fused_bounce.py:169",
-              k1["launches"], max_abs, k1["ms"], k1["plain_ms"],
-              (k1["bound_ms"], k1["bound_by"])),
+              k1["launches"], max(max_abs, keyed_err), k1["ms"], k1["plain_ms"],
+              (k1["bound_ms"], k1["bound_by"]), k1["device_ms"]),
         entry("fused_bounce with residuals (K1-res)", "fused_bounce.cu",
-              "fused_bounce.py:464", step["k1res_launches"], res_err,
-              step["ms"]["K1-res"], step["ms"]["K1-res plain"], step["bounds"]["K1-res"]),
+              "fused_bounce.py:464", step["k1res_launches"], max(res_err, keyed_err),
+              step["ms"]["K1-res"], step["ms"]["K1-res plain"], step["bounds"]["K1-res"],
+              step["device_ms"]["K1-res"]),
         entry("fused_bounce_bwd (K2)", "fused_bounce_bwd.cu", "fused_bounce.py:618",
               step["k2_launches"], k2_err, step["ms"]["K2"], step["ms"]["K2 plain"],
-              step["bounds"]["K2"]),
+              step["bounds"]["K2"], step["device_ms"]["K2"]),
         entry("closest_hit_record (K3)", "closest_hit.cu", "pallas_intersect.py:196",
               k3["launches"], max(k3["max_abs_err"], ch10["K3"]["max_abs_err"]),
               k3["ms"], k3["plain_ms"], (k3["bound_ms"], k3["bound_by"])),

@@ -3,6 +3,7 @@
 
     python3 profile_port.py --scene SphereField --mode step
     python3 profile_port.py --scene ModelTest --mode frame
+    python3 profile_port.py --scene CornellBox --mode frame --root output/parent
 
 Runs ``rust_pathtracer_tpu_torch`` (never JAX) on the card: one warm-up,
 then the same frame (``render_radiance``) or differentiable step
@@ -21,7 +22,12 @@ Prints:
   autograd's backward.
 
 Exits non-zero without a GPU.  ModelTest renders
-``scene.obj_loader.write_benchmark_obj``'s asset.
+``scene.obj_loader.write_benchmark_obj``'s asset.  CornellBox's frame is
+the serving shape (400x400, 60 spp in chunks of 6, 960,000 lanes a
+chunk), its step ``bench.py``'s (512x512, 4 spp, one chunk).
+``--root`` imports the package from another checkout (a parent commit
+unpacked with ``git archive``), so that two versions are timed by one
+script on one card.
 """
 
 from __future__ import annotations
@@ -34,9 +40,13 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# each scene's default shape: its own width, spp cut to one chunk
-SHAPES = {"SphereField": (854, 480, 2, 20), "ModelTest": (800, 800, 1, 20),
-          "TwoSphereCheckers": (854, 480, 2, 20)}
+# scene -> mode -> (width, height, spp, bounces, spp a chunk): the
+# scene's own width, spp cut to one chunk; CornellBox as chip_smoke.py
+# serves it and as bench.py steps it
+SHAPES = {"SphereField": dict.fromkeys(("frame", "step"), (854, 480, 2, 20, 2)),
+          "ModelTest": dict.fromkeys(("frame", "step"), (800, 800, 1, 20, 1)),
+          "TwoSphereCheckers": dict.fromkeys(("frame", "step"), (854, 480, 2, 20, 2)),
+          "CornellBox": {"frame": (400, 400, 60, 20, 6), "step": (512, 512, 4, 20, 4)}}
 TOP = 20  # rows of each table
 
 
@@ -61,9 +71,12 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--scene", default="SphereField", choices=sorted(SHAPES))
     p.add_argument("--mode", default="step", choices=["step", "frame"])
+    p.add_argument("--root", default=REPO,
+                   help="the checkout whose rust_pathtracer_tpu_torch to import")
     args = p.parse_args()
 
-    sys.path.insert(0, REPO)
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -74,6 +87,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown"
     print(card, flush=True)
+    print(f"package from {root}", flush=True)
 
     from rust_pathtracer_tpu_torch.grad import CameraParams, DiffParams, apply_params
     from rust_pathtracer_tpu_torch.models import get_scene
@@ -84,15 +98,16 @@ def main() -> int:
     if args.scene == "ModelTest":
         from rust_pathtracer_tpu_torch.scene.obj_loader import write_benchmark_obj
 
-        path = os.path.join(REPO, "output", "profile", "model.obj")
+        path = os.path.join(root, "output", "profile", "model.obj")
         write_benchmark_obj(path)
         kw["obj_path"] = path
     sd = get_scene(args.scene, **kw)
-    W, H, spp, nb = SHAPES[args.scene]
+    W, H, spp, nb, chunk = SHAPES[args.scene][args.mode]
     dev = "cuda"
     scene = sd.build(device=dev)
     bg = sd.output.image.background
-    settings = RenderSettings(W, H, spp, nb, bg, differentiable=args.mode == "step")
+    settings = RenderSettings(W, H, spp, nb, bg, spp_chunk=chunk,
+                              differentiable=args.mode == "step")
     key = prng_key(0, device=dev)
     cam = sd.camera_at(0.0, device=dev)
     leaves = None
@@ -125,7 +140,8 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     busy = busy_ms(prof.events())
-    print(f"{args.scene} {args.mode} {W}x{H}, {spp} spp, {nb} bounces on {card}: "
+    print(f"{args.scene} {args.mode} {W}x{H}, {spp} spp ({chunk} a chunk), {nb} "
+          f"bounces on {card}: "
           f"wall {plain_wall:.2f} ms unprofiled, {wall:.2f} ms profiled; device busy "
           f"{busy:.2f} ms, idle share {1 - busy / wall:.4f} of the profiled wall; "
           f"segments {float(stats.segments):.0f}", flush=True)

@@ -1,6 +1,6 @@
 """Host-side BVH build -> flattened threaded (skip-link) arrays.
 
-Counterpart of ``rust_pathtracer_tpu/bvh.py`` (``build_bvh_numpy``);
+Counterpart of ``rust_pathtracer_tpu/bvh.py``.  ``build_bvh_numpy`` is
 plain numpy, a copy of the JAX package's algorithm so that the two
 builders give the same primitive order from the same boxes:
 
@@ -12,12 +12,18 @@ builders give the same primitive order from the same boxes:
 * the tree is flattened in DFS order and threaded: node i's first child
   is i+1 and ``miss[i]`` skips its subtree.
 
+``build_bvh`` prefers the native C++ builder (``native.py``), as the
+JAX package's does: the default order is the JAX package's default.
+The native split is ``std::nth_element``, which leaves each half in
+another order than ``np.argpartition``, so its primitive order differs
+from this numpy builder's.  The numpy builder stays: the fallback where
+``g++`` cannot build the library, and the tests' oracle.
+
 The builder permutes the primitives into leaf order, so the big-scene
 tables (``ops/projected.py``) keep BVH-leaf order and their 128-column
 clusters are spatially compact.  The port searches with the projected
 kernels, never by walking the tree; the arrays are kept for parity with
-the JAX scene.  Not ported: the native C++ builder (``native.py``),
-whose primitive order can differ from this one.
+the JAX scene.
 """
 
 from __future__ import annotations
@@ -118,3 +124,13 @@ def _fix_pending(miss: np.ndarray, leaf_count: np.ndarray, nodes: int) -> None:
     for i in range(nodes):
         if miss[i] == _PENDING:
             miss[i] = _subtree_end(leaf_count, i)
+
+
+def build_bvh(bbox_min: np.ndarray, bbox_max: np.ndarray,
+              leaf_size: int = 4) -> FlatBvh:
+    """Build a threaded BVH, preferring the native C++ builder
+    (``rust_pathtracer_tpu/bvh.py::build_bvh``)."""
+    from rust_pathtracer_tpu_torch import native
+
+    flat = native.build_bvh(bbox_min, bbox_max, leaf_size)
+    return flat if flat is not None else build_bvh_numpy(bbox_min, bbox_max, leaf_size)

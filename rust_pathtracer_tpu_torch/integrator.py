@@ -15,10 +15,12 @@ iteration:
 Two routes, chosen per scene as in the JAX package:
 
 * **fused**, for the scenes ``fused_bounce_ok`` admits (and, when
-  differentiable, ``fused_bounce_diff_ok``): the state as 13 (R,)
-  columns and one launch of K1 a bounce (``ops/fused_bounce.py``); the
-  differentiable loop is the whole-scan ``autograd.Function``
-  ``fused_scan_trace`` (K1 with residuals forward, K2 backward);
+  differentiable, ``fused_bounce_diff_ok``): the state as one (13, R)
+  tensor and one launch of the keyed K1 a bounce
+  (``ops/fused_bounce.py``), which draws the bounce's uniforms from the
+  lane keys and applies roulette itself; the differentiable loop is the
+  whole-scan ``autograd.Function`` ``fused_scan_trace`` (keyed K1 with
+  residuals forward, K2 backward);
 * **generic**, for every other scene (image textures, nested
   checkers, perlin when differentiable, and every scene of more than
   128 primitives): ``_bounce_step`` on (R, 3) tensors.  The search is a
@@ -30,7 +32,8 @@ Two routes, chosen per scene as in the JAX package:
   row; the differentiable search is K5.  The differentiable record is
   ``record_from_rows`` on the gathered primitive rows; shading and
   scatter are plain tensor ops (``materials.py``, ``textures.py``) and
-  autograd differentiates them.
+  autograd differentiates them.  Its uniforms are hoisted
+  (``_precompute_draws``), as in the JAX package.
 
 The non-differentiable loops stop at ``max_bounces`` or once no lane is
 alive; the differentiable ones run exactly ``max_bounces`` bounces.
@@ -60,12 +63,12 @@ from rust_pathtracer_tpu_torch.ops.closest_hit import (
 )
 from rust_pathtracer_tpu_torch.ops.fused_bounce import (
     _COL_KEYS,
-    fused_bounce_cols,
     fused_bounce_diff_ok,
+    fused_bounce_keyed,
     fused_bounce_ok,
     fused_scan_trace,
+    key_words,
     pack_prims_shaded,
-    roulette,
 )
 from rust_pathtracer_tpu_torch.ops.projected import (
     PAY_IDX,
@@ -112,7 +115,8 @@ def _precompute_draws(lane_keys, max_bounces, rr_start, start_bounce=0):
     path state, so they are drawn for every bounce at once.  Returns a
     dict of (B, R, ...) tensors: ``sphere_u`` (B, R, 2), ``ball_u``
     (B, R, 3), ``coin`` (B, R) and, when roulette can fire,
-    ``roulette`` (B, R).  Bit-equal to the JAX legacy stream.
+    ``roulette`` (B, R).  Bit-equal to the JAX legacy stream.  The
+    generic route's; the fused route draws inside K1.
     """
     rr = rr_start < max_bounces
     b = torch.arange(start_bounce, max_bounces, dtype=torch.int64,
@@ -326,18 +330,18 @@ def _trace_generic(scene, origins, directions, background, max_bounces,
     return state[3], TraceStats(segments=segments, bounces=bounce, occupancy=occupancy)
 
 
-def _trace_fused(scene, origins, directions, background, max_bounces, rr_start,
-                 draws, differentiable):
+def _trace_fused(scene, origins, directions, lane_keys, background, max_bounces,
+                 rr_start, differentiable):
+    keys = key_words(lane_keys)
     zeros = torch.zeros_like(origins[:, 0])
     ones = torch.ones_like(zeros)
-    cols = dict(zip(_COL_KEYS, (
-        origins[:, 0], origins[:, 1], origins[:, 2],
-        directions[:, 0], directions[:, 1], directions[:, 2],
-        ones, ones, ones, zeros, zeros, zeros, ones,
-    )))
+    cols = (origins[:, 0], origins[:, 1], origins[:, 2],
+            directions[:, 0], directions[:, 1], directions[:, 2],
+            ones, ones, ones, zeros, zeros, zeros, ones)
     if differentiable:
+        cols = dict(zip(_COL_KEYS, cols))
         cols, segments, occupancy = fused_scan_trace(
-            scene, cols, draws, background, T_MIN, max_bounces, rr_start,
+            scene, cols, keys, background, T_MIN, max_bounces, rr_start,
             MAX_BOUNCE_STATS)
         rad = torch.stack([cols["r0"], cols["r1"], cols["r2"]], dim=1)
         return rad, TraceStats(segments=segments, bounces=max_bounces,
@@ -345,24 +349,21 @@ def _trace_fused(scene, origins, directions, background, max_bounces, rr_start,
 
     table = pack_prims_shaded(scene)
     seed = scene.textures.perlin_seed
+    state = torch.stack(cols)  # (13, R), rows in _COL_KEYS order
     segments = torch.zeros((), dtype=torch.float32, device=origins.device)
     occupancy = torch.zeros(MAX_BOUNCE_STATS, dtype=torch.float32,
                             device=origins.device)
     bounce = 0
-    while bounce < max_bounces and bool((cols["al"] > 0.5).any()):
-        segments = _stats(cols["al"], bounce, segments, occupancy)
-        su, bu = draws["sphere_u"][bounce], draws["ball_u"][bounce]
-        cols = fused_bounce_cols(
-            table, background, seed, cols, su[:, 0], su[:, 1],
-            bu[:, 0], bu[:, 1], bu[:, 2], draws["coin"][bounce],
-            kinds=scene.kinds_static, mat_types=scene.mat_types,
-            tex_types=scene.tex_types, t_min=T_MIN,
+    while bounce < max_bounces and bool((state[12] > 0.5).any()):
+        segments = _stats(state[12], bounce, segments, occupancy)
+        state = fused_bounce_keyed(
+            table, background, seed, state, keys, bounce,
+            with_roulette=bounce >= rr_start, kinds=scene.kinds_static,
+            mat_types=scene.mat_types, tex_types=scene.tex_types, t_min=T_MIN,
         )
-        if bounce >= rr_start:
-            cols = roulette(cols, draws["roulette"][bounce])[0]
         bounce += 1
 
-    rad = torch.stack([cols["r0"], cols["r1"], cols["r2"]], dim=1)
+    rad = state[9:12].T.contiguous()
     return rad, TraceStats(segments=segments, bounces=bounce, occupancy=occupancy)
 
 
@@ -409,9 +410,9 @@ def trace(
     )
     mode = (resolve_remat_mode(remat, origins.shape[0], max_bounces)
             if differentiable else None)
-    draws = _precompute_draws(lane_keys, max_bounces, rr_start)
     if (fused_bounce_diff_ok if differentiable else fused_bounce_ok)(scene):
-        return _trace_fused(scene, origins, directions, background, max_bounces,
-                            rr_start, draws, differentiable)
+        return _trace_fused(scene, origins, directions, lane_keys, background,
+                            max_bounces, rr_start, differentiable)
+    draws = _precompute_draws(lane_keys, max_bounces, rr_start)
     return _trace_generic(scene, origins, directions, background, max_bounces,
                           rr_start, draws, differentiable, mode)

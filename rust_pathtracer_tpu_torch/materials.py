@@ -68,7 +68,8 @@ def shade_inputs(scene, hit: HitRecord, shade_row=None) -> ShadeInputs:
     # a dielectric-only scene has no texture consumer (attenuation is 1)
     needs_value = bool({MAT_LAMBERTIAN, MAT_METAL, MAT_LIGHT} & set(scene.mat_types))
     value = (eval_texture(scene.textures, tex, hit.u, hit.v, hit.point,
-                          scene.tex_types, checker_depth=scene.checker_depth)
+                          scene.tex_types, checker_depth=scene.checker_depth,
+                          valid=hit.valid)
              if needs_value else torch.zeros_like(hit.point))
     return ShadeInputs(kind, fuzz, ir, value)
 

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface.  ``nvcc`` compiles
 it for Hopper (``sm_90a``) into ``build/<name>-<hash>.so`` beside this
-file, keyed by a hash of the source and the flags, so an edited source
-builds anew and an unchanged one loads at once.  The library is then
+file, keyed by a hash of the source, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited source builds anew and an unchanged one
+loads at once.  The library is then
 loaded with ctypes; every pointer, and the stream, is passed as
 ``ctypes.c_void_p``.
 
@@ -41,13 +42,14 @@ _c_void_p, _c_int, _c_uint = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 # C signature of each library's entry points: name -> (argtypes, restype)
 SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
     "fused_bounce": {
-        # table, n_prims, bg, seed, t_min, mat_flags, tex_flags,
-        # in_ptrs[19], out_ptrs[13], res_ptrs[10] (or NULL),
+        # table, n_prims, bg, seed, t_min, mat_flags, tex_flags, in (13
+        # or 19 rows), keys (2 rows, or NULL: uniforms in), bounce,
+        # roulette, out (13 rows), res (9 or 10 rows, or NULL), flags,
         # winner (or NULL), n_lanes, stream
         "fused_bounce_launch": (
             [_c_void_p, _c_int, _c_void_p, _c_uint, ctypes.c_float, _c_int,
-             _c_int, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-             ctypes.c_longlong, _c_void_p],
+             _c_int, _c_void_p, _c_void_p, _c_uint, _c_int, _c_void_p, _c_void_p,
+             _c_void_p, _c_void_p, ctypes.c_longlong, _c_void_p],
             _c_int,
         ),
         "error_string": ([_c_int], ctypes.c_char_p),
@@ -109,6 +111,8 @@ def nvcc_path() -> str:
 def _library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):  # what a source may include
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -6,15 +6,27 @@
 // one-sided Moller-Trumbore with det >= TRI_DET_EPS, strict t < best),
 // front-face flip, texture (solid / checker sin-product / perlin
 // marble), background banking on a miss and emission banking on a
-// front-face light, lambertian / metal / dielectric scatter from raw
-// uniforms, and the state commit.  The plain PyTorch twin is
-// fused_bounce_cols_plain in ../fused_bounce.py.
+// front-face light, lambertian / metal / dielectric scatter, the state
+// commit and, from the trace's rr_start on, russian roulette.  The plain
+// PyTorch twin is fused_bounce_keyed_plain in ../fused_bounce.py.
 //
-// What bounds it on the card: every lane reads 19 f32 columns (13 state,
-// 6 uniforms) and writes 13, 128 B per lane-bounce, so about 0.12 GB per
-// 960k-lane bounce.  The arithmetic is about 20 primitive tests per lane
-// on CornellBox; the perlin marble (7 octaves x 8 hashed corners) is the
-// heaviest branch.
+// The bounce's uniforms.  A lane reads its threefry key (two uint32 words, made once a trace from
+// the lane keys) and draws, in registers, what sampling.bounce_draws
+// draws for this bounce (threefry.cuh): a lambertian lane its two
+// P_LAMBERT uniforms, a metal lane its three P_FUZZ uniforms, a
+// dielectric lane its P_SCHLICK coin, a lane that continues from
+// rr_start on its P_ROULETTE uniform.  A lane draws only what its
+// material consumes; the integer arithmetic is exact, so the uniforms
+// are the bits integrator._precompute_draws hoists in tensor ops (the
+// JAX package hoists them because XLA makes threefry cheap on the TPU;
+// on the H100 that int64 tensor-op threefry took 86% of the bench step).
+//
+// What bounds it on the card: a lane reads 13 f32 state columns
+// and 2 key words and writes 13 columns, 112 B per lane-bounce, so about
+// 0.11 GB per 960k-lane bounce.  The arithmetic is about 20 primitive
+// tests per lane on CornellBox plus 2-4 threefry blocks (~80 int32
+// operations each); the perlin marble (7 octaves x 8 hashed corners) is
+// the heaviest branch.
 //
 // Design, simple and right first:
 // * one thread per lane, a grid-stride loop, the ragged edge masked;
@@ -28,23 +40,29 @@
 // Later work: in-place columns, fewer bytes, persistent blocks.
 //
 // Residual outputs (want_residuals=True in the Pallas kernel, :464-485),
-// for the backward kernel K2 (fused_bounce_bwd.cu): a second
-// instantiation of the same kernel (template flag RES) also writes nine
-// f32 planes and an int32 flags word.  They must hold on EVERY lane the
-// values the Pallas kernel writes, dead and missed lanes included, so in
-// that instantiation dead lanes run the sweep too, and write_residuals
+// for the backward kernel K2 (fused_bounce_bwd.cu): the RES
+// instantiations of the same kernel also write nine f32 planes and an
+// int32 flags word, and with roulette the plane p and the flag
+// FLG_RR_ACT that the roulette's backward reads.  They must hold on EVERY
+// lane the values the Pallas kernel writes, dead and missed lanes
+// included, so there dead lanes run the sweep too, and write_residuals
 // recomputes the hit record on every lane from the sweep's result.  The
-// RES=false instantiation is the serving kernel, unchanged: no residual
-// work, and the same arithmetic for the 13 columns.
+// RES=false instantiations are the serving kernel: no residual work, and
+// the same arithmetic for the 13 columns.
 //
 // Numerics: build without --use_fast_math and with --fmad=false, so every
 // f32 op rounds as the plain version's does (IEEE division and sqrt, no
 // contraction, no flush to zero).  Integer powers are explicit multiplies,
-// as XLA's integer_pow expands them.  Only sinf / cosf / cbrtf differ from
-// the CPU's by an ulp.
+// as XLA's integer_pow expands them.  The metal's cube root is the f64
+// power rounded to f32, as vecmath.cbrt takes it; sinf / cosf are CUDA's,
+// which PyTorch's CUDA sin / cos also use, so on the card the kernel and
+// its plain version agree bit for bit, and sin / cos differ from the
+// CPU's by an ulp.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "threefry.cuh"
 
 namespace {
 
@@ -70,7 +88,7 @@ constexpr float SAFE_EPS = 1e-20f;
 constexpr float TWO_PI = 6.2831855f;  // 2 * float32(pi)
 constexpr int TURBULENCE_DEPTH = 7;
 
-constexpr int N_IN = 19;   // 13 state columns + 6 uniform columns
+constexpr int N_IN = 13;   // 13 state columns
 constexpr int N_OUT = 13;  // 13 state columns
 constexpr int N_RES = 9;   // residual f32 planes
 constexpr int THREADS = 256;
@@ -80,16 +98,54 @@ constexpr int FLG_HIT = 1, FLG_FRONT = 2, FLG_CONT = 4, FLG_REFLECT = 8;
 constexpr int FLG_SINES_NEG = 16, FLG_SEL_L = 32, FLG_SEL_M = 64, FLG_SEL_D = 128;
 constexpr int FLG_LIGHT_ON = 256, FLG_COS_CLAMP = 512, FLG_REFR_ZERO = 1024;
 constexpr int FLG_L_NEG = 2048, FLG_IS_CK = 4096, FLG_ALIVE = 8192;
+constexpr int FLG_RR_ACT = 16384;  // roulette kept and boosted the lane
 constexpr int FLG_BESTI_SHIFT = 16;
 
+// russian roulette's floor and ceiling of p (integrator.py:845-869)
+constexpr float RR_P_MIN = 0.05f, RR_P_MAX = 1.0f;
+
 struct Columns {
-  // in: o0 o1 o2 d0 d1 d2 t0 t1 t2 r0 r1 r2 al su0 su1 bu0 bu1 bu2 coin
+  // in: o0 o1 o2 d0 d1 d2 t0 t1 t2 r0 r1 r2 al
   const float* in[N_IN];
+  // the lane key's two uint32 words
+  const uint32_t* key[2];
   // out: o0 o1 o2 d0 d1 d2 t0 t1 t2 r0 r1 r2 al
   float* out[N_OUT];
-  // residuals (RES only): t nx ny nz v0 v1 v2 ratio invr, then flags
+  // residuals (RES only): t nx ny nz v0 v1 v2 ratio invr, then flags;
+  // rr_p (RES with roulette only): roulette's p
   float* res[N_RES];
   int* flags;
+  float* rr_p;
+};
+
+// The uniforms of one bounce of one lane, drawn from the lane key,
+// purpose by purpose, when asked.
+struct Draws {
+  uint32_t k0, k1, bounce;
+
+  __device__ void lambert(float& u0, float& u1) const {
+    uint32_t p0, p1;
+    rpt::bounce_key(k0, k1, bounce, rpt::P_LAMBERT, p0, p1);
+    u0 = rpt::uniform_at(p0, p1, 0u);
+    u1 = rpt::uniform_at(p0, p1, 1u);
+  }
+  __device__ void fuzz(float& u0, float& u1, float& u2) const {
+    uint32_t p0, p1;
+    rpt::bounce_key(k0, k1, bounce, rpt::P_FUZZ, p0, p1);
+    u0 = rpt::uniform_at(p0, p1, 0u);
+    u1 = rpt::uniform_at(p0, p1, 1u);
+    u2 = rpt::uniform_at(p0, p1, 2u);
+  }
+  __device__ float coin() const {
+    uint32_t p0, p1;
+    rpt::bounce_key(k0, k1, bounce, rpt::P_SCHLICK, p0, p1);
+    return rpt::uniform_at(p0, p1, 0u);
+  }
+  __device__ float roulette() const {
+    uint32_t p0, p1;
+    rpt::bounce_key(k0, k1, bounce, rpt::P_ROULETTE, p0, p1);
+    return rpt::uniform_at(p0, p1, 0u);
+  }
 };
 
 // NaN-propagating max / min against a constant, as jnp.maximum / minimum
@@ -98,6 +154,10 @@ __device__ __forceinline__ float max_nan(float x, float c) {
 }
 __device__ __forceinline__ float min_nan(float x, float c) {
   return (x != x || x < c) ? x : c;
+}
+// NaN-propagating max of two lanes' values, as torch.maximum
+__device__ __forceinline__ float max2_nan(float a, float b) {
+  return (a != a || a > b) ? a : b;
 }
 
 // ---- perlin (rust_pathtracer_tpu/perlin.py, bit for bit) -----------------
@@ -173,7 +233,8 @@ __device__ void write_residuals(const float* tab, int P, uint32_t seed,
                                 float oz, float dx, float dy, float dz, float a,
                                 bool alive, float best_t, int best_i, float wnx,
                                 float wny, float wnz, float w_invr, float coin,
-                                bool cont, const Columns& cols, long long i) {
+                                bool cont, int rr_flag, const Columns& cols,
+                                long long i) {
   const bool found = best_i >= 0;
   const bool hit = found & alive;
   const float t = found ? best_t : 1.0f;  // finite t for miss lanes
@@ -233,7 +294,8 @@ __device__ void write_residuals(const float* tab, int P, uint32_t seed,
     if (plen <= 0.0f) flags |= FLG_REFR_ZERO;
     if (raw_l < 0.0f) flags |= FLG_L_NEG;
   }
-  flags |= (cont ? FLG_CONT : 0) | (alive ? FLG_ALIVE : 0) | (b << FLG_BESTI_SHIFT);
+  flags |= (cont ? FLG_CONT : 0) | (alive ? FLG_ALIVE : 0) | rr_flag |
+           (b << FLG_BESTI_SHIFT);
 
   cols.res[0][i] = t;
   cols.res[1][i] = nx;
@@ -253,8 +315,8 @@ template <bool RES>
 __global__ void __launch_bounds__(THREADS)
 fused_bounce_kernel(const float* __restrict__ table, int n_prims,
                     const float* __restrict__ bg, uint32_t seed, float t_min,
-                    int mat_flags, int tex_flags, Columns cols,
-                    int* __restrict__ winner, long long n) {
+                    int mat_flags, int tex_flags, uint32_t bounce, bool roulette,
+                    Columns cols, int* __restrict__ winner, long long n) {
   __shared__ float tab[PAY_W * MAX_PRIMS];
   for (int i = threadIdx.x; i < PAY_W * n_prims; i += blockDim.x) tab[i] = table[i];
   __syncthreads();
@@ -280,6 +342,10 @@ fused_bounce_kernel(const float* __restrict__ table, int n_prims,
       if (winner) winner[i] = -1;
       continue;
     }
+
+    const Draws draws{cols.key[0][i], cols.key[1][i], bounce};
+    // the residuals' dielectric terms take the coin on every lane
+    const float res_coin = RES && (mat_flags & MATF_DIELECTRIC) ? draws.coin() : 0.0f;
 
     // ---- closest-hit sweep --------------------------------------------
     const float a = dx * dx + dy * dy + dz * dz;
@@ -421,8 +487,10 @@ fused_bounce_kernel(const float* __restrict__ table, int n_prims,
       float sdx = 0.0f, sdy = 0.0f, sdz = 0.0f;
       float at0 = 0.0f, at1 = 0.0f, at2 = 0.0f;
       if ((mat_flags & MATF_LAMBERTIAN) && mk == MAT_LAMBERTIAN) {
-        const float s_z = 2.0f * cols.in[13][i] - 1.0f;
-        const float s_phi = TWO_PI * cols.in[14][i];
+        float su0, su1;
+        draws.lambert(su0, su1);
+        const float s_z = 2.0f * su0 - 1.0f;
+        const float s_phi = TWO_PI * su1;
         const float s_r = sqrtf(max_nan(1.0f - s_z * s_z, 0.0f));
         float dlx = nx + s_r * cosf(s_phi);
         float dly = ny + s_r * sinf(s_phi);
@@ -438,10 +506,14 @@ fused_bounce_kernel(const float* __restrict__ table, int n_prims,
       } else if ((mat_flags & MATF_METAL) && mk == MAT_METAL) {
         const float inv_len = 1.0f / sqrtf(max_nan(a, SAFE_EPS));
         const float ux = dx * inv_len, uy = dy * inv_len, uz = dz * inv_len;
-        const float b_z = 2.0f * cols.in[15][i] - 1.0f;
-        const float b_phi = TWO_PI * cols.in[16][i];
+        float bu0, bu1, bu2;
+        draws.fuzz(bu0, bu1, bu2);
+        const float b_z = 2.0f * bu0 - 1.0f;
+        const float b_phi = TWO_PI * bu1;
         const float b_rho = sqrtf(max_nan(1.0f - b_z * b_z, 0.0f));
-        const float b_s = cbrtf(cols.in[17][i]);
+        // the cube root as the plain version takes it (vecmath.cbrt: the
+        // f64 power rounded to f32), where cbrtf may differ by an ulp
+        const float b_s = (float)pow((double)bu2, 1.0 / 3.0);
         const float ball_x = b_rho * cosf(b_phi) * b_s;
         const float ball_y = b_rho * sinf(b_phi) * b_s;
         const float ball_z = b_z * b_s;
@@ -470,7 +542,7 @@ fused_bounce_kernel(const float* __restrict__ table, int n_prims,
         const float one_c2 = one_c * one_c;
         const float one_c5 = one_c * (one_c2 * one_c2);  // XLA integer_pow(5)
         const float refl_p = r0 + (1.0f - r0) * one_c5;
-        const bool choose_reflect = cannot | (refl_p > cols.in[18][i]);
+        const bool choose_reflect = cannot | (refl_p > (RES ? res_coin : draws.coin()));
         if (choose_reflect) {
           const float dnu = ux * nx + uy * ny + uz * nz;
           sdx = ux - 2.0f * dnu * nx;
@@ -499,16 +571,37 @@ fused_bounce_kernel(const float* __restrict__ table, int n_prims,
       }
     }
 
+    // ---- russian roulette (integrator.py:845-869), from rr_start on:
+    // p = clip(max throughput, 0.05, 1); a continuing lane survives when
+    // its uniform is below p, boosted by 1/p, else it dies ----------------
+    bool alive_out = cont;
+    int rr_flag = 0;
+    if (roulette) {
+      const float m = max2_nan(max2_nan(t_out0, t_out1), t_out2);
+      const float p = m != m ? m : fminf(fmaxf(m, RR_P_MIN), RR_P_MAX);
+      const bool act = cont && draws.roulette() < p;
+      if (act) {
+        t_out0 = t_out0 / p;
+        t_out1 = t_out1 / p;
+        t_out2 = t_out2 / p;
+      }
+      alive_out = act;
+      if (RES) {
+        cols.rr_p[i] = p;
+        rr_flag = act ? FLG_RR_ACT : 0;
+      }
+    }
+
     cols.out[0][i] = o_out0; cols.out[1][i] = o_out1; cols.out[2][i] = o_out2;
     cols.out[3][i] = d_out0; cols.out[4][i] = d_out1; cols.out[5][i] = d_out2;
     cols.out[6][i] = t_out0; cols.out[7][i] = t_out1; cols.out[8][i] = t_out2;
     cols.out[9][i] = rdx; cols.out[10][i] = rdy; cols.out[11][i] = rdz;
-    cols.out[12][i] = cont ? 1.0f : 0.0f;
+    cols.out[12][i] = alive_out ? 1.0f : 0.0f;
 
     if (RES) {
       write_residuals(tab, P, seed, mat_flags, tex_flags, ox, oy, oz, dx, dy, dz, a,
-                      alive, best_t, best_i, wnx, wny, wnz, w_invr, cols.in[18][i],
-                      cont, cols, i);
+                      alive, best_t, best_i, wnx, wny, wnz, w_invr, res_coin, cont,
+                      rr_flag, cols, i);
     }
   }
 }
@@ -517,42 +610,49 @@ fused_bounce_kernel(const float* __restrict__ table, int n_prims,
 
 extern "C" {
 
-// Launch K1 on `stream`.  `table` (32, n_prims) f32, `bg` (3,) f32 and
-// every column are device pointers; `in_ptrs` / `out_ptrs` are HOST
-// arrays of 19 / 13 device column pointers (see Columns).  `res_ptrs`,
-// NULL for none, is a HOST array of 10 device pointers: the nine f32
-// residual planes, then the int32 flags.  `winner`, an optional
-// (n_lanes,) int32 device array (NULL for none), receives each alive
-// lane's winning primitive, -1 on a miss or a dead lane.  Returns
-// cudaGetLastError() of the launch: nonzero means it never ran.
+// Launch K1 on `stream`.  Every pointer is a device pointer to rows of
+// n_lanes: `table` (32, n_prims) f32, `bg` (3,) f32; `in` the 13 state
+// rows (o0 o1 o2 d0 d1 d2 t0 t1 t2 r0 r1 r2 al); `keys` the lane key's
+// two uint32 rows, from which the lanes draw `bounce`'s uniforms;
+// `roulette` applies russian roulette after the bounce; `out` the 13 new
+// state rows.  `res`,
+// NULL for none, receives the nine f32 residual rows (t nx ny nz v0 v1
+// v2 ratio invr) and, with `roulette`, roulette's p as a tenth; `flags`
+// (with `res`) the int32 flags.  `winner`, optional (NULL for none),
+// receives each alive lane's winning primitive, -1 on a miss or a dead
+// lane.  Returns cudaGetLastError() of the launch: nonzero means it
+// never ran.
 int fused_bounce_launch(const float* table, int n_prims, const float* bg,
                         unsigned int seed, float t_min, int mat_flags,
-                        int tex_flags, const void* const* in_ptrs,
-                        void* const* out_ptrs, void* const* res_ptrs, int* winner,
-                        long long n_lanes, void* stream) {
-  if (n_prims <= 0 || n_prims > MAX_PRIMS || n_lanes < 0) {
+                        int tex_flags, const float* in, const unsigned int* keys,
+                        unsigned int bounce, int roulette, float* out, float* res,
+                        int* flags, int* winner, long long n_lanes, void* stream) {
+  if (n_prims <= 0 || n_prims > MAX_PRIMS || n_lanes < 0 || !keys || (res && !flags)) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_lanes == 0) return (int)cudaSuccess;
-  Columns cols;
-  for (int k = 0; k < N_IN; ++k) cols.in[k] = static_cast<const float*>(in_ptrs[k]);
-  for (int k = 0; k < N_OUT; ++k) cols.out[k] = static_cast<float*>(out_ptrs[k]);
-  for (int k = 0; k < N_RES; ++k) {
-    cols.res[k] = res_ptrs ? static_cast<float*>(res_ptrs[k]) : nullptr;
-  }
-  cols.flags = res_ptrs ? static_cast<int*>(res_ptrs[N_RES]) : nullptr;
+  Columns cols{};
+  for (int k = 0; k < N_IN; ++k) cols.in[k] = in + k * n_lanes;
+  for (int k = 0; k < 2; ++k) cols.key[k] = keys + k * n_lanes;
+  for (int k = 0; k < N_OUT; ++k) cols.out[k] = out + k * n_lanes;
+  for (int k = 0; k < N_RES; ++k) cols.res[k] = res ? res + k * n_lanes : nullptr;
+  cols.flags = res ? flags : nullptr;
+  cols.rr_p = res && roulette ? res + N_RES * n_lanes : nullptr;
   long long blocks = (n_lanes + THREADS - 1) / THREADS;
   if (blocks > 132 * 16) blocks = 132 * 16;  // grid-stride past 16 blocks per SM
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (res_ptrs) {
-    fused_bounce_kernel<true><<<(unsigned)blocks, THREADS, 0, s>>>(
-        table, n_prims, bg, (uint32_t)seed, t_min, mat_flags, tex_flags, cols, winner,
-        n_lanes);
+  const dim3 grid((unsigned)blocks);
+  const bool rr = roulette != 0;
+#define RPT_K1(RES_)                                                              \
+  fused_bounce_kernel<RES_><<<grid, THREADS, 0, s>>>(                             \
+      table, n_prims, bg, (uint32_t)seed, t_min, mat_flags, tex_flags,            \
+      (uint32_t)bounce, rr, cols, winner, n_lanes)
+  if (res) {
+    RPT_K1(true);
   } else {
-    fused_bounce_kernel<false><<<(unsigned)blocks, THREADS, 0, s>>>(
-        table, n_prims, bg, (uint32_t)seed, t_min, mat_flags, tex_flags, cols, winner,
-        n_lanes);
+    RPT_K1(false);
   }
+#undef RPT_K1
   return (int)cudaGetLastError();
 }
 

@@ -11,29 +11,36 @@ table-free (``fused_bounce_ok``):
   rect plane solve, one-sided Moller-Trumbore, strict ``t < best``);
 * front-face flip, texture (solid / checker / perlin marble);
 * background banking on a miss, emission banking on a front-face light;
-* lambertian / metal / dielectric scatter from raw uniforms;
-* the state commit.
+* lambertian / metal / dielectric scatter;
+* the state commit, then russian roulette from ``rr_start`` on.
 
-``fused_bounce_cols`` dispatches on where its tensors lie: CUDA
-tensors launch the kernel (and count in ``launches``); CPU tensors run
-``fused_bounce_cols_plain``, which follows the Pallas kernel op for op.
-With ``want_residuals`` both also return the residual planes that the
-backward kernel K2 (``fused_bounce_bwd.py``) reads.
+``fused_bounce_keyed`` takes each lane's threefry key as two int32
+columns (``key_words``, made once a trace) and the bounce index: the
+kernel draws the bounce's uniforms itself, as ``sampling.bounce_draws``
+draws them, and applies roulette, so the fused route draws nothing in
+tensor ops.  It dispatches on where its tensors lie: CUDA tensors
+launch the kernel (and count in ``launches``); CPU tensors run the plain
+version ``fused_bounce_keyed_plain``: ``sampling.bounce_draws``, then
+``fused_bounce_cols_plain`` (the Pallas kernel's interface, the six
+uniforms as columns, op for op; the tests hold it against the Pallas
+kernel), then ``roulette``.  With ``want_residuals`` it also returns the
+residual planes that the backward kernel K2 (``fused_bounce_bwd.py``)
+reads.
 
 The differentiable bounce loop is one ``torch.autograd.Function``,
-``FusedScanTrace`` (``fused_scan_trace``): K1 with residuals forward,
-K2 backward, for scenes that ``fused_bounce_diff_ok`` admits.
+``FusedScanTrace`` (``fused_scan_trace``): keyed K1 with residuals
+forward, K2 backward, for scenes that ``fused_bounce_diff_ok`` admits.
 """
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import math
 from typing import Dict, Sequence, Tuple
 
 import torch
 
+from rust_pathtracer_tpu_torch import sampling
 from rust_pathtracer_tpu_torch.ops.closest_hit import prim_candidate
 from rust_pathtracer_tpu_torch.ops.intersect import MAX_PRIMS, T_MISS
 from rust_pathtracer_tpu_torch.perlin import marble_planes
@@ -78,13 +85,16 @@ FLG_REFR_ZERO = 1024  # refract safe_sqrt at <= 0 (zero gradient)
 FLG_L_NEG = 2048      # refract 1 - |perp|^2 < 0 (abs() flips the sign)
 FLG_IS_CK = 4096      # winning prim's texture is a checker
 FLG_ALIVE = 8192      # lane was alive entering the bounce
+FLG_RR_ACT = 16384    # roulette kept the lane and boosted it by 1/p (keyed)
 # bits 16 and up: max(best_i, 0), the winning primitive (0 on a miss)
 FLG_BESTI_SHIFT = 16
 
-# kernel launches made by fused_bounce_cols (CUDA tensors only): all of
-# them, and those with residual outputs
+# kernel launches (CUDA tensors only): all of them, and those with
+# residual outputs
 launches = 0
 residual_launches = 0
+
+_M32 = 0xFFFFFFFF
 
 
 def fused_bounce_ok(scene: SceneData) -> bool:
@@ -148,8 +158,24 @@ def pack_prims_shaded(scene: SceneData) -> torch.Tensor:
 def fused_bounce_cols_plain(table, bg, seed, cols, su0, su1, bu0, bu1, bu2,
                             coin, *, kinds, mat_types, tex_types, t_min,
                             winner_out=None, want_residuals=False):
-    """One bounce in plain tensor ops; same arguments and result as
-    ``fused_bounce_cols``.  Runs on any device.
+    """One fused bounce over R lanes, on given uniforms, in plain tensor
+    ops (the Pallas kernel's interface).  Runs on any device.
+
+    ``table`` (32, P) from ``pack_prims_shaded``; ``bg`` (3,) the
+    background; ``seed`` the perlin seed (int); ``cols`` the 13 (R,)
+    f32 state columns keyed by ``_COL_KEYS``; ``su0 .. coin`` the 6
+    (R,) uniform columns.  ``kinds``, ``mat_types`` and ``tex_types``
+    are the scene's static fields.  Returns the 13 new columns.
+    ``winner_out``, an optional (R,) int32 tensor, receives each alive
+    lane's winning primitive (-1 on a miss or a dead lane).
+
+    With ``want_residuals`` the result is ``(cols, res)``: ``res`` maps
+    ``_RES_KEYS`` to what the backward kernel K2 reads, on every lane
+    (dead and missed ones included): nine (R,) f32 planes ``t`` (1.0 on
+    a miss), the flipped normal, the texture value, the dielectric
+    ``ratio`` (1.0 in a scene without a dielectric), ``invr`` (flip / r
+    of a winning sphere, 0 otherwise), and the (R,) int32 ``flags``
+    (``FLG_*``).  The 13 columns are the same either way.
 
     Every op rounds as the kernel's does (IEEE f32, no fused
     multiply-adds, a correctly rounded sqrt), so the two agree bit for
@@ -385,6 +411,47 @@ def fused_bounce_cols_plain(table, bg, seed, cols, su0, su1, bu0, bu1, bu2,
     return out, res
 
 
+def key_words(lane_keys: torch.Tensor) -> torch.Tensor:
+    """(R, 2) lane keys (uint32 words in int64) -> the keyed kernel's
+    (2, R) int32 rows, the same 32 bits each."""
+    words = torch.where(lane_keys >= 2**31, lane_keys - 2**32, lane_keys)
+    return words.T.to(torch.int32).contiguous()
+
+
+def _lane_keys(keys: torch.Tensor) -> torch.Tensor:
+    """``key_words``' inverse: (2, R) int32 rows -> (R, 2) keys."""
+    return (keys.T.to(torch.int64) & _M32).contiguous()
+
+
+def state_cols(state: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """A (13, R) state -> the 13 columns keyed by ``_COL_KEYS`` (views)."""
+    return dict(zip(_COL_KEYS, state.unbind(0)))
+
+
+def fused_bounce_keyed_plain(table, bg, seed, state, keys, bounce, *, with_roulette,
+                             kinds, mat_types, tex_types, t_min, winner_out=None,
+                             want_residuals=False):
+    """The keyed bounce in plain tensor ops; same arguments and result as
+    ``fused_bounce_keyed``.  Runs on any device: ``sampling.bounce_draws``
+    draws the bounce's uniforms from the keys, ``fused_bounce_cols_plain``
+    runs the bounce on them, then ``roulette`` where ``with_roulette`` is
+    set."""
+    su, bu, coin, rl = sampling.bounce_draws(_lane_keys(keys), bounce, with_roulette)
+    out = fused_bounce_cols_plain(
+        table, bg, seed, state_cols(state), su[..., 0], su[..., 1], bu[..., 0],
+        bu[..., 1], bu[..., 2], coin, kinds=kinds, mat_types=mat_types,
+        tex_types=tex_types, t_min=t_min, winner_out=winner_out,
+        want_residuals=want_residuals)
+    out, res = out if want_residuals else (out, None)
+    if with_roulette:
+        out, p, act = roulette(out, rl)
+        if want_residuals:
+            res = dict(res, flags=res["flags"] | act.to(torch.int32) * FLG_RR_ACT,
+                       rr_p=p)
+    out = torch.stack([out[k] for k in _COL_KEYS])
+    return (out, res) if want_residuals else out
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel wrapper
 # ---------------------------------------------------------------------------
@@ -402,112 +469,116 @@ def _type_flags(types: Sequence[int], bits: Dict[int, int], what: str) -> int:
     return flags
 
 
-def _check_inputs(table, bg, tensors) -> Tuple[torch.device, int]:
-    dev = table.device
-    R = tensors[0].shape[0]
-    for x in (table, bg, *tensors):
+def _check_table(table, bg, kinds, dev):
+    for x in (table, bg):
         if x.device != dev:
-            raise ValueError(
-                f"fused_bounce_cols: tensors on {x.device} and {dev}")
+            raise ValueError(f"fused_bounce: tensors on {x.device} and {dev}")
         if x.dtype != torch.float32:
-            raise TypeError(f"fused_bounce_cols: dtype {x.dtype}, want float32")
-    for x in tensors:
-        if x.shape != (R,):
-            raise ValueError(
-                f"fused_bounce_cols: column of shape {tuple(x.shape)}, want ({R},)")
+            raise TypeError(f"fused_bounce: dtype {x.dtype}, want float32")
     if table.dim() != 2 or table.shape[0] != PAY_W or not 0 < table.shape[1] <= MAX_PRIMS:
         raise ValueError(
-            f"fused_bounce_cols: table of shape {tuple(table.shape)}, want "
+            f"fused_bounce: table of shape {tuple(table.shape)}, want "
             f"({PAY_W}, P) with 0 < P <= {MAX_PRIMS}")
-    if bg.shape != (3,):
-        raise ValueError(f"fused_bounce_cols: bg of shape {tuple(bg.shape)}")
-    return dev, R
-
-
-def fused_bounce_cols(table, bg, seed, cols, su0, su1, bu0, bu1, bu2, coin,
-                      *, kinds, mat_types, tex_types, t_min, winner_out=None,
-                      want_residuals=False):
-    """One fused bounce over R lanes.
-
-    ``table`` (32, P) from ``pack_prims_shaded``; ``bg`` (3,) the
-    background; ``seed`` the perlin seed (int); ``cols`` the 13 (R,)
-    f32 state columns keyed by ``_COL_KEYS``; ``su0 .. coin`` the 6
-    (R,) uniform columns.  ``kinds``, ``mat_types`` and ``tex_types``
-    are the scene's static fields.  Returns the 13 new columns, in new
-    tensors.  ``winner_out``, an optional (R,) int32 tensor, receives
-    each alive lane's winning primitive (-1 on a miss or a dead lane),
-    for checking the kernel.  CUDA tensors launch the kernel; CPU
-    tensors run the plain version; anything else raises.
-
-    With ``want_residuals`` the result is ``(cols, res)``: ``res`` maps
-    ``_RES_KEYS`` to what the backward kernel K2 reads, on every lane
-    (dead and missed ones included): nine (R,) f32 planes ``t`` (1.0 on
-    a miss), the flipped normal, the texture value, the dielectric
-    ``ratio`` (1.0 in a scene without a dielectric), ``invr`` (flip / r
-    of a winning sphere, 0 otherwise), and the (R,) int32 ``flags``
-    (``FLG_*``).  The 13 columns are the same either way.
-    """
-    uni = (su0, su1, bu0, bu1, bu2, coin)
-    ins = tuple(cols[k] for k in _COL_KEYS) + uni
-    dev, R = _check_inputs(table, bg, ins)
     if len(kinds) != table.shape[1]:
-        raise ValueError("fused_bounce_cols: kinds do not match the table")
+        raise ValueError("fused_bounce: kinds do not match the table")
+    if bg.shape != (3,):
+        raise ValueError(f"fused_bounce: bg of shape {tuple(bg.shape)}")
+
+
+def _check_winner(winner_out, dev, R):
     if winner_out is not None and (
             winner_out.shape != (R,) or winner_out.dtype != torch.int32
             or winner_out.device != dev or not winner_out.is_contiguous()):
-        raise ValueError("fused_bounce_cols: winner_out must be a contiguous "
+        raise ValueError("fused_bounce: winner_out must be a contiguous "
                          f"({R},) int32 tensor on {dev}")
+
+
+def fused_bounce_keyed(table, bg, seed, state, keys, bounce, *, with_roulette,
+                       kinds, mat_types, tex_types, t_min, winner_out=None,
+                       want_residuals=False):
+    """One fused bounce over R lanes that draws its own uniforms: the
+    main path's K1.
+
+    ``state`` the (13, R) f32 state, rows in ``_COL_KEYS`` order;
+    ``keys`` the lanes' threefry keys as (2, R) int32 rows
+    (``key_words(lane_keys)``); ``bounce`` the bounce index.  Each lane
+    draws the uniforms ``sampling.bounce_draws(lane_keys, bounce,
+    with_roulette)`` gives it (the purposes its material consumes); with
+    ``with_roulette`` the bounce ends in ``roulette`` on the lane's own
+    uniform.  ``table``, ``bg``, ``seed``, the static fields and
+    ``winner_out`` as in ``fused_bounce_cols_plain``.  Returns the new
+    (13, R) state; with ``want_residuals``, ``(state, res)``, ``res`` as
+    in ``fused_bounce_cols_plain`` plus, with roulette, ``rr_p``, roulette's (R,)
+    p, and the flag FLG_RR_ACT where roulette boosted the lane: what the
+    roulette's backward reads.  CUDA tensors launch the kernel; CPU
+    tensors run ``fused_bounce_keyed_plain``.
+
+    The host work a call is constant: the state, the keys and the
+    outputs are single tensors, passed to the kernel as base pointers.
+    """
+    dev = table.device
+    _check_table(table, bg, kinds, dev)
+    if state.dim() != 2 or state.shape[0] != len(_COL_KEYS) or state.device != dev \
+            or state.dtype != torch.float32:
+        raise ValueError(f"fused_bounce_keyed: state must be a (13, R) float32 "
+                         f"tensor on {dev}")
+    R = state.shape[1]
+    if keys.shape != (2, R) or keys.dtype != torch.int32 or keys.device != dev:
+        raise ValueError(f"fused_bounce_keyed: keys must be (2, {R}) int32 rows on {dev}")
+    if not 0 <= int(bounce) <= _M32:
+        raise ValueError(f"fused_bounce_keyed: bounce {bounce} out of range")
+    _check_winner(winner_out, dev, R)
     if dev.type == "cpu":
-        return fused_bounce_cols_plain(
-            table, bg, seed, cols, *uni, kinds=kinds, mat_types=mat_types,
-            tex_types=tex_types, t_min=t_min, winner_out=winner_out,
-            want_residuals=want_residuals)
+        return fused_bounce_keyed_plain(
+            table, bg, seed, state, keys, bounce, with_roulette=with_roulette,
+            kinds=kinds, mat_types=mat_types, tex_types=tex_types, t_min=t_min,
+            winner_out=winner_out, want_residuals=want_residuals)
     if dev.type != "cuda":
-        raise ValueError(f"fused_bounce_cols: no kernel for device {dev}")
-    return _launch(table, bg, seed, ins, R, mat_types, tex_types, t_min,
-                   winner_out, want_residuals)
+        raise ValueError(f"fused_bounce_keyed: no kernel for device {dev}")
+    return _launch(table, bg, seed, state, keys, int(bounce), bool(with_roulette),
+                   mat_types, tex_types, t_min, winner_out, want_residuals)
 
 
-def _launch(table, bg, seed, ins, R, mat_types, tex_types, t_min, winner_out,
-            want_residuals):
+def _launch(table, bg, seed, state, keys, bounce, with_roulette, mat_types,
+            tex_types, t_min, winner_out, want_residuals):
+    """Launch K1 on the (13, R) ``state`` and (2, R) ``keys``; returns the
+    (13, R) state, and the residuals with ``want_residuals``."""
     global launches, residual_launches
     from rust_pathtracer_tpu_torch.ops._build import load_library
 
     lib = load_library("fused_bounce")
-    table = table.contiguous()
-    bg = bg.contiguous()
-    ins = [x.contiguous() for x in ins]
-    outs = torch.empty((len(_COL_KEYS), R), dtype=torch.float32,
-                       device=table.device)
-    in_ptrs = (ctypes.c_void_p * len(ins))(*[x.data_ptr() for x in ins])
-    out_ptrs = (ctypes.c_void_p * len(_COL_KEYS))(
-        *[outs[i].data_ptr() for i in range(len(_COL_KEYS))])
-    res_ptrs = None
-    if want_residuals:
-        res_f = torch.empty((len(_RES_KEYS) - 1, R), dtype=torch.float32,
-                            device=table.device)
-        flags = torch.empty(R, dtype=torch.int32, device=table.device)
-        res = [*res_f.unbind(0), flags]
-        res_ptrs = (ctypes.c_void_p * len(res))(*[x.data_ptr() for x in res])
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    table, bg = table.contiguous(), bg.contiguous()
+    state, keys = state.contiguous(), keys.contiguous()
+    dev, R = state.device, state.shape[1]
+    out = torch.empty((len(_COL_KEYS), R), dtype=torch.float32, device=dev)
+    res_f = flags = None
+    if want_residuals:  # nine planes, and roulette's p
+        res_f = torch.empty((len(_RES_KEYS) - 1 + int(with_roulette), R),
+                            dtype=torch.float32, device=dev)
+        flags = torch.empty(R, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
         err = lib.fused_bounce_launch(
-            table.data_ptr(), table.shape[1], bg.data_ptr(),
-            int(seed) & 0xFFFFFFFF, float(t_min),
-            _type_flags(mat_types, _MAT_BITS, "material"),
-            _type_flags(tex_types, _TEX_BITS, "texture"),
-            in_ptrs, out_ptrs, res_ptrs,
-            None if winner_out is None else winner_out.data_ptr(), R, stream,
+            table.data_ptr(), table.shape[1], bg.data_ptr(), int(seed) & _M32,
+            float(t_min), _type_flags(mat_types, _MAT_BITS, "material"),
+            _type_flags(tex_types, _TEX_BITS, "texture"), state.data_ptr(),
+            keys.data_ptr(), bounce, int(with_roulette),
+            out.data_ptr(), None if res_f is None else res_f.data_ptr(),
+            None if flags is None else flags.data_ptr(),
+            None if winner_out is None else winner_out.data_ptr(), R,
+            torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(
             f"fused_bounce kernel launch failed: {lib.error_string(err).decode()}")
     launches += 1
-    cols_out = dict(zip(_COL_KEYS, outs.unbind(0)))
     if not want_residuals:
-        return cols_out
+        return out
     residual_launches += 1
-    return cols_out, dict(zip(_RES_KEYS, res))
+    planes = res_f.unbind(0)
+    res = dict(zip(_RES_KEYS, (*planes[:len(_RES_KEYS) - 1], flags)))
+    if with_roulette:
+        res["rr_p"] = planes[-1]
+    return out, res
 
 
 # ---------------------------------------------------------------------------
@@ -552,10 +623,11 @@ class FusedScanTrace(torch.autograd.Function):
 
     Forward: exactly ``max_bounces`` bounces, no early exit (dead lanes
     pass through, so the image equals the early-exit loop's).  Each
-    bounce counts its alive lanes (detached statistics), runs K1 with
-    residuals, then roulette from ``rr_start`` on.  It saves the ten
-    residual planes, the incoming d and thr, and roulette's (p, act):
-    16 (R,) planes a bounce, plus p and act where roulette ran.
+    bounce counts its alive lanes (detached statistics) and runs the
+    keyed K1 with residuals, which draws the bounce's uniforms and, from
+    ``rr_start`` on, applies roulette.  It saves the ten residual planes
+    and the incoming d and thr, 16 (R,) planes a bounce, plus roulette's
+    p where roulette ran (its act is a flag bit).
 
     Backward: the bounces in reverse.  Each undoes roulette
     (``where(act, g / p, g)``, a division as in the JAX transpose),
@@ -563,39 +635,34 @@ class FusedScanTrace(torch.autograd.Function):
     gradients.  The radiance cotangent passes through unchanged, alive
     gets none, and neither do the draws.
 
-    ``apply(spec, draws, table, bg, *cols)`` with the 13 columns in
-    ``_COL_KEYS`` order returns the 13 final columns, the segment count
-    and the occupancy histogram.
+    ``apply(spec, keys, table, bg, *cols)`` with ``keys`` the (2, R)
+    int32 key rows (``key_words``) and the 13 columns in ``_COL_KEYS``
+    order returns the 13 final columns, the segment count and the
+    occupancy histogram.
     """
 
     @staticmethod
-    def forward(ctx, spec, draws, table, bg, *cols):
-        cols = dict(zip(_COL_KEYS, cols))
+    def forward(ctx, spec, keys, table, bg, *cols):
+        state = torch.stack(cols)
         dev = table.device
         segments = torch.zeros((), dtype=torch.float32, device=dev)
         occupancy = torch.zeros(spec.stats_slots, dtype=torch.float32, device=dev)
         saved = []
         for b in range(spec.max_bounces):
-            n_alive = cols["al"].sum()
+            n_alive = state[12].sum()
             segments = segments + n_alive
             occupancy[min(b, spec.stats_slots - 1)] = n_alive
-            d_thr = torch.stack([cols[k] for k in ("d0", "d1", "d2", "t0", "t1", "t2")])
-            su, bu = draws["sphere_u"][b], draws["ball_u"][b]
-            cols, res = fused_bounce_cols(
-                table, bg, 0, cols, su[:, 0], su[:, 1], bu[:, 0], bu[:, 1],
-                bu[:, 2], draws["coin"][b], kinds=spec.kinds,
-                mat_types=spec.mat_types, tex_types=spec.tex_types,
-                t_min=spec.t_min, want_residuals=True)
-            rr = None
-            if b >= spec.rr_start:
-                cols, p, act = roulette(cols, draws["roulette"][b])
-                rr = (p, act)
-            saved.append((res, d_thr, rr))
+            d_thr = state[3:9].clone()  # d0 d1 d2 t0 t1 t2 coming in
+            state, res = fused_bounce_keyed(
+                table, bg, 0, state, keys, b, with_roulette=b >= spec.rr_start,
+                kinds=spec.kinds, mat_types=spec.mat_types,
+                tex_types=spec.tex_types, t_min=spec.t_min, want_residuals=True)
+            saved.append((res, d_thr))
         ctx.spec = spec
         ctx.bounces = saved
         ctx.save_for_backward(table, bg)
         ctx.mark_non_differentiable(segments, occupancy)
-        return (*[cols[k] for k in _COL_KEYS], segments, occupancy)
+        return (*state.unbind(0), segments, occupancy)
 
     @staticmethod
     def backward(ctx, *g_out):
@@ -611,9 +678,11 @@ class FusedScanTrace(torch.autograd.Function):
             raise RuntimeError("FusedScanTrace: a second backward through one "
                                "graph; the saved bounces went with the first")
         while saved:  # last bounce first; each bounce's tensors go as it is done
-            res, d_thr, rr = saved.pop()
-            if rr is not None:
-                p, act = rr
+            res, d_thr = saved.pop()
+            if "rr_p" in res:  # undo roulette
+                res = dict(res)
+                p = res.pop("rr_p")
+                act = (res["flags"] & FLG_RR_ACT) != 0
                 g = dict(g, **{k: torch.where(act, g[k] / p, g[k])
                                for k in ("t0", "t1", "t2")})
             grads, g_tex, g_bg = fused_bounce_bwd(
@@ -628,13 +697,13 @@ class FusedScanTrace(torch.autograd.Function):
         return (None, None, d_table, d_bg, *g_cols)
 
 
-def fused_scan_trace(scene, cols, draws, background, t_min, max_bounces,
+def fused_scan_trace(scene, cols, keys, background, t_min, max_bounces,
                      rr_start, stats_slots):
     """Differentiable whole-scan trace of a fused-diff scene
     (``fused_bounce_diff_ok``): ``FusedScanTrace`` over the packed table.
 
-    ``cols`` the 13 state columns; ``draws`` the hoisted uniforms of
-    ``integrator._precompute_draws``; ``background`` a (3,) tensor.
+    ``cols`` the 13 state columns; ``keys`` the lanes' (2, R) int32 key
+    rows (``key_words``); ``background`` a (3,) tensor.
     Returns ``(cols_final, segments, occupancy)``.  Gradients reach the
     columns, ``scene.textures.color`` (through ``pack_prims_shaded``) and
     ``background``.
@@ -644,7 +713,7 @@ def fused_scan_trace(scene, cols, draws, background, t_min, max_bounces,
         tex_types=scene.tex_types, t_min=float(t_min),
         max_bounces=int(max_bounces), rr_start=int(rr_start),
         stats_slots=int(stats_slots))
-    out = FusedScanTrace.apply(spec, draws, pack_prims_shaded(scene),
+    out = FusedScanTrace.apply(spec, keys, pack_prims_shaded(scene),
                                background, *[cols[k] for k in _COL_KEYS])
     n = len(_COL_KEYS)
     return dict(zip(_COL_KEYS, out[:n])), out[n], out[n + 1]

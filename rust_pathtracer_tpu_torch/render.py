@@ -198,8 +198,12 @@ def render_radiance(scene, cam: Camera, settings: RenderSettings, key,
     scene, camera and key are moved to ``device``.  With
     ``settings.differentiable`` the image carries gradients to the
     scene's texture colours and image texels, the camera's tensors and
-    ``background``."""
-    if settings.cascade or settings.cascade_schedule is not None:
+    ``background``.  A differentiable render ignores ``cascade`` and
+    ``cascade_schedule``, as the JAX package's does (render.py:830-835);
+    a forward render with either raises: the cascade renderer is not
+    ported."""
+    if (settings.cascade or settings.cascade_schedule is not None) and \
+            not settings.differentiable:
         raise NotImplementedError(
             "the cascade renderer is not ported yet (ROADMAP queue 1 item 11)")
     dev = resolve_device(device)

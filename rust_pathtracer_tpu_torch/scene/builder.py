@@ -9,8 +9,8 @@ Each primitive's AABB follows the reference's padding: a sphere's
 center +/- |r| (geometry.rs:165-170), a rect +/- 1e-4 on its thin axis
 (geometry.rs:232-242), a triangle +/- 1e-3 on a flat axis
 (geometry.rs:573-585).  Past BVH_AUTO_THRESHOLD primitives (or with
-``use_bvh=True``) the numpy BVH (``bvh.py``) permutes the primitives
-into leaf order; past 128, the projected-sweep tables
+``use_bvh=True``) the BVH (``bvh.build_bvh``: the native builder, else
+the numpy one) permutes the primitives into leaf order; past 128, the projected-sweep tables
 (``ops/projected.build_projected``) replace the static kind list.
 """
 
@@ -21,7 +21,7 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from rust_pathtracer_tpu_torch.bvh import build_bvh_numpy
+from rust_pathtracer_tpu_torch.bvh import build_bvh
 from rust_pathtracer_tpu_torch.scene.types import (
     MAT_DIELECTRIC,
     MAT_LAMBERTIAN,
@@ -302,8 +302,8 @@ class SceneBuilder:
             use_bvh = len(prim_kind) > BVH_AUTO_THRESHOLD
         bvh = None
         if use_bvh:
-            flat = build_bvh_numpy(np.stack(self._bbox_min), np.stack(self._bbox_max),
-                                   leaf_size=leaf_size)
+            flat = build_bvh(np.stack(self._bbox_min), np.stack(self._bbox_max),
+                             leaf_size=leaf_size)
             order = flat.prim_order
             prim_kind, prim_mat = prim_kind[order], prim_mat[order]
             prim_aux, prim_data = prim_aux[order], prim_data[order]

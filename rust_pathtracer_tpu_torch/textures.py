@@ -9,7 +9,9 @@ children may themselves be checkers).
 Differentiable in the texture colours, the image texels, the hit point
 (perlin, and the image through u and v) and u, v.  On CUDA the backward
 of a gather accumulates in a fixed order (PyTorch sorts the indices),
-so the texture gradients repeat bit for bit.
+so the texture gradients repeat bit for bit.  It runs each row's lanes
+in sequence, so ``eval_texture`` keeps the lanes that carry no gradient
+off the colour rows in use (``_color_rows``).
 
 ``eval_texture_payload`` reads a big scene's texture from the winner's
 projected-sweep payload row instead (no table lookups).
@@ -29,13 +31,36 @@ from rust_pathtracer_tpu_torch.scene.types import (
 )
 
 
+# zero rows that the lanes without a hit read the colour from, lane i
+# row i % SPARE_ROWS
+SPARE_ROWS = 1024
+
+
+def _color_rows(color, tex_id, valid):
+    """``color[tex_id]`` on the ``valid`` lanes, 0 on the others, which
+    read zero rows appended to the table.  A lane without a hit (a miss
+    or a dead lane, its winner clamped to primitive 0) carries no
+    gradient, but in the gather's backward it would join the sequential
+    run of its row: every miss on one row in use made the SphereField
+    step's backward twice as long.  Spread over SPARE_ROWS rows of their
+    own, such lanes join no run in use and make no long one."""
+    if valid is None:
+        return color[tex_id]
+    spare = color.shape[0] + torch.arange(
+        tex_id.shape[0], device=tex_id.device) % SPARE_ROWS
+    table = torch.cat([color, color.new_zeros(SPARE_ROWS, color.shape[1])])
+    return table[torch.where(valid, tex_id, spare)]
+
+
 def eval_texture(textures: Textures, tex_id, u, v, point, tex_types=None,
-                 checker_depth=1):
+                 checker_depth=1, valid=None):
     """value(u, v, p) for per-lane texture ids.
 
     tex_id: (R,) int; u, v: (R,); point: (R, 3).  Returns (R, 3).
     ``tex_types`` (the scene's static field) skips the kinds the scene
-    does not have; ``checker_depth`` is its deepest checker nesting."""
+    does not have; ``checker_depth`` is its deepest checker nesting.
+    ``valid``, an optional (R,) bool mask of the lanes with a hit: the
+    solid colour of the others is 0 (``_color_rows``)."""
     types = tex_types if tex_types is not None else (0, 1, 2, 3)
     tex_id = tex_id.long()
     kind, scale = textures.kind[tex_id], textures.scale[tex_id]
@@ -52,7 +77,8 @@ def eval_texture(textures: Textures, tex_id, u, v, point, tex_types=None,
 
     out = torch.zeros_like(point)
     if TEX_SOLID in types:
-        out = torch.where((kind == TEX_SOLID)[..., None], textures.color[tex_id], out)
+        color = _color_rows(textures.color, tex_id, valid)
+        out = torch.where((kind == TEX_SOLID)[..., None], color, out)
     if TEX_PERLIN in types:
         gray = marble(point, textures.perlin_seed, scale)
         out = torch.where((kind == TEX_PERLIN)[..., None], gray[..., None], out)

@@ -1,9 +1,12 @@
 """SphereField and ModelTest, the scenes of more than 128 primitives, on
 the port against the JAX package, on the CPU.
 
-The JAX builder takes its native C++ BVH when it builds; these tests pin
-it to ``build_bvh_numpy`` (the port's copy) so that both builders put the
-primitives in the same order.  Tolerances and why:
+Both builders take their native C++ BVH (the same source, built with g++
+at first use) by default, and so put the primitives in the same order:
+``test_default_render_matches_jax_default`` holds the two default
+renders together.  The other parity tests pin both builders to
+``build_bvh_numpy`` (the ``numpy_bvh`` fixture), the oracle the JAX
+package's own tests hold its native builder to.  Tolerances and why:
 
 * scene tables, the BVH arrays and the projected tables are EQUAL: the
   same numpy code on the same inputs;
@@ -31,6 +34,7 @@ import pytest
 import torch
 
 import rust_pathtracer_tpu.scene.builder as j_builder
+import rust_pathtracer_tpu_torch.scene.builder as t_builder
 from rust_pathtracer_tpu.bvh import build_bvh_numpy as j_build_bvh_numpy
 from rust_pathtracer_tpu.grad import CameraParams as JCameraParams
 from rust_pathtracer_tpu.grad import DiffParams as JDiffParams
@@ -39,6 +43,7 @@ from rust_pathtracer_tpu.models import get_scene as j_get_scene
 from rust_pathtracer_tpu.render import RenderSettings as JRenderSettings
 from rust_pathtracer_tpu.render import render_radiance as j_render_radiance
 from rust_pathtracer_tpu_torch import cli, integrator, sampling
+from rust_pathtracer_tpu_torch.bvh import build_bvh_numpy as t_build_bvh_numpy
 from rust_pathtracer_tpu_torch.grad import (
     CameraParams,
     DiffParams,
@@ -67,8 +72,9 @@ CAMERA_FIELDS = ("lookfrom", "lookat", "up", "vfov_deg", "aspect", "aperture",
 
 @pytest.fixture
 def numpy_bvh(monkeypatch):
-    """JAX's builder on the numpy BVH, the port's order."""
+    """Both builders on their numpy BVH."""
     monkeypatch.setattr(j_builder, "build_bvh", j_build_bvh_numpy)
+    monkeypatch.setattr(t_builder, "build_bvh", t_build_bvh_numpy)
 
 
 @pytest.fixture(scope="module")
@@ -170,6 +176,63 @@ def test_forward_matches_jax_projected_route(name, w, h, spp, nb, numpy_bvh,
     assert st.bounces <= nb
 
 
+@pytest.mark.parametrize("name,w,h,spp,nb", [("SphereField", 32, 18, 4, 10),
+                                             ("ModelTest", 16, 16, 2, 6)])
+def test_default_render_matches_jax_default(name, w, h, spp, nb, monkeypatch, obj_path):
+    """Neither builder pinned: both take their native BVH, and the
+    port's default tables (the primitive order, the BVH, the projected
+    tables) equal JAX's default ones; the forward render against JAX's
+    (RPT_PROJ_INTERPRET=1, as test_forward_matches_jax_projected_route)
+    under the image contract, ray segments within 1%."""
+    monkeypatch.setenv("RPT_PROJ_INTERPRET", "1")
+    kw = _scene_kwargs(name, obj_path)
+    jsd, sd = j_get_scene(name, **kw), get_scene(name, **kw)
+    jscene, tscene = jsd.build(), sd.build()
+    _assert_scene_equal(tscene, jscene)
+    bg = sd.output.image.background
+    jimg, jst = j_render_radiance(jscene, jsd.camera_at(0.0),
+                                  JRenderSettings(w, h, spp, nb, bg, spp_chunk=spp),
+                                  jax.random.PRNGKey(0))
+    img, st = render_radiance(tscene, sd.camera_at(0.0),
+                              RenderSettings(w, h, spp, nb, bg, spp_chunk=spp),
+                              sampling.prng_key(0), device="cpu")
+    a = image_agreement(img.numpy(), np.asarray(jimg))
+    assert a["ok"], a
+    assert abs(float(st.segments) - float(jst.segments)) <= 0.01 * float(jst.segments)
+
+
+def test_cli_bvh_off_applies_to_builtin_scenes(tmp_path, monkeypatch):
+    """The port's ``--bvh`` and ``--leaf-size`` reach the built-in
+    scenes: ``--bvh off`` builds SphereField without a BVH (its
+    primitives in declaration order, leaf size 0), ``--leaf-size`` sets
+    the leaves.
+    This differs from the reference CLI, which passes ``use_bvh`` only
+    to ``--scene-json`` scenes and never reads ``--leaf-size``
+    (rust_pathtracer_tpu/cli.py:41, :179-183), a defect the port does
+    not copy."""
+    from rust_pathtracer_tpu_torch import models
+
+    built = []
+    get = models.get_scene
+
+    def spy(*a, **k):
+        sd = get(*a, **k)
+        built.append(sd.build())
+        return sd
+
+    monkeypatch.setattr(models, "get_scene", spy)
+    for flags, want_bvh, leaf in ((["--bvh", "off"], False, 0),
+                                  (["--bvh", "on", "--leaf-size", "2"], True, 2)):
+        built.clear()
+        rc = cli.main(["--scene", "SphereField", *flags, "--width", "6", "--height", "4",
+                       "--spp", "1", "--max-bounces", "2", "--device", "cpu",
+                       "--output-dir", str(tmp_path)])
+        assert rc == 0 and len(built) == 1
+        assert (built[0].bvh is not None) == want_bvh and built[0].leaf_size == leaf
+    off, on = built[0], get_scene("SphereField").build()
+    assert not torch.equal(off.prims.data, on.prims.data)  # BVH order vs declaration
+
+
 def _leaves(p):
     out = {"tex_color": p.tex_color, "tex_images": p.tex_images,
            "background": p.background}
@@ -195,7 +258,7 @@ def jax_step():
     return _leaves(params), float(loss), _leaves(grads)
 
 
-def test_spherefield_step_matches_jax(jax_step, monkeypatch):
+def test_spherefield_step_matches_jax(jax_step, numpy_bvh, monkeypatch):
     """render_loss_and_grad through K5's plain version: the loss and
     every gradient leaf against JAX's; K5 searches, K4 does not."""
     jparams, jloss, jg = jax_step

@@ -88,36 +88,48 @@ def _bwd_inputs(res_np, cols, bg, seed, device="cpu"):
 def _run_plain(scene, cols, uni, bg):
     tcols, tuni = _t_inputs(cols, uni)
     win = torch.empty(cols.shape[1], dtype=torch.int32)
-    out = fb.fused_bounce_cols(
+    out = fb.fused_bounce_cols_plain(
         fb.pack_prims_shaded(scene), torch.tensor(bg), scene.textures.perlin_seed,
         tcols, *tuni, kinds=scene.kinds_static, mat_types=scene.mat_types,
         tex_types=scene.tex_types, t_min=T_MIN, winner_out=win)
     return np.stack([out[k].numpy() for k in fb._COL_KEYS]), win.numpy()
 
 
+def _keyed_inputs(cols, device, key_seed=13):
+    """The keyed K1's (13, n) state and (2, n) key words on ``device``."""
+    from rust_pathtracer_tpu_torch import sampling
+
+    n = cols.shape[1]
+    lk = sampling.lane_keys(sampling.prng_key(key_seed), torch.arange(n))
+    return torch.as_tensor(cols, device=device), fb.key_words(lk).to(device)
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_gpu():
     """K1 on the card against the plain version on the CPU: masks and
-    winners exact, floats within 1e-5 rel + 1e-6 abs (sin/cos/cbrt
-    differ by an ulp between CUDA and the CPU)."""
+    winners exact, floats within 1e-5 rel + 1e-6 abs (sin/cos differ by
+    an ulp between CUDA and the CPU)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     scene = t_full_scene()
-    cols, uni = _random_lanes(4096, seed=21)
+    cols, _ = _random_lanes(4096, seed=21)
     bg = (0.2, 0.1, 0.05)
-    p_out, p_win = _run_plain(scene, cols, uni, bg)
+    kw = dict(with_roulette=False, kinds=scene.kinds_static, mat_types=scene.mat_types,
+              tex_types=scene.tex_types, t_min=T_MIN)
+    p_win = torch.empty(4096, dtype=torch.int32)
+    p_out = fb.fused_bounce_keyed_plain(
+        fb.pack_prims_shaded(scene), torch.tensor(bg), 0, *_keyed_inputs(cols, "cpu"), 0,
+        winner_out=p_win, **kw).numpy()
     gscene = scene.to("cuda")
-    tcols, tuni = _t_inputs(cols, uni, device="cuda")
     win = torch.empty(4096, dtype=torch.int32, device="cuda")
     before = fb.launches
-    out = fb.fused_bounce_cols(
-        fb.pack_prims_shaded(gscene), torch.tensor(bg, device="cuda"),
-        0, tcols, *tuni, kinds=scene.kinds_static, mat_types=scene.mat_types,
-        tex_types=scene.tex_types, t_min=T_MIN, winner_out=win)
+    out = fb.fused_bounce_keyed(
+        fb.pack_prims_shaded(gscene), torch.tensor(bg, device="cuda"), 0,
+        *_keyed_inputs(cols, "cuda"), 0, winner_out=win, **kw)
     torch.cuda.synchronize()
     assert fb.launches == before + 1
-    k_out = np.stack([out[k].cpu().numpy() for k in fb._COL_KEYS])
-    np.testing.assert_array_equal(win.cpu().numpy(), p_win)
+    k_out = out.cpu().numpy()
+    np.testing.assert_array_equal(win.cpu().numpy(), p_win.numpy())
     np.testing.assert_array_equal(k_out[12], p_out[12])
     np.testing.assert_allclose(k_out, p_out, rtol=1e-5, atol=1e-6)
 
@@ -157,16 +169,15 @@ def test_bwd_kernel_matches_plain_on_gpu():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     scene = t_full_scene()
-    cols, uni = _random_lanes(4096, seed=21)
+    cols, _ = _random_lanes(4096, seed=21)
     bg = (0.2, 0.1, 0.05)
-    kw = dict(kinds=scene.kinds_static, mat_types=scene.mat_types,
+    kw = dict(with_roulette=False, kinds=scene.kinds_static, mat_types=scene.mat_types,
               tex_types=scene.tex_types, t_min=T_MIN, want_residuals=True)
     runs = {}
     for dev in ("cpu", "cuda"):
-        tcols, tuni = _t_inputs(cols, uni, device=dev)
         table = fb.pack_prims_shaded(scene.to(dev))
-        out, res = fb.fused_bounce_cols(table, torch.tensor(bg, device=dev), 0,
-                                        tcols, *tuni, **kw)
+        out, res = fb.fused_bounce_keyed(table, torch.tensor(bg, device=dev), 0,
+                                         *_keyed_inputs(cols, dev), 0, **kw)
         runs[dev] = {k: v.cpu().numpy() for k, v in res.items()}
     np.testing.assert_array_equal(runs["cuda"]["flags"], runs["cpu"]["flags"])
     for k in fb._RES_KEYS[:-1]:
@@ -439,3 +450,59 @@ def test_big_scene_on_gpu_matches_cpu():
     f0 = torch.cat([x.reshape(-1) for x in g0.leaves()]).numpy()
     f1 = torch.cat([x.cpu().reshape(-1) for x in g1.leaves()]).numpy()
     np.testing.assert_allclose(f1, f0, rtol=0.05, atol=2e-3 * np.abs(f0).max())
+
+
+@pytest.mark.cuda
+def test_keyed_kernel_matches_plain_on_gpu():
+    """The keyed K1 and K1-res (in-kernel draws, roulette), at bounces 0
+    and 7 with roulette off and on, against (a) the keyed plain version
+    on the same CUDA tensors: every column, winner, residual plane and
+    flag bit for bit (the draws are exact integer arithmetic, and on the
+    card the kernel rounds as its plain version does); (b) the keyed
+    plain version on the CPU: masks and winners exact, floats within
+    1e-5 rel + 1e-6 abs (sin/cos)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from rust_pathtracer_tpu_torch import sampling
+
+    scene = t_full_scene()
+    n = 4096
+    cols, _ = _random_lanes(n, seed=25)
+    lk = sampling.lane_keys(sampling.prng_key(13), torch.arange(n))
+    bg = (0.2, 0.1, 0.05)
+    for bounce in (0, 7):
+        for rr in (False, True):
+            for want_res in (False, True):
+                kw = dict(kinds=scene.kinds_static, mat_types=scene.mat_types,
+                          tex_types=scene.tex_types, t_min=T_MIN,
+                          want_residuals=want_res)
+                runs = {}
+                for where in ("kernel", "plain", "cpu"):
+                    dev = "cpu" if where == "cpu" else "cuda"
+                    state = torch.as_tensor(cols, device=dev)
+                    table = fb.pack_prims_shaded(scene.to(dev))
+                    bgt = torch.tensor(bg, device=dev)
+                    win = torch.empty(n, dtype=torch.int32, device=dev)
+                    args = (table, bgt, 0, state, fb.key_words(lk.to(dev)), bounce)
+                    fn = (fb.fused_bounce_keyed if where == "kernel"
+                          else fb.fused_bounce_keyed_plain)
+                    before = fb.launches
+                    out = fn(*args, with_roulette=rr, winner_out=win, **kw)
+                    out, res = out if want_res else (out, {})
+                    assert fb.launches == before + (where == "kernel")
+                    runs[where] = (out.cpu().numpy(), win.cpu().numpy(),
+                                   {k: v.cpu().numpy() for k, v in res.items()})
+                torch.cuda.synchronize()
+                k_out, k_win, k_res = runs["kernel"]
+                p_out, p_win, p_res = runs["plain"]
+                np.testing.assert_array_equal(k_out.view(np.int32), p_out.view(np.int32))
+                np.testing.assert_array_equal(k_win, p_win)
+                assert set(k_res) == set(p_res)
+                for k in k_res:
+                    np.testing.assert_array_equal(
+                        k_res[k].view(np.int32), p_res[k].view(np.int32), err_msg=k)
+                assert ("rr_p" in k_res) == (rr and want_res)
+                c_out, c_win, _ = runs["cpu"]
+                np.testing.assert_array_equal(k_win, c_win)
+                np.testing.assert_array_equal(k_out[12], c_out[12])
+                np.testing.assert_allclose(k_out, c_out, rtol=1e-5, atol=1e-6)

@@ -36,7 +36,7 @@ from rust_pathtracer_tpu_torch.integrator import trace as t_trace
 from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
 from test_fused_bounce import _compare_diverging
 from test_fused_bounce import _full_scene as j_full_scene
-from test_torch_cuda import _random_lanes, _run_plain, _t_inputs, t_full_scene
+from test_torch_cuda import _random_lanes, _run_plain, t_full_scene
 
 torch.set_num_threads(2)
 
@@ -86,32 +86,32 @@ def test_plain_bounce_matches_pallas_interpret():
 
 
 def test_dispatch_by_device(monkeypatch):
-    """CPU tensors take the plain version (no launch is counted); other
-    devices, mixed devices and malformed inputs raise."""
+    """K1's wrapper (``fused_bounce_keyed``): CPU tensors take the plain
+    version (no launch is counted); other devices, mixed devices and a
+    malformed table raise."""
     scene = t_full_scene()
     table = fb.pack_prims_shaded(scene)
-    cols, uni = _random_lanes(64, seed=3)
-    kw = dict(kinds=scene.kinds_static, mat_types=scene.mat_types,
+    cols, _ = _random_lanes(64, seed=3)
+    state = torch.from_numpy(cols)
+    keys = fb.key_words(ts.lane_keys(ts.prng_key(5), torch.arange(64)))
+    kw = dict(with_roulette=False, kinds=scene.kinds_static, mat_types=scene.mat_types,
               tex_types=scene.tex_types, t_min=T_MIN)
     bg = torch.tensor((0.1, 0.1, 0.1))
     monkeypatch.setattr(fb, "launches", 0)
-    tcols, tuni = _t_inputs(cols, uni)
-    out = fb.fused_bounce_cols(table, bg, 0, tcols, *tuni, **kw)
-    ref = fb.fused_bounce_cols_plain(table, bg, 0, tcols, *tuni, **kw)
-    for k in fb._COL_KEYS:
-        assert torch.equal(out[k], ref[k]), k
+    out = fb.fused_bounce_keyed(table, bg, 0, state, keys, 0, **kw)
+    ref = fb.fused_bounce_keyed_plain(table, bg, 0, state, keys, 0, **kw)
+    assert torch.equal(out, ref)
     assert fb.launches == 0
 
-    mcols, muni = _t_inputs(cols, uni, device="meta")
+    meta = [x.to("meta") for x in (table, bg, state, keys)]
     with pytest.raises(ValueError, match="no kernel for device meta"):
-        fb.fused_bounce_cols(table.to("meta"), bg.to("meta"), 0, mcols, *muni, **kw)
+        fb.fused_bounce_keyed(*meta[:2], 0, *meta[2:], 0, **kw)
     with pytest.raises(ValueError, match="tensors on"):
-        fb.fused_bounce_cols(table, bg, 0, mcols, *muni, **kw)
+        fb.fused_bounce_keyed(table, meta[1], 0, state, keys, 0, **kw)
     with pytest.raises(TypeError, match="float32"):
-        fb.fused_bounce_cols(table.double(), bg, 0, tcols, *tuni, **kw)
+        fb.fused_bounce_keyed(table.double(), bg, 0, state, keys, 0, **kw)
     with pytest.raises(ValueError, match="shape"):
-        fb.fused_bounce_cols(table, bg, 0, dict(tcols, o0=tcols["o0"][:5]),
-                             *tuni, **kw)
+        fb.fused_bounce_keyed(table[:5], bg, 0, state, keys, 0, **kw)
 
 
 def test_perlin_hash_and_marble():

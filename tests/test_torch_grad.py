@@ -30,7 +30,7 @@ from rust_pathtracer_tpu_torch.grad import (
     diff_params_from_numpy,
     render_loss_and_grad,
 )
-from rust_pathtracer_tpu_torch.integrator import T_MIN, MAX_BOUNCE_STATS, _precompute_draws, trace
+from rust_pathtracer_tpu_torch.integrator import T_MIN, MAX_BOUNCE_STATS, trace
 from rust_pathtracer_tpu_torch.models import get_scene
 from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
 from rust_pathtracer_tpu_torch.render import RenderSettings, _make_lanes, render_radiance
@@ -84,8 +84,7 @@ def test_scan_vjp_finite_difference():
     thr = 0.5 + 0.5 * rng.random((R, 1)) * np.array([[1.0, 0.8, 0.6]])
     table = fb.pack_prims_shaded(scene)
     bg = np.array([0.25, 0.15, 0.35])
-    keys = sampling.lane_keys(sampling.prng_key(5), torch.arange(R))
-    draws = _precompute_draws(keys, B, B + 1)
+    keys = fb.key_words(sampling.lane_keys(sampling.prng_key(5), torch.arange(R)))
     spec = fb._ScanSpec(kinds=scene.kinds_static, mat_types=scene.mat_types,
                         tex_types=scene.tex_types, t_min=T_MIN, max_bounces=B,
                         rr_start=B + 1, stats_slots=MAX_BOUNCE_STATS)
@@ -96,7 +95,7 @@ def test_scan_vjp_finite_difference():
         cols = (o_[:, 0], o_[:, 1], o_[:, 2], d_[:, 0], d_[:, 1], d_[:, 2],
                 thr_[:, 0], thr_[:, 1], thr_[:, 2], zeros, zeros, zeros,
                 torch.ones(R))
-        out = fb.FusedScanTrace.apply(spec, draws, table_, bg_, *cols)
+        out = fb.FusedScanTrace.apply(spec, keys, table_, bg_, *cols)
         return (ws * torch.stack(out[:12]).double()).sum()
 
     f32 = [torch.tensor(np.asarray(x), dtype=torch.float32)

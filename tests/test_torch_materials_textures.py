@@ -128,6 +128,34 @@ def test_eval_texture_vjp_matches_jax(scenes):
                                    err_msg=name)
 
 
+def test_eval_texture_valid_mask_is_bit_neutral(scenes):
+    """``valid`` (the lanes with a hit): the value on those lanes and the
+    colour gradient of a cotangent that is 0 on the others (as the
+    bounce's ``where`` makes it) are bit for bit those without the mask;
+    the masked lanes read 0 from the spare rows, which keep their
+    gradient off the table's rows."""
+    import dataclasses
+
+    _, ts_ = scenes
+    tex, u, v, p = _inputs(ts_.textures.kind.shape[0], seed=7)
+    valid = torch.from_numpy(np.random.default_rng(8).uniform(size=N) < 0.6)
+    cot = torch.from_numpy(np.random.default_rng(9).normal(size=(N, 3)).astype(np.float32))
+    cot = torch.where(valid[:, None], cot, 0.0)
+    outs, grads = [], []
+    for mask in (None, valid):
+        color = ts_.textures.color.clone().requires_grad_(True)
+        texs = dataclasses.replace(ts_.textures, color=color)
+        out = tt.eval_texture(texs, torch.from_numpy(tex), torch.from_numpy(u),
+                              torch.from_numpy(v), torch.from_numpy(p), ts_.tex_types,
+                              checker_depth=ts_.checker_depth, valid=mask)
+        outs.append(out.detach())
+        grads.append(torch.autograd.grad(out, color, cot)[0])
+    assert torch.equal(outs[1][valid], outs[0][valid])
+    solid = ts_.textures.kind[torch.from_numpy(tex).long()] == tt.TEX_SOLID
+    assert torch.equal(outs[1][~valid & solid], torch.zeros_like(outs[1][~valid & solid]))
+    assert torch.equal(grads[1], grads[0]) and grads[0].abs().max() > 0
+
+
 def _hit_inputs(n_mat, seed):
     rng = np.random.default_rng(seed)
     n = rng.normal(size=(N, 3))

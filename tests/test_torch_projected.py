@@ -30,11 +30,15 @@ import torch
 import jax.numpy as jnp
 
 from rust_pathtracer_tpu import bvh as jbvh
+from rust_pathtracer_tpu import native as jnative
 from rust_pathtracer_tpu.ops import projected as jproj
 from rust_pathtracer_tpu.ops.worklist import build_pair_worklist as j_worklist
 from rust_pathtracer_tpu.scene import obj_loader as jobj
 from rust_pathtracer_tpu.scene.builder import SceneBuilder as JSceneBuilder
+import rust_pathtracer_tpu_torch.scene.builder as t_builder
 from rust_pathtracer_tpu_torch import bvh as tbvh
+from rust_pathtracer_tpu_torch import native as tnative
+from rust_pathtracer_tpu_torch.models import get_scene
 from rust_pathtracer_tpu_torch.ops import projected as P
 from rust_pathtracer_tpu_torch.ops import resident as RS
 from rust_pathtracer_tpu_torch.ops import worklist as WL
@@ -170,6 +174,73 @@ def test_bvh_matches_jax_numpy(n, leaf_size):
         np.testing.assert_array_equal(getattr(got, name), getattr(want, name),
                                       err_msg=name)
     assert sorted(got.prim_order.tolist()) == list(range(n))
+
+
+def _scene_boxes(name, tmp_path):
+    """The primitive AABBs and leaf size the port's builder hands
+    ``build_bvh`` for a scene (ModelTest on write_benchmark_obj's asset)."""
+    kw = {}
+    if name == "ModelTest":
+        kw["obj_path"] = str(tmp_path / "model.obj")
+        tobj.write_benchmark_obj(kw["obj_path"])
+    calls = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(t_builder, "build_bvh",
+                   lambda lo, hi, leaf_size=4: calls.append((lo, hi, leaf_size))
+                   or tbvh.build_bvh_numpy(lo, hi, leaf_size))
+        get_scene(name, **kw).build()
+    assert len(calls) == 1
+    return calls[0]
+
+
+@pytest.mark.parametrize("case", ["SphereField", "ModelTest", "random"])
+def test_native_bvh_matches_jax_native(case, tmp_path):
+    """The port's default builder (``bvh.build_bvh``: the native C++
+    copy) against JAX's ``native.build_bvh`` on SphereField's and
+    ModelTest's boxes and on a random set: every array equal, so the
+    default primitive order is JAX's.  It differs from the numpy order
+    (std::nth_element leaves each half in another order than
+    np.argpartition), which is why the parity tests pin both builders."""
+    if case == "random":
+        rng = np.random.default_rng(17)
+        lo = rng.uniform(-10, 10, (2000, 3)).astype(np.float32)
+        hi = lo + rng.uniform(0.0, 1.0, (2000, 3)).astype(np.float32)
+        leaf = 4
+    else:
+        lo, hi, leaf = _scene_boxes(case, tmp_path)
+    assert tnative.available() == jnative.available()
+    got = tbvh.build_bvh(lo, hi, leaf)
+    want = jnative.build_bvh(lo, hi, leaf)
+    for name in tbvh.FlatBvh._fields:
+        np.testing.assert_array_equal(getattr(got, name), getattr(want, name),
+                                      err_msg=name)
+    if tnative.available():
+        numpy_order = tbvh.build_bvh_numpy(lo, hi, leaf).prim_order
+        assert (got.prim_order != numpy_order).sum() > lo.shape[0] // 4
+
+
+@pytest.mark.parametrize("asset", ["test", "benchmark", "quirks", "no_mtl"])
+def test_obj_matches_jax_native(asset, tmp_path):
+    """The port's OBJ parse (its Python parser, the only one) against
+    JAX's default parse (its native C++ parser where g++ builds it):
+    every array and material equal, so the port needs no copy of the
+    native parser to load a mesh in JAX's default order."""
+    path = tmp_path / "m.obj"
+    if asset == "test":
+        tobj.write_test_obj(str(path))
+    elif asset == "benchmark":
+        tobj.write_benchmark_obj(str(path), rows=9, cols=10)
+    elif asset == "quirks":
+        _quirk_obj(path)
+    else:
+        tobj.write_test_obj(str(path), with_mtl=False)
+    got = tobj.parse_obj_arrays(str(path))
+    want = jobj.parse_obj_arrays(str(path))
+    for a, b in zip(got[:4], want[:4]):
+        np.testing.assert_array_equal(a, b)
+    assert got[4] == want[4]
+    with pytest.raises(OSError):
+        tobj.parse_obj_arrays(str(tmp_path / "missing.obj"))
 
 
 def _quirk_obj(path):

@@ -179,6 +179,31 @@ def test_not_ported_settings_raise():
                         device="cpu")
 
 
+@pytest.mark.parametrize("name", ["CornellBox", "TwoSphereCheckers"])
+def test_cascade_ignored_when_differentiable(name):
+    """A differentiable render ignores ``cascade`` and ``cascade_schedule``,
+    as JAX's does (render.py:830-835): the image equals the differentiable
+    render without them, bit for bit, on the fused route (CornellBox) and
+    the generic one (TwoSphereCheckers' perlin marble); JAX's renders
+    under the same settings too."""
+    sd = get_scene(name)
+    diff = RenderSettings(6, 4, 1, 3, (0.2, 0.3, 0.4), differentiable=True)
+    want, st = render_radiance(sd.build(), sd.camera_at(0.0), diff, prng_key(3),
+                               device="cpu")
+    for kw in ({"cascade": True}, {"cascade_schedule": "5:8"},
+               {"cascade": True, "cascade_schedule": "auto"}):
+        img, st2 = render_radiance(sd.build(), sd.camera_at(0.0),
+                                   dataclasses.replace(diff, **kw), prng_key(3),
+                                   device="cpu")
+        assert torch.equal(img, want) and float(st2.segments) == float(st.segments), kw
+    jsd = j_get_scene(name)
+    jimg, _ = j_render_radiance(jsd.build(), jsd.camera_at(0.0),
+                                JRenderSettings(6, 4, 1, 3, (0.2, 0.3, 0.4),
+                                                differentiable=True, cascade=True),
+                                jax.random.PRNGKey(3))
+    assert np.isfinite(np.asarray(jimg)).all()
+
+
 def _imported_modules(path):
     tree = ast.parse(open(path).read(), path)
     for node in ast.walk(tree):
