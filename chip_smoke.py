@@ -77,17 +77,20 @@ checks them:
     20,000-triangle mesh (first-bounce lanes, then random lanes in the
     scene box, every tenth parked at 3e33): t, column and payload bit for
     bit; each timed beside its plain version, with its bound, the
-    clusters a lane's slab test passes and the clusters it sweeps;
+    clusters a lane's slab test passes and the clusters it sweeps, and
+    the passing lanes of a warp visit (the plain sweep's "warp_visits");
 15. the main path: SphereField forward at 854x480, 20 bounces, 2 spp
     (one chunk of 819,840 lanes), K6 once a bounce: segments/s, wall,
     finite, >= 0, deterministic; the 64x36 golden configuration on the
     card against the golden and against the CPU; K6 and K5 timed at its
     first bounce, and the whole search there by route (the worklist
-    build and K6 against K5 alone);
+    build and K6 against K5 alone); K5 held bit for bit and timed on the
+    lanes the frame searches at its second bounce (``path_lanes``);
 16. ModelTest forward at 800x800, 20 bounces, 1 spp (K6 once a bounce);
     the 20,000-triangle mesh through the pair route: K7 launches and K5
     fallback launches (at least one K7 launch); K7 timed at its first
-    bounce, and each mesh's search there by route against K5 alone;
+    bounce, and each mesh's search there by route against K5 alone; K7
+    held bit for bit and timed on the 20k frame's second-bounce lanes;
 17. the differentiable SphereField step at 854x480, 2 spp, 20 bounces,
     loss = mean(img), K5 the search once a bounce: finite gradients of
     the texture colours and the background, two steps on one key bit
@@ -115,6 +118,7 @@ import contextlib
 import faulthandler
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1376,6 +1380,59 @@ def _slab_passes(torch, tables, o, d):
     return total / o.shape[0]
 
 
+class _Captured(Exception):
+    pass
+
+
+def path_lanes(torch, device, scene, sd, cfg, bg, bounce):
+    """The lanes the forward frame of ``cfg`` hands its projected search at
+    ``bounce`` (0: the camera rays), as the path gives them (dead lanes
+    parked): (o, d).  The frame stops there."""
+    from rust_pathtracer_tpu_torch.ops import projected as P
+    from rust_pathtracer_tpu_torch.render import RenderSettings, render_radiance
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+
+    seen = []
+    routed = P.closest_hit_routed
+
+    def capture(tables, o, d, t_min, route=None):
+        if len(seen) == bounce:
+            seen.append((o.clone(), d.clone()))
+            raise _Captured
+        seen.append(None)
+        return routed(tables, o, d, t_min, route)
+
+    settings = RenderSettings(cfg["width"], cfg["height"], cfg["spp"], cfg["bounces"], bg)
+    P.closest_hit_routed = capture
+    try:
+        render_radiance(scene, sd.camera_at(0.0, device=device), settings,
+                        prng_key(cfg["seed"], device=device), device=device)
+    except _Captured:
+        pass
+    finally:
+        P.closest_hit_routed = routed
+    check(len(seen) == bounce + 1, f"the frame ended before bounce {bounce}")
+    return seen[bounce]
+
+
+def coop_p():
+    """The passing lanes of a warp from which K5 and K7 sweep a cluster per
+    lane, cooperatively below (``PROJ_COOP_P`` of ops/csrc/projected.cu)."""
+    with open(os.path.join(REPO, "rust_pathtracer_tpu_torch", "ops", "csrc",
+                           "projected.cu")) as f:
+        return int(re.search(r"#define PROJ_COOP_P (\d+)", f.read()).group(1))
+
+
+def lanes_per_visit(stats):
+    """(mean passing lanes of a warp visit, share of visits with fewer than
+    ``coop_p()``) from the plain sweep's "warp_visits"."""
+    h = np.asarray(stats.get("warp_visits", [0] * 33), np.float64)
+    visits = h[1:].sum()
+    if visits == 0:
+        return 0.0, 0.0
+    return float((np.arange(33) * h).sum() / visits), float(h[1:coop_p()].sum() / visits)
+
+
 def _sweep_fns(torch, tables, o, d):
     """K5, K6 and K7 and their plain versions on (o, d), with the slot
     tables of blocks of WL_RB lanes (K7: WL_KCAP slots where no block
@@ -1472,15 +1529,18 @@ def time_sweep(torch, device, card, label, fns, tables, n_lanes, reps):
     ms = time_pair(torch, device, kernel, plain, reps)
     k_ms, p_ms = statistics.mean(ms["kernel"]), statistics.mean(ms["plain"])
     b_ms, b_by = proj_bound(tables, n_lanes, stats, slot_bytes, q_flags)
+    per_visit, below = lanes_per_visit(stats)
     log(f"{label} ({note}) on {n_lanes} lanes, {card}: {hits} hits, {bad} lanes differ "
         f"from the plain version; slab tests {stats.get('slab_tests', 0) / n_lanes:.3f} "
-        f"a lane, clusters swept {swept / n_lanes:.3f} a lane; {k_ms:.4f} ms per launch "
+        f"a lane, clusters swept {swept / n_lanes:.3f} a lane, {per_visit:.2f} lanes a "
+        f"warp visit ({below:.3f} of visits under {coop_p()}); {k_ms:.4f} ms per launch "
         f"(blocks of {reps}: {[round(x, 4) for x in ms['kernel']]}); plain {p_ms:.2f} ms "
         f"({[round(x, 2) for x in ms['plain']]}); bound "
         f"{b_ms:.4f} ms ({b_by})")
     check(bad == 0, f"{label}: t, column or payload differ from the plain version "
                     f"on {bad} lanes")
-    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                lanes_per_visit=per_visit)
 
 
 def time_routes(torch, device, card, label, tables, o, d, routes, reps):
@@ -1590,6 +1650,11 @@ def phase_spherefield_forward(torch, device, card, scenes, reps):
                     scene.proj, lanes, reps)
     time_routes(torch, device, card, "SphereField first bounce", scene.proj, o, d,
                 ("resident", "dense"), reps)
+    # K5 on the lanes of the frame's second bounce (incoherent, dead lanes parked)
+    o2, d2 = path_lanes(torch, device, scene, sd, cfg, SF_BG, 1)
+    k5["bounce2"] = time_sweep(torch, device, card, "K5 SphereField bounce 2",
+                               _sweep_fns(torch, scene.proj, o2, d2)["K5"], scene.proj,
+                               lanes, reps)
     return dict(k6, launches=counts["K6"]), k5
 
 
@@ -1649,6 +1714,12 @@ def phase_modeltest_forward(torch, device, card, scenes, reps):
     fns = _sweep_fns(torch, scene.proj, o, d)
     k7 = time_sweep(torch, device, card, "K7 ModelTest 20k first bounce", fns["K7"],
                     scene.proj, lanes, reps)
+    # K7 on the lanes of the frame's second bounce (every cluster a slot where
+    # a block passes more than WL_KCAP: the path's K5 fallback there)
+    o2, d2 = path_lanes(torch, device, scene, sd, cfg, (1.0, 1.0, 1.0), 1)
+    k7["bounce2"] = time_sweep(torch, device, card, "K7 ModelTest 20k bounce 2",
+                               _sweep_fns(torch, scene.proj, o2, d2)["K7"], scene.proj,
+                               lanes, reps)
     return dict(k7, launches=out["ModelTest 20k"]["K7"],
                 fallbacks=out["ModelTest 20k"]["K5"])
 
@@ -2047,22 +2118,30 @@ def main() -> int:
     k5["launches"] = phase_spherefield_step(torch, device, card)
 
     def sweep_err(kernel, main):
-        return max([main["max_abs_err"]] + [v["max_abs_err"] for (_, k), v in ph14.items()
-                                            if k == kernel])
+        errs = [main["max_abs_err"]] + [v["max_abs_err"] for (_, k), v in ph14.items()
+                                        if k == kernel]
+        if "bounce2" in main:
+            errs.append(main["bounce2"]["max_abs_err"])
+        return max(errs)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound_,
-              device_ms=None):
+              device_ms=None, bounce2=None):
         # ms: CUDA events around the wrapper; device_ms: the kernel's own
         # device time (torch.profiler), where measured, and
-        # device_ms_launches: [launches in its trace, launches asked for]
+        # device_ms_launches: [launches in its trace, launches asked for];
+        # bounce2: K5's and K7's numbers on the lanes of their frame's
+        # second bounce
         dev = {} if device_ms is None else {"device_ms": device_ms[0],
                                             "device_ms_launches": list(device_ms[1:])}
+        b2 = {} if bounce2 is None else {"bounce2": {
+            k: bounce2[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "lanes_per_visit")}}
         return {"name": name, "route": "cuda",
                 "source": f"rust_pathtracer_tpu_torch/ops/csrc/{source}",
                 "replaces": f"rust_pathtracer_tpu/ops/{replaces}", "launches": launches,
                 "max_abs_err": err, "ms": ms, **dev,
                 "plain_ms": plain_ms, "bound_ms": bound_[0], "bound_by": bound_[1],
-                "library_ms": None}
+                "library_ms": None, **b2}
 
     kernels = {"kernels": [
         entry("fused_bounce (K1)", "fused_bounce.cu", "fused_bounce.py:169",
@@ -2083,13 +2162,13 @@ def main() -> int:
               k4["ms"], k4["plain_ms"], (k4["bound_ms"], k4["bound_by"])),
         entry("projected_sweep (K5)", "projected.cu", "projected.py:455",
               k5["launches"], sweep_err("K5", k5), k5["ms"], k5["plain_ms"],
-              (k5["bound_ms"], k5["bound_by"])),
+              (k5["bound_ms"], k5["bound_by"]), bounce2=k5["bounce2"]),
         entry("resident_sweep (K6)", "projected.cu", "resident.py:69",
               k6["launches"], sweep_err("K6", k6), k6["ms"], k6["plain_ms"],
               (k6["bound_ms"], k6["bound_by"])),
         entry("pair_sweep (K7)", "projected.cu", "worklist.py:169",
               k7["launches"], sweep_err("K7", k7), k7["ms"], k7["plain_ms"],
-              (k7["bound_ms"], k7["bound_by"])),
+              (k7["bound_ms"], k7["bound_by"]), bounce2=k7["bounce2"]),
     ]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,8 @@ Prints:
   autograd's backward.
 
 Exits non-zero without a GPU.  ModelTest renders
-``scene.obj_loader.write_benchmark_obj``'s asset.  CornellBox's frame is
+``scene.obj_loader.write_benchmark_obj``'s asset, ModelTest20k its
+20,000-triangle mesh (rows=101, cols=100: the pair route, K7).  CornellBox's frame is
 the serving shape (400x400, 60 spp in chunks of 6, 960,000 lanes a
 chunk), its step ``bench.py``'s (512x512, 4 spp, one chunk).
 ``--root`` imports the package from another checkout (a parent commit
@@ -45,8 +46,12 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # serves it and as bench.py steps it
 SHAPES = {"SphereField": dict.fromkeys(("frame", "step"), (854, 480, 2, 20, 2)),
           "ModelTest": dict.fromkeys(("frame", "step"), (800, 800, 1, 20, 1)),
+          "ModelTest20k": dict.fromkeys(("frame", "step"), (800, 800, 1, 20, 1)),
           "TwoSphereCheckers": dict.fromkeys(("frame", "step"), (854, 480, 2, 20, 2)),
           "CornellBox": {"frame": (400, 400, 60, 20, 6), "step": (512, 512, 4, 20, 4)}}
+# write_benchmark_obj's arguments: its 10,080-triangle asset, and the
+# 20,000-triangle mesh whose frame takes K7 (and K5 where it overflows)
+MESHES = {"ModelTest": {}, "ModelTest20k": dict(rows=101, cols=100)}
 TOP = 20  # rows of each table
 
 
@@ -95,13 +100,13 @@ def main() -> int:
     from rust_pathtracer_tpu_torch.sampling import prng_key
 
     kw = {}
-    if args.scene == "ModelTest":
+    if args.scene.startswith("ModelTest"):
         from rust_pathtracer_tpu_torch.scene.obj_loader import write_benchmark_obj
 
-        path = os.path.join(root, "output", "profile", "model.obj")
-        write_benchmark_obj(path)
+        path = os.path.join(root, "output", "profile", f"{args.scene}.obj")
+        write_benchmark_obj(path, **MESHES[args.scene])
         kw["obj_path"] = path
-    sd = get_scene(args.scene, **kw)
+    sd = get_scene("ModelTest" if args.scene.startswith("ModelTest") else args.scene, **kw)
     W, H, spp, nb, chunk = SHAPES[args.scene][args.mode]
     dev = "cuda"
     scene = sd.build(device=dev)

@@ -33,10 +33,18 @@ Pallas kernels run it:
   (``col_block`` columns), so on streamed tables (more than 16,384
   columns) K5 may differ from K6 / K7 in the last ulp of a sphere hit.
 
-The projections are 8-term dot products, summed k = 0..7 in order with
-no fused multiply-add on both sides (``_proj``), never a matmul, so
-each kernel agrees with its plain version bit for bit.  Against the
-JAX package (the MXU at HIGHEST, XLA's order) t agrees to ~1e-5.
+The projections are the 8-term dot products ``rays . a[j]``, summed
+k = 0..7 in order with no fused multiply-add, never a matmul.  The
+tables are sparse by type, so the sweep reads each column's nonzero
+coefficients from ``ProjTables.rows`` and sums only those terms, in the
+same order, then adds +0 (``_projections``).  For finite rays that is
+the dense sum bit for bit: a zero coefficient adds a product of +-0,
+which changes a running sum only where it is itself a zero, and then
+only its sign; the dense sum ends with the term 0 * 0 = +0, which turns
+a -0 into +0, as the closing +0 does.  So K5, K6 (which still sweeps
+the dense tables) and K7 agree with their plain version bit for bit.
+Against the JAX package (the MXU at HIGHEST, XLA's order) t agrees to
+~1e-5.
 
 Here: ``ProjTables``, ``build_projected`` (host numpy, the JAX
 package's), the plain sweep ``_sweep_plain``, K5
@@ -92,6 +100,7 @@ MIN_REAL_CLUSTERS = 2
 ROUTES = ("dense", "resident", "pairs")
 
 _RECT_FREE = {0: (1, 2), 1: (0, 2), 2: (0, 1)}
+WARP = 32  # lanes of a warp, for the plain sweep's count of warp visits
 _TINY = 1e-30  # slab reciprocal clamp (projected.py:501-504)
 
 # lanes a block of the plain sweep (on the CPU, on the card): bounds its
@@ -110,10 +119,11 @@ class ProjTables:
     cluster_bounds: (6, G) per-cluster AABB (min xyz, max xyz; padding
     clusters are degenerate points at 1e30 that no slab test passes);
     cluster_bounds_v: the JAX kernel's (n_pblocks, 6, GPAD) layout of
-    the same bounds, carried for parity (the port's kernels read
-    ``cluster_bounds``).  Static: ``group_kinds`` (the primitive type of
-    each cluster, -1 = padding), ``shade_ready`` (payload columns 16-31
-    hold a complete shading row), ``col_block`` (columns of a p-block).
+    the same bounds, carried for parity.  Static: ``group_kinds`` (the
+    primitive type of each cluster, -1 = padding), ``shade_ready``
+    (payload columns 16-31 hold a complete shading row), ``col_block``
+    (columns of a p-block).  Derived on the tables' device: ``rows``
+    and ``bounds8``, what K5, K7 and the plain sweep read.
     """
 
     a: torch.Tensor
@@ -167,6 +177,62 @@ class ProjTables:
             return torch.tensor(x, dtype=torch.int32, device=self.device)
 
         return t(self.group_kinds), t([int(q) for q in self.dense_q])
+
+    @functools.cached_property
+    def rows(self) -> torch.Tensor:
+        """(G, 4, 128, 4) f32: per cluster, four 16-byte quads of each
+        column's nonzero coefficients, quad q of column j at [g, q, j],
+        so a warp reads a quad of 32 columns in one coalesced load.  The
+        words are copies of the f32 values of ``a`` and ``const`` (``b``
+        holds the same values, see ``build_projected``):
+
+        * sphere, quad 0: A[0, 0:3] (the centre) and K0;
+        * rect, quads 0-2: (f, A[0, 6], K0, K1), (K2, K3, A[0, f],
+          A[1, fa]), (A[2, fb], B[0, 3 + f], B[1, 3 + fa], B[2, 3 + fb])
+          with f the fixed axis and (fa, fb) the free ones; the
+          coefficients are 1 on a real column and 0 on padding, so a
+          padding column's projections are the dense ones, 0;
+        * triangle, quads 0-3: (A[j, 0:3], A[j, 6]) for j = 0, 1, 2,
+          then (K0, 0, 0, 0);
+        * padding columns of a real cluster: zeros and K0 = 1e30.
+        """
+        a, b, k = self.a, self.b, self.const
+        C, dev = self.num_cols, self.device
+        kind = torch.tensor(self.group_kinds, device=dev).repeat_interleave(GROUP)
+        rows = torch.zeros((C, 16), dtype=torch.float32, device=dev)
+        sph, rect, tri = (kind == x for x in (PRIM_SPHERE, PRIM_RECT, PRIM_TRIANGLE))
+        rows[sph, 0:3] = a[0, 0:3][:, sph].T
+        rows[sph, 3] = k[0, sph]
+        for j in range(3):
+            rows[tri, 4 * j:4 * j + 3] = a[j, 0:3][:, tri].T
+            rows[tri, 4 * j + 3] = a[j, 6, tri]
+        rows[tri, 12] = k[0, tri]
+        f = (a[0, 0:3] != 0).to(torch.int64).argmax(dim=0)  # 0 on padding
+        fa, fb = _free_axes(f)
+        cols = torch.arange(C, device=dev)
+        quads = torch.stack([
+            f.to(torch.float32), a[0, 6], k[0], k[1], k[2], k[3],
+            a[0, f, cols], a[1, fa, cols], a[2, fb, cols],
+            b[0, 3 + f, cols], b[1, 3 + fa, cols], b[2, 3 + fb, cols]], dim=1)
+        rows[rect, 0:12] = quads[rect]
+        return rows.view(-1, GROUP, 4, 4).permute(0, 2, 1, 3).contiguous()
+
+    @functools.cached_property
+    def bounds8(self) -> torch.Tensor:
+        """(G, 8) f32: each cluster's AABB as two 16-byte quads, (min
+        xyz, 0) and (max xyz, 0), copied from ``cluster_bounds``."""
+        cb = self.cluster_bounds
+        out = torch.zeros((self.num_groups, 8), dtype=torch.float32, device=self.device)
+        out[:, 0:3] = cb[0:3].T
+        out[:, 4:7] = cb[3:6].T
+        return out
+
+
+def _free_axes(f):
+    """The free axes (fa, fb) of rects whose fixed axis is ``f`` (an
+    int64 tensor), ``_RECT_FREE`` elementwise."""
+    lut = torch.tensor([_RECT_FREE[i] for i in range(3)], device=f.device)
+    return lut[f, 0], lut[f, 1]
 
 
 def default_route(tables: ProjTables) -> str:
@@ -381,26 +447,51 @@ def slab_bounds(cluster_bounds, o, d, t_min):
     return lo, hi
 
 
-def _proj(m, rays, sl, rows):
-    """(n, rows, 128): ``rays . m[j]`` for j < rows on the columns
-    ``sl``, the 8 terms summed k = 0..7 in order, one multiply and one
-    add each (the kernel's ``proj``)."""
-    acc = rays[:, 0, None, None] * m[None, :rows, 0, sl]
-    for k in range(1, 8):
-        acc = acc + rays[:, k, None, None] * m[None, :rows, k, sl]
-    return acc
+def _projections(tables: ProjTables, kind, g, o, d):
+    """The projections and constants of cluster ``g`` (of type ``kind``)
+    for the lanes (o, d) (n, 3): (O, D, K) with O = [O_0..], D = [D_0..]
+    the (n, 128) projections a type reads (1 a sphere, 3 a rect or a
+    triangle) and K its (128,) constants (K0, or K0-K3 a rect).  Each
+    projection sums its nonzero terms from ``tables.rows`` in the k
+    order of ``rays . a[j]`` (a coefficient 1 multiplies as the dense
+    product does), then adds +0: the dense 8-term sum bit for bit on
+    finite rays (see the module note).  The kernel's ``column_value``."""
+    q = tables.rows[g]  # (4, 128, 4)
+    ox, oy, oz = (o[:, i:i + 1] for i in range(3))
+    dx, dy, dz = (d[:, i:i + 1] for i in range(3))
+    if kind == PRIM_SPHERE:
+        cx, cy, cz, k0 = q[0].unbind(1)
+        return ([((ox * cx + oy * cy) + oz * cz) + 0.0],
+                [((dx * cx + dy * cy) + dz * cz) + 0.0], (k0,))
+    if kind == PRIM_TRIANGLE:
+        O, D = [], []
+        for j in range(3):
+            w0, w1, w2, c = q[j].unbind(1)
+            O.append((((ox * w0 + oy * w1) + oz * w2) + c) + 0.0)
+            D.append(((dx * w0 + dy * w1) + dz * w2) + 0.0)
+        return O, D, (q[3, :, 0],)
+    if kind == PRIM_RECT:
+        f, c, k0, k1 = q[0].unbind(1)
+        k2, k3, a0, a1 = q[1].unbind(1)
+        a2, b0, b1, b2 = q[2].unbind(1)
+        f = f.to(torch.int64)
+        fa, fb = _free_axes(f)
+        return ([(o[:, f] * a0 + c) + 0.0, o[:, fa] * a1 + 0.0, o[:, fb] * a2 + 0.0],
+                [d[:, f] * b0 + 0.0, d[:, fa] * b1 + 0.0, d[:, fb] * b2 + 0.0],
+                (k0, k1, k2, k3))
+    raise ValueError(f"no formula for cluster kind {kind}")
 
 
 def _group_values(kind, q, O, D, K, onorm, odot, dnorm, tmin):
     """(n, 128) candidate values of one cluster, T_MISS where invalid:
     q = t |d|^2 for a sphere group compared in the q domain
-    (``_group_q_sphere``), else t (``_group_t``).  O, D: (n, rows, 128)
-    projections; K: (8, 128) constants; norms (n, 1); tmin: f32 scalar
+    (``_group_q_sphere``), else t (``_group_t``).  O, D, K: as
+    ``_projections`` returns them; norms (n, 1); tmin: f32 scalar
     tensor."""
     k0 = K[0]
     if kind == PRIM_SPHERE:
-        half_b = odot - D[:, 0]
-        cterm = onorm - 2.0 * O[:, 0] + k0
+        half_b = odot - D[0]
+        cterm = onorm - 2.0 * O[0] + k0
         dis = half_b * half_b - dnorm * cterm
         sqrtd = sqrt(torch.where((dis > 0.0) | torch.isnan(dis), dis,
                                  torch.zeros_like(dis)))
@@ -416,20 +507,18 @@ def _group_values(kind, q, O, D, K, onorm, odot, dnorm, tmin):
         val = torch.where(ok1, r1, r2)
         valid = (dis >= 0.0) & (ok1 | (r2 >= tmin_a))
     elif kind == PRIM_RECT:
-        val = -O[:, 0] / D[:, 0]  # NaN / inf when parallel: the bounds fail
-        av = O[:, 1] + val * D[:, 1]
-        bv = O[:, 2] + val * D[:, 2]
+        val = -O[0] / D[0]  # NaN / inf when parallel: the bounds fail
+        av = O[1] + val * D[1]
+        bv = O[2] + val * D[2]
         valid = ((val >= tmin) & (av >= k0) & (av <= K[1])
                  & (bv >= K[2]) & (bv <= K[3]))
-    elif kind == PRIM_TRIANGLE:
-        det = -D[:, 0] * k0  # d . -n; the one-sided cull needs det >= eps
-        val = -O[:, 0] / D[:, 0]
-        u = O[:, 1] + val * D[:, 1]
-        v = O[:, 2] + val * D[:, 2]
+    else:  # triangle
+        det = -D[0] * k0  # d . -n; the one-sided cull needs det >= eps
+        val = -O[0] / D[0]
+        u = O[1] + val * D[1]
+        v = O[2] + val * D[2]
         valid = ((det >= TRI_DET_EPS) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
                  & (u + v <= 1.0) & (val >= tmin))
-    else:
-        raise ValueError(f"no formula for cluster kind {kind}")
     return torch.where(valid, val, torch.full_like(val, T_MISS))
 
 
@@ -446,8 +535,10 @@ def _sweep_plain(tables: ProjTables, o, d, t_min, *, q_flags, listed=None,
     chunk passes is skipped, and only the passing lanes are computed
     (the per-lane cull).  ``stats``, a dict, gets the work the kernel
     does on these inputs added in: "slab_tests" (lane-cluster slab
-    tests) and "swept" (per cluster, the lanes that sweep its 128
-    columns).
+    tests), "swept" (per cluster, the lanes that sweep its 128 columns)
+    and "warp_visits" (33 counts: entry p counts the visits of a warp of
+    32 lanes to a cluster that p of its lanes pass, p >= 1; the kernels
+    skip a cluster no lane of the warp passes).
     Returns (t (R,), column (R,) int32, payload (R, 32))."""
     dev = o.device
     f32, i32 = torch.float32, torch.int32
@@ -464,8 +555,6 @@ def _sweep_plain(tables: ProjTables, o, d, t_min, *, q_flags, listed=None,
         onorm = ((oc[:, 0] * oc[:, 0] + oc[:, 1] * oc[:, 1]) + oc[:, 2] * oc[:, 2])[:, None]
         odot = ((oc[:, 0] * dc[:, 0] + oc[:, 1] * dc[:, 1]) + oc[:, 2] * dc[:, 2])[:, None]
         dnorm = ((dc[:, 0] * dc[:, 0] + dc[:, 1] * dc[:, 1]) + dc[:, 2] * dc[:, 2])[:, None]
-        rays = torch.cat([oc, dc, torch.ones((n, 1), dtype=f32, device=dev),
-                          torch.zeros((n, 1), dtype=f32, device=dev)], dim=1)
         lo, hi = slab_bounds(tables.cluster_bounds, oc, dc, t_min)
         blk = (torch.arange(s, s + n, device=dev) // rb) if listed is not None else None
         tb = torch.full((n,), T_MISS, dtype=f32, device=dev)
@@ -483,17 +572,16 @@ def _sweep_plain(tables: ProjTables, o, d, t_min, *, q_flags, listed=None,
                 stats["slab_tests"] = stats.get("slab_tests", 0) + n_tested
                 swept = stats.setdefault("swept", [0] * tables.num_groups)
                 swept[g] += idx.numel()
+                per_warp = torch.unique((s + idx) // WARP, return_counts=True)[1]
+                visits = stats.setdefault("warp_visits", [0] * (WARP + 1))
+                for p, c in enumerate(torch.bincount(per_warp, minlength=WARP + 1).tolist()):
+                    visits[p] += c
             if idx.numel() == 0:
                 continue
-            sl = slice(g * GROUP, (g + 1) * GROUP)
             q = q_flags[g]
-            rows = 1 if kind == PRIM_SPHERE else 3
-            r = rays[idx]
-            O = _proj(tables.a, r, sl, rows)
-            D = _proj(tables.b, r, sl, rows)
+            O, D, K = _projections(tables, kind, g, oc[idx], dc[idx])
             dn = dnorm[idx]
-            vals = _group_values(kind, q, O, D, tables.const[:, sl], onorm[idx],
-                                 odot[idx], dn, tmin)
+            vals = _group_values(kind, q, O, D, K, onorm[idx], odot[idx], dn, tmin)
             raw = vals.min(dim=1, keepdim=True).values
             gc = torch.where(vals <= raw, iota, big).min(dim=1).values
             gt = raw[:, 0]
@@ -584,8 +672,9 @@ def launch_sweep(mode, tables: ProjTables, o, d, t_min, kinds, qflags,
     pay = torch.empty((R, PAY_W), dtype=torch.float32, device=dev)
     tabs = [x.contiguous() for x in (tables.a, tables.b, tables.const,
                                      tables.payload, tables.cluster_bounds)]
-    ptrs = (ctypes.c_void_p * 7)(*[x.data_ptr() for x in tabs],
-                                 kinds.data_ptr(), qflags.data_ptr())
+    ptrs = (ctypes.c_void_p * 9)(*[x.data_ptr() for x in tabs],
+                                 kinds.data_ptr(), qflags.data_ptr(),
+                                 tables.rows.data_ptr(), tables.bounds8.data_ptr())
     W = 0 if words is None else words.shape[-1]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream

@@ -124,6 +124,9 @@ def pair_sweep(tables: ProjTables, o, d, t_min, meta, rb):
                          f"on {dev}")
     if dev.type == "cpu":
         return pair_sweep_plain(tables, o, d, t_min, meta, rb)
+    if rb % 32:
+        raise ValueError(f"pair_sweep: blocks of {rb} lanes; the kernel's warps of 32 "
+                         f"need a multiple of 32")
     kinds, qflags = tables.kernel_ints
     out = launch_sweep("pairs", tables, o, d, t_min, kinds, qflags,
                        words=meta.contiguous(), kcap=meta.shape[1] // nblocks, rb=rb)

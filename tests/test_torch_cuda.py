@@ -337,13 +337,34 @@ def _proj_rays(n, seed):
     return torch.from_numpy(o), torch.from_numpy(d)
 
 
+def _warp_mixed_rays(n_warps, seed):
+    """Warps of 32 lanes in turns: 32 near-parallel rays from one point
+    into the scene (a cluster that one passes, most pass), then one such
+    ray and 31 parked lanes (at most one lane passes a cluster), so that
+    the kernels' visits take both the per-lane and the warp-cooperative
+    sweep."""
+    rng = np.random.default_rng(seed)
+    o = np.empty((n_warps, 32, 3), np.float32)
+    d = np.empty((n_warps, 32, 3), np.float32)
+    for w in range(n_warps):
+        src = rng.uniform(-10, 10, 3)
+        aim = rng.uniform(-4, 4, 3) - src
+        o[w] = src
+        d[w] = aim + rng.normal(0.0, 0.02 * np.linalg.norm(aim), (32, 3))
+        if w % 2:
+            o[w, 1:] = 3.0e33
+    return (torch.from_numpy(o.reshape(-1, 3)), torch.from_numpy(d.reshape(-1, 3)))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("streamed", [False, True])
 def test_projected_kernels_match_plain_on_gpu(streamed):
     """K5, K6 and K7 on the card against their plain versions on the
     CPU, 4000 random lanes (every seventh parked) of a mixed scene, one
-    p-block or streamed: t, column and payload bit for bit (IEEE f32 on
-    both sides, one order of operations)."""
+    p-block or streamed, then 4096 lanes whose warps pass a cluster with
+    one lane or with up to 32 (``_warp_mixed_rays``; the plain sweep's
+    warp-visit counts show both): t, column and payload bit for bit (IEEE
+    f32 on both sides, one order of operations)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     from rust_pathtracer_tpu_torch.ops import projected as P
@@ -356,31 +377,36 @@ def test_projected_kernels_match_plain_on_gpu(streamed):
                                pr.mat.numpy(),
                                max_single_cols=P.COL_BLOCK if streamed else P.MAX_SINGLE_COLS)
     assert (tables.col_block < tables.num_cols) == streamed
-    o, d = _proj_rays(4000, seed=11)
-    rb = WL.WL_RB
-    Rp = -(-4000 // rb) * rb
-    pad = torch.zeros((Rp - 4000, 3))
-    meta, _ = WL.build_pair_worklist(tables.cluster_bounds, tables.group_kinds,
-                                     torch.cat([o, pad]), torch.cat([d, pad]), T_MIN,
-                                     rb, tables.num_groups)
-    packed, counts = RS.pack_slots(meta, Rp // rb)
     gt = tables.to("cuda")
-    go, gd = o.cuda(), d.cuda()
-    runs = {
-        "K5": (P, lambda t, a, b, *w: P.projected_sweep(t, a, b, T_MIN), ()),
-        "K6": (RS, lambda t, a, b, p, c: RS.resident_sweep(t, a, b, T_MIN, p, c, rb),
-               (packed, counts)),
-        "K7": (WL, lambda t, a, b, m: WL.pair_sweep(t, a, b, T_MIN, m, rb), (meta,)),
-    }
-    for name, (mod, fn, extra) in runs.items():
-        before = mod.launches
-        got = fn(gt, go, gd, *(x.cuda() for x in extra))
-        torch.cuda.synchronize()
-        assert mod.launches == before + 1, name
-        want = fn(tables, o, d, *extra)
-        for a, b in zip(got, want):
-            assert torch.equal(a.cpu(), b), name
-    assert (want[1] >= 0).sum() > 500
+    for o, d in (_proj_rays(4000, seed=11), _warp_mixed_rays(128, seed=12)):
+        n = o.shape[0]
+        rb = WL.WL_RB
+        Rp = -(-n // rb) * rb
+        pad = torch.zeros((Rp - n, 3))
+        meta, _ = WL.build_pair_worklist(tables.cluster_bounds, tables.group_kinds,
+                                         torch.cat([o, pad]), torch.cat([d, pad]), T_MIN,
+                                         rb, tables.num_groups)
+        packed, counts = RS.pack_slots(meta, Rp // rb)
+        go, gd = o.cuda(), d.cuda()
+        runs = {
+            "K5": (P, lambda t, a, b, *w: P.projected_sweep(t, a, b, T_MIN), ()),
+            "K6": (RS, lambda t, a, b, p, c: RS.resident_sweep(t, a, b, T_MIN, p, c, rb),
+                   (packed, counts)),
+            "K7": (WL, lambda t, a, b, m: WL.pair_sweep(t, a, b, T_MIN, m, rb), (meta,)),
+        }
+        for name, (mod, fn, extra) in runs.items():
+            before = mod.launches
+            got = fn(gt, go, gd, *(x.cuda() for x in extra))
+            torch.cuda.synchronize()
+            assert mod.launches == before + 1, name
+            want = fn(tables, o, d, *extra)
+            for a, b in zip(got, want):
+                assert torch.equal(a.cpu(), b), name
+        assert (want[1] >= 0).sum() > n // 8
+    stats = {}
+    P.projected_sweep_plain(tables, o, d, T_MIN, stats=stats)
+    visits = stats["warp_visits"]
+    assert visits[1] > 0 and sum(visits[24:]) > 0, visits
 
 
 @pytest.mark.cuda
