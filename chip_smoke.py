@@ -89,8 +89,11 @@ checks them:
 16. ModelTest forward at 800x800, 20 bounces, 1 spp (K6 once a bounce);
     the 20,000-triangle mesh through the pair route: K7 launches and K5
     fallback launches (at least one K7 launch); K7 timed at its first
-    bounce, and each mesh's search there by route against K5 alone; K7
-    held bit for bit and timed on the 20k frame's second-bounce lanes;
+    bounce, and each mesh's search there by route against K5 alone; the
+    kernel the path runs at the 20k frame's second bounce (K5, K7's
+    fallback, where a block passes more than WL_KCAP clusters) and K7 at
+    the first later bounce the path hands it, each held bit for bit and
+    timed on those lanes;
 17. the differentiable SphereField step at 854x480, 2 spp, 20 bounces,
     loss = mean(img), K5 the search once a bounce: finite gradients of
     the texture colours and the background, two steps on one key bit
@@ -118,7 +121,6 @@ import contextlib
 import faulthandler
 import json
 import os
-import re
 import statistics
 import subprocess
 import sys
@@ -209,6 +211,10 @@ SPHERE_T_OPS = 2
 SLAB_OPS, PROJ_LANE_OPS = 12, 19
 # bytes a lane: rays in (24), t, column and payload out (4 + 4 + 128)
 PROJ_LANE_BYTES = 24 + 136
+# the words of a real column's compact row (ProjTables.rows) by type: a
+# sphere's centre and K0; a rect's axis, its 6 coefficients and K0-K3; a
+# triangle's three Woop rows with their offsets, and K0
+ROW_WORDS = {0: 4, 1: 12, 2: 13}
 
 
 def fail(msg: str):
@@ -1384,10 +1390,12 @@ class _Captured(Exception):
     pass
 
 
-def path_lanes(torch, device, scene, sd, cfg, bg, bounce):
+def path_lanes(torch, device, scene, sd, cfg, bg, want):
     """The lanes the forward frame of ``cfg`` hands its projected search at
-    ``bounce`` (0: the camera rays), as the path gives them (dead lanes
-    parked): (o, d).  The frame stops there."""
+    the first bounce b (0: the camera rays) for which ``want(b, kernel)``
+    holds, ``kernel`` the one the search launched there ("K5", "K6" or
+    "K7"), as the path gives them (dead lanes parked): (b, kernel, o, d).
+    The frame stops there."""
     from rust_pathtracer_tpu_torch.ops import projected as P
     from rust_pathtracer_tpu_torch.render import RenderSettings, render_radiance
     from rust_pathtracer_tpu_torch.sampling import prng_key
@@ -1396,48 +1404,44 @@ def path_lanes(torch, device, scene, sd, cfg, bg, bounce):
     routed = P.closest_hit_routed
 
     def capture(tables, o, d, t_min, route=None):
-        if len(seen) == bounce:
-            seen.append((o.clone(), d.clone()))
-            raise _Captured
-        seen.append(None)
-        return routed(tables, o, d, t_min, route)
+        lanes, before = (o.clone(), d.clone()), read_counts()
+        out = routed(tables, o, d, t_min, route)
+        after = read_counts()
+        kernel = next(k for k in ("K5", "K6", "K7") if after[k] > before[k])
+        seen.append(kernel)
+        if want(len(seen) - 1, kernel):
+            raise _Captured(len(seen) - 1, kernel, *lanes)
+        return out
 
     settings = RenderSettings(cfg["width"], cfg["height"], cfg["spp"], cfg["bounces"], bg)
     P.closest_hit_routed = capture
     try:
         render_radiance(scene, sd.camera_at(0.0, device=device), settings,
                         prng_key(cfg["seed"], device=device), device=device)
-    except _Captured:
-        pass
+    except _Captured as c:
+        return c.args
     finally:
         P.closest_hit_routed = routed
-    check(len(seen) == bounce + 1, f"the frame ended before bounce {bounce}")
-    return seen[bounce]
-
-
-def coop_p():
-    """The passing lanes of a warp from which K5 and K7 sweep a cluster per
-    lane, cooperatively below (``PROJ_COOP_P`` of ops/csrc/projected.cu)."""
-    with open(os.path.join(REPO, "rust_pathtracer_tpu_torch", "ops", "csrc",
-                           "projected.cu")) as f:
-        return int(re.search(r"#define PROJ_COOP_P (\d+)", f.read()).group(1))
+    fail(f"no bounce of the frame gives what is wanted (kernels by bounce: {seen})")
 
 
 def lanes_per_visit(stats):
     """(mean passing lanes of a warp visit, share of visits with fewer than
-    ``coop_p()``) from the plain sweep's "warp_visits"."""
+    ``projected.COOP_P``) from the plain sweep's "warp_visits"."""
+    from rust_pathtracer_tpu_torch.ops.projected import COOP_P
+
     h = np.asarray(stats.get("warp_visits", [0] * 33), np.float64)
     visits = h[1:].sum()
     if visits == 0:
         return 0.0, 0.0
-    return float((np.arange(33) * h).sum() / visits), float(h[1:coop_p()].sum() / visits)
+    return float((np.arange(33) * h).sum() / visits), float(h[1:COOP_P].sum() / visits)
 
 
 def _sweep_fns(torch, tables, o, d):
     """K5, K6 and K7 and their plain versions on (o, d), with the slot
     tables of blocks of WL_RB lanes (K7: WL_KCAP slots where no block
     overflows, else every cluster).  Returns {name: (kernel, plain,
-    slot bytes, note, per-cluster q-domain flags)}."""
+    bytes of tables and slots read, note, per-cluster q-domain flags)}."""
     from rust_pathtracer_tpu_torch.integrator import T_MIN
     from rust_pathtracer_tpu_torch.ops import projected as P
     from rust_pathtracer_tpu_torch.ops import resident as RS
@@ -1457,19 +1461,37 @@ def _sweep_fns(torch, tables, o, d):
     if bool(ov):
         meta7, note7 = meta6, f"kcap {G} (a block passes more than {WL.WL_KCAP})"
     q_always = tuple(k == 0 for k in tables.group_kinds)  # K6, K7: spheres in q
+    rows = table_bytes(tables, compact=True)
     return {
         "K5": (lambda: P.projected_sweep(tables, o, d, T_MIN),
                lambda st=None: P.projected_sweep_plain(tables, o, d, T_MIN, stats=st),
-               0, "every cluster", tables.dense_q),
+               rows, "every cluster", tables.dense_q),
         "K6": (lambda: RS.resident_sweep(tables, o, d, T_MIN, packed, counts, rb),
                lambda st=None: RS.resident_sweep_plain(tables, o, d, T_MIN, packed,
                                                        counts, rb, stats=st),
-               nbytes(packed, counts), f"kcap {G}", q_always),
+               table_bytes(tables, compact=False) + nbytes(packed, counts), f"kcap {G}",
+               q_always),
         "K7": (lambda: WL.pair_sweep(tables, o, d, T_MIN, meta7, rb),
                lambda st=None: WL.pair_sweep_plain(tables, o, d, T_MIN, meta7, rb,
                                                    stats=st),
-               nbytes(meta7), note7, q_always),
+               rows + nbytes(meta7), note7, q_always),
     }
+
+
+def table_bytes(tables, compact):
+    """The bytes of the tables a sweep's function reads once: the dense
+    a, b, const, payload and cluster AABBs (K6's sweep), or (K5, K7)
+    each real column's row words (ROW_WORDS) and payload row and each
+    real cluster's AABB."""
+    if not compact:
+        return nbytes(tables.a, tables.b, tables.const, tables.payload,
+                      tables.cluster_bounds)
+    kinds = np.repeat(np.asarray(tables.group_kinds), 128)
+    real = (kinds >= 0) & (tables.const[0].cpu().numpy() != np.float32(1e30))
+    words = np.select([kinds == 0, kinds == 1, kinds == 2],
+                      [ROW_WORDS[0], ROW_WORDS[1], ROW_WORDS[2]], 0)
+    clusters = sum(k >= 0 for k in tables.group_kinds)
+    return int(4 * words[real].sum() + 4 * 32 * real.sum() + 4 * 6 * clusters)
 
 
 def cluster_ops(tables, q_flags):
@@ -1497,25 +1519,25 @@ def cluster_ops(tables, q_flags):
     return per_col.reshape(G, 128).sum(axis=1) + winner
 
 
-def proj_bound(tables, n_lanes, stats, slot_bytes, q_flags):
-    """The least time for one sweep: the bytes (rays in, outputs out, the
-    tables and slots read once) over the memory rate against the f32
-    operations these inputs need (the plain version's count of slab
-    tests and of each cluster's sweeps, times ``cluster_ops``) over the
-    f32 peak."""
-    tab = nbytes(tables.a, tables.b, tables.const, tables.payload,
-                 tables.cluster_bounds)
+def proj_bound(tables, n_lanes, stats, read_bytes, q_flags):
+    """The least time for one sweep: the bytes (rays in, outputs out, and
+    ``read_bytes``: the tables and slots read once) over the memory rate
+    against the f32 operations these inputs need (the plain version's
+    count of slab tests and of each cluster's sweeps, times
+    ``cluster_ops``) over the f32 peak."""
     swept = np.asarray(stats.get("swept", [0] * tables.num_groups), np.int64)
     ops = (stats.get("slab_tests", 0) * SLAB_OPS + n_lanes * PROJ_LANE_OPS
            + int((swept * cluster_ops(tables, q_flags)).sum()))
-    return bound(n_lanes * PROJ_LANE_BYTES + tab + slot_bytes, ops)
+    return bound(n_lanes * PROJ_LANE_BYTES + read_bytes, ops)
 
 
 def time_sweep(torch, device, card, label, fns, tables, n_lanes, reps):
-    """One of K5 / K6 / K7 (``fns`` = (kernel, plain, slot bytes, note,
+    """One of K5 / K6 / K7 (``fns`` = (kernel, plain, bytes read, note,
     q flags)) against its plain version: bit-for-bit equal, then timed
     (plain, kernel, kernel, plain) with the bound.  Returns a dict."""
-    kernel, plain, slot_bytes, note, q_flags = fns
+    from rust_pathtracer_tpu_torch.ops.projected import COOP_P
+
+    kernel, plain, read_bytes, note, q_flags = fns
     got = kernel()
     stats = {}
     want = plain(stats)
@@ -1528,12 +1550,12 @@ def time_sweep(torch, device, card, label, fns, tables, n_lanes, reps):
     swept = sum(stats.get("swept", []))
     ms = time_pair(torch, device, kernel, plain, reps)
     k_ms, p_ms = statistics.mean(ms["kernel"]), statistics.mean(ms["plain"])
-    b_ms, b_by = proj_bound(tables, n_lanes, stats, slot_bytes, q_flags)
+    b_ms, b_by = proj_bound(tables, n_lanes, stats, read_bytes, q_flags)
     per_visit, below = lanes_per_visit(stats)
     log(f"{label} ({note}) on {n_lanes} lanes, {card}: {hits} hits, {bad} lanes differ "
         f"from the plain version; slab tests {stats.get('slab_tests', 0) / n_lanes:.3f} "
         f"a lane, clusters swept {swept / n_lanes:.3f} a lane, {per_visit:.2f} lanes a "
-        f"warp visit ({below:.3f} of visits under {coop_p()}); {k_ms:.4f} ms per launch "
+        f"warp visit ({below:.3f} of visits under {COOP_P}); {k_ms:.4f} ms per launch "
         f"(blocks of {reps}: {[round(x, 4) for x in ms['kernel']]}); plain {p_ms:.2f} ms "
         f"({[round(x, 2) for x in ms['plain']]}); bound "
         f"{b_ms:.4f} ms ({b_by})")
@@ -1651,10 +1673,11 @@ def phase_spherefield_forward(torch, device, card, scenes, reps):
     time_routes(torch, device, card, "SphereField first bounce", scene.proj, o, d,
                 ("resident", "dense"), reps)
     # K5 on the lanes of the frame's second bounce (incoherent, dead lanes parked)
-    o2, d2 = path_lanes(torch, device, scene, sd, cfg, SF_BG, 1)
-    k5["bounce2"] = time_sweep(torch, device, card, "K5 SphereField bounce 2",
-                               _sweep_fns(torch, scene.proj, o2, d2)["K5"], scene.proj,
-                               lanes, reps)
+    _, _, o2, d2 = path_lanes(torch, device, scene, sd, cfg, SF_BG, lambda b, k: b == 1)
+    label = "SphereField bounce 2"
+    k5["later"] = [dict(time_sweep(torch, device, card, f"K5 {label}",
+                                   _sweep_fns(torch, scene.proj, o2, d2)["K5"], scene.proj,
+                                   lanes, reps), lanes=label)]
     return dict(k6, launches=counts["K6"]), k5
 
 
@@ -1714,14 +1737,23 @@ def phase_modeltest_forward(torch, device, card, scenes, reps):
     fns = _sweep_fns(torch, scene.proj, o, d)
     k7 = time_sweep(torch, device, card, "K7 ModelTest 20k first bounce", fns["K7"],
                     scene.proj, lanes, reps)
-    # K7 on the lanes of the frame's second bounce (every cluster a slot where
-    # a block passes more than WL_KCAP: the path's K5 fallback there)
-    o2, d2 = path_lanes(torch, device, scene, sd, cfg, (1.0, 1.0, 1.0), 1)
-    k7["bounce2"] = time_sweep(torch, device, card, "K7 ModelTest 20k bounce 2",
-                               _sweep_fns(torch, scene.proj, o2, d2)["K7"], scene.proj,
-                               lanes, reps)
+    # the kernel the path runs at the frame's second bounce (K5 where a
+    # block passes more than WL_KCAP clusters, K7's fallback), and K7 at the
+    # first later bounce the path hands it
+    later = {"K5": [], "K7": []}
+    for want in (lambda b, k: b == 1, lambda b, k: b >= 1 and k == "K7"):
+        b, kname, o2, d2 = path_lanes(torch, device, scene, sd, cfg, (1.0, 1.0, 1.0),
+                                      want)
+        label = f"ModelTest 20k bounce {b + 1}" + (" (K7's fallback)" if kname == "K5"
+                                                   else "")
+        if any(x["lanes"] == label for x in later[kname]):
+            continue
+        later[kname].append(dict(time_sweep(
+            torch, device, card, f"{kname} {label}", _sweep_fns(torch, scene.proj, o2,
+                                                                d2)[kname],
+            scene.proj, lanes, reps), lanes=label))
     return dict(k7, launches=out["ModelTest 20k"]["K7"],
-                fallbacks=out["ModelTest 20k"]["K5"])
+                fallbacks=out["ModelTest 20k"]["K5"], later=later["K7"]), later["K5"]
 
 
 def phase_spherefield_step(torch, device, card):
@@ -2114,28 +2146,28 @@ def main() -> int:
     scenes = big_scenes(device)
     ph14 = phase_projected_vs_plain(torch, device, card, scenes, reps=20)
     k6, k5 = phase_spherefield_forward(torch, device, card, scenes, reps=20)
-    k7 = phase_modeltest_forward(torch, device, card, scenes, reps=20)
+    k7, k5_fallback = phase_modeltest_forward(torch, device, card, scenes, reps=20)
+    k5["later"] += k5_fallback
     k5["launches"] = phase_spherefield_step(torch, device, card)
 
     def sweep_err(kernel, main):
         errs = [main["max_abs_err"]] + [v["max_abs_err"] for (_, k), v in ph14.items()
                                         if k == kernel]
-        if "bounce2" in main:
-            errs.append(main["bounce2"]["max_abs_err"])
+        errs += [x["max_abs_err"] for x in main.get("later", [])]
         return max(errs)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound_,
-              device_ms=None, bounce2=None):
+              device_ms=None, later=None):
         # ms: CUDA events around the wrapper; device_ms: the kernel's own
         # device time (torch.profiler), where measured, and
         # device_ms_launches: [launches in its trace, launches asked for];
-        # bounce2: K5's and K7's numbers on the lanes of their frame's
-        # second bounce
+        # later: K5's and K7's numbers on the lanes of later bounces of the
+        # frames that run them
         dev = {} if device_ms is None else {"device_ms": device_ms[0],
                                             "device_ms_launches": list(device_ms[1:])}
-        b2 = {} if bounce2 is None else {"bounce2": {
-            k: bounce2[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                    "lanes_per_visit")}}
+        b2 = {} if later is None else {"later": [
+            {k: x[k] for k in ("lanes", "ms", "plain_ms", "bound_ms", "bound_by",
+                               "lanes_per_visit")} for x in later]}
         return {"name": name, "route": "cuda",
                 "source": f"rust_pathtracer_tpu_torch/ops/csrc/{source}",
                 "replaces": f"rust_pathtracer_tpu/ops/{replaces}", "launches": launches,
@@ -2162,13 +2194,13 @@ def main() -> int:
               k4["ms"], k4["plain_ms"], (k4["bound_ms"], k4["bound_by"])),
         entry("projected_sweep (K5)", "projected.cu", "projected.py:455",
               k5["launches"], sweep_err("K5", k5), k5["ms"], k5["plain_ms"],
-              (k5["bound_ms"], k5["bound_by"]), bounce2=k5["bounce2"]),
+              (k5["bound_ms"], k5["bound_by"]), later=k5["later"]),
         entry("resident_sweep (K6)", "projected.cu", "resident.py:69",
               k6["launches"], sweep_err("K6", k6), k6["ms"], k6["plain_ms"],
               (k6["bound_ms"], k6["bound_by"])),
         entry("pair_sweep (K7)", "projected.cu", "worklist.py:169",
               k7["launches"], sweep_err("K7", k7), k7["ms"], k7["plain_ms"],
-              (k7["bound_ms"], k7["bound_by"]), bounce2=k7["bounce2"]),
+              (k7["bound_ms"], k7["bound_by"]), later=k7["later"]),
     ]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -61,34 +61,17 @@
 //     with ties to the lower column, and the owning lane's take.  No valid
 //     value is NaN, so that minimum is the sequential strict-< scan's
 //     result bit for bit (tests/test_torch_projected_rows.py emulates it);
-//   * where a visit reads the rows (PROJ_K5_STAGE, PROJ_K7_STAGE): by
-//     default each warp copies the cluster's quads into its own 8 KB of
-//     shared memory with cp.async when its ballot passes (16 coalesced
-//     16-byte copies a lane for a triangle cluster), then sweeps from
-//     there.  The variants read through L1 with 16-byte loads, or (K5,
-//     whose warps walk the same clusters) fill a block stage a cluster
-//     ahead, double buffered, skipping a cluster no lane of the block
-//     passes (__syncthreads_or).  PERF.md gives each variant's times and
-//     the chosen COOP_P; proj_variants.py builds them with -D and times
-//     them.
+//   * where a visit reads the rows: each warp copies the cluster's quads
+//     into its own 8 KB of shared memory with cp.async when its ballot
+//     passes (16 coalesced 16-byte copies a lane for a triangle cluster),
+//     then sweeps from there.  On the card this beat 16-byte loads through
+//     L1 and, for K5, a block stage filled a cluster ahead (PERF.md gives
+//     the times and the choice of COOP_P).
 // No tensor cores: bit parity with the plain version rules out TF32, and a
 // projection of 3-4 nonzero coefficients is no matrix product for wgmma.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-// The visit's switch from the per-lane to the warp-cooperative sweep, and
-// where K5 and K7 read the rows from; the defaults are the card's choice
-// (PERF.md), a -D of proj_variants.py builds the others to time them.
-#ifndef PROJ_COOP_P
-#define PROJ_COOP_P 24
-#endif
-#ifndef PROJ_K5_STAGE
-#define PROJ_K5_STAGE 2
-#endif
-#ifndef PROJ_K7_STAGE
-#define PROJ_K7_STAGE 2
-#endif
 
 namespace {
 
@@ -100,14 +83,9 @@ constexpr int THREADS = 128;
 constexpr int WARP = 32;
 constexpr int QUADS = 4;  // 16-byte quads of a column's row
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int COOP_P = PROJ_COOP_P;  // per-lane sweep from this many passing lanes
-// where a visit reads the rows: 0 through L1 from global memory; 1 (K5 only)
-// a shared-memory stage per block, a cluster ahead; 2 a stage per warp,
-// filled when its ballot passes
-constexpr int K5_STAGE = PROJ_K5_STAGE;
-constexpr int K7_STAGE = PROJ_K7_STAGE;
-constexpr int STAGE_L1 = 0, STAGE_BLOCK = 1, STAGE_WARP = 2;
-static_assert(K7_STAGE != STAGE_BLOCK, "K7's warps walk their own slots: no block stage");
+// per-lane sweep from this many passing lanes of a warp, cooperative below
+// (the card's choice, PERF.md; projected.COOP_P on the Python side)
+constexpr int COOP_P = 24;
 
 constexpr float T_MISS = 3.0e38f;
 constexpr float TRI_DET_EPS = 1e-4f;
@@ -319,27 +297,16 @@ __device__ __forceinline__ Ray shfl_ray(const Ray& R, int src) {
   return S;
 }
 
-// A quad of the rows: through the read-only path from global memory, or
-// from the shared-memory stage.
-template <bool SMEM>
-__device__ __forceinline__ float4 ld4(const float4* p) {
-  if constexpr (SMEM) {
-    return *p;
-  } else {
-    return __ldg(p);
-  }
-}
-
 // One column's value for one ray: t (q = t |d|^2 for a sphere compared in
 // the q domain) where the column is hit, else T_MISS.  ``p`` points at the
-// column's quad 0; quad q is q * GROUP quads on.  The projections sum the
-// nonzero terms in the dense order and add +0; the formulas past them are
-// sweep_group's, operation for operation.
-template <int KIND, bool Q, bool SMEM>
+// column's quad 0 in the warp's stage; quad q is q * GROUP quads on.  The
+// projections sum the nonzero terms in the dense order and add +0; the
+// formulas past them are sweep_group's, operation for operation.
+template <int KIND, bool Q>
 __device__ __forceinline__ float column_value(const float4* p, const Ray& R,
                                               float t_min) {
   if constexpr (KIND == PRIM_SPHERE) {
-    const float4 c = ld4<SMEM>(p);  // centre, K0
+    const float4 c = p[0];  // centre, K0
     const float O0 = ((R.ox * c.x + R.oy * c.y) + R.oz * c.z) + 0.0f;
     const float D0 = ((R.dx * c.x + R.dy * c.y) + R.dz * c.z) + 0.0f;
     const float half_b = R.odot - D0;
@@ -363,8 +330,8 @@ __device__ __forceinline__ float column_value(const float4* p, const Ray& R,
   } else if constexpr (KIND == PRIM_RECT) {
     // (f, A[0,6], K0, K1), (K2, K3, A[0,f], A[1,fa]), (A[2,fb], B[0,3+f],
     // B[1,3+fa], B[2,3+fb]); the free axes (fa, fb) of f: (1,2), (0,2), (0,1)
-    const float4 q0 = ld4<SMEM>(p), q1 = ld4<SMEM>(p + GROUP);
-    const float4 q2 = ld4<SMEM>(p + 2 * GROUP);
+    const float4 q0 = p[0], q1 = p[GROUP];
+    const float4 q2 = p[2 * GROUP];
     const int f = (int)q0.x;
     const float of = f == 0 ? R.ox : (f == 1 ? R.oy : R.oz);
     const float df = f == 0 ? R.dx : (f == 1 ? R.dy : R.dz);
@@ -383,12 +350,12 @@ __device__ __forceinline__ float column_value(const float4* p, const Ray& R,
                        (v <= q1.y);
     return valid ? val : T_MISS;
   } else {  // triangle: (w_j, c_j) for j = 0, 1, 2, then (K0, 0, 0, 0)
-    const float4 w0 = ld4<SMEM>(p);
-    const float k0 = ld4<SMEM>(p + 3 * GROUP).x;
+    const float4 w0 = p[0];
+    const float k0 = p[3 * GROUP].x;
     const float D0 = ((R.dx * w0.x + R.dy * w0.y) + R.dz * w0.z) + 0.0f;
     const float det = -D0 * k0;  // d . -n, the one-sided cull
     if (!(det >= TRI_DET_EPS)) return T_MISS;
-    const float4 w1 = ld4<SMEM>(p + GROUP), w2 = ld4<SMEM>(p + 2 * GROUP);
+    const float4 w1 = p[GROUP], w2 = p[2 * GROUP];
     const float O0 = (((R.ox * w0.x + R.oy * w0.y) + R.oz * w0.z) + w0.w) + 0.0f;
     const float O1 = (((R.ox * w1.x + R.oy * w1.y) + R.oz * w1.z) + w1.w) + 0.0f;
     const float O2 = (((R.ox * w2.x + R.oy * w2.y) + R.oz * w2.z) + w2.w) + 0.0f;
@@ -417,7 +384,7 @@ __device__ __forceinline__ void take(float raw, int bj, int g, const Ray& R, flo
 
 // The warp's visit to cluster g, whose rows start at ``base``: ``mask``
 // holds the lanes whose slab test passed (non-zero, the same in every lane).
-template <int KIND, bool Q, bool SMEM>
+template <int KIND, bool Q>
 __device__ __forceinline__ void visit_cluster(const float4* base, unsigned mask, int lane,
                                               int g, const Ray& R, float t_min,
                                               float& tb, int& cb) {
@@ -426,7 +393,7 @@ __device__ __forceinline__ void visit_cluster(const float4* base, unsigned mask,
     float raw = T_MISS;
     int bj = 0;
     for (int j = 0; j < GROUP; ++j) {
-      const float v = column_value<KIND, Q, SMEM>(base + j, R, t_min);
+      const float v = column_value<KIND, Q>(base + j, R, t_min);
       if (v < raw) {
         raw = v;
         bj = j;
@@ -444,7 +411,7 @@ __device__ __forceinline__ void visit_cluster(const float4* base, unsigned mask,
 #pragma unroll
     for (int k = 0; k < GROUP / WARP; ++k) {
       const int j = lane + WARP * k;
-      const float v = column_value<KIND, Q, SMEM>(base + j, S, t_min);
+      const float v = column_value<KIND, Q>(base + j, S, t_min);
       if (v < bv) {
         bv = v;
         bc = j;
@@ -463,20 +430,19 @@ __device__ __forceinline__ void visit_cluster(const float4* base, unsigned mask,
   }
 }
 
-template <bool SMEM>
 __device__ __forceinline__ void visit(const float4* base, int kind, bool q, unsigned mask,
                                       int lane, int g, const Ray& R, float t_min,
                                       float& tb, int& cb) {
   if (kind == PRIM_SPHERE) {
     if (q) {
-      visit_cluster<PRIM_SPHERE, true, SMEM>(base, mask, lane, g, R, t_min, tb, cb);
+      visit_cluster<PRIM_SPHERE, true>(base, mask, lane, g, R, t_min, tb, cb);
     } else {
-      visit_cluster<PRIM_SPHERE, false, SMEM>(base, mask, lane, g, R, t_min, tb, cb);
+      visit_cluster<PRIM_SPHERE, false>(base, mask, lane, g, R, t_min, tb, cb);
     }
   } else if (kind == PRIM_RECT) {
-    visit_cluster<PRIM_RECT, false, SMEM>(base, mask, lane, g, R, t_min, tb, cb);
+    visit_cluster<PRIM_RECT, false>(base, mask, lane, g, R, t_min, tb, cb);
   } else {
-    visit_cluster<PRIM_TRIANGLE, false, SMEM>(base, mask, lane, g, R, t_min, tb, cb);
+    visit_cluster<PRIM_TRIANGLE, false>(base, mask, lane, g, R, t_min, tb, cb);
   }
 }
 
@@ -516,12 +482,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// The first real cluster at or after g (G if none).
-__device__ __forceinline__ int next_real(const Tables& T, int g) {
-  while (g < T.G && T.kinds[g] < 0) ++g;
-  return g;
-}
-
 template <int MODE>
 __global__ void __launch_bounds__(THREADS)
 sweep_kernel(Tables T, Slots S, const float* __restrict__ o, const float* __restrict__ d,
@@ -530,10 +490,7 @@ sweep_kernel(Tables T, Slots S, const float* __restrict__ o, const float* __rest
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = threadIdx.x & (WARP - 1);
   const long long warp0 = i - lane;  // the warp's first lane
-  constexpr int STAGE = MODE == MODE_DENSE ? K5_STAGE : K7_STAGE;
-  constexpr bool BLOCK_STAGE = STAGE == STAGE_BLOCK;
-  // a warp without lanes leaves, unless the block's barriers need it
-  if (!BLOCK_STAGE && warp0 >= n) return;
+  if (warp0 >= n) return;
   const bool active = i < n;
 
   Ray R;
@@ -560,86 +517,43 @@ sweep_kernel(Tables T, Slots S, const float* __restrict__ o, const float* __rest
 
   float tb = T_MISS;
   int cb = -1;
-  if constexpr (BLOCK_STAGE) {
-    // K5, every warp of the block on the real clusters in order; the next
-    // one's rows are staged while this one is swept
-    __shared__ __align__(16) float4 stage[2][QUADS * GROUP];
-    auto stage_rows = [&](float4* buf, int g) {
-      const int nq = row_quads(T.kinds[g]);
-      for (int q = 0; q < nq; ++q) {
-        cp_async16(buf + q * GROUP + threadIdx.x,
-                   T.rows + ((size_t)g * QUADS + q) * GROUP + threadIdx.x);
-      }
-    };
-    int cur = next_real(T, 0);
-    if (cur < T.G) stage_rows(stage[0], cur);
-    cp_async_commit();
-    for (int k = 0; cur < T.G; ++k) {
-      const int nxt = next_real(T, cur + 1);
-      if (nxt < T.G) stage_rows(stage[(k + 1) & 1], nxt);
-      cp_async_commit();
-      // this thread's copies of cur's rows have landed, the barrier shows
-      // every thread's; wait even when the block skips cur, so that no copy
-      // is still writing stage[k & 1] when k + 1 refills it
-      cp_async_wait<1>();
-      const bool pass = active && slab_pass8(T, cur, R, inv_d, t_min, tb);
-      if (__syncthreads_or(pass)) {
-        const unsigned mask = __ballot_sync(FULL, pass);
-        if (mask) {
-          visit<true>(stage[k & 1], T.kinds[cur], T.qflags[cur] != 0, mask, lane, cur, R,
-                      t_min, tb, cb);
-        }
-      }
-      // every thread is done with stage[k & 1] before k + 1 refills it; the
-      // per-lane sweep leaves the warp diverged, and the barrier is aligned
-      __syncwarp();
-      __syncthreads();
-      cur = nxt;
-    }
-    cp_async_wait<0>();
-  } else {
-    // K5 (every real cluster) or K7 (the kcap slots of the warp's block, rb
-    // a multiple of 32), each warp on its own
-    __shared__ __align__(16) float4 wstage[STAGE == STAGE_WARP ? THREADS / WARP : 1]
-                                          [STAGE == STAGE_WARP ? QUADS * GROUP : 1];
-    auto visit_rows = [&](int g, int kind, bool q, unsigned mask) {
-      const float4* rows = T.rows + (size_t)g * QUADS * GROUP;
-      if constexpr (STAGE == STAGE_WARP) {
-        float4* buf = wstage[threadIdx.x / WARP];
-        const int nq = row_quads(kind);
-        for (int k = 0; k < nq; ++k) {
+  // K5 (every real cluster) or K7 (the kcap slots of the warp's block, rb
+  // a multiple of 32), each warp on its own: a cluster its ballot passes
+  // is staged in the warp's shared memory, then swept from there
+  __shared__ __align__(16) float4 wstage[THREADS / WARP][QUADS * GROUP];
+  float4* buf = wstage[threadIdx.x / WARP];
+  auto visit_rows = [&](int g, int kind, bool q, unsigned mask) {
+    const float4* rows = T.rows + (size_t)g * QUADS * GROUP;
+    const int nq = row_quads(kind);
+    for (int k = 0; k < nq; ++k) {
 #pragma unroll
-          for (int c = 0; c < GROUP / WARP; ++c) {
-            cp_async16(buf + k * GROUP + c * WARP + lane, rows + k * GROUP + c * WARP + lane);
-          }
-        }
-        cp_async_commit();
-        cp_async_wait<0>();
-        __syncwarp();
-        visit<true>(buf, kind, q, mask, lane, g, R, t_min, tb, cb);
-        __syncwarp();  // the stage is refilled at the next visit
-      } else {
-        visit<false>(rows, kind, q, mask, lane, g, R, t_min, tb, cb);
+      for (int c = 0; c < GROUP / WARP; ++c) {
+        cp_async16(buf + k * GROUP + c * WARP + lane, rows + k * GROUP + c * WARP + lane);
       }
-    };
-    if constexpr (MODE == MODE_DENSE) {
-      for (int g = 0; g < T.G; ++g) {
-        const int kind = T.kinds[g];
-        if (kind < 0) continue;
-        const unsigned mask =
-            __ballot_sync(FULL, active && slab_pass8(T, g, R, inv_d, t_min, tb));
-        if (mask) visit_rows(g, kind, T.qflags[g] != 0, mask);
-      }
-    } else {
-      const long long base = (warp0 / S.rb) * S.kcap;
-      for (int j = 0; j < S.kcap; ++j) {
-        const int kind = S.words[S.W + base + j];
-        if (kind < 0) continue;
-        const int g = S.words[base + j];
-        const unsigned mask =
-            __ballot_sync(FULL, active && slab_pass8(T, g, R, inv_d, t_min, tb));
-        if (mask) visit_rows(g, kind, kind == PRIM_SPHERE, mask);
-      }
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncwarp();
+    visit(buf, kind, q, mask, lane, g, R, t_min, tb, cb);
+    __syncwarp();  // the stage is refilled at the next visit
+  };
+  if constexpr (MODE == MODE_DENSE) {
+    for (int g = 0; g < T.G; ++g) {
+      const int kind = T.kinds[g];
+      if (kind < 0) continue;
+      const unsigned mask =
+          __ballot_sync(FULL, active && slab_pass8(T, g, R, inv_d, t_min, tb));
+      if (mask) visit_rows(g, kind, T.qflags[g] != 0, mask);
+    }
+  } else {
+    const long long base = (warp0 / S.rb) * S.kcap;
+    for (int j = 0; j < S.kcap; ++j) {
+      const int kind = S.words[S.W + base + j];
+      if (kind < 0) continue;
+      const int g = S.words[base + j];
+      const unsigned mask =
+          __ballot_sync(FULL, active && slab_pass8(T, g, R, inv_d, t_min, tb));
+      if (mask) visit_rows(g, kind, kind == PRIM_SPHERE, mask);
     }
   }
 

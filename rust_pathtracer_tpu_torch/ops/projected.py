@@ -101,6 +101,9 @@ ROUTES = ("dense", "resident", "pairs")
 
 _RECT_FREE = {0: (1, 2), 1: (0, 2), 2: (0, 1)}
 WARP = 32  # lanes of a warp, for the plain sweep's count of warp visits
+# passing lanes of a warp from which K5 and K7 sweep a cluster per lane, the
+# warp cooperatively below (COOP_P of csrc/projected.cu)
+COOP_P = 24
 _TINY = 1e-30  # slab reciprocal clamp (projected.py:501-504)
 
 # lanes a block of the plain sweep (on the CPU, on the card): bounds its

@@ -1,10 +1,9 @@
 // The CUDA features that ops/csrc/projected.cu uses, emulated on the host so
 // that g++ can build the kernel source and run it on the CPU: one std::thread
 // a CUDA thread, blocks of 128 run one after another, warp collectives
-// (__ballot_sync, __shfl_sync, __shfl_xor_sync, __syncwarp) and block
-// barriers (__syncthreads, __syncthreads_or) through std::barrier.  The test
-// rewrites the source's launches to EMU_LAUNCH and its cp.async to a copy
-// (tests/test_torch_projected_rows.py).
+// (__ballot_sync, __shfl_sync, __shfl_xor_sync, __syncwarp) through
+// std::barrier.  The test rewrites the source's launches to EMU_LAUNCH and
+// its cp.async to a copy (tests/test_torch_projected_rows.py).
 #pragma once
 #include <barrier>
 #include <cmath>
@@ -34,8 +33,6 @@ template <class T> T __ldg(const T* p) { return *p; }
 
 struct Warp { std::barrier<>* bar; uint32_t slot[32]; };
 inline Warp g_warps[4];
-inline std::barrier<>* g_block;
-inline uint32_t g_bslot[128];
 inline int lane_id() { return threadIdx.x & 31; }
 template <class T> T xchg(T v, int src) {
   Warp& w = g_warps[threadIdx.x / 32];
@@ -60,22 +57,11 @@ inline unsigned __ballot_sync(unsigned, int p) {
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return __builtin_ffs(x); }
 inline void __syncwarp() { g_warps[threadIdx.x / 32].bar->arrive_and_wait(); }
-inline void __syncthreads() { g_block->arrive_and_wait(); }
-inline int __syncthreads_or(int p) {
-  g_bslot[threadIdx.x] = p ? 1 : 0;
-  g_block->arrive_and_wait();
-  int r = 0;
-  for (int t = 0; t < 128; ++t) r |= g_bslot[t];
-  g_block->arrive_and_wait();
-  return r;
-}
 inline void emu_launch(long long blocks, std::function<void()> f) {
   for (long long b = 0; b < blocks; ++b) {
-    std::barrier<> blk(128);
     std::barrier<> w0(32), w1(32), w2(32), w3(32);
     std::barrier<>* wb[4] = {&w0, &w1, &w2, &w3};
     for (int w = 0; w < 4; ++w) g_warps[w].bar = wb[w];
-    g_block = &blk;
     std::vector<std::thread> th;
     for (unsigned t = 0; t < 128; ++t)
       th.emplace_back([&, t, b] { threadIdx.x = t; blockIdx.x = (unsigned)b; f(); });

@@ -406,7 +406,7 @@ def test_projected_kernels_match_plain_on_gpu(streamed):
     stats = {}
     P.projected_sweep_plain(tables, o, d, T_MIN, stats=stats)
     visits = stats["warp_visits"]
-    assert visits[1] > 0 and sum(visits[24:]) > 0, visits
+    assert visits[1] > 0 and sum(visits[P.COOP_P:]) > 0, visits
 
 
 @pytest.mark.cuda

@@ -13,8 +13,9 @@ Tolerances and why: everything here is EQUAL, bit for bit.
 * the warp-cooperative visit's (value, column) minimum is the sequential
   strict-< scan's result whenever no value is NaN, ties included;
 * ``ops/csrc/projected.cu`` built with g++ against an emulation of the
-  warp (``tests/cuda_emu.h``) equals the plain versions, in each of its
-  compile-time variants.
+  warp (``tests/cuda_emu.h``) equals the plain versions, as it stands and
+  with its switch to the cooperative sweep moved so that every visit
+  takes one sweep.
 """
 
 import ctypes
@@ -382,23 +383,24 @@ def test_cooperative_visit_equals_sequential_take(pool):
 # the kernel source, built with g++ on an emulated warp
 # ---------------------------------------------------------------------------
 
-EMU_VARIANTS = {
-    "defaults": (),
-    "per_lane_always": ("-DPROJ_COOP_P=1",),
-    "cooperative_always": ("-DPROJ_COOP_P=33",),
-    "k5_block_k7_l1": ("-DPROJ_K5_STAGE=1", "-DPROJ_K7_STAGE=0"),
-    "k5_l1": ("-DPROJ_K5_STAGE=0",),
-    "k5_warp": ("-DPROJ_K5_STAGE=2",),
-}
+# the source's COOP_P (None), and the test's copy with it moved so that
+# every visit takes the per-lane sweep (1) or the cooperative one (33): the
+# lane sets alone cannot hold each sweep to every visit
+EMU_COOP_P = {"defaults": None, "per_lane_always": 1, "cooperative_always": 33}
+COOP_P_LINE = re.compile(r"constexpr int COOP_P = (\d+);")
 
 
-def build_emulated(tmp_path, flags):
+def build_emulated(tmp_path, coop_p=None):
     """``ops/csrc/projected.cu`` with its launches run by ``emu_launch``
-    and its cp.async as a copy, built with g++ against tests/cuda_emu.h."""
+    and its cp.async as a copy (and COOP_P set to ``coop_p`` where given),
+    built with g++ against tests/cuda_emu.h."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("needs g++ to build the kernel source for the host")
     src = (CSRC / "projected.cu").read_text()
+    assert [int(x) for x in COOP_P_LINE.findall(src)] == [P.COOP_P]
+    if coop_p is not None:
+        src = COOP_P_LINE.sub(f"constexpr int COOP_P = {coop_p};", src)
     src, n_launch = re.subn(
         r"(sweep_kernel<MODE_[A-Z]+>|resident_kernel)<<<\(unsigned\)blocks, THREADS, 0, s>>>\(",
         r"EMU_LAUNCH(blocks, \1, ", src)
@@ -414,7 +416,7 @@ def build_emulated(tmp_path, flags):
     (tmp_path / "projected_emu.cc").write_text(src)
     so = tmp_path / "projected_emu.so"
     subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-                    "-Wno-unknown-pragmas", f"-I{inc}", *flags, "-o", str(so),
+                    "-Wno-unknown-pragmas", f"-I{inc}", "-o", str(so),
                     str(tmp_path / "projected_emu.cc")], check=True)
     lib = ctypes.CDLL(str(so))
     for fn, (argtypes, restype) in SIGNATURES["projected"].items():
@@ -443,13 +445,13 @@ def launch_emulated(lib, mode, tables, o, d, words=None, counts=None, kcap=0, rb
     return t, col, pay
 
 
-@pytest.mark.parametrize("variant", list(EMU_VARIANTS))
+@pytest.mark.parametrize("variant", list(EMU_COOP_P))
 def test_emulated_kernel_source_matches_plain(variant, tmp_path):
     """K5, K6 and K7 of the CUDA source, run on the CPU with one thread a
     CUDA thread, equal their plain versions bit for bit on a mixed table
     (with rects) and a streamed one, on camera and random lanes whose
     warps visit clusters with 1 to 32 passing lanes."""
-    lib = build_emulated(tmp_path, EMU_VARIANTS[variant])
+    lib = build_emulated(tmp_path, EMU_COOP_P[variant])
     rb = WL.WL_RB
     visits = np.zeros(33, np.int64)
     for tables in (_tables_of(mixed_scene(300, 40, 260, seed=5)),
@@ -477,4 +479,4 @@ def test_emulated_kernel_source_matches_plain(variant, tmp_path):
         for mode in (0, 1, 2):
             _bits_equal(got[mode], want[mode])
         assert (want[0][1] >= 0).sum() > 100
-    assert visits[1:8].sum() > 0 and visits[24:].sum() > 0
+    assert visits[1:8].sum() > 0 and visits[P.COOP_P:].sum() > 0
