@@ -48,8 +48,9 @@ checks them:
    median time over batches as bench.py takes it, segments/s, finite
    gradients, the keyed K1 with residuals and K2 launched 20 times a
    step, no tensor-op threefry in the bounce loop; the step's split by
-   CUDA events; K1-with-residuals and K2 per launch (events and profiler
-   device time) beside K1 and the plain versions at 1,048,576 lanes;
+   CUDA events; K1-with-residuals and K2 per launch (events, and profiler
+   device time: K2's two kernels summed) beside K1 and the plain versions
+   at 1,048,576 lanes;
 10. K4 and K3 against their plain versions on phase 3's 1,000,000 lanes,
     on the same CUDA tensors: hit, idx, the winner's kind, mat and front
     exact, floats within 1e-5 rel + 1e-6 abs apart from at most 10
@@ -83,13 +84,14 @@ checks them:
     (one chunk of 819,840 lanes), K6 once a bounce: segments/s, wall,
     finite, >= 0, deterministic; the 64x36 golden configuration on the
     card against the golden and against the CPU; K6 and K5 timed at its
-    first bounce, and the whole search there by route (the worklist
-    build and K6 against K5 alone); K5 held bit for bit and timed on the
-    lanes the frame searches at its second bounce (``path_lanes``);
+    first bounce, and the whole search there by route (K6 against K5,
+    equal results); K6 and K5 held bit for bit and timed on the lanes
+    the frame searches at its second bounce (``path_lanes``);
 16. ModelTest forward at 800x800, 20 bounces, 1 spp (K6 once a bounce);
     the 20,000-triangle mesh through the pair route: K7 launches and K5
     fallback launches (at least one K7 launch); K7 timed at its first
-    bounce, and each mesh's search there by route against K5 alone; the
+    bounce, and each mesh's search there by route against K5 alone; K6
+    on the lanes the 10k frame hands it at its second bounce; the
     kernel the path runs at the 20k frame's second bounce (K5, K7's
     fallback, where a block passes more than WL_KCAP clusters) and K7 at
     the first later bounce the path hands it, each held bit for bit and
@@ -538,7 +540,7 @@ def phase_serve(torch, device, card, serve, bench, time_reps):
 
     res = time_pair(torch, device, k1, plain, time_reps)
     k_ms, p_ms = statistics.mean(res["kernel"]), statistics.mean(res["plain"])
-    dev_ms, dev_held = _device_ms(torch, k1, time_reps, "fused_bounce_kernel")
+    dev_ms, dev_held = _device_ms(torch, k1, time_reps, ("fused_bounce_kernel",))
     b_ms, b_by = k1_bound(torch, args, kw, scene, residual_planes=0)
     log(f"K1 (keyed) at {lanes} lanes on {card}: {k_ms:.4f} ms per launch "
         f"(blocks {[round(x, 4) for x in res['kernel']]}; events around the "
@@ -934,10 +936,10 @@ def phase_bench_step(torch, device, card, time_reps):
     ms = {}
     for name in order:
         ms.setdefault(name, []).append(_time_ms(torch, device, fns[name], time_reps))
-    dev_ms = {name: (*_device_ms(torch, fns[name], time_reps, kernel), time_reps)
-              for name, kernel in (("K1", "fused_bounce_kernel"),
-                                   ("K1-res", "fused_bounce_kernel"),
-                                   ("K2", "fused_bounce_bwd_kernel"))}
+    dev_ms = {name: (*_device_ms(torch, fns[name], time_reps, kernels), time_reps)
+              for name, kernels in (("K1", ("fused_bounce_kernel",)),
+                                    ("K1-res", ("fused_bounce_kernel",)),
+                                    ("K2", K2_KERNELS))}
     for name, v in ms.items():
         dev = (f", {dev_ms[name][0]:.4f} ms device time (profiler, {dev_ms[name][1]} "
                f"of {time_reps} launches)" if name in dev_ms else "")
@@ -1438,8 +1440,8 @@ def lanes_per_visit(stats):
 
 
 def _sweep_fns(torch, tables, o, d):
-    """K5, K6 and K7 and their plain versions on (o, d), with the slot
-    tables of blocks of WL_RB lanes (K7: WL_KCAP slots where no block
+    """K5, K6 and K7 and their plain versions on (o, d), K7 with the slot
+    table of blocks of WL_RB lanes (WL_KCAP slots where no block
     overflows, else every cluster).  Returns {name: (kernel, plain,
     bytes of tables and slots read, note, per-cluster q-domain flags)}."""
     from rust_pathtracer_tpu_torch.integrator import T_MIN
@@ -1452,25 +1454,22 @@ def _sweep_fns(torch, tables, o, d):
     pad = torch.zeros((Rp - n, 3), device=o.device)
     op, dp = torch.cat([o, pad]), torch.cat([d, pad])
     G = tables.num_groups
-    meta6, _ = WL.build_pair_worklist(tables.cluster_bounds, tables.group_kinds, op, dp,
-                                      T_MIN, rb, G)
-    packed, counts = RS.pack_slots(meta6, Rp // rb)
     meta7, ov = WL.build_pair_worklist(tables.cluster_bounds, tables.group_kinds, op,
                                        dp, T_MIN, rb, WL.WL_KCAP)
     note7 = f"kcap {min(WL.WL_KCAP, G)}"
     if bool(ov):
-        meta7, note7 = meta6, f"kcap {G} (a block passes more than {WL.WL_KCAP})"
+        meta7, _ = WL.build_pair_worklist(tables.cluster_bounds, tables.group_kinds, op,
+                                          dp, T_MIN, rb, G)
+        note7 = f"kcap {G} (a block passes more than {WL.WL_KCAP})"
     q_always = tuple(k == 0 for k in tables.group_kinds)  # K6, K7: spheres in q
-    rows = table_bytes(tables, compact=True)
+    rows = table_bytes(tables)
     return {
         "K5": (lambda: P.projected_sweep(tables, o, d, T_MIN),
                lambda st=None: P.projected_sweep_plain(tables, o, d, T_MIN, stats=st),
                rows, "every cluster", tables.dense_q),
-        "K6": (lambda: RS.resident_sweep(tables, o, d, T_MIN, packed, counts, rb),
-               lambda st=None: RS.resident_sweep_plain(tables, o, d, T_MIN, packed,
-                                                       counts, rb, stats=st),
-               table_bytes(tables, compact=False) + nbytes(packed, counts), f"kcap {G}",
-               q_always),
+        "K6": (lambda: RS.resident_sweep(tables, o, d, T_MIN),
+               lambda st=None: RS.resident_sweep_plain(tables, o, d, T_MIN, stats=st),
+               rows, "every cluster", q_always),
         "K7": (lambda: WL.pair_sweep(tables, o, d, T_MIN, meta7, rb),
                lambda st=None: WL.pair_sweep_plain(tables, o, d, T_MIN, meta7, rb,
                                                    stats=st),
@@ -1478,14 +1477,10 @@ def _sweep_fns(torch, tables, o, d):
     }
 
 
-def table_bytes(tables, compact):
-    """The bytes of the tables a sweep's function reads once: the dense
-    a, b, const, payload and cluster AABBs (K6's sweep), or (K5, K7)
-    each real column's row words (ROW_WORDS) and payload row and each
-    real cluster's AABB."""
-    if not compact:
-        return nbytes(tables.a, tables.b, tables.const, tables.payload,
-                      tables.cluster_bounds)
+def table_bytes(tables):
+    """The bytes of the tables a sweep's function reads once: each real
+    column's row words (ROW_WORDS) and payload row and each real
+    cluster's AABB."""
     kinds = np.repeat(np.asarray(tables.group_kinds), 128)
     real = (kinds >= 0) & (tables.const[0].cpu().numpy() != np.float32(1e30))
     words = np.select([kinds == 0, kinds == 1, kinds == 2],
@@ -1566,8 +1561,8 @@ def time_sweep(torch, device, card, label, fns, tables, n_lanes, reps):
 
 
 def time_routes(torch, device, card, label, tables, o, d, routes, reps):
-    """The forward route's whole search on the same lanes, by route: the
-    worklist build and K6 ("resident") or K7 ("pairs") against K5 alone
+    """The forward route's whole search on the same lanes, by route: K6
+    ("resident") or the worklist build and K7 ("pairs") against K5 alone
     ("dense"), bit for bit equal on a one-p-block table (streamed tables:
     K5 may compare a sphere cluster in t where K7 does in q).  CUDA
     events; outside the paths' counted runs.  Returns {route: ms a call}."""
@@ -1672,12 +1667,14 @@ def phase_spherefield_forward(torch, device, card, scenes, reps):
                     scene.proj, lanes, reps)
     time_routes(torch, device, card, "SphereField first bounce", scene.proj, o, d,
                 ("resident", "dense"), reps)
-    # K5 on the lanes of the frame's second bounce (incoherent, dead lanes parked)
+    # K6 and K5 on the lanes of the frame's second bounce (incoherent, dead
+    # lanes parked)
     _, _, o2, d2 = path_lanes(torch, device, scene, sd, cfg, SF_BG, lambda b, k: b == 1)
     label = "SphereField bounce 2"
-    k5["later"] = [dict(time_sweep(torch, device, card, f"K5 {label}",
-                                   _sweep_fns(torch, scene.proj, o2, d2)["K5"], scene.proj,
-                                   lanes, reps), lanes=label)]
+    fns = _sweep_fns(torch, scene.proj, o2, d2)
+    for name, out in (("K6", k6), ("K5", k5)):
+        out["later"] = [dict(time_sweep(torch, device, card, f"{name} {label}", fns[name],
+                                        scene.proj, lanes, reps), lanes=label)]
     return dict(k6, launches=counts["K6"]), k5
 
 
@@ -1734,6 +1731,14 @@ def phase_modeltest_forward(torch, device, card, scenes, reps):
                              prng_key(cfg["seed"], device=device), cfg)
         time_routes(torch, device, card, f"{name} first bounce", scene.proj, o, d,
                     (route, "dense"), reps)
+        if name == "ModelTest":  # K6 on the lanes the 10k frame hands it at bounce 2
+            _, _, o2, d2 = path_lanes(torch, device, scene, sd, cfg, (1.0, 1.0, 1.0),
+                                      lambda b, k: b == 1)
+            label = "ModelTest bounce 2"
+            k6_later = [dict(time_sweep(
+                torch, device, card, f"K6 {label}",
+                _sweep_fns(torch, scene.proj, o2, d2)["K6"], scene.proj, lanes, reps),
+                lanes=label)]
     fns = _sweep_fns(torch, scene.proj, o, d)
     k7 = time_sweep(torch, device, card, "K7 ModelTest 20k first bounce", fns["K7"],
                     scene.proj, lanes, reps)
@@ -1752,8 +1757,9 @@ def phase_modeltest_forward(torch, device, card, scenes, reps):
             torch, device, card, f"{kname} {label}", _sweep_fns(torch, scene.proj, o2,
                                                                 d2)[kname],
             scene.proj, lanes, reps), lanes=label))
-    return dict(k7, launches=out["ModelTest 20k"]["K7"],
-                fallbacks=out["ModelTest 20k"]["K5"], later=later["K7"]), later["K5"]
+    return (dict(k7, launches=out["ModelTest 20k"]["K7"],
+                 fallbacks=out["ModelTest 20k"]["K5"], later=later["K7"]), later["K5"],
+            k6_later)
 
 
 def phase_spherefield_step(torch, device, card):
@@ -1940,15 +1946,17 @@ def _spread(v):
     return (max(v) - min(v)) / statistics.mean(v)
 
 
-def _device_ms(torch, fn, reps, kernel):
-    """Device time of one launch of the CUDA kernel whose name holds
-    ``kernel``, from ``torch.profiler``'s ``key_averages`` over ``reps``
-    calls of ``fn`` after a warm-up: the kernel's own time, without the
+def _device_ms(torch, fn, reps, kernels):
+    """Device time of one call of ``fn``, the sum over the CUDA kernels
+    it launches once a call, each named by a string its name holds
+    (``kernels``), from ``torch.profiler``'s ``key_averages`` over
+    ``reps`` calls after a warm-up: the kernels' own time, without the
     wrapper's host work that ``_time_ms``'s events also take in.  The
-    trace should hold all ``reps`` launches; where it drops some (one
-    call saw 19 of 20), the reading is taken once more, and if that
-    drops some too, the mean is over the launches it holds.  Returns
-    (ms, the launches the trace held); the kernels line shows both."""
+    trace should hold all ``reps`` launches of each; where it drops some
+    (one call saw 19 of 20), the reading is taken once more, and if that
+    drops some too, each kernel's mean is over the launches it holds.
+    Returns (ms, the fewest launches the trace held of one kernel); the
+    kernels line shows both."""
     from torch.profiler import ProfilerActivity, profile
 
     for attempt in range(2):
@@ -1958,18 +1966,22 @@ def _device_ms(torch, fn, reps, kernel):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        rows = [a for a in prof.key_averages()
-                if a.device_type.name == "CUDA" and kernel in a.key]
-        count = sum(a.count for a in rows)
-        if count == reps:
+        rows = {k: [a for a in prof.key_averages()
+                    if a.device_type.name == "CUDA" and k in a.key] for k in kernels}
+        counts = {k: sum(a.count for a in r) for k, r in rows.items()}
+        count = min(counts.values())
+        if all(c == reps for c in counts.values()):
             break
-        log(f"the profiler's trace held {count} of {reps} launches of {kernel}"
-            + ("; reading again" if attempt == 0 else "; the mean is over those"))
-    check(reps // 2 <= count <= reps,
-          f"the profiler saw {count} launches of {kernel}, want {reps}")
-    total = sum(getattr(a, "device_time_total", getattr(a, "cuda_time_total", 0.0))
-                for a in rows)
-    return total / 1e3 / count, count
+        log(f"the profiler's trace held {counts} launches of {reps}"
+            + ("; reading again" if attempt == 0 else "; the means are over those"))
+    check(all(reps // 2 <= c <= reps for c in counts.values()),
+          f"the profiler saw {counts} launches, want {reps} of each")
+    ms = 0.0
+    for k, r in rows.items():
+        total = sum(getattr(a, "device_time_total", getattr(a, "cuda_time_total", 0.0))
+                    for a in r)
+        ms += total / 1e3 / counts[k]
+    return ms, count
 
 
 def first_bounce_state(torch, o, d, lane_keys):
@@ -2072,6 +2084,9 @@ RECORD_OPS = {0: 12, 1: 6, 2: 0}
 RECORD_LANE_OPS = 20
 # K2 per lane (the per-lane VJP, fused_bounce_bwd.cu's header)
 K2_LANE_OPS = 150
+# K2's two CUDA kernels: the VJP with the per-block partial sums, and the
+# sum over blocks
+K2_KERNELS = ("fused_bounce_bwd_kernel", "reduce_partials_kernel")
 
 
 def bound(n_bytes, n_ops, n_int_ops=0):
@@ -2146,8 +2161,10 @@ def main() -> int:
     scenes = big_scenes(device)
     ph14 = phase_projected_vs_plain(torch, device, card, scenes, reps=20)
     k6, k5 = phase_spherefield_forward(torch, device, card, scenes, reps=20)
-    k7, k5_fallback = phase_modeltest_forward(torch, device, card, scenes, reps=20)
+    k7, k5_fallback, k6_later = phase_modeltest_forward(torch, device, card, scenes,
+                                                        reps=20)
     k5["later"] += k5_fallback
+    k6["later"] += k6_later
     k5["launches"] = phase_spherefield_step(torch, device, card)
 
     def sweep_err(kernel, main):
@@ -2161,8 +2178,8 @@ def main() -> int:
         # ms: CUDA events around the wrapper; device_ms: the kernel's own
         # device time (torch.profiler), where measured, and
         # device_ms_launches: [launches in its trace, launches asked for];
-        # later: K5's and K7's numbers on the lanes of later bounces of the
-        # frames that run them
+        # later: K5's, K6's and K7's numbers on the lanes of later bounces
+        # of the frames that run them
         dev = {} if device_ms is None else {"device_ms": device_ms[0],
                                             "device_ms_launches": list(device_ms[1:])}
         b2 = {} if later is None else {"later": [
@@ -2197,7 +2214,7 @@ def main() -> int:
               (k5["bound_ms"], k5["bound_by"]), later=k5["later"]),
         entry("resident_sweep (K6)", "projected.cu", "resident.py:69",
               k6["launches"], sweep_err("K6", k6), k6["ms"], k6["plain_ms"],
-              (k6["bound_ms"], k6["bound_by"])),
+              (k6["bound_ms"], k6["bound_by"]), later=k6["later"]),
         entry("pair_sweep (K7)", "projected.cu", "worklist.py:169",
               k7["launches"], sweep_err("K7", k7), k7["ms"], k7["plain_ms"],
               (k7["bound_ms"], k7["bound_by"]), later=k7["later"]),

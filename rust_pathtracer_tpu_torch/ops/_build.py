@@ -55,8 +55,9 @@ SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
         "error_string": ([_c_int], ctypes.c_char_p),
     },
     "fused_bounce_bwd": {
-        # n_lanes -> blocks of the launch (rows of the partials scratch)
-        "fused_bounce_bwd_blocks": ([ctypes.c_longlong], _c_int),
+        # n_lanes, n_prims -> blocks of the launch on the current device
+        # (columns of the partials scratch)
+        "fused_bounce_bwd_blocks": ([ctypes.c_longlong, _c_int], _c_int),
         # in_ptrs[28], out_ptrs[9], bg, mat_flags, n_prims, partials,
         # reduced, n_lanes, stream
         "fused_bounce_bwd_launch": (
@@ -77,11 +78,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
         "error_string": ([_c_int], ctypes.c_char_p),
     },
     "projected": {
-        # mode (0: K5, 1: K6, 2: K7), tab_ptrs[7], C, G, words, counts,
-        # kcap, rb, W, o, d, t_min, t_out, c_out, pay_out, n_lanes, stream
+        # mode (0: K5, 1: K6, 2: K7), tab_ptrs[5], C, G, words, kcap, rb,
+        # W, o, d, t_min, t_out, c_out, pay_out, n_lanes, stream
         "projected_launch": (
-            [_c_int, _c_void_p, _c_int, _c_int, _c_void_p, _c_void_p, _c_int,
-             _c_int, ctypes.c_longlong, _c_void_p, _c_void_p, ctypes.c_float,
+            [_c_int, _c_void_p, _c_int, _c_int, _c_void_p, _c_int, _c_int,
+             ctypes.c_longlong, _c_void_p, _c_void_p, ctypes.c_float,
              _c_void_p, _c_void_p, _c_void_p, ctypes.c_longlong, _c_void_p],
             _c_int,
         ),

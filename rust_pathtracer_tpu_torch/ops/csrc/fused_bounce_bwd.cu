@@ -13,17 +13,29 @@
 // The reductions: each hit lane owes its texture-value gradient to one
 // colour row (solid, checker-odd or checker-even) of its winning
 // primitive, each miss lane its radiance cotangent times its throughput
-// to the background.  That is (9P + 3) sums over all lanes.  Each block
-// stages a tile of 256 lanes' contributions in shared memory; thread s
-// owns slot s and adds the tile's lanes to its register in lane order.
-// Each block writes one row of partials; a second small kernel sums the
-// rows in block order.  No atomics: the result is the same bit for bit
-// on every run (the grid depends on the lane count only).
+// to the background.  That is (9P + 3) sums over all lanes, each in a
+// fixed order, with no atomics, so a result is the same bit for bit on
+// every run on one card (the grid depends on the lane count and the card):
+//   * per warp and tile of 32 lanes: __match_any_sync groups the lanes by
+//     key (group * P + primitive, -1 without a hit).  Where the whole warp
+//     holds one key, a __shfl_xor_sync tree sums its three values; else
+//     each group's leader (its lowest lane) adds its peers' values in lane
+//     order from the warp's staging row.  The leader adds the sums into
+//     the warp's own row of 9P + 3 slots in shared memory: one writer a
+//     slot, in tile order.  The three background sums take a
+//     __shfl_xor_sync tree, lane 0 the add.  No block barrier a tile;
+//   * at the end, the block sums its warps' rows in warp order into its
+//     column of the partials, (9P + 3, blocks);
+//   * reduce_partials_kernel: one warp a slot, lane l adds the blocks l,
+//     l + 32, ... in order, then a __shfl_xor_sync tree.
 //
 // What bounds it on the card: per lane 28 f32/int32 columns in (112 B)
 // and 9 out (36 B), about 155 MB a bounce at 1,048,576 lanes; the
-// arithmetic is about 150 flops a lane.  The reduction costs each slot
-// thread 256 shared-memory reads per tile.
+// arithmetic is about 150 flops a lane.  So the design keeps the loads in
+// flight: no barrier a tile, MIN_BLOCKS blocks of 8 warps an SM, and a
+// grid of WAVES x the card's resident blocks, sized from the card
+// (PERF.md gives the times of the grid choices and of the
+// one-barrier-a-tile scan by slot that this replaced).
 //
 // Numerics: build without --use_fast_math and with --fmad=false, so every
 // f32 op rounds as the plain version's does (IEEE division and sqrt, no
@@ -47,9 +59,13 @@ constexpr int MATF_METAL = 2, MATF_DIELECTRIC = 4;
 constexpr float SAFE_EPS = 1e-20f;
 constexpr int MAX_PRIMS = 128;
 constexpr int THREADS = 256;
-constexpr int MAX_SLOTS = 9 * MAX_PRIMS + 3;
-constexpr int SLOTS_PER_THREAD = (MAX_SLOTS + THREADS - 1) / THREADS;
-constexpr int MAX_BLOCKS = 132 * 4;
+constexpr int WARP = 32;
+constexpr int WARPS = THREADS / WARP;
+constexpr unsigned FULL = 0xffffffffu;
+// the grid: this many times the blocks the card holds at once, and the
+// blocks an SM should hold (at most 64 registers a thread); PERF.md
+constexpr int WAVES = 1;
+constexpr int MIN_BLOCKS = 4;
 
 constexpr int N_IN = 28;  // 10 residuals, d (3), thr (3), 12 cotangents
 constexpr int N_OUT = 9;  // g_o (3), g_d (3), g_thr (3)
@@ -76,23 +92,27 @@ __device__ __forceinline__ float col(const Columns& c, int k, long long i) {
   return static_cast<const float*>(c.in[k])[i];
 }
 
-__global__ void __launch_bounds__(THREADS)
+// The bytes of shared memory the main kernel takes for P primitives: each
+// warp's row of 9P + 3 slots.
+size_t rows_bytes(int P) { return (size_t)WARPS * (9 * P + 3) * sizeof(float); }
+
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 fused_bounce_bwd_kernel(Columns cols, const float* __restrict__ bg, int mat_flags,
                         int P, float* __restrict__ partials, long long n) {
-  __shared__ int s_key[THREADS];
-  __shared__ float s_val[3][THREADS + 1];  // +1: the rows fall in other banks
-  __shared__ float s_bg[3][THREADS + 1];
+  extern __shared__ float s_rows[];            // (WARPS, 9P + 3)
+  __shared__ float s_val[WARPS][3][WARP];      // a tile's texture values
   const int n_tex = 9 * P;
   const int n_slots = n_tex + 3;
   const int tid = threadIdx.x;
+  const int lane = tid & (WARP - 1), w = tid / WARP;
   const float bg0 = bg[0], bg1 = bg[1], bg2 = bg[2];
   const int* flags_col = static_cast<const int*>(cols.in[9]);
+  float* row = s_rows + w * n_slots;
+  for (int s = lane; s < n_slots; s += WARP) row[s] = 0.0f;
+  __syncwarp();
 
-  float acc[SLOTS_PER_THREAD];
-#pragma unroll
-  for (int k = 0; k < SLOTS_PER_THREAD; ++k) acc[k] = 0.0f;
-
-  // every thread of the block runs the same tiles (the syncs need that)
+  // every thread of the block runs the same tiles (the warp collectives
+  // and the closing barrier need that)
   for (long long base = (long long)blockIdx.x * THREADS; base < n;
        base += (long long)gridDim.x * THREADS) {
     const long long i = base + tid;
@@ -229,72 +249,109 @@ fused_bounce_bwd_kernel(Columns cols, const float* __restrict__ bg, int mat_flag
       gb2 = mf(miss) * th2 * gr2z;
     }
 
-    s_key[tid] = key;
-    s_val[0][tid] = gv0;
-    s_val[1][tid] = gv1;
-    s_val[2][tid] = gv2;
-    s_bg[0][tid] = gb0;
-    s_bg[1][tid] = gb1;
-    s_bg[2][tid] = gb2;
-    __syncthreads();
-    // slot s: texture row r = s / P (rows 21-29 of the packed table),
-    // primitive p = s % P; then the 3 background entries
+    // ---- the tile's share of the reductions, per warp ----------------
+    // texture slot of colour c: the packed table's row 21 + 3 group + c,
+    // primitive p: (3 group + c) P + p
+    const unsigned peers = __match_any_sync(FULL, key);
+    if (peers == FULL) {  // one key in the whole warp: a shuffle tree
 #pragma unroll
-    for (int k = 0; k < SLOTS_PER_THREAD; ++k) {
-      const int s = tid + k * THREADS;
-      if (s < n_tex) {
-        const int row = s / P;
-        const int want = (row / 3) * P + (s - row * P);
-        const float* vals = s_val[row % 3];
-        float sum = acc[k];
-        for (int l = 0; l < THREADS; ++l) {
-          if (s_key[l] == want) sum += vals[l];
+      for (int off = WARP / 2; off > 0; off >>= 1) {
+        gv0 += __shfl_xor_sync(FULL, gv0, off);
+        gv1 += __shfl_xor_sync(FULL, gv1, off);
+        gv2 += __shfl_xor_sync(FULL, gv2, off);
+      }
+      if (lane == 0 && key >= 0) {
+        const int group = key / P, prim = key - group * P;
+        row[(3 * group) * P + prim] += gv0;
+        row[(3 * group + 1) * P + prim] += gv1;
+        row[(3 * group + 2) * P + prim] += gv2;
+      }
+    } else {  // each group's leader adds its peers' values in lane order
+      s_val[w][0][lane] = gv0;
+      s_val[w][1][lane] = gv1;
+      s_val[w][2][lane] = gv2;
+      __syncwarp();
+      if (key >= 0 && lane == __ffs(peers) - 1) {
+        float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
+        for (unsigned m = peers; m; m &= m - 1) {
+          const int l = __ffs(m) - 1;
+          a0 += s_val[w][0][l];
+          a1 += s_val[w][1][l];
+          a2 += s_val[w][2][l];
         }
-        acc[k] = sum;
-      } else if (s < n_slots) {
-        const float* vals = s_bg[s - n_tex];
-        float sum = acc[k];
-        for (int l = 0; l < THREADS; ++l) sum += vals[l];
-        acc[k] = sum;
+        const int group = key / P, prim = key - group * P;
+        row[(3 * group) * P + prim] += a0;
+        row[(3 * group + 1) * P + prim] += a1;
+        row[(3 * group + 2) * P + prim] += a2;
       }
     }
-    __syncthreads();
+#pragma unroll
+    for (int off = WARP / 2; off > 0; off >>= 1) {
+      gb0 += __shfl_xor_sync(FULL, gb0, off);
+      gb1 += __shfl_xor_sync(FULL, gb1, off);
+      gb2 += __shfl_xor_sync(FULL, gb2, off);
+    }
+    if (lane == 0) {
+      row[n_tex] += gb0;
+      row[n_tex + 1] += gb1;
+      row[n_tex + 2] += gb2;
+    }
+    __syncwarp();  // the next tile's leader of a key may be another lane
   }
 
-#pragma unroll
-  for (int k = 0; k < SLOTS_PER_THREAD; ++k) {
-    const int s = tid + k * THREADS;
-    if (s < n_slots) partials[(long long)blockIdx.x * n_slots + s] = acc[k];
+  // the block's column of partials: its warps' rows summed in warp order
+  __syncthreads();
+  for (int s = tid; s < n_slots; s += THREADS) {
+    float sum = s_rows[s];
+    for (int k = 1; k < WARPS; ++k) sum += s_rows[k * n_slots + s];
+    partials[(long long)s * gridDim.x + blockIdx.x] = sum;
   }
 }
 
-// out[s] = sum of partials[:, s], in block order
-__global__ void reduce_partials_kernel(const float* __restrict__ partials, int n_blocks,
-                                       int n_slots, float* __restrict__ out) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+// out[s] = the sum of partials[s, :] (n_blocks a slot): one warp a slot,
+// lane l adding the blocks l, l + 32, ... in order, then a shuffle tree
+__global__ void __launch_bounds__(THREADS)
+reduce_partials_kernel(const float* __restrict__ partials, int n_blocks, int n_slots,
+                       float* __restrict__ out) {
+  const int s = (blockIdx.x * blockDim.x + threadIdx.x) / WARP;  // the warp's
+  const int lane = threadIdx.x & (WARP - 1);
   if (s >= n_slots) return;
+  const float* p = partials + (long long)s * n_blocks;
   float sum = 0.0f;
-  for (int b = 0; b < n_blocks; ++b) sum += partials[(long long)b * n_slots + s];
-  out[s] = sum;
+  for (int b = lane; b < n_blocks; b += WARP) sum += p[b];
+#pragma unroll
+  for (int off = WARP / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(FULL, sum, off);
+  if (lane == 0) out[s] = sum;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Blocks of the launch for n_lanes lanes: the rows of the partials scratch.
-int fused_bounce_bwd_blocks(long long n_lanes) {
-  if (n_lanes <= 0) return 0;
-  const long long blocks = (n_lanes + THREADS - 1) / THREADS;
-  return (int)(blocks < MAX_BLOCKS ? blocks : MAX_BLOCKS);
+// Blocks of the launch for n_lanes lanes and n_prims primitives on the
+// current device: WAVES times the blocks it holds at once, at most one a
+// tile of 256 lanes; the columns of the partials scratch.  0 on an error.
+int fused_bounce_bwd_blocks(long long n_lanes, int n_prims) {
+  if (n_lanes <= 0 || n_prims <= 0 || n_prims > MAX_PRIMS) return 0;
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_bounce_bwd_kernel,
+                                                    THREADS, rows_bytes(n_prims)) !=
+          cudaSuccess) {
+    return 0;
+  }
+  const long long tiles = (n_lanes + THREADS - 1) / THREADS;
+  const long long cap = (long long)WAVES * sms * (per_sm > 0 ? per_sm : 1);
+  return (int)(tiles < cap ? tiles : cap);
 }
 
 // Launch K2 on `stream`.  `in_ptrs` / `out_ptrs` are HOST arrays of 28 / 9
 // device column pointers (see Columns); `bg` (3,) f32, `partials`
-// (fused_bounce_bwd_blocks(n_lanes), 9 n_prims + 3) f32 scratch and
-// `reduced` (9 n_prims + 3,) f32 are device pointers.  `reduced` receives
-// the packed table's rows 21-29, row-major (9, n_prims), then the 3
-// background entries.  Returns the first nonzero cudaGetLastError() of
+// (9 n_prims + 3, fused_bounce_bwd_blocks(n_lanes, n_prims)) f32 scratch
+// and `reduced` (9 n_prims + 3,) f32 are device pointers.  `reduced`
+// receives the packed table's rows 21-29, row-major (9, n_prims), then the
+// 3 background entries.  Returns the first nonzero cudaGetLastError() of
 // the two launches: nonzero means the result is not there.
 int fused_bounce_bwd_launch(const void* const* in_ptrs, void* const* out_ptrs,
                             const float* bg, int mat_flags, int n_prims, float* partials,
@@ -306,14 +363,15 @@ int fused_bounce_bwd_launch(const void* const* in_ptrs, void* const* out_ptrs,
   Columns cols;
   for (int k = 0; k < N_IN; ++k) cols.in[k] = in_ptrs[k];
   for (int k = 0; k < N_OUT; ++k) cols.out[k] = static_cast<float*>(out_ptrs[k]);
-  const int blocks = fused_bounce_bwd_blocks(n_lanes);
+  const int blocks = fused_bounce_bwd_blocks(n_lanes, n_prims);
+  if (blocks <= 0) return (int)cudaErrorInvalidValue;
   const int n_slots = 9 * n_prims + 3;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  fused_bounce_bwd_kernel<<<blocks, THREADS, 0, s>>>(cols, bg, mat_flags, n_prims,
-                                                     partials, n_lanes);
+  fused_bounce_bwd_kernel<<<blocks, THREADS, rows_bytes(n_prims), s>>>(
+      cols, bg, mat_flags, n_prims, partials, n_lanes);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  reduce_partials_kernel<<<(n_slots + THREADS - 1) / THREADS, THREADS, 0, s>>>(
+  reduce_partials_kernel<<<(n_slots + WARPS - 1) / WARPS, THREADS, 0, s>>>(
       partials, blocks, n_slots, reduced);
   return (int)cudaGetLastError();
 }

@@ -11,41 +11,43 @@
 // resident_sweep_plain and pair_sweep_plain (../projected.py, ../resident.py,
 // ../worklist.py), all three one function, _sweep_plain.
 //
-// The sweep, one thread per lane: clusters (128-column groups, one primitive
-// type each) in ascending order; for each, the lane's slab test against the
-// cluster's AABB (entry clamped at t_min, exit at the lane's running best);
-// on a pass, the group's own formula on its 128 columns, the group minimum
-// at its lowest column, and a strict t < best take.  The modes differ only
-// in which clusters a lane visits and in two rules of their Pallas kernels:
+// The sweep: clusters (128-column groups, one primitive type each) in
+// ascending order; for each, the lane's slab test against the cluster's AABB
+// (entry clamped at t_min, exit at the lane's running best); on a pass, the
+// group's own formula on its 128 columns, the group minimum at its lowest
+// column, and the take.  The modes differ only in which clusters a lane
+// visits and in two rules of their Pallas kernels:
 //   K5: every cluster; spheres compare in q = t |d|^2 where qflags says so
 //       (the slot is sphere or padding in every p-block), else in t;
-//   K6: the first counts[block] packed slots (cid * 4 + kind) of the lane's
-//       block of rb lanes; spheres always in q; an equal t at a lower column
-//       is taken too (resident.py:159);
+//   K6: every cluster; spheres always in q; an equal t at a lower column is
+//       taken too (resident.py:159; a no-op in ascending order);
 //   K7: the kcap slots (cid row, kind row, kind -1 empty) of the block;
 //       spheres always in q.
+// The TPU's K6 sweeps the slots its block lists, because a grid step needs
+// a static slot list; here the warp's ballot below is that list, per warp.
+// A lane sweeps a cluster only where its own slab test passes at its
+// running best (nan_min(hi, tb) >= lo, which implies hi >= lo, the test
+// that lists the cluster for its block), so the block list removed nothing
+// the lane's own test keeps: K6 without it is the same sweep bit for bit.
 // The per-lane cull is conservative and the tie-break a no-op in ascending
 // order, so on a single-p-block table the three agree bit for bit.
 //
 // The projections are the 8-term products [ox oy oz dx dy dz 1 0] . a[j][.][c]
-// summed k = 0..7 in order, built with --fmad=false and without fast math, so
-// every f32 operation rounds as the plain version's does; max / min
+// summed k = 0..7 in order; the kernels sum only each type's nonzero terms,
+// in that order, and add +0: for finite rays the dense sum bit for bit
+// (../projected.py, module note).  Built with --fmad=false and without fast
+// math, so every f32 operation rounds as the plain version's does; max / min
 // propagate NaN as jnp.maximum / minimum; sqrtf and the divisions are IEEE.
-// K5 and K7 sum only each type's nonzero terms, in that order, and add +0:
-// for finite rays the dense sum bit for bit (../projected.py, module note).
 //
 // What bounds it on the card.  Per lane 24 B of rays in and 136 B out (t,
 // column, payload); per swept column the f32 operations of its type's
 // formula (chip_smoke.cluster_ops: ~20 a sphere, ~6 a rect, ~40 a
 // triangle), per visited cluster a slab test of 12.  The work depends on
-// the data: which clusters each lane's slab test passes.  The dense sweep,
-// which K6 keeps for now, is bound by instructions: every column costs
-// a lane 8 scalar loads a projection (17 a sphere column, 49-52 a rect or
-// triangle; each load one broadcast instruction for the warp) and the
-// full 8-term sums, and a warp sweeps a cluster for all 32 lanes when one
-// passes (on incoherent lanes, bounce 2 on, 1-12 lanes pass a warp visit).
-//
-// K5 and K7 do three things about it:
+// the data: which clusters each lane's slab test passes.  A dense per-lane
+// sweep is bound by instructions: 8 scalar loads a projection
+// (17 a sphere column, 49-52 a rect or triangle) and a whole warp on a
+// cluster when one lane passes it (on incoherent lanes 1-12 do).  The
+// kernels do three things about it:
 //   * compact rows: each column's nonzero coefficients in four 16-byte
 //     quads (ProjTables.rows, (G, 4, 128, 4): quad q of column j of
 //     cluster g at [g][q][j]), one quad a sphere, three a rect, four a
@@ -92,23 +94,18 @@ constexpr float TRI_DET_EPS = 1e-4f;
 constexpr float TINY = 1e-30f;
 
 struct Tables {
-  const float* a;        // (3, 8, C) origin projections (K6)
-  const float* b;        // (3, 8, C) direction projections (K6)
-  const float* k;        // (8, C) per-column constants (K6)
   const float* payload;  // (C, 32)
-  const float* bounds;   // (6, G) cluster AABBs: min xyz, max xyz (K6)
   const int* kinds;      // (G,) cluster kind, -1 = padding
   const int* qflags;     // (G,) K5: compare this sphere cluster in q
-  const float4* rows;    // (G, 4, 128) quads: the compact rows (K5, K7)
-  const float4* bounds8; // (G, 2) quads: min xyz, max xyz (K5, K7)
+  const float4* rows;    // (G, 4, 128) quads: the compact rows
+  const float4* bounds8; // (G, 2) quads: min xyz, max xyz
   int C, G;
 };
 
-struct Slots {
-  const int* words;   // K6: (W,) cid * 4 + kind; K7: (2, W) cid row, kind row
-  const int* counts;  // K6: (nblocks,) real slots a block
-  int kcap;           // slots a block
-  int rb;             // lanes a block
+struct Slots {          // K7's
+  const int* words;     // (2, W): cid row, kind row
+  int kcap;             // slots a block
+  int rb;               // lanes a block
   long long W;
 };
 
@@ -119,162 +116,6 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 __device__ __forceinline__ float nan_min(float a, float b) {
   return (a != a) ? a : ((b != b) ? b : (a < b ? a : b));
 }
-
-// ---------------------------------------------------------------------------
-// K6: the dense sweep, one thread per lane
-// ---------------------------------------------------------------------------
-
-// rays . m[j][.][c], the 8 terms in order, one multiply and one add each
-__device__ __forceinline__ float proj(const float* __restrict__ m, int C, int j, int c,
-                                      const float r[8]) {
-  const float* p = m + (size_t)j * 8 * C + c;
-  float acc = r[0] * p[0];
-#pragma unroll
-  for (int kk = 1; kk < 8; ++kk) acc = acc + r[kk] * p[(size_t)kk * C];
-  return acc;
-}
-
-struct Lane {
-  float r[8];
-  float o[3], inv_d[3];
-  float onorm, odot, dnorm, t_min, tmin_a;
-};
-
-// The slab test of cluster g at the running best tb.
-__device__ __forceinline__ bool slab_pass(const Tables& T, int g, const Lane& L,
-                                          float tb) {
-  float lo = L.t_min, hi = T_MISS;
-#pragma unroll
-  for (int ax = 0; ax < 3; ++ax) {
-    const float b0 = (T.bounds[ax * T.G + g] - L.o[ax]) * L.inv_d[ax];
-    const float b1 = (T.bounds[(3 + ax) * T.G + g] - L.o[ax]) * L.inv_d[ax];
-    lo = nan_max(lo, nan_min(b0, b1));
-    hi = nan_min(hi, nan_max(b0, b1));
-  }
-  return nan_min(hi, tb) >= lo;
-}
-
-// The group minimum of cluster g (q or t domain) and its lowest column.
-__device__ __forceinline__ void sweep_group(const Tables& T, int g, int kind, bool q,
-                                            const Lane& L, float& best, int& bj) {
-  best = T_MISS;
-  bj = 0;
-  const int C = T.C;
-  for (int j = 0; j < GROUP; ++j) {
-    const int c = g * GROUP + j;
-    const float k0 = T.k[c];
-    float val;
-    bool valid;
-    if (kind == PRIM_SPHERE) {
-      const float O0 = proj(T.a, C, 0, c, L.r);
-      const float D0 = proj(T.b, C, 0, c, L.r);
-      const float half_b = L.odot - D0;
-      const float cterm = L.onorm - 2.0f * O0 + k0;
-      const float dis = half_b * half_b - L.dnorm * cterm;
-      const float sqrtd = sqrtf((dis != dis || dis > 0.0f) ? dis : 0.0f);
-      float r1, r2, lim;
-      if (q) {
-        r1 = -half_b - sqrtd;
-        r2 = -half_b + sqrtd;
-        lim = L.tmin_a;
-      } else {
-        r1 = (-half_b - sqrtd) / L.dnorm;
-        r2 = (-half_b + sqrtd) / L.dnorm;
-        lim = L.t_min;
-      }
-      const bool ok1 = r1 >= lim;
-      val = ok1 ? r1 : r2;
-      valid = (dis >= 0.0f) & (ok1 | (r2 >= lim));
-    } else {
-      const float O0 = proj(T.a, C, 0, c, L.r), O1 = proj(T.a, C, 1, c, L.r);
-      const float O2 = proj(T.a, C, 2, c, L.r);
-      const float D0 = proj(T.b, C, 0, c, L.r), D1 = proj(T.b, C, 1, c, L.r);
-      const float D2 = proj(T.b, C, 2, c, L.r);
-      val = -O0 / D0;  // NaN / inf when parallel: the bounds tests fail
-      const float u = O1 + val * D1;
-      const float v = O2 + val * D2;
-      if (kind == PRIM_RECT) {
-        valid = (val >= L.t_min) & (u >= k0) & (u <= T.k[C + c]) &
-                (v >= T.k[2 * C + c]) & (v <= T.k[3 * C + c]);
-      } else {  // triangle: det = d . -n, the one-sided cull
-        const float det = -D0 * k0;
-        valid = (det >= TRI_DET_EPS) & (u >= 0.0f) & (u <= 1.0f) & (v >= 0.0f) &
-                (u + v <= 1.0f) & (val >= L.t_min);
-      }
-    }
-    const float tv = valid ? val : T_MISS;
-    if (tv < best) {
-      best = tv;
-      bj = j;
-    }
-  }
-}
-
-
-__global__ void __launch_bounds__(THREADS)
-resident_kernel(Tables T, Slots S, const float* __restrict__ o,
-                const float* __restrict__ d, float t_min, float* __restrict__ t_out,
-                int* __restrict__ c_out, float* __restrict__ pay_out, long long n) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Lane L;
-  const float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
-  const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
-  L.r[0] = ox; L.r[1] = oy; L.r[2] = oz;
-  L.r[3] = dx; L.r[4] = dy; L.r[5] = dz;
-  L.r[6] = 1.0f; L.r[7] = 0.0f;
-  L.o[0] = ox; L.o[1] = oy; L.o[2] = oz;
-  L.onorm = ox * ox + oy * oy + oz * oz;
-  L.odot = ox * dx + oy * dy + oz * dz;
-  L.dnorm = dx * dx + dy * dy + dz * dz;
-  L.t_min = t_min;
-  L.tmin_a = t_min * L.dnorm;
-  const float dd[3] = {dx, dy, dz};
-#pragma unroll
-  for (int ax = 0; ax < 3; ++ax) {
-    const float x = dd[ax];
-    const float ds = fabsf(x) < TINY ? (x < 0.0f ? -TINY : TINY) : x;
-    L.inv_d[ax] = 1.0f / ds;
-  }
-
-  float tb = T_MISS;
-  int cb = -1;
-  auto visit = [&](int g, int kind, bool q) {
-    if (!slab_pass(T, g, L, tb)) return;
-    float raw;
-    int bj;
-    sweep_group(T, g, kind, q, L, raw, bj);
-    const float gt = q ? (raw >= T_MISS ? T_MISS : raw / L.dnorm) : raw;
-    const int gcol = g * GROUP + bj;
-    bool take = gt < tb;
-    take = take | ((gt == tb) & (gcol < cb));
-    if (take) {
-      tb = gt;
-      cb = gcol;
-    }
-  };
-
-  const long long blk = i / S.rb;
-  const long long base = blk * S.kcap;
-  const int cnt = S.counts[blk];
-  for (int j = 0; j < cnt; ++j) {
-    const int w = S.words[base + j];
-    const int kind = w & 3;
-    visit((int)((unsigned)w >> 2), kind, kind == PRIM_SPHERE);
-  }
-
-  const bool hit = cb >= 0;
-  t_out[i] = hit ? tb : T_MISS;
-  c_out[i] = cb;
-  const float* row = T.payload + (size_t)(hit ? cb : 0) * PAY_W;
-  float* out = pay_out + (size_t)i * PAY_W;
-#pragma unroll 8
-  for (int w = 0; w < PAY_W; ++w) out[w] = hit ? row[w] : 0.0f;
-}
-
-// ---------------------------------------------------------------------------
-// K5 and K7: compact rows, the warp's visit
-// ---------------------------------------------------------------------------
 
 // A lane's ray and what its formulas read.
 struct Ray {
@@ -301,7 +142,8 @@ __device__ __forceinline__ Ray shfl_ray(const Ray& R, int src) {
 // the q domain) where the column is hit, else T_MISS.  ``p`` points at the
 // column's quad 0 in the warp's stage; quad q is q * GROUP quads on.  The
 // projections sum the nonzero terms in the dense order and add +0; the
-// formulas past them are sweep_group's, operation for operation.
+// formulas past them are _group_values's (../projected.py), operation for
+// operation.
 template <int KIND, bool Q>
 __device__ __forceinline__ float column_value(const float4* p, const Ray& R,
                                               float t_min) {
@@ -370,21 +212,24 @@ __device__ __forceinline__ float column_value(const float4* p, const Ray& R,
   }
 }
 
-// The take rule of K5 and K7: the group minimum (in the q domain divided by
-// |d|^2 once) replaces the running best on a strictly smaller t.
-template <bool Q>
+// The take: the group minimum (in the q domain divided by |d|^2 once)
+// replaces the running best on a strictly smaller t (K5, K7), or with TIE
+// (K6) also on an equal t at a lower column (resident.py:159; in ascending
+// order never true, kept as K6's rule).
+template <bool Q, bool TIE>
 __device__ __forceinline__ void take(float raw, int bj, int g, const Ray& R, float& tb,
                                      int& cb) {
   const float gt = Q ? (raw >= T_MISS ? T_MISS : raw / R.dnorm) : raw;
-  if (gt < tb) {
+  const int gcol = g * GROUP + bj;
+  if (gt < tb || (TIE && gt == tb && gcol < cb)) {
     tb = gt;
-    cb = g * GROUP + bj;
+    cb = gcol;
   }
 }
 
 // The warp's visit to cluster g, whose rows start at ``base``: ``mask``
 // holds the lanes whose slab test passed (non-zero, the same in every lane).
-template <int KIND, bool Q>
+template <int KIND, bool Q, bool TIE>
 __device__ __forceinline__ void visit_cluster(const float4* base, unsigned mask, int lane,
                                               int g, const Ray& R, float t_min,
                                               float& tb, int& cb) {
@@ -399,7 +244,7 @@ __device__ __forceinline__ void visit_cluster(const float4* base, unsigned mask,
         bj = j;
       }
     }
-    take<Q>(raw, bj, g, R, tb, cb);
+    take<Q, TIE>(raw, bj, g, R, tb, cb);
     return;
   }
   // warp-cooperative: the warp sweeps for one passing lane at a time
@@ -426,28 +271,29 @@ __device__ __forceinline__ void visit_cluster(const float4* base, unsigned mask,
         bc = oc;
       }
     }
-    if (lane == src) take<Q>(bv, bc, g, R, tb, cb);
+    if (lane == src) take<Q, TIE>(bv, bc, g, R, tb, cb);
   }
 }
 
+template <bool TIE>
 __device__ __forceinline__ void visit(const float4* base, int kind, bool q, unsigned mask,
                                       int lane, int g, const Ray& R, float t_min,
                                       float& tb, int& cb) {
   if (kind == PRIM_SPHERE) {
     if (q) {
-      visit_cluster<PRIM_SPHERE, true>(base, mask, lane, g, R, t_min, tb, cb);
+      visit_cluster<PRIM_SPHERE, true, TIE>(base, mask, lane, g, R, t_min, tb, cb);
     } else {
-      visit_cluster<PRIM_SPHERE, false>(base, mask, lane, g, R, t_min, tb, cb);
+      visit_cluster<PRIM_SPHERE, false, TIE>(base, mask, lane, g, R, t_min, tb, cb);
     }
   } else if (kind == PRIM_RECT) {
-    visit_cluster<PRIM_RECT, false>(base, mask, lane, g, R, t_min, tb, cb);
+    visit_cluster<PRIM_RECT, false, TIE>(base, mask, lane, g, R, t_min, tb, cb);
   } else {
-    visit_cluster<PRIM_TRIANGLE, false>(base, mask, lane, g, R, t_min, tb, cb);
+    visit_cluster<PRIM_TRIANGLE, false, TIE>(base, mask, lane, g, R, t_min, tb, cb);
   }
 }
 
-// The slab test of cluster g at the running best tb: slab_pass's arithmetic
-// on the two bound quads.
+// The slab test of cluster g at the running best tb (slab_bounds of
+// ../projected.py: bvh.rs:18-35) on the two bound quads.
 __device__ __forceinline__ bool slab_pass8(const Tables& T, int g, const Ray& R,
                                            const float inv_d[3], float t_min, float tb) {
   const float4 lo4 = __ldg(T.bounds8 + 2 * g), hi4 = __ldg(T.bounds8 + 2 * g + 1);
@@ -517,9 +363,9 @@ sweep_kernel(Tables T, Slots S, const float* __restrict__ o, const float* __rest
 
   float tb = T_MISS;
   int cb = -1;
-  // K5 (every real cluster) or K7 (the kcap slots of the warp's block, rb
-  // a multiple of 32), each warp on its own: a cluster its ballot passes
-  // is staged in the warp's shared memory, then swept from there
+  // K5 and K6 (every real cluster) or K7 (the kcap slots of the warp's
+  // block, rb a multiple of 32), each warp on its own: a cluster its ballot
+  // passes is staged in the warp's shared memory, then swept from there
   __shared__ __align__(16) float4 wstage[THREADS / WARP][QUADS * GROUP];
   float4* buf = wstage[threadIdx.x / WARP];
   auto visit_rows = [&](int g, int kind, bool q, unsigned mask) {
@@ -534,16 +380,17 @@ sweep_kernel(Tables T, Slots S, const float* __restrict__ o, const float* __rest
     cp_async_commit();
     cp_async_wait<0>();
     __syncwarp();
-    visit(buf, kind, q, mask, lane, g, R, t_min, tb, cb);
+    visit<MODE == MODE_RESIDENT>(buf, kind, q, mask, lane, g, R, t_min, tb, cb);
     __syncwarp();  // the stage is refilled at the next visit
   };
-  if constexpr (MODE == MODE_DENSE) {
+  if constexpr (MODE != MODE_PAIRS) {
     for (int g = 0; g < T.G; ++g) {
       const int kind = T.kinds[g];
       if (kind < 0) continue;
       const unsigned mask =
           __ballot_sync(FULL, active && slab_pass8(T, g, R, inv_d, t_min, tb));
-      if (mask) visit_rows(g, kind, T.qflags[g] != 0, mask);
+      const bool q = MODE == MODE_DENSE ? T.qflags[g] != 0 : kind == PRIM_SPHERE;
+      if (mask) visit_rows(g, kind, q, mask);
     }
   } else {
     const long long base = (warp0 / S.rb) * S.kcap;
@@ -576,53 +423,46 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 extern "C" {
 
 // Launch K5 (mode 0), K6 (mode 1) or K7 (mode 2) on `stream`.  `tab_ptrs` is
-// a HOST array of 9 device pointers: a, b, const, payload, cluster bounds
-// (f32), cluster kinds, K5 q flags (int32), the compact rows and the bound
-// quads (f32; ProjTables.rows, .bounds8); C columns, G = C / 128 clusters.
-// `words` / `counts` / `kcap` / `rb` / `W`: the worklist of K6 (packed words,
-// counts) or K7 (the (2, W) slot table, rb a multiple of 32; counts unused);
-// unused by K5.  `o`, `d`: (n_lanes, 3) f32; outputs t (f32), column (int32),
-// payload (n_lanes, 32) f32.  Returns cudaGetLastError() of the launch.
+// a HOST array of 5 device pointers: the payload (f32), cluster kinds, K5 q
+// flags (int32), the compact rows and the bound quads (f32; ProjTables.rows,
+// .bounds8); C columns, G = C / 128 clusters.  `words` / `kcap` / `rb` /
+// `W`: K7's (2, W) slot table, kcap slots a block of rb lanes (a multiple
+// of 32); unused by K5 and K6.  `o`, `d`: (n_lanes, 3) f32; outputs t (f32),
+// column (int32), payload (n_lanes, 32) f32.  Returns cudaGetLastError() of
+// the launch.
 int projected_launch(int mode, void* const* tab_ptrs, int C, int G, const int* words,
-                     const int* counts, int kcap, int rb, long long W, const float* o,
-                     const float* d, float t_min, float* t_out, int* c_out,
-                     float* pay_out, long long n_lanes, void* stream) {
+                     int kcap, int rb, long long W, const float* o, const float* d,
+                     float t_min, float* t_out, int* c_out, float* pay_out,
+                     long long n_lanes, void* stream) {
   if (mode < MODE_DENSE || mode > MODE_PAIRS || C <= 0 || C != G * GROUP ||
       n_lanes < 0) {
     return (int)cudaErrorInvalidValue;
   }
-  if (mode != MODE_DENSE &&
-      (words == nullptr || kcap <= 0 || rb <= 0 ||
-       (mode == MODE_RESIDENT && counts == nullptr) ||
-       (mode == MODE_PAIRS && rb % WARP != 0))) {
+  if (mode == MODE_PAIRS && (words == nullptr || kcap <= 0 || rb <= 0 || rb % WARP != 0)) {
     return (int)cudaErrorInvalidValue;
   }
-  if (!aligned16(tab_ptrs[3]) || !aligned16(tab_ptrs[7]) || !aligned16(tab_ptrs[8]) ||
+  if (!aligned16(tab_ptrs[0]) || !aligned16(tab_ptrs[3]) || !aligned16(tab_ptrs[4]) ||
       !aligned16(pay_out)) {
     return (int)cudaErrorMisalignedAddress;
   }
   if (n_lanes == 0) return (int)cudaSuccess;
   Tables T;
-  T.a = static_cast<const float*>(tab_ptrs[0]);
-  T.b = static_cast<const float*>(tab_ptrs[1]);
-  T.k = static_cast<const float*>(tab_ptrs[2]);
-  T.payload = static_cast<const float*>(tab_ptrs[3]);
-  T.bounds = static_cast<const float*>(tab_ptrs[4]);
-  T.kinds = static_cast<const int*>(tab_ptrs[5]);
-  T.qflags = static_cast<const int*>(tab_ptrs[6]);
-  T.rows = static_cast<const float4*>(tab_ptrs[7]);
-  T.bounds8 = static_cast<const float4*>(tab_ptrs[8]);
+  T.payload = static_cast<const float*>(tab_ptrs[0]);
+  T.kinds = static_cast<const int*>(tab_ptrs[1]);
+  T.qflags = static_cast<const int*>(tab_ptrs[2]);
+  T.rows = static_cast<const float4*>(tab_ptrs[3]);
+  T.bounds8 = static_cast<const float4*>(tab_ptrs[4]);
   T.C = C;
   T.G = G;
-  Slots S{words, counts, kcap, rb, W};
+  Slots S{words, kcap, rb, W};
   const long long blocks = (n_lanes + THREADS - 1) / THREADS;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mode == MODE_DENSE) {
     sweep_kernel<MODE_DENSE><<<(unsigned)blocks, THREADS, 0, s>>>(
         T, S, o, d, t_min, t_out, c_out, pay_out, n_lanes);
   } else if (mode == MODE_RESIDENT) {
-    resident_kernel<<<(unsigned)blocks, THREADS, 0, s>>>(T, S, o, d, t_min, t_out, c_out,
-                                                          pay_out, n_lanes);
+    sweep_kernel<MODE_RESIDENT><<<(unsigned)blocks, THREADS, 0, s>>>(
+        T, S, o, d, t_min, t_out, c_out, pay_out, n_lanes);
   } else {
     sweep_kernel<MODE_PAIRS><<<(unsigned)blocks, THREADS, 0, s>>>(
         T, S, o, d, t_min, t_out, c_out, pay_out, n_lanes);

@@ -17,8 +17,9 @@ The kernel also reduces what the bounce owes the scene: the texture
 colour rows of the packed table (each hit lane's value gradient, routed
 to its winning primitive's solid, checker-odd or checker-even row) and
 the background (each miss lane's radiance cotangent times its
-throughput).  On the card that is per-block partials summed in a fixed
-order, so the result is the same bit for bit on every run.
+throughput).  On the card that is per-warp sums folded into per-block
+partials, then summed by a second kernel, each step in a fixed order, so
+the result is the same bit for bit on every run on one card.
 
 ``fused_bounce_bwd`` dispatches on where its tensors lie: CUDA tensors
 launch the kernel (and count in ``launches``); CPU tensors run
@@ -245,14 +246,20 @@ def _launch(res, d, thr, cots, bg, mat_types, n_prims, R):
     dev = bg.device
     outs = torch.empty((len(_GRAD_KEYS), R), dtype=torch.float32, device=dev)
     n_slots = 9 * n_prims + 3
-    n_blocks = lib.fused_bounce_bwd_blocks(R)
-    partials = torch.empty((max(n_blocks, 1), n_slots), dtype=torch.float32,
-                           device=dev)
-    reduced = torch.zeros(n_slots, dtype=torch.float32, device=dev)
     in_ptrs = (ctypes.c_void_p * len(ins))(*[x.data_ptr() for x in ins])
     out_ptrs = (ctypes.c_void_p * len(_GRAD_KEYS))(
         *[outs[i].data_ptr() for i in range(len(_GRAD_KEYS))])
     with torch.cuda.device(dev):
+        n_blocks = lib.fused_bounce_bwd_blocks(R, n_prims)
+        if R and n_blocks <= 0:
+            raise RuntimeError("fused_bounce_bwd: no launch configuration for "
+                               f"{R} lanes and {n_prims} primitives on {dev}")
+        # one block of the caching allocator, no fill: the kernels write
+        # every word of the result (the first n_slots) and of the partials
+        buf = torch.empty(n_slots * (n_blocks + 1), dtype=torch.float32, device=dev)
+        reduced, partials = buf[:n_slots], buf[n_slots:]
+        if R == 0:
+            reduced.zero_()
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fused_bounce_bwd_launch(
             in_ptrs, out_ptrs, bg.data_ptr(),
@@ -261,6 +268,6 @@ def _launch(res, d, thr, cots, bg, mat_types, n_prims, R):
     if err != 0:
         raise RuntimeError(
             f"fused_bounce_bwd kernel launch failed: {lib.error_string(err).decode()}")
-    launches += 1
+    launches += R > 0
     grads = dict(zip(_GRAD_KEYS, outs.unbind(0)))
     return grads, reduced[:9 * n_prims].view(9, n_prims), reduced[9 * n_prims:]

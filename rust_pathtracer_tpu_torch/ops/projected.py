@@ -33,6 +33,12 @@ Pallas kernels run it:
   (``col_block`` columns), so on streamed tables (more than 16,384
   columns) K5 may differ from K6 / K7 in the last ulp of a sphere hit.
 
+K5 and K6 visit every cluster; K7 the slots of its block's worklist.
+The TPU's K6 sweeps the clusters its block of lanes lists, since a grid
+step needs a static slot list; on the card each warp's ballot of its
+lanes' slab tests is that list, so K6 needs no worklist (``resident.py``
+says why no bit moves).
+
 The projections are the 8-term dot products ``rays . a[j]``, summed
 k = 0..7 in order with no fused multiply-add, never a matmul.  The
 tables are sparse by type, so the sweep reads each column's nonzero
@@ -41,8 +47,8 @@ same order, then adds +0 (``_projections``).  For finite rays that is
 the dense sum bit for bit: a zero coefficient adds a product of +-0,
 which changes a running sum only where it is itself a zero, and then
 only its sign; the dense sum ends with the term 0 * 0 = +0, which turns
-a -0 into +0, as the closing +0 does.  So K5, K6 (which still sweeps
-the dense tables) and K7 agree with their plain version bit for bit.
+a -0 into +0, as the closing +0 does.  So K5, K6 and K7 agree with
+their plain version bit for bit.
 Against the JAX package (the MXU at HIGHEST, XLA's order) t agrees to
 ~1e-5.
 
@@ -126,7 +132,7 @@ class ProjTables:
     primitive type of each cluster, -1 = padding), ``shade_ready``
     (payload columns 16-31 hold a complete shading row), ``col_block``
     (columns of a p-block).  Derived on the tables' device: ``rows``
-    and ``bounds8``, what K5, K7 and the plain sweep read.
+    and ``bounds8``, what the kernels and the plain sweep read.
     """
 
     a: torch.Tensor
@@ -530,8 +536,8 @@ def _sweep_plain(tables: ProjTables, o, d, t_min, *, q_flags, listed=None,
     """The sweep of K5 / K6 / K7 in tensor ops; runs on any device.
 
     ``q_flags``: per cluster, compare in the q domain.  ``listed``: None
-    (every lane may visit every cluster: K5), or a (nblocks, G) bool of
-    the clusters each block of ``rb`` lanes lists (K6, K7).
+    (every lane may visit every cluster: K5, K6), or a (nblocks, G) bool
+    of the clusters each block of ``rb`` lanes lists (K7).
     ``tie_break``: K6's take rule, which also takes an equal t at a
     lower column (a no-op in ascending order, kept as the kernel has
     it).  Lanes run in chunks of PLAIN_CHUNK; a cluster no lane of a
@@ -648,20 +654,18 @@ def projected_sweep(tables: ProjTables, o, d, t_min):
     dev = check_inputs("projected_sweep", tables, o, d)
     if dev.type == "cpu":
         return projected_sweep_plain(tables, o, d, t_min)
-    kinds, qflags = tables.kernel_ints
-    out = launch_sweep("dense", tables, o, d, t_min, kinds, qflags)
+    out = launch_sweep("dense", tables, o, d, t_min)
     global launches
     launches += 1
     return out
 
 
-def launch_sweep(mode, tables: ProjTables, o, d, t_min, kinds, qflags,
-                 words=None, counts=None, kcap=0, rb=1):
+def launch_sweep(mode, tables: ProjTables, o, d, t_min, words=None, kcap=0, rb=1):
     """Launch one of the three kernels of ``csrc/projected.cu`` on the
-    current stream: ``mode`` "dense" (K5), "resident" (K6: ``words``
-    the packed slots, ``counts`` the real slots a block) or "pairs"
-    (K7: ``words`` the (2, W) slot table).  Returns (t, column,
-    payload); raises when the launch fails."""
+    current stream: ``mode`` "dense" (K5), "resident" (K6) or "pairs"
+    (K7: ``words`` the (2, W) slot table, ``kcap`` slots a block of
+    ``rb`` lanes).  Returns (t, column, payload); raises when the launch
+    fails."""
     import ctypes
 
     from rust_pathtracer_tpu_torch.ops._build import load_library
@@ -673,20 +677,19 @@ def launch_sweep(mode, tables: ProjTables, o, d, t_min, kinds, qflags,
     t = torch.empty(R, dtype=torch.float32, device=dev)
     col = torch.empty(R, dtype=torch.int32, device=dev)
     pay = torch.empty((R, PAY_W), dtype=torch.float32, device=dev)
-    tabs = [x.contiguous() for x in (tables.a, tables.b, tables.const,
-                                     tables.payload, tables.cluster_bounds)]
-    ptrs = (ctypes.c_void_p * 9)(*[x.data_ptr() for x in tabs],
-                                 kinds.data_ptr(), qflags.data_ptr(),
-                                 tables.rows.data_ptr(), tables.bounds8.data_ptr())
+    kinds, qflags = tables.kernel_ints
+    payload = tables.payload.contiguous()
+    ptrs = (ctypes.c_void_p * 5)(payload.data_ptr(), kinds.data_ptr(),
+                                 qflags.data_ptr(), tables.rows.data_ptr(),
+                                 tables.bounds8.data_ptr())
     W = 0 if words is None else words.shape[-1]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.projected_launch(
             ROUTES.index(mode), ptrs, tables.num_cols, tables.num_groups,
-            None if words is None else words.data_ptr(),
-            None if counts is None else counts.data_ptr(),
-            int(kcap), int(rb), W, o.data_ptr(), d.data_ptr(), float(t_min),
-            t.data_ptr(), col.data_ptr(), pay.data_ptr(), R, stream)
+            None if words is None else words.data_ptr(), int(kcap), int(rb), W,
+            o.data_ptr(), d.data_ptr(), float(t_min), t.data_ptr(), col.data_ptr(),
+            pay.data_ptr(), R, stream)
     if err != 0:
         raise RuntimeError(f"projected kernel ({mode}) launch failed: "
                            f"{lib.error_string(err).decode()}")

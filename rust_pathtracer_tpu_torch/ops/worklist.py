@@ -127,9 +127,8 @@ def pair_sweep(tables: ProjTables, o, d, t_min, meta, rb):
     if rb % 32:
         raise ValueError(f"pair_sweep: blocks of {rb} lanes; the kernel's warps of 32 "
                          f"need a multiple of 32")
-    kinds, qflags = tables.kernel_ints
-    out = launch_sweep("pairs", tables, o, d, t_min, kinds, qflags,
-                       words=meta.contiguous(), kcap=meta.shape[1] // nblocks, rb=rb)
+    out = launch_sweep("pairs", tables, o, d, t_min, words=meta.contiguous(),
+                       kcap=meta.shape[1] // nblocks, rb=rb)
     global launches
     launches += 1
     return out

@@ -1,22 +1,26 @@
-// The CUDA features that ops/csrc/projected.cu uses, emulated on the host so
-// that g++ can build the kernel source and run it on the CPU: one std::thread
-// a CUDA thread, blocks of 128 run one after another, warp collectives
-// (__ballot_sync, __shfl_sync, __shfl_xor_sync, __syncwarp) through
-// std::barrier.  The test rewrites the source's launches to EMU_LAUNCH and
-// its cp.async to a copy (tests/test_torch_projected_rows.py).
+// The CUDA features that ops/csrc/projected.cu and ops/csrc/fused_bounce_bwd.cu
+// use, emulated on the host so that g++ can build a kernel source and run it
+// on the CPU: one std::thread a CUDA thread, blocks of up to 256 threads run
+// one after another, warp collectives (__ballot_sync, __match_any_sync,
+// __shfl_sync, __shfl_xor_sync, __syncwarp) and __syncthreads through
+// std::barrier.  The tests rewrite a source's launches to EMU_LAUNCH and
+// projected.cu's cp.async to a copy (tests/test_torch_projected_rows.py,
+// tests/test_torch_fused_bounce_bwd.py).  The card's attributes are those of
+// a small one: EMU_SMS multiprocessors, one resident block each.
 #pragma once
 #include <barrier>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
 #include <functional>
+#include <memory>
 #include <thread>
 #include <vector>
 #define __global__
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __shared__ static
 #define __align__(x) __attribute__((aligned(x)))
 #define __restrict__
@@ -24,15 +28,29 @@ struct float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 struct dim3v { unsigned x = 0, y = 0, z = 0; };
 inline thread_local dim3v threadIdx, blockIdx;
-inline dim3v blockDim{128, 1, 1};
+inline dim3v blockDim{128, 1, 1}, gridDim{1, 1, 1};
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorMisalignedAddress = 74 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emu"; }
+constexpr int EMU_SMS = 2;
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = EMU_SMS;
+  return cudaSuccess;
+}
+template <class K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
+  *n = 1;
+  return cudaSuccess;
+}
 template <class T> T __ldg(const T* p) { return *p; }
 
+constexpr int EMU_MAX_WARPS = 8;
 struct Warp { std::barrier<>* bar; uint32_t slot[32]; };
-inline Warp g_warps[4];
+inline Warp g_warps[EMU_MAX_WARPS];
+inline std::barrier<>* g_block_bar;
 inline int lane_id() { return threadIdx.x & 31; }
 template <class T> T xchg(T v, int src) {
   Warp& w = g_warps[threadIdx.x / 32];
@@ -54,18 +72,40 @@ inline unsigned __ballot_sync(unsigned, int p) {
   w.bar->arrive_and_wait();
   return m;
 }
+inline unsigned __match_any_sync(unsigned, int v) {
+  Warp& w = g_warps[threadIdx.x / 32];
+  w.slot[lane_id()] = (uint32_t)v;
+  w.bar->arrive_and_wait();
+  unsigned m = 0;
+  for (int l = 0; l < 32; ++l) m |= (unsigned)(w.slot[l] == (uint32_t)v) << l;
+  w.bar->arrive_and_wait();
+  return m;
+}
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return __builtin_ffs(x); }
 inline void __syncwarp() { g_warps[threadIdx.x / 32].bar->arrive_and_wait(); }
-inline void emu_launch(long long blocks, std::function<void()> f) {
+inline void __syncthreads() { g_block_bar->arrive_and_wait(); }
+// Runs `blocks` blocks of `threads` threads (a multiple of 32), one block at
+// a time.  A barrier waits for every thread of its warp or block, so a
+// kernel may return a thread early only where no later collective waits for
+// it (both sources return whole warps only).
+inline void emu_launch(long long blocks, unsigned threads, std::function<void()> f) {
+  const int nw = (int)threads / 32;
+  blockDim.x = threads;
+  gridDim.x = (unsigned)blocks;
   for (long long b = 0; b < blocks; ++b) {
-    std::barrier<> w0(32), w1(32), w2(32), w3(32);
-    std::barrier<>* wb[4] = {&w0, &w1, &w2, &w3};
-    for (int w = 0; w < 4; ++w) g_warps[w].bar = wb[w];
+    std::vector<std::unique_ptr<std::barrier<>>> wb;
+    for (int w = 0; w < nw; ++w) {
+      wb.push_back(std::make_unique<std::barrier<>>(32));
+      g_warps[w].bar = wb.back().get();
+    }
+    std::barrier<> block_bar((std::ptrdiff_t)threads);
+    g_block_bar = &block_bar;
     std::vector<std::thread> th;
-    for (unsigned t = 0; t < 128; ++t)
+    for (unsigned t = 0; t < threads; ++t)
       th.emplace_back([&, t, b] { threadIdx.x = t; blockIdx.x = (unsigned)b; f(); });
     for (auto& x : th) x.join();
   }
 }
-#define EMU_LAUNCH(blocks, fn, ...) emu_launch(blocks, [&] { fn(__VA_ARGS__); })
+#define EMU_LAUNCH(blocks, threads, fn, ...) \
+  emu_launch(blocks, threads, [&] { fn(__VA_ARGS__); })

@@ -386,12 +386,10 @@ def test_projected_kernels_match_plain_on_gpu(streamed):
         meta, _ = WL.build_pair_worklist(tables.cluster_bounds, tables.group_kinds,
                                          torch.cat([o, pad]), torch.cat([d, pad]), T_MIN,
                                          rb, tables.num_groups)
-        packed, counts = RS.pack_slots(meta, Rp // rb)
         go, gd = o.cuda(), d.cuda()
         runs = {
-            "K5": (P, lambda t, a, b, *w: P.projected_sweep(t, a, b, T_MIN), ()),
-            "K6": (RS, lambda t, a, b, p, c: RS.resident_sweep(t, a, b, T_MIN, p, c, rb),
-                   (packed, counts)),
+            "K5": (P, lambda t, a, b: P.projected_sweep(t, a, b, T_MIN), ()),
+            "K6": (RS, lambda t, a, b: RS.resident_sweep(t, a, b, T_MIN), ()),
             "K7": (WL, lambda t, a, b, m: WL.pair_sweep(t, a, b, T_MIN, m, rb), (meta,)),
         }
         for name, (mod, fn, extra) in runs.items():

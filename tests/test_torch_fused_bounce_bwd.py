@@ -5,10 +5,12 @@ the JAX package's Pallas kernels, run by the Pallas interpreter
 (``interpret=True``, as the JAX package's own tests run them on the
 CPU), and through ``_bwd_xla``, the JAX package's jnp twin of the
 backward kernel.  The CUDA kernels are held against the plain versions
-by ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` on the card.
+by ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` on the card, and
+K2's source, built with g++ on an emulated card, here.
 """
 
 import dataclasses
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,7 @@ from rust_pathtracer_tpu.ops import fused_bounce as jfb
 from rust_pathtracer_tpu_torch.models import get_scene
 from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
 from rust_pathtracer_tpu_torch.ops import fused_bounce_bwd as fbb
+from rust_pathtracer_tpu_torch.ops._build import CSRC
 from test_fused_bounce import _full_scene as j_full_scene
 from test_torch_cuda import _bwd_inputs, _random_lanes, _t_inputs, t_full_scene
 
@@ -188,3 +191,95 @@ def test_fused_bounce_diff_ok():
     assert not fb.fused_bounce_diff_ok(t_full_scene())
     assert not fb.fused_bounce_diff_ok(
         dataclasses.replace(get_scene("CornellBox").build(), shade_static=False))
+
+
+# ---------------------------------------------------------------------------
+# the kernel source, built with g++ on an emulated card
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's tolerance of K2's reductions against the plain version:
+# the same values summed in another order (1e-5 rel + 1e-5 of the largest)
+K2_RTOL, K2_ATOL_REL = 1e-5, 1e-5
+EMU_PRIMS = 20  # CornellBox's width: up to 60 keys, so a warp can hold 32
+EMU_LANES = 256 * 6 + 17  # seven tiles, the last warp ragged
+
+
+def _emu_bwd_inputs():
+    """K2's arguments on EMU_LANES lanes: one bounce's residuals of the
+    full scene, whose flags each warp of 32 lanes rewrites by its index w:
+    w % 4 == 0, one key (hit, emission on) on every lane; 1, 32 distinct
+    keys; 2, all misses (alive, no hit); 3, the bounce's own flags."""
+    scene = t_full_scene()
+    cols, uni = _random_lanes(EMU_LANES, seed=17)
+    tcols, tuni = _t_inputs(cols, uni)
+    _, res = fb.fused_bounce_cols_plain(
+        fb.pack_prims_shaded(scene), torch.tensor(BG), scene.textures.perlin_seed,
+        tcols, *tuni, kinds=scene.kinds_static, mat_types=scene.mat_types,
+        tex_types=scene.tex_types, t_min=T_MIN, want_residuals=True)
+    flags = res["flags"].numpy().copy()
+    low = ((1 << fb.FLG_BESTI_SHIFT) - 1) & ~(fb.FLG_IS_CK | fb.FLG_SINES_NEG)
+    group_bits = (0, fb.FLG_IS_CK | fb.FLG_SINES_NEG, fb.FLG_IS_CK)
+    lanes = np.arange(EMU_LANES)
+    w = lanes // 32
+    key = np.where(w % 4 == 0, (w * 7) % (3 * EMU_PRIMS), lanes % 32)
+    hit_bits = np.asarray(group_bits)[key // EMU_PRIMS] | fb.FLG_HIT | fb.FLG_LIGHT_ON
+    forced = (flags & low) | hit_bits | ((key % EMU_PRIMS) << fb.FLG_BESTI_SHIFT)
+    flags = np.where(w % 4 < 2, forced, flags)
+    flags = np.where(w % 4 == 2, fb.FLG_ALIVE, flags).astype(np.int32)
+    res_np = {k: v.numpy() for k, v in res.items()}
+    res_np["flags"] = flags
+    return _bwd_inputs(res_np, cols, BG, seed=4)[:5], scene.mat_types
+
+
+def _launch_emulated_bwd(lib, args, mat_types):
+    """``fused_bounce_bwd._launch``'s call, on CPU tensors."""
+    import ctypes
+
+    res, d, thr, cots, bg = args
+    ins = ([res[k] for k in fb._RES_KEYS] + list(d) + list(thr)
+           + [cots[k] for k in fbb._COT_KEYS])
+    R, n_slots = EMU_LANES, 9 * EMU_PRIMS + 3
+    outs = torch.empty((len(fbb._GRAD_KEYS), R))
+    n_blocks = lib.fused_bounce_bwd_blocks(R, EMU_PRIMS)
+    buf = torch.full((n_slots * (n_blocks + 1),), float("nan"))
+    err = lib.fused_bounce_bwd_launch(
+        (ctypes.c_void_p * len(ins))(*[x.contiguous().data_ptr() for x in ins]),
+        (ctypes.c_void_p * len(outs))(*[x.data_ptr() for x in outs]), bg.data_ptr(),
+        fb._type_flags(mat_types, fb._MAT_BITS, "material"), EMU_PRIMS,
+        buf[n_slots:].data_ptr(), buf.data_ptr(), R, None)
+    assert err == 0
+    return outs, buf[:n_slots].clone(), n_blocks
+
+
+def test_emulated_kernel_source_matches_plain(tmp_path):
+    """``ops/csrc/fused_bounce_bwd.cu`` built with g++ against
+    tests/cuda_emu.h (blocks of 256 threads, __syncthreads,
+    __match_any_sync), its grid of 2 blocks walking 7 tiles, against
+    ``fused_bounce_bwd_plain`` on lanes whose warps hold one key, 32
+    distinct keys, only misses or the bounce's own mix, the last warp
+    ragged: the 9 cotangent columns bit for bit (the same IEEE
+    expressions; g++ contracts no multiply-add), the (9P + 3) reductions
+    within K2_RTOL / K2_ATOL_REL (the same values summed in another
+    order) and bit-equal across two runs."""
+    from test_torch_projected_rows import emu_build
+
+    src = (CSRC / "fused_bounce_bwd.cu").read_text()
+    src, n_smem = re.subn(r"extern __shared__ float s_rows\[\];",
+                          "static float s_rows[WARPS * (9 * MAX_PRIMS + 3)];", src)
+    lib, n_launch = emu_build(tmp_path, "fused_bounce_bwd", src)
+    assert n_launch == 2 and n_smem == 1
+    args, mat_types = _emu_bwd_inputs()
+    outs, red, n_blocks = _launch_emulated_bwd(lib, args, mat_types)
+    outs2, red2, _ = _launch_emulated_bwd(lib, args, mat_types)
+    assert n_blocks == 2
+    grads, g_tex, g_bg = fbb.fused_bounce_bwd_plain(*args, mat_types=mat_types,
+                                                    n_prims=EMU_PRIMS)
+    want = torch.stack([grads[k] for k in fbb._GRAD_KEYS])
+    assert torch.equal(outs.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(outs2.view(torch.int32), outs.view(torch.int32))
+    assert torch.equal(red.view(torch.int32), red2.view(torch.int32))
+    plain = torch.cat([g_tex.reshape(-1), g_bg]).double()
+    scale = float(plain.abs().max())
+    assert scale > 1.0 and int((plain != 0).sum()) > 3 * EMU_PRIMS
+    assert ((red.double() - plain).abs()
+            <= K2_RTOL * plain.abs() + K2_ATOL_REL * scale).all()

@@ -396,24 +396,20 @@ def test_plain_k5_streamed_matches_jax_kernel():
     assert torch.equal(k5[0][q_hit], k7[0][q_hit])
 
 
-def _k6_k7(tables, o, d, rb, kcap=None):
+def _k7(tables, o, d, rb, kcap=None):
     to, td = torch.from_numpy(o), torch.from_numpy(d)
-    G = tables.num_groups
-    meta, _ = WL.build_pair_worklist(tables.cluster_bounds, tables.group_kinds,
-                                     to, td, T_MIN, rb, G)
-    packed, counts = RS.pack_slots(meta, o.shape[0] // rb)
-    k6 = RS.resident_sweep(tables, to, td, T_MIN, packed, counts, rb)
     meta7, ov = WL.build_pair_worklist(tables.cluster_bounds, tables.group_kinds,
                                        to, td, T_MIN, rb, kcap or WL.WL_KCAP)
-    k7 = None if bool(ov) else WL.pair_sweep(tables, to, td, T_MIN, meta7, rb)
-    return k6, k7
+    return None if bool(ov) else WL.pair_sweep(tables, to, td, T_MIN, meta7, rb)
 
 
 @pytest.mark.parametrize("case", ["mixed", "sphere_only", "triangles", "parked"])
 def test_plain_k6_k7_equal_k5(case):
     """On single-p-block tables the plain K6 and K7 equal the plain K5
-    bit for bit (test_resident.py, test_worklist.py), at two block
-    sizes; parked lanes (origin 3e33 or 1e8) come back as misses."""
+    bit for bit (test_resident.py, test_worklist.py), K7 at two block
+    sizes (K6 has no blocks; test_torch_projected_rows.py holds it with
+    the TPU kernel's block list at both); parked lanes (origin 3e33 or
+    1e8) come back as misses."""
     n_s, n_r, n_t = {"mixed": (300, 40, 260), "sphere_only": (500, 0, 0),
                      "triangles": (0, 0, 400), "parked": (120, 10, 80)}[case]
     tables = P.build_projected(*prim_arrays(mixed_scene(SceneBuilder, n_s, n_r, n_t,
@@ -424,10 +420,10 @@ def test_plain_k6_k7_equal_k5(case):
         o[:512] = 1e8
         d[:512] = (0.0, 1.0, 0.0)
     k5 = sweep_t(tables, o, d)
+    assert_bitwise(RS.resident_sweep(tables, torch.from_numpy(o), torch.from_numpy(d),
+                                     T_MIN), k5)
     for rb in (32, 256):
-        k6, k7 = _k6_k7(tables, o, d, rb, kcap=tables.num_groups)
-        assert_bitwise(k6, k5)
-        assert_bitwise(k7, k5)
+        assert_bitwise(_k7(tables, o, d, rb, kcap=tables.num_groups), k5)
     if case == "parked":
         assert (k5[1][:512] == -1).all() and (k5[1][::7] == -1).all()
         assert (k5[1] >= 0).any()
@@ -466,9 +462,10 @@ def test_wrappers_raise_on_bad_inputs():
                           o, d, T_MIN)
     with pytest.raises(ValueError, match="slot table"):
         WL.pair_sweep(tables, o, d, T_MIN, torch.zeros((2, 3), dtype=torch.int32), 32)
-    with pytest.raises(ValueError, match="counts"):
-        RS.resident_sweep(tables, o, d, T_MIN, torch.zeros(8, dtype=torch.int32),
-                          torch.zeros(3, dtype=torch.int32), 32)
+    with pytest.raises(ValueError, match=r"\(R, 3\)"):
+        RS.resident_sweep(tables, o[:, :2], d[:, :2], T_MIN)
+    with pytest.raises(TypeError, match="float32"):
+        RS.closest_hit_resident(tables, o.double(), d.double(), T_MIN)
     with pytest.raises(ValueError, match="route"):
         P.closest_hit_routed(tables, o, d, T_MIN, route="bvh")
     with pytest.raises(ValueError, match="multiple"):

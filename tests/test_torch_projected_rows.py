@@ -1,5 +1,5 @@
 """The compact rows of the projected tables, the sparse plain sweep and the
-warp's visit of K5 and K7, on the CPU, without JAX.
+warp's visit of K5, K6 and K7, on the CPU, without JAX.
 
 Tolerances and why: everything here is EQUAL, bit for bit.
 
@@ -15,7 +15,9 @@ Tolerances and why: everything here is EQUAL, bit for bit.
 * ``ops/csrc/projected.cu`` built with g++ against an emulation of the
   warp (``tests/cuda_emu.h``) equals the plain versions, as it stands and
   with its switch to the cooperative sweep moved so that every visit
-  takes one sweep.
+  takes one sweep;
+* K6's plain sweep with the TPU kernel's block list equals it without
+  (the list removes nothing a lane's own slab test keeps).
 """
 
 import ctypes
@@ -388,57 +390,62 @@ def test_cooperative_visit_equals_sequential_take(pool):
 # lane sets alone cannot hold each sweep to every visit
 EMU_COOP_P = {"defaults": None, "per_lane_always": 1, "cooperative_always": 33}
 COOP_P_LINE = re.compile(r"constexpr int COOP_P = (\d+);")
+LAUNCH = re.compile(r"(\w+(?:<\w+>)?)<<<(.+?), THREADS, [^,]+, s>>>\(")
 
 
-def build_emulated(tmp_path, coop_p=None):
-    """``ops/csrc/projected.cu`` with its launches run by ``emu_launch``
-    and its cp.async as a copy (and COOP_P set to ``coop_p`` where given),
-    built with g++ against tests/cuda_emu.h."""
+def emu_build(tmp_path, name, src):
+    """A kernel source ``src`` (of ``ops/csrc/<name>.cu``, rewritten by the
+    caller where it needs to be) with its launches run by ``emu_launch``,
+    built with g++ against tests/cuda_emu.h and loaded with the library's
+    C signatures.  Returns (library, launches rewritten)."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("needs g++ to build the kernel source for the host")
+    src, n_launch = LAUNCH.subn(r"EMU_LAUNCH(\2, THREADS, \1, ", src)
+    inc = tmp_path / "inc"
+    inc.mkdir(exist_ok=True)
+    (inc / "cuda_runtime.h").write_text(
+        f'#include "{Path(__file__).resolve().parent / "cuda_emu.h"}"\n')
+    (tmp_path / f"{name}_emu.cc").write_text(src)
+    so = tmp_path / f"{name}_emu.so"
+    subprocess.run([cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
+                    "-pthread", "-Wno-unknown-pragmas", f"-I{inc}", "-o", str(so),
+                    str(tmp_path / f"{name}_emu.cc")], check=True)
+    lib = ctypes.CDLL(str(so))
+    for fn, (argtypes, restype) in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib, n_launch
+
+
+def build_emulated(tmp_path, coop_p=None):
+    """``ops/csrc/projected.cu`` with its cp.async as a copy (and COOP_P
+    set to ``coop_p`` where given), built by ``emu_build``."""
     src = (CSRC / "projected.cu").read_text()
     assert [int(x) for x in COOP_P_LINE.findall(src)] == [P.COOP_P]
     if coop_p is not None:
         src = COOP_P_LINE.sub(f"constexpr int COOP_P = {coop_p};", src)
-    src, n_launch = re.subn(
-        r"(sweep_kernel<MODE_[A-Z]+>|resident_kernel)<<<\(unsigned\)blocks, THREADS, 0, s>>>\(",
-        r"EMU_LAUNCH(blocks, \1, ", src)
     src, n_copy = re.subn(r'asm volatile\("cp\.async\.cg.*\);', "std::memcpy(dst, src, 16);",
                           src)
     src = re.sub(r"asm volatile\(.*\);", ";", src)
     src = src.replace("static_cast<unsigned>(__cvta_generic_to_shared(dst))", "0u")
+    lib, n_launch = emu_build(tmp_path, "projected", src)
     assert n_launch == 3 and n_copy == 1
-    inc = tmp_path / "inc"
-    inc.mkdir()
-    (inc / "cuda_runtime.h").write_text(
-        f'#include "{Path(__file__).resolve().parent / "cuda_emu.h"}"\n')
-    (tmp_path / "projected_emu.cc").write_text(src)
-    so = tmp_path / "projected_emu.so"
-    subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-                    "-Wno-unknown-pragmas", f"-I{inc}", "-o", str(so),
-                    str(tmp_path / "projected_emu.cc")], check=True)
-    lib = ctypes.CDLL(str(so))
-    for fn, (argtypes, restype) in SIGNATURES["projected"].items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = restype
     return lib
 
 
-def launch_emulated(lib, mode, tables, o, d, words=None, counts=None, kcap=0, rb=1):
+def launch_emulated(lib, mode, tables, o, d, words=None, kcap=0, rb=1):
     """``projected.launch_sweep``'s call, on CPU tensors."""
     R = o.shape[0]
     t = torch.empty(R)
     col = torch.empty(R, dtype=torch.int32)
     pay = torch.empty((R, P.PAY_W))
     kinds, qflags = tables.kernel_ints
-    tabs = (tables.a, tables.b, tables.const, tables.payload, tables.cluster_bounds,
-            kinds, qflags, tables.rows, tables.bounds8)
-    ptrs = (ctypes.c_void_p * 9)(*[x.data_ptr() for x in tabs])
+    tabs = (tables.payload, kinds, qflags, tables.rows, tables.bounds8)
+    ptrs = (ctypes.c_void_p * 5)(*[x.data_ptr() for x in tabs])
     err = lib.projected_launch(
         mode, ptrs, tables.num_cols, tables.num_groups,
-        None if words is None else words.data_ptr(),
-        None if counts is None else counts.data_ptr(), kcap, rb,
+        None if words is None else words.data_ptr(), kcap, rb,
         0 if words is None else words.shape[-1], o.data_ptr(), d.data_ptr(), T_MIN,
         t.data_ptr(), col.data_ptr(), pay.data_ptr(), R, None)
     assert err == 0
@@ -449,8 +456,8 @@ def launch_emulated(lib, mode, tables, o, d, words=None, counts=None, kcap=0, rb
 def test_emulated_kernel_source_matches_plain(variant, tmp_path):
     """K5, K6 and K7 of the CUDA source, run on the CPU with one thread a
     CUDA thread, equal their plain versions bit for bit on a mixed table
-    (with rects) and a streamed one, on camera and random lanes whose
-    warps visit clusters with 1 to 32 passing lanes."""
+    (with rects) and a streamed one, on camera and parked lanes whose
+    warps visit clusters with 1 to 32 passing lanes; K6 takes no slots."""
     lib = build_emulated(tmp_path, EMU_COOP_P[variant])
     rb = WL.WL_RB
     visits = np.zeros(33, np.int64)
@@ -465,18 +472,69 @@ def test_emulated_kernel_source_matches_plain(variant, tmp_path):
         meta, _ = WL.build_pair_worklist(tables.cluster_bounds, tables.group_kinds,
                                          torch.cat([o, pad]), torch.cat([d, pad]), T_MIN,
                                          rb, tables.num_groups)
-        packed, counts = RS.pack_slots(meta, nb)
         stats = {}
         want = {0: P.projected_sweep_plain(tables, o, d, T_MIN, stats=stats),
-                1: RS.resident_sweep_plain(tables, o, d, T_MIN, packed, counts, rb),
+                1: RS.resident_sweep_plain(tables, o, d, T_MIN),
                 2: WL.pair_sweep_plain(tables, o, d, T_MIN, meta, rb)}
         visits += stats["warp_visits"]
         got = {0: launch_emulated(lib, 0, tables, o, d),
-               1: launch_emulated(lib, 1, tables, o, d, packed, counts,
-                                  packed.shape[0] // nb, rb),
-               2: launch_emulated(lib, 2, tables, o, d, meta, None, meta.shape[1] // nb,
-                                  rb)}
+               1: launch_emulated(lib, 1, tables, o, d),
+               2: launch_emulated(lib, 2, tables, o, d, meta, meta.shape[1] // nb, rb)}
         for mode in (0, 1, 2):
             _bits_equal(got[mode], want[mode])
         assert (want[0][1] >= 0).sum() > 100
     assert visits[1:8].sum() > 0 and visits[P.COOP_P:].sum() > 0
+
+
+# ---------------------------------------------------------------------------
+# K6 without the TPU kernel's block list
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rb", [32, 256])
+@pytest.mark.parametrize("lanes", ["camera", "random", "parked"])
+@pytest.mark.parametrize("case", ["mixed", "streamed", "SphereField", "ModelTest"])
+def test_block_list_changes_no_bit(case, lanes, rb, tmp_path):
+    """K6's plain sweep with the block list the TPU kernel sweeps (every
+    cluster some lane of the block of ``rb`` lanes passes, the worklist
+    at capacity G) equals the sweep without it bit for bit: a lane's own
+    slab test at its running best implies the test that lists the
+    cluster.  The list does cut slab tests (the lanes of a block skip
+    clusters no lane of it passes), so the two runs differ in work."""
+    tables, sd, box = make_case(case, tmp_path)
+    o, d = lane_set(lanes, box, 1000, seed=len(case) * 3 + rb, sd=sd)
+    nb = -(-o.shape[0] // rb)
+    pad = torch.zeros((nb * rb - o.shape[0], 3))
+    meta, ov = WL.build_pair_worklist(tables.cluster_bounds, tables.group_kinds,
+                                      torch.cat([o, pad]), torch.cat([d, pad]), T_MIN, rb,
+                                      tables.num_groups)
+    assert not bool(ov)
+    listed = WL.listed_clusters(meta[WL.M_CID].view(nb, -1),
+                                meta[WL.M_KIND].view(nb, -1) >= 0, nb, tables.num_groups)
+    q = tuple(k == 0 for k in tables.group_kinds)
+    with_list, without = {}, {}
+    got = P._sweep_plain(tables, o, d, T_MIN, q_flags=q, listed=listed, rb=rb,
+                         tie_break=True, stats=with_list)
+    want = RS.resident_sweep_plain(tables, o, d, T_MIN, stats=without)
+    _bits_equal(got, want)
+    assert with_list["swept"] == without["swept"]
+    assert with_list["slab_tests"] <= without["slab_tests"]
+    if lanes != "parked":
+        assert (want[1] >= 0).sum() > 50
+
+
+def test_closest_hit_resident_builds_no_worklist(monkeypatch):
+    """The resident route runs K6 on the lanes as they are: no worklist
+    build, no slot packing (``pack_slots`` is gone), and the result of
+    the plain K6."""
+    def refuse(*a, **k):
+        raise AssertionError("the resident route built a worklist")
+
+    monkeypatch.setattr(WL, "build_pair_worklist", refuse)
+    monkeypatch.setattr(WL, "listed_clusters", refuse)
+    assert not hasattr(RS, "pack_slots") and not hasattr(RS, "build_pair_worklist")
+    tables = _tables_of(mixed_scene(300, 40, 260, seed=5))
+    o, d = lane_set("random", BOXES["mixed"], 700, seed=4)
+    got = P.closest_hit_routed(tables, o, d, T_MIN, "resident")
+    _bits_equal(got, RS.resident_sweep_plain(tables, o, d, T_MIN))
+    assert (got[1] >= 0).sum() > 50
