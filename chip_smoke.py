@@ -52,9 +52,11 @@ checks them:
    device time: K2's two kernels summed) beside K1 and the plain versions
    at 1,048,576 lanes;
 10. K4 and K3 against their plain versions on phase 3's 1,000,000 lanes,
-    on the same CUDA tensors: hit, idx, the winner's kind, mat and front
-    exact, floats within 1e-5 rel + 1e-6 abs apart from at most 10
-    sphere-uv seam lanes; each timed beside its plain version;
+    on the same CUDA tensors: hit, idx, the winner's kind, mat, front, t,
+    point and normal bit for bit, u and v within 1e-5 rel + 1e-6 abs
+    apart from at most 10 sphere-uv seam lanes; each timed beside its
+    plain version (events around the wrapper, and the kernel's device
+    time from ``torch.profiler``);
 11. the non-differentiable generic render of an image-textured scene
     (``tests/test_grad.py::_scene_simple``) at 854x480, 2 spp, 20
     bounces, one chunk: finite, >= 0, deterministic, K3 launched once a
@@ -168,8 +170,9 @@ LEAF_NAMES = ("tex_color", "tex_images", "background", "lookfrom", "lookat", "up
               "vfov_deg", "aspect", "aperture", "focus_dist")
 
 # K3 / K4 vs plain on the same CUDA tensors: the same IEEE expressions,
-# so floats within 1e-5 rel + 1e-6 abs; a sphere-uv seam lane (atan2 at
-# +-pi: u = 0 on one side, 1 on the other) may flip, at most this many
+# so t, point and normal bit for bit; a sphere's u and v (acosf, atan2f)
+# within 1e-5 rel + 1e-6 abs, and a sphere-uv seam lane (atan2 at +-pi:
+# u = 0 on one side, 1 on the other) may flip, at most this many
 CH_RTOL, CH_ATOL = 1e-5, 1e-6
 MAX_SEAM_LANES = 10
 # phase 11: tests/test_grad.py::_scene_simple at full width
@@ -981,10 +984,10 @@ def _hit_columns(rec_or_t, hit, idx, kinds):
 
 def compare_hits(name, kernel_out, plain_out, kinds):
     """Hold a K3 / K4 result against its plain version's: the exact part
-    equal on every lane; the floats within CH_RTOL rel + CH_ATOL abs,
-    apart from at most MAX_SEAM_LANES sphere-uv seam lanes (u = 0 on one
-    side, 1 on the other, where atan2 meets +-pi).  Returns the max abs
-    error outside the seam lanes."""
+    equal on every lane; t, point and normal bit for bit; u and v within
+    CH_RTOL rel + CH_ATOL abs, apart from at most MAX_SEAM_LANES sphere-uv
+    seam lanes (u = 0 on one side, 1 on the other, where atan2 meets
+    +-pi).  Returns the max abs error outside the seam lanes."""
     k_ex, k_fl = _hit_columns(kernel_out[3] if len(kernel_out) == 4 else kernel_out[1],
                               kernel_out[0], kernel_out[2], kinds)
     p_ex, p_fl = _hit_columns(plain_out[3] if len(plain_out) == 4 else plain_out[1],
@@ -993,6 +996,11 @@ def compare_hits(name, kernel_out, plain_out, kinds):
         bad = a != b
         log(f"{name} {label}: {int(bad.sum())} mismatches")
         check(not bad.any(), f"{name}: {label} differs from the plain version")
+    bits = k_fl.view(np.int32) != p_fl.view(np.int32)
+    log(f"{name} floats differing in any bit, by column (t, point, normal, u, v): "
+        f"{bits.sum(axis=0).tolist()}")
+    check(not bits[:, :7].any(), f"{name}: t, point or normal differ from the plain "
+          "version's in some bit")
     err = np.abs(k_fl.astype(np.float64) - p_fl)
     bad = (err > CH_ATOL + CH_RTOL * np.abs(p_fl)).any(axis=1)
     seam = np.zeros_like(bad)
@@ -1023,12 +1031,17 @@ def time_hits(torch, device, card, name, kernel, plain, args, kw, record, reps):
     b_ms, b_by = bound(nbytes(table, o, d) + out_bytes,
                        sweep_ops(kw["kinds"], lanes, record=record))
     k_ms, p_ms = statistics.mean(ms["kernel"]), statistics.mean(ms["plain"])
+    dev_ms, dev_held = _device_ms(torch, lambda: kernel(*args, **kw), reps,
+                                  ("closest_hit_kernel",))
     log(f"{name} at {lanes} lanes ({table.shape[1]} primitives) on {card}: "
         f"{k_ms:.4f} ms per launch (blocks of {reps}: "
-        f"{[round(x, 4) for x in ms['kernel']]}, spread {_spread(ms['kernel']):.3f}); "
+        f"{[round(x, 4) for x in ms['kernel']]}, spread {_spread(ms['kernel']):.3f}; "
+        f"events around the wrapper), {dev_ms:.4f} ms device time (profiler, "
+        f"{dev_held} of {reps} launches); "
         f"plain on the same CUDA tensors {p_ms:.4f} ms "
         f"({[round(x, 4) for x in ms['plain']]}); bound {b_ms:.4f} ms ({b_by})")
-    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+    return dict(ms=k_ms, device_ms=(dev_ms, dev_held, reps), plain_ms=p_ms,
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def phase_closest_hit_vs_plain(torch, device, card, n_lanes, time_reps):
@@ -2174,17 +2187,22 @@ def main() -> int:
         return max(errs)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound_,
-              device_ms=None, later=None):
+              device_ms=None, later=None, random=None):
         # ms: CUDA events around the wrapper; device_ms: the kernel's own
         # device time (torch.profiler), where measured, and
         # device_ms_launches: [launches in its trace, launches asked for];
         # later: K5's, K6's and K7's numbers on the lanes of later bounces
-        # of the frames that run them
+        # of the frames that run them; random: K3's and K4's on phase 10's
+        # 1,000,000 random lanes of the every-kind scene
         dev = {} if device_ms is None else {"device_ms": device_ms[0],
                                             "device_ms_launches": list(device_ms[1:])}
         b2 = {} if later is None else {"later": [
             {k: x[k] for k in ("lanes", "ms", "plain_ms", "bound_ms", "bound_by",
                                "lanes_per_visit")} for x in later]}
+        if random is not None:
+            b2["random"] = {"lanes": K1_LANES, "device_ms": random["device_ms"][0],
+                            **{k: random[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                      "bound_by")}}
         return {"name": name, "route": "cuda",
                 "source": f"rust_pathtracer_tpu_torch/ops/csrc/{source}",
                 "replaces": f"rust_pathtracer_tpu/ops/{replaces}", "launches": launches,
@@ -2205,10 +2223,12 @@ def main() -> int:
               step["bounds"]["K2"], step["device_ms"]["K2"]),
         entry("closest_hit_record (K3)", "closest_hit.cu", "pallas_intersect.py:196",
               k3["launches"], max(k3["max_abs_err"], ch10["K3"]["max_abs_err"]),
-              k3["ms"], k3["plain_ms"], (k3["bound_ms"], k3["bound_by"])),
+              k3["ms"], k3["plain_ms"], (k3["bound_ms"], k3["bound_by"]),
+              k3["device_ms"], random=ch10["K3"]),
         entry("closest_hit (K4)", "closest_hit.cu", "pallas_intersect.py:64",
               k4["launches"], max(k4["max_abs_err"], ch10["K4"]["max_abs_err"]),
-              k4["ms"], k4["plain_ms"], (k4["bound_ms"], k4["bound_by"])),
+              k4["ms"], k4["plain_ms"], (k4["bound_ms"], k4["bound_by"]),
+              k4["device_ms"], random=ch10["K4"]),
         entry("projected_sweep (K5)", "projected.cu", "projected.py:455",
               k5["launches"], sweep_err("K5", k5), k5["ms"], k5["plain_ms"],
               (k5["bound_ms"], k5["bound_by"]), later=k5["later"]),

@@ -19,9 +19,12 @@ Prints:
   profiler slows the host, so the idle share is an upper bound);
 * the device time by kernel and by host op (an op's row counts the
   kernels it launched), largest first, and the device time under
-  autograd's backward.
+  autograd's backward; with ``--kernel NAME``, the device time and
+  launches of the kernels whose name holds NAME.
 
-Exits non-zero without a GPU.  ModelTest renders
+Exits non-zero without a GPU.  ImageScene is the image-textured scene of
+``tests/test_grad.py::_scene_simple`` (chip_smoke.py's phase 11: the
+generic route, K3 at 3 primitives).  ModelTest renders
 ``scene.obj_loader.write_benchmark_obj``'s asset, ModelTest20k its
 20,000-triangle mesh (rows=101, cols=100: the pair route, K7).  CornellBox's frame is
 the serving shape (400x400, 60 spp in chunks of 6, 960,000 lanes a
@@ -48,11 +51,33 @@ SHAPES = {"SphereField": dict.fromkeys(("frame", "step"), (854, 480, 2, 20, 2)),
           "ModelTest": dict.fromkeys(("frame", "step"), (800, 800, 1, 20, 1)),
           "ModelTest20k": dict.fromkeys(("frame", "step"), (800, 800, 1, 20, 1)),
           "TwoSphereCheckers": dict.fromkeys(("frame", "step"), (854, 480, 2, 20, 2)),
+          "ImageScene": dict.fromkeys(("frame", "step"), (854, 480, 2, 20, 2)),
           "CornellBox": {"frame": (400, 400, 60, 20, 6), "step": (512, 512, 4, 20, 4)}}
 # write_benchmark_obj's arguments: its 10,080-triangle asset, and the
 # 20,000-triangle mesh whose frame takes K7 (and K5 where it overflows)
 MESHES = {"ModelTest": {}, "ModelTest20k": dict(rows=101, cols=100)}
 TOP = 20  # rows of each table
+# ImageScene: tests/test_grad.py::_scene_simple (chip_smoke.py's phase 11,
+# the generic route with K3 at 3 primitives): its camera and background
+IMAGE_CAM = ((0.0, 1.0, 2.0), (0.0, 0.5, -3.0), (0.0, 1.0, 0.0), 50.0, 854.0 / 480.0,
+             0.0, 10.0)
+IMAGE_BG = (0.1, 0.1, 0.1)
+
+
+def image_scene(dev):
+    """A lambertian sphere, a ground sphere with an 8x8 image ramp, a rect
+    light (tests/test_grad.py::_scene_simple)."""
+    import numpy as np
+
+    from rust_pathtracer_tpu_torch.scene.builder import SceneBuilder
+
+    b = SceneBuilder()
+    b.add_sphere((0.0, 0.5, -3.0), 0.5, b.lambertian((0.4, 0.5, 0.6)))
+    ramp = np.linspace(0.1, 0.9, 8 * 8 * 3).reshape(8, 8, 3).astype(np.float32)
+    b.add_sphere((0.0, -100.0, -3.0), 100.0, b.lambertian(b.image_texture(ramp)))
+    b.add_rect("xz", (-2.0, 4.0, -5.0), (2.0, 4.0, -1.0), -1.0,
+               b.diffuse_light((5.0, 5.0, 5.0)))
+    return b.build(use_bvh=False, device=dev)
 
 
 def busy_ms(events):
@@ -78,6 +103,9 @@ def main() -> int:
     p.add_argument("--mode", default="step", choices=["step", "frame"])
     p.add_argument("--root", default=REPO,
                    help="the checkout whose rust_pathtracer_tpu_torch to import")
+    p.add_argument("--kernel", action="append", default=[],
+                   help="also print the device time and launches of the kernels "
+                        "whose name holds this string (repeatable)")
     args = p.parse_args()
 
     root = os.path.abspath(args.root)
@@ -94,6 +122,7 @@ def main() -> int:
     print(card, flush=True)
     print(f"package from {root}", flush=True)
 
+    from rust_pathtracer_tpu_torch.camera import make_camera
     from rust_pathtracer_tpu_torch.grad import CameraParams, DiffParams, apply_params
     from rust_pathtracer_tpu_torch.models import get_scene
     from rust_pathtracer_tpu_torch.render import RenderSettings, render_radiance
@@ -106,19 +135,24 @@ def main() -> int:
         path = os.path.join(root, "output", "profile", f"{args.scene}.obj")
         write_benchmark_obj(path, **MESHES[args.scene])
         kw["obj_path"] = path
-    sd = get_scene("ModelTest" if args.scene.startswith("ModelTest") else args.scene, **kw)
     W, H, spp, nb, chunk = SHAPES[args.scene][args.mode]
     dev = "cuda"
-    scene = sd.build(device=dev)
-    bg = sd.output.image.background
+    if args.scene == "ImageScene":
+        scene, bg = image_scene(dev), IMAGE_BG
+        cam = make_camera(*IMAGE_CAM, device=dev)
+        cam_params = CameraParams.create(*IMAGE_CAM, device=dev)
+    else:
+        sd = get_scene("ModelTest" if args.scene.startswith("ModelTest") else args.scene,
+                       **kw)
+        scene, bg = sd.build(device=dev), sd.output.image.background
+        cam = sd.camera_at(0.0, device=dev)
+        cam_params = sd.camera_at(0.0, device=dev, make=CameraParams.create)
     settings = RenderSettings(W, H, spp, nb, bg, spp_chunk=chunk,
                               differentiable=args.mode == "step")
     key = prng_key(0, device=dev)
-    cam = sd.camera_at(0.0, device=dev)
     leaves = None
     if args.mode == "step":  # the camera's seven parameters as leaves too
-        params = DiffParams.from_scene(
-            scene, sd.camera_at(0.0, device=dev, make=CameraParams.create), bg)
+        params = DiffParams.from_scene(scene, cam_params, bg)
         leaves = [x.detach().clone().requires_grad_(True) for x in params.leaves()]
 
     def run():
@@ -163,6 +197,10 @@ def main() -> int:
     print(f"device time {sum(dev_ms(a) for a in kernels):.2f} ms in "
           f"{sum(a.count for a in kernels)} launches; under autograd's backward "
           f"{sum(dev_ms(a) for a in backward):.2f} ms")
+    for name in args.kernel:
+        rows = [a for a in kernels if name in a.key]
+        print(f"kernels holding {name!r}: {sum(dev_ms(a) for a in rows):.4f} ms in "
+              f"{sum(a.count for a in rows)} launches")
     for title, rows in (("kernels", kernels), ("host ops (their kernels' time)", ops)):
         print(f"{title} by device time, top {TOP}:")
         for a in rows[:TOP]:

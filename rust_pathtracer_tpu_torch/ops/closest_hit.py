@@ -28,6 +28,7 @@ tensors run the plain version; anything else raises.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -210,6 +211,22 @@ def closest_hit_record_plain(table, o, d, *, kinds, t_min):
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
+# The launch's one output buffer (``closest_hit_launch`` in
+# csrc/closest_hit.cu): R lanes rounded up to PAD_LANES (Rp), each plane at
+# a byte offset that is a multiple of 16.  name -> (offset in units of Rp,
+# bytes a lane, dtype); point and normal are (R, 3) row-major.
+PAD_LANES = 16
+K4_PLANES = {"t": (0, 4, torch.float32), "idx": (4, 4, torch.int32),
+             "hit": (8, 1, torch.bool)}
+K3_PLANES = {"point": (0, 12, torch.float32), "normal": (12, 12, torch.float32),
+             "t": (24, 4, torch.float32), "u": (28, 4, torch.float32),
+             "v": (32, 4, torch.float32), "idx": (36, 4, torch.int32),
+             "mat": (40, 4, torch.int32), "hit": (44, 1, torch.bool),
+             "front": (45, 1, torch.bool)}
+OUT_BYTES_A_LANE = {False: 9, True: 46}  # Rp times this is the buffer's size
+
+_entry = None  # the library's closest_hit_launch, looked up at first use
+
 
 def _check_inputs(name, table, o, d, kinds):
     dev = table.device
@@ -236,18 +253,16 @@ def closest_hit(table, o, d, *, kinds, t_min):
     """K4: the closest hit of each ray.  ``table`` (16, P) from
     ``pack_prims``; ``o``, ``d`` (R, 3) f32; ``kinds`` the scene's
     ``kinds_static``.  Returns ``(hit (R,) bool, t (R,) f32, idx (R,)
-    int32)`` with ``t = T_MISS`` and ``idx = 0`` on a miss."""
+    int32)`` with ``t = T_MISS`` and ``idx = 0`` on a miss.  On the card
+    ``o`` and ``d`` must start at a multiple of 16 bytes (fresh tensors
+    do)."""
     dev = _check_inputs("closest_hit", table, o, d, kinds)
     if dev.type == "cpu":
         return closest_hit_plain(table, o, d, kinds=kinds, t_min=t_min)
-    R = o.shape[0]
-    hit = torch.empty(R, dtype=torch.bool, device=dev)
-    t = torch.empty(R, dtype=torch.float32, device=dev)
-    idx = torch.empty(R, dtype=torch.int32, device=dev)
-    _launch("closest_hit", table, o, d, t_min, [hit, t, idx])
+    out = _launch("closest_hit", table, o, d, t_min, False)
     global hit_launches
-    hit_launches += 1
-    return hit, t, idx
+    hit_launches += o.shape[0] > 0
+    return out["hit"], out["t"], out["idx"]
 
 
 def closest_hit_record(table, o, d, *, kinds, t_min):
@@ -259,39 +274,61 @@ def closest_hit_record(table, o, d, *, kinds, t_min):
     dev = _check_inputs("closest_hit_record", table, o, d, kinds)
     if dev.type == "cpu":
         return closest_hit_record_plain(table, o, d, kinds=kinds, t_min=t_min)
-    R = o.shape[0]
-
-    def f32(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
-
-    hit = torch.empty(R, dtype=torch.bool, device=dev)
-    front = torch.empty(R, dtype=torch.bool, device=dev)
-    idx = torch.empty(R, dtype=torch.int32, device=dev)
-    mat = torch.empty(R, dtype=torch.int32, device=dev)
-    t, u, v, point, normal = f32(R), f32(R), f32(R), f32(R, 3), f32(R, 3)
-    _launch("closest_hit_record", table, o, d, t_min,
-            [hit, t, idx, point, normal, front, u, v, mat])
+    out = _launch("closest_hit_record", table, o, d, t_min, True)
     global record_launches
-    record_launches += 1
-    rec = HitRecord(valid=hit, t=t, point=point, normal=normal, front_face=front,
-                    u=u, v=v, mat=mat, prim=idx)
+    record_launches += o.shape[0] > 0
+    hit, t, idx = out["hit"], out["t"], out["idx"]
+    rec = HitRecord(valid=hit, t=t, point=out["point"], normal=out["normal"],
+                    front_face=out["front"], u=out["u"], v=out["v"], mat=out["mat"],
+                    prim=idx)
     return hit, t, idx, rec
 
 
-def _launch(name, table, o, d, t_min, outs):
-    import ctypes
+def check_aligned(name, o, d):
+    """Raises unless ``o`` and ``d`` start at a multiple of 16 bytes, as
+    the kernel's 16-byte copies of a tile's rays want (a fresh tensor
+    does; a view that starts inside a row may not)."""
+    if (o.data_ptr() | d.data_ptr()) % 16:
+        raise ValueError(f"{name}: rays at addresses {o.data_ptr():#x} and "
+                         f"{d.data_ptr():#x}; the kernel reads them in 16-byte "
+                         "copies and wants both at a multiple of 16 bytes")
 
-    from rust_pathtracer_tpu_torch.ops._build import load_library
 
-    lib = load_library("closest_hit")
+def carve(buf, R, record):
+    """The typed views of a launch's output buffer (``buf``, uint8 of
+    ``OUT_BYTES_A_LANE[record]`` x Rp bytes) over R lanes."""
+    rp = -(-R // PAD_LANES) * PAD_LANES
+    views = {}
+    for name, (at, width, dtype) in (K3_PLANES if record else K4_PLANES).items():
+        x = buf[at * rp:at * rp + width * R].view(dtype)
+        views[name] = x.view(R, 3) if width == 12 else x
+    return views
+
+
+def _launch(name, table, o, d, t_min, record):
+    """One launch of K3 (``record``) or K4 on CUDA tensors; returns the
+    output planes by name (``carve``)."""
+    global _entry
+    if _entry is None:
+        from rust_pathtracer_tpu_torch.ops._build import load_library
+
+        _entry = load_library("closest_hit").closest_hit_launch
     table, o, d = table.contiguous(), o.contiguous(), d.contiguous()
-    out_ptrs = (ctypes.c_void_p * len(outs))(*[x.data_ptr() for x in outs])
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.closest_hit_launch(
-            table.data_ptr(), table.shape[1], o.data_ptr(), d.data_ptr(),
-            float(t_min), int(name == "closest_hit_record"), out_ptrs,
-            o.shape[0], stream)
+    check_aligned(name, o, d)
+    R = o.shape[0]
+    dev = o.device
+    # one block of the caching allocator, no fill: the kernel writes every
+    # lane of every plane
+    buf = torch.empty(OUT_BYTES_A_LANE[record] * (-(-R // PAD_LANES) * PAD_LANES),
+                      dtype=torch.uint8, device=dev)
+    current = dev.index is None or dev.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if current else torch.cuda.device(dev):
+        err = _entry(table.data_ptr(), table.shape[1], o.data_ptr(), d.data_ptr(),
+                     float(t_min), int(record), buf.data_ptr(), R,
+                     torch.cuda.current_stream().cuda_stream)
     if err != 0:
+        from rust_pathtracer_tpu_torch.ops._build import load_library
+
         raise RuntimeError(f"{name} kernel launch failed: "
-                           f"{lib.error_string(err).decode()}")
+                           f"{load_library('closest_hit').error_string(err).decode()}")
+    return carve(buf, R, record)

@@ -1,12 +1,13 @@
-// The CUDA features that ops/csrc/projected.cu and ops/csrc/fused_bounce_bwd.cu
-// use, emulated on the host so that g++ can build a kernel source and run it
-// on the CPU: one std::thread a CUDA thread, blocks of up to 256 threads run
-// one after another, warp collectives (__ballot_sync, __match_any_sync,
-// __shfl_sync, __shfl_xor_sync, __syncwarp) and __syncthreads through
-// std::barrier.  The tests rewrite a source's launches to EMU_LAUNCH and
-// projected.cu's cp.async to a copy (tests/test_torch_projected_rows.py,
-// tests/test_torch_fused_bounce_bwd.py).  The card's attributes are those of
-// a small one: EMU_SMS multiprocessors, one resident block each.
+// The CUDA features that ops/csrc/projected.cu, ops/csrc/fused_bounce_bwd.cu
+// and ops/csrc/closest_hit.cu use, emulated on the host so that g++ can build
+// a kernel source and run it on the CPU: one std::thread a CUDA thread, blocks
+// of up to 256 threads run one after another, warp collectives
+// (__ballot_sync, __match_any_sync, __shfl_sync, __shfl_xor_sync, __syncwarp)
+// and __syncthreads through std::barrier.  The tests rewrite a source's
+// launches to EMU_LAUNCH and its cp.async to a copy
+// (tests/test_torch_projected_rows.py, tests/test_torch_fused_bounce_bwd.py,
+// tests/test_torch_closest_hit_emu.py).  The card's attributes are those of a
+// small one: EMU_SMS multiprocessors, one resident block each.
 #pragma once
 #include <barrier>
 #include <cmath>

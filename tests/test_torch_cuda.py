@@ -272,6 +272,43 @@ def test_closest_hit_kernels_match_plain_on_gpu():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 255, 257, 1000, 70001])
+def test_closest_hit_kernels_bitwise_on_gpu(n):
+    """K4 and K3 on the card against their plain versions on the same
+    CUDA tensors, at lane counts that leave a ragged last tile: every
+    output bit for bit, but a sphere's u and v (acosf / atan2f) within
+    1e-5 rel + 1e-6 abs; a view of the rays that starts one row in (12
+    bytes) raises before a launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    scene = t_full_scene()
+    cols, _ = _random_lanes(n, seed=n)
+    o = torch.from_numpy(cols[0:3].T.copy()).cuda()
+    d = torch.from_numpy(cols[3:6].T.copy()).cuda()
+    table = ch.pack_prims(scene.prims).cuda()
+    kw = dict(kinds=scene.kinds_static, t_min=T_MIN)
+    k4, p4 = ch.closest_hit(table, o, d, **kw), ch.closest_hit_plain(table, o, d, **kw)
+    k3, p3 = (ch.closest_hit_record(table, o, d, **kw),
+              ch.closest_hit_record_plain(table, o, d, **kw))
+    torch.cuda.synchronize()
+    for a, b in zip(k4, p4):
+        assert torch.equal(a, b)
+    sphere = p3[0] & (scene.prims.kind.cuda()[p3[2].long()] == 0)
+    for f in ("valid", "prim", "mat", "front_face", "t", "point", "normal", "u", "v"):
+        a, b = getattr(k3[3], f), getattr(p3[3], f)
+        keep = ~sphere if f in ("u", "v") else torch.ones_like(sphere)
+        assert torch.equal(a[keep], b[keep]), f
+        if f in ("u", "v"):
+            torch.testing.assert_close(a[sphere], b[sphere], rtol=1e-5, atol=1e-6)
+    if n > 1:
+        before = (ch.hit_launches, ch.record_launches)
+        for fn in (ch.closest_hit, ch.closest_hit_record):
+            with pytest.raises(ValueError, match="multiple of 16 bytes"):
+                fn(table, o[1:], d[1:], **kw)
+        assert (ch.hit_launches, ch.record_launches) == before
+
+
+@pytest.mark.cuda
 def test_generic_diff_step_on_gpu_matches_cpu():
     """A small differentiable TwoSphereCheckers step (generic route: K4
     once a bounce, never in the backward) on the card against the CPU:
