@@ -1,38 +1,35 @@
 #!/usr/bin/env python3
-"""K3's and K4's design choices, timed on one GPU: staging and grid.
+"""K3's and K4's design choices, timed on one GPU: grid, staging, wrapper.
 
-    python3 k34_variants.py [--parent DIR]
+    python3 k34_variants.py [--tree LABEL=DIR ...]
 
-K3 and K4 (``ops/csrc/closest_hit.cu``) stage a tile's rays in shared
-memory with 16-byte cp.async copies, stage K3's point and normal there
-and write them as 16-byte stores, and walk tiles in a grid of WAVES times
-the blocks the card holds at once.  This script copies
+K3 and K4 (``ops/csrc/closest_hit.cu``) load each lane's rays and store
+its outputs from the thread, and walk 256-lane tiles in a grid of WAVES
+times the blocks the card holds at once.  This script copies
 ``rust_pathtracer_tpu_torch`` under ``output/k34_variants/`` once a
 variant, with the source rewritten:
 
-* ``staged``: the source as it is;
+* ``committed``: the source as it is;
 * ``waves2``, ``waves4``: WAVES = 2, 4;
-* ``tile_a_block``: one block a tile of 256 lanes, no grid stride;
-* ``direct_in``: each thread loads its lane's rays from device memory
-  (6 loads at a 12-byte stride), K3's outputs staged as committed;
-* ``direct_out``: rays staged, K3's point and normal stored from each
-  thread at a 12-byte stride;
-* ``direct``: both (the kernel body before staging, with the new grid
-  and wrapper);
+* ``tile_a_block``: one block a tile of 256 lanes (no grid stride);
+* ``min_blocks8``: ``__launch_bounds__(256, 8)``, so the compiler keeps
+  each thread to 32 registers and the card holds 8 blocks an SM;
 
-and, with ``--parent``, a checkout of another commit as it is (e.g. one
-unpacked with ``git archive`` under ``output/``).  Each runs in its own
-process, in the order given and then back (A B ... B A), on three lane
-sets: chip_smoke.py's 1,000,000 random lanes of the every-kind scene (7
-primitives), the image scene's first bounce (phase 11: 819,840 lanes, 3
-primitives, K3's path) and TwoSphereCheckers' first bounce (phase 12:
-819,840 lanes, 2 primitives, K4's path).  On each, K3 and K4 are held
-against their plain versions on the same CUDA tensors
+and, with ``--tree LABEL=DIR`` (repeatable), other checkouts as they are
+(e.g. a parent commit unpacked with ``git archive`` under ``output/``).
+Each runs in its own process, in the order given and then back (A B ...
+B A), on three lane sets: chip_smoke.py's 1,000,000 random lanes of the
+every-kind scene (7 primitives), the image scene's first bounce (phase
+11: 819,840 lanes, 3 primitives, K3's path) and TwoSphereCheckers' first
+bounce (phase 12: 819,840 lanes, 2 primitives, K4's path).  On each, K3
+and K4 are held against their plain versions on the same CUDA tensors
 (``chip_smoke.compare_hits``) and timed: CUDA events around the wrapper
-(two blocks of 20 launches) and the kernel's device time
-(``torch.profiler``, 20 launches).  Prints one JSON line a run and writes
-them to ``output/k34_variants/runs.json``.  Exits non-zero without a GPU
-or when a check fails.
+(two blocks of 20 launches), the kernel's device time
+(``torch.profiler``, 20 launches) and the wrapper's host time a call
+(the host clock over 200 calls that are not waited for, the least of
+three runs).  Prints one JSON line a run and writes them to
+``output/k34_variants/runs.json``.  Exits non-zero without a GPU or when
+a check fails.
 """
 
 from __future__ import annotations
@@ -44,27 +41,19 @@ import re
 import shutil
 import subprocess
 import sys
+import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(REPO, "output", "k34_variants")
 PKG = "rust_pathtracer_tpu_torch"
 SRC = os.path.join("ops", "csrc", "closest_hit.cu")
-VARIANTS = {"staged": {}, "waves2": dict(waves=2), "waves4": dict(waves=4),
-            "tile_a_block": dict(waves=1 << 20), "direct_in": dict(direct_in=True),
-            "direct_out": dict(direct_out=True),
-            "direct": dict(direct_in=True, direct_out=True)}
+VARIANTS = {"committed": {}, "waves2": dict(waves=2), "waves4": dict(waves=4),
+            "tile_a_block": dict(waves=1 << 20), "min_blocks8": dict(min_blocks=8)}
 REPS = 20
+HOST_CALLS = 200
 
 
-def _sub(pattern, repl, src, count, name):
-    src, n = re.subn(pattern, repl, src)
-    if n != count:
-        raise SystemExit(f"k34_variants: the source no longer has what {name} rewrites "
-                         f"({pattern!r}: {n} matches, want {count})")
-    return src
-
-
-def make_variant(name, waves=None, direct_in=False, direct_out=False):
+def make_variant(name, waves=None, min_blocks=None):
     """A copy of the package with K3/K4's source rewritten; returns its root."""
     root = os.path.join(OUT, name)
     shutil.rmtree(root, ignore_errors=True)
@@ -73,21 +62,34 @@ def make_variant(name, waves=None, direct_in=False, direct_out=False):
     path = os.path.join(root, PKG, SRC)
     with open(path) as f:
         src = f.read()
+    n = 1
     if waves is not None:
-        src = _sub(r"constexpr int WAVES = \d+;", f"constexpr int WAVES = {waves};", src,
-                   1, name)
-    if direct_in:  # the lane's rays from device memory; dead lanes read nothing
-        src = _sub(r"\n    stage_in\(s_o, s_d, [^;]*;", "", src, 1, name)
-        src = _sub(r"s_([od])\[3 \* tid(?: \+ (\d))?\]",
-                   lambda m: f"(live ? {m[1]}[3 * i + {m[2] or 0}] : 0.0f)", src, 6, name)
-    if direct_out:  # K3's point and normal stored by each live lane
-        src = _sub(r"\n    stage_out\(outs\.point [^;]*;", "", src, 1, name)
-        src = _sub(r"s_([pn])\[3 \* tid(?: \+ (\d))?\] = ",
-                   lambda m: ("if (live) outs." + {"p": "point", "n": "normal"}[m[1]]
-                              + f"[3 * i + {m[2] or 0}] = "), src, 6, name)
+        src, n = re.subn(r"constexpr int WAVES = \d+;", f"constexpr int WAVES = {waves};",
+                         src)
+    if min_blocks is not None:
+        src, n = re.subn(r"__launch_bounds__\(THREADS\)",
+                         f"__launch_bounds__(THREADS, {min_blocks})", src)
+    if n != 1:
+        raise SystemExit(f"k34_variants: the source no longer has what {name} rewrites")
     with open(path, "w") as f:
         f.write(src)
     return root
+
+
+def host_ms(torch, fn):
+    """The host's ms a call of ``fn`` over HOST_CALLS calls that are not
+    waited for, the least of three runs: the wrapper's work, where the
+    device keeps up with it."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            fn()
+        best = min(best, (time.perf_counter() - t0) * 1e3 / HOST_CALLS)
+        torch.cuda.synchronize()
+    return best
 
 
 def lane_sets(cs, torch, dev):
@@ -149,7 +151,7 @@ def worker(root, label):
             ms = [cs._time_ms(torch, dev, fn, REPS) for _ in range(2)]
             dev_ms, held = cs._device_ms(torch, fn, REPS, ("closest_hit_kernel",))
             res[k] = dict(ms=ms, device_ms=dev_ms, device_launches=held,
-                          max_abs_err=err)
+                          host_ms=host_ms(torch, fn), max_abs_err=err)
         out[name] = res
     print(json.dumps(out), flush=True)
     return 0
@@ -157,7 +159,8 @@ def worker(root, label):
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--parent", help="another checkout's root, timed as it is")
+    p.add_argument("--tree", action="append", default=[], metavar="LABEL=DIR",
+                   help="another checkout's root, timed as it is (repeatable)")
     p.add_argument("--worker", nargs=2, metavar=("ROOT", "LABEL"), help=argparse.SUPPRESS)
     a = p.parse_args()
     if a.worker:
@@ -170,9 +173,9 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    roots = {name: make_variant(name, **kw) for name, kw in VARIANTS.items()}
-    if a.parent:
-        roots = {"parent": os.path.abspath(a.parent), **roots}
+    trees = dict(x.split("=", 1) for x in a.tree)
+    roots = {label: os.path.abspath(d) for label, d in trees.items()}
+    roots.update({name: make_variant(name, **kw) for name, kw in VARIANTS.items()})
     order = list(roots) + list(reversed(roots))
     runs, rc = [], 0
     for label in order:

@@ -253,9 +253,7 @@ def closest_hit(table, o, d, *, kinds, t_min):
     """K4: the closest hit of each ray.  ``table`` (16, P) from
     ``pack_prims``; ``o``, ``d`` (R, 3) f32; ``kinds`` the scene's
     ``kinds_static``.  Returns ``(hit (R,) bool, t (R,) f32, idx (R,)
-    int32)`` with ``t = T_MISS`` and ``idx = 0`` on a miss.  On the card
-    ``o`` and ``d`` must start at a multiple of 16 bytes (fresh tensors
-    do)."""
+    int32)`` with ``t = T_MISS`` and ``idx = 0`` on a miss."""
     dev = _check_inputs("closest_hit", table, o, d, kinds)
     if dev.type == "cpu":
         return closest_hit_plain(table, o, d, kinds=kinds, t_min=t_min)
@@ -284,24 +282,19 @@ def closest_hit_record(table, o, d, *, kinds, t_min):
     return hit, t, idx, rec
 
 
-def check_aligned(name, o, d):
-    """Raises unless ``o`` and ``d`` start at a multiple of 16 bytes, as
-    the kernel's 16-byte copies of a tile's rays want (a fresh tensor
-    does; a view that starts inside a row may not)."""
-    if (o.data_ptr() | d.data_ptr()) % 16:
-        raise ValueError(f"{name}: rays at addresses {o.data_ptr():#x} and "
-                         f"{d.data_ptr():#x}; the kernel reads them in 16-byte "
-                         "copies and wants both at a multiple of 16 bytes")
-
-
 def carve(buf, R, record):
-    """The typed views of a launch's output buffer (``buf``, uint8 of
-    ``OUT_BYTES_A_LANE[record]`` x Rp bytes) over R lanes."""
+    """The typed views of a launch's output buffer (``buf``, f32 of
+    ``OUT_BYTES_A_LANE[record]`` x Rp bytes) over R lanes: one view of
+    the buffer a dtype, and one strided view of it a plane."""
     rp = -(-R // PAD_LANES) * PAD_LANES
+    typed = {torch.float32: buf, torch.int32: buf.view(torch.int32),
+             torch.bool: buf.view(torch.bool)}
     views = {}
     for name, (at, width, dtype) in (K3_PLANES if record else K4_PLANES).items():
-        x = buf[at * rp:at * rp + width * R].view(dtype)
-        views[name] = x.view(R, 3) if width == 12 else x
+        x = typed[dtype]
+        offset = at * rp // x.element_size()
+        views[name] = (x.as_strided((R, 3), (3, 1), offset) if width == 12
+                       else x.as_strided((R,), (1,), offset))
     return views
 
 
@@ -314,13 +307,12 @@ def _launch(name, table, o, d, t_min, record):
 
         _entry = load_library("closest_hit").closest_hit_launch
     table, o, d = table.contiguous(), o.contiguous(), d.contiguous()
-    check_aligned(name, o, d)
     R = o.shape[0]
     dev = o.device
     # one block of the caching allocator, no fill: the kernel writes every
     # lane of every plane
-    buf = torch.empty(OUT_BYTES_A_LANE[record] * (-(-R // PAD_LANES) * PAD_LANES),
-                      dtype=torch.uint8, device=dev)
+    buf = torch.empty(OUT_BYTES_A_LANE[record] * (-(-R // PAD_LANES) * PAD_LANES) // 4,
+                      dtype=torch.float32, device=dev)
     current = dev.index is None or dev.index == torch.cuda.current_device()
     with contextlib.nullcontext() if current else torch.cuda.device(dev):
         err = _entry(table.data_ptr(), table.shape[1], o.data_ptr(), d.data_ptr(),

@@ -21,27 +21,26 @@
 //
 // What bounds it on the card: per lane K4 reads 24 B of rays and writes
 // 9 B, K3 reads 24 B and writes 46 B; the sweep is about 30 f32 operations
-// a primitive (an IEEE division or two and a sqrt among them).  At the
-// generic scenes' 2-7 primitives both are bound by bytes, so the access
-// pattern decides their time; at a hundred primitives the sweep's
-// instructions do.
+// a primitive (an IEEE division or two and a sqrt among them, each many
+// instructions).  At the generic scenes' 2-3 primitives both are bound by
+// bytes and run at 1.1-1.3x that bound; from about 7 primitives the
+// sweep's instructions take over.
 //
 // Design:
-// * a block of 256 threads walks tiles of 256 lanes (grid stride); the
-//   grid is WAVES times the blocks the card holds at once
-//   (closest_hit_blocks), at most one a tile;
+// * one thread a lane; a block of 256 threads walks tiles of 256 lanes
+//   (grid stride) and the grid is WAVES times the blocks the card holds at
+//   once (launch_blocks), at most one a tile;
 // * the (16, P) table sits in shared memory (at most 8 KB), read as a
 //   broadcast; the loop over primitives is the same for every thread, so
 //   the switch on the kind does not diverge within a warp;
-// * rays come in through shared memory: a tile's o and d are 3,072
-//   contiguous bytes each, copied with 16-byte cp.async (a ragged tile's
-//   last words one by one); a thread then reads its lane's three floats at
-//   a stride of 3 words, which no two threads of a warp share a bank for;
-// * K3's point and normal go out the same way: staged in shared memory,
-//   written as 16-byte stores; t, u, v, idx, mat (4 bytes) and hit, front
-//   (1 byte) are coalesced stores straight from the thread;
-// * the caller hands one 16-byte aligned buffer for all the outputs, laid
-//   out as closest_hit_launch says.
+// * each thread loads its lane's rays from the (R, 3) rows and stores its
+//   outputs straight to their planes: the three loads (or stores) of a
+//   component triple touch the same 384 bytes a warp, which L1 and L2
+//   merge, so a warp moves whole sectors.  Staging a tile's rows through
+//   shared memory in 16-byte cp.async copies and float4 stores measured
+//   10-30% slower (k34_variants.py, PERF.md);
+// * the caller hands one buffer for all the outputs, laid out as
+//   closest_hit_out_bytes says.
 //
 // Numerics: build without --use_fast_math and with --fmad=false, so every
 // f32 op rounds as the plain version's does.  Only acosf / atan2f differ
@@ -56,9 +55,8 @@ constexpr int PRIM_SPHERE = 0, PRIM_RECT = 1;
 constexpr int TABLE_ROWS = 16;  // rows 0-11 data, 12 kind, 13 aux, 14 mat
 constexpr int ROW_KIND = 12, ROW_AUX = 13, ROW_MAT = 14;
 constexpr int MAX_PRIMS = 128;
-constexpr int THREADS = 256;             // threads a block, lanes a tile
-constexpr int TILE_WORDS = 3 * THREADS;  // floats of a tile's (256, 3) rows
-constexpr int WAVES = 1;                 // grid: WAVES x the resident blocks
+constexpr int THREADS = 256;  // threads a block, lanes a tile
+constexpr int WAVES = 1;      // grid: WAVES x the blocks the card holds at once
 constexpr int MAX_DEVICES = 64;
 
 constexpr float T_MISS = 3.0e38f;
@@ -81,80 +79,20 @@ struct Outs {
   int* mat;
 };
 
-// The "memory" clobbers tell the compiler that these write shared memory,
-// so it keeps the tile's reads after the wait.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Starts the copy of `words` floats of `a` and of `b` (16-byte aligned)
-// into `sa` and `sb`: 16-byte cp.async for whole quads, the last words of a
-// ragged tile one by one.  The caller waits (cp_async_wait_all) and then
-// __syncthreads before it reads.
-__device__ __forceinline__ void stage_in(float* sa, float* sb, const float* a,
-                                         const float* b, int words) {
-  const int quads = words / 4;
-  for (int k = threadIdx.x; k < 2 * quads; k += THREADS) {
-    const bool second = k >= quads;
-    const int q = 4 * (second ? k - quads : k);
-    cp_async16((second ? sb : sa) + q, (second ? b : a) + q);
-  }
-  for (int k = 4 * quads + threadIdx.x; k < words; k += THREADS) {
-    sa[k] = a[k];
-    sb[k] = b[k];
-  }
-  cp_async_commit();
-}
-
-// Writes `words` floats of `sa` and `sb` (after a __syncthreads) to `a`
-// and `b` (16-byte aligned): 16-byte stores for whole quads, the last
-// words of a ragged tile one by one.
-__device__ __forceinline__ void stage_out(float* a, float* b, const float* sa,
-                                          const float* sb, int words) {
-  const int quads = words / 4;
-  for (int k = threadIdx.x; k < 2 * quads; k += THREADS) {
-    const bool second = k >= quads;
-    const int q = second ? k - quads : k;
-    reinterpret_cast<float4*>(second ? b : a)[q] =
-        reinterpret_cast<const float4*>(second ? sb : sa)[q];
-  }
-  for (int k = 4 * quads + threadIdx.x; k < words; k += THREADS) {
-    a[k] = sa[k];
-    b[k] = sb[k];
-  }
-}
-
 template <bool RECORD>
 __global__ void __launch_bounds__(THREADS)
 closest_hit_kernel(const float* __restrict__ table, int n_prims,
                    const float* __restrict__ o, const float* __restrict__ d,
                    float t_min, Outs outs, long long n) {
   __shared__ float tab[TABLE_ROWS * MAX_PRIMS];
-  __shared__ __align__(16) float s_o[TILE_WORDS];  // the tile's rays
-  __shared__ __align__(16) float s_d[TILE_WORDS];
-  __shared__ __align__(16) float s_p[RECORD ? TILE_WORDS : 4];  // K3: point, normal
-  __shared__ __align__(16) float s_n[RECORD ? TILE_WORDS : 4];
   for (int i = threadIdx.x; i < TABLE_ROWS * n_prims; i += THREADS) tab[i] = table[i];
+  __syncthreads();
   const int P = n_prims;
-  const int tid = threadIdx.x;
 
-  for (long long base = (long long)blockIdx.x * THREADS; base < n;
-       base += (long long)gridDim.x * THREADS) {
-    const int valid = n - base < THREADS ? (int)(n - base) : THREADS;
-    stage_in(s_o, s_d, o + 3 * base, d + 3 * base, 3 * valid);
-    cp_async_wait_all();
-    __syncthreads();  // the tile's rays (and, on the first tile, the table)
-    const long long i = base + tid;
-    const bool live = tid < valid;
-    const float ox = s_o[3 * tid], oy = s_o[3 * tid + 1], oz = s_o[3 * tid + 2];
-    const float dx = s_d[3 * tid], dy = s_d[3 * tid + 1], dz = s_d[3 * tid + 2];
+  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < n;
+       i += (long long)gridDim.x * THREADS) {
+    const float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
+    const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
     const float a = dx * dx + dy * dy + dz * dz;
 
     float best_t = T_MISS;
@@ -165,7 +103,7 @@ closest_hit_kernel(const float* __restrict__ table, int n_prims,
     for (int p = 0; p < P; ++p) {
       const int kind = (int)tab[ROW_KIND * P + p];
       float t, nx = 0.0f, ny = 0.0f, nz = 0.0f, u = 0.0f, v = 0.0f;
-      bool valid_hit;
+      bool valid;
       if (kind == PRIM_SPHERE) {
         const float cx = tab[0 * P + p], cy = tab[1 * P + p], cz = tab[2 * P + p];
         const float r = tab[3 * P + p];
@@ -179,7 +117,7 @@ closest_hit_kernel(const float* __restrict__ table, int n_prims,
         const bool ok1 = (root1 >= t_min) & (root1 <= best_t);
         const bool ok2 = (root2 >= t_min) & (root2 <= best_t);
         t = ok1 ? root1 : root2;
-        valid_hit = (dis >= 0.0f) & (ok1 | ok2);
+        valid = (dis >= 0.0f) & (ok1 | ok2);
         if (RECORD) {
           const float inv_r = 1.0f / r;
           nx = (ox + t * dx - cx) * inv_r;
@@ -203,8 +141,8 @@ closest_hit_kernel(const float* __restrict__ table, int n_prims,
         t = (k - of) / df;
         const float av = oa + t * da;
         const float bv = ob + t * db;
-        valid_hit = (t >= t_min) & (t <= best_t) & (av >= a0) & (av <= a1) &
-                    (bv >= b0) & (bv <= b1);
+        valid = (t >= t_min) & (t <= best_t) & (av >= a0) & (av <= a1) &
+                (bv >= b0) & (bv <= b1);
         if (RECORD) {
           const float sgn = tab[5 * P + p];
           nx = aux == 0 ? 1.0f * sgn : 0.0f;
@@ -229,15 +167,15 @@ closest_hit_kernel(const float* __restrict__ table, int n_prims,
         const float qvz = tvx * e1y - tvy * e1x;
         const float vv = (dx * qvx + dy * qvy + dz * qvz) * inv_det;
         t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
-        valid_hit = (det >= TRI_DET_EPS) & (uu >= 0.0f) & (uu <= 1.0f) & (vv >= 0.0f) &
-                    (uu + vv <= 1.0f) & (t >= t_min) & (t <= best_t);
+        valid = (det >= TRI_DET_EPS) & (uu >= 0.0f) & (uu <= 1.0f) & (vv >= 0.0f) &
+                (uu + vv <= 1.0f) & (t >= t_min) & (t <= best_t);
         if (RECORD) {
           nx = 1.0f * tab[9 * P + p];
           ny = 1.0f * tab[10 * P + p];
           nz = 1.0f * tab[11 * P + p];
         }
       }
-      if (valid_hit & (t < best_t)) {
+      if (valid & (t < best_t)) {
         best_t = t;
         best_i = p;
         if (RECORD) {
@@ -253,13 +191,10 @@ closest_hit_kernel(const float* __restrict__ table, int n_prims,
     }
 
     const bool hit = best_i >= 0;
+    outs.hit[i] = hit;
+    outs.idx[i] = hit ? best_i : 0;
     if (!RECORD) {
-      __syncthreads();  // every lane has read its rays: the stage is free
-      if (live) {
-        outs.hit[i] = hit;
-        outs.t[i] = best_t;  // T_MISS on a miss
-        outs.idx[i] = hit ? best_i : 0;
-      }
+      outs.t[i] = best_t;  // T_MISS on a miss
       continue;
     }
     const float t = hit ? best_t : 1.0f;  // finite t for miss lanes
@@ -272,23 +207,17 @@ closest_hit_kernel(const float* __restrict__ table, int n_prims,
       wv = theta * INV_PI;
     }
     const float flip = front ? 1.0f : -1.0f;
-    s_p[3 * tid] = ox + t * dx;
-    s_p[3 * tid + 1] = oy + t * dy;
-    s_p[3 * tid + 2] = oz + t * dz;
-    s_n[3 * tid] = wnx * flip;
-    s_n[3 * tid + 1] = wny * flip;
-    s_n[3 * tid + 2] = wnz * flip;
-    __syncthreads();  // the tile's point and normal staged; the rays read
-    stage_out(outs.point + 3 * base, outs.normal + 3 * base, s_p, s_n, 3 * valid);
-    if (live) {
-      outs.hit[i] = hit;
-      outs.t[i] = t;
-      outs.idx[i] = hit ? best_i : 0;
-      outs.front[i] = front;
-      outs.u[i] = wu;
-      outs.v[i] = wv;
-      outs.mat[i] = (int)wmat;
-    }
+    outs.t[i] = t;
+    outs.point[3 * i] = ox + t * dx;
+    outs.point[3 * i + 1] = oy + t * dy;
+    outs.point[3 * i + 2] = oz + t * dz;
+    outs.normal[3 * i] = wnx * flip;
+    outs.normal[3 * i + 1] = wny * flip;
+    outs.normal[3 * i + 2] = wnz * flip;
+    outs.front[i] = front;
+    outs.u[i] = wu;
+    outs.v[i] = wv;
+    outs.mat[i] = (int)wmat;
   }
 }
 
@@ -331,16 +260,13 @@ long long closest_hit_out_bytes(long long n_lanes, int record) {
 
 // Launch K4 (record = 0) or K3 (record = 1) on `stream`.  `table`
 // (16, n_prims) f32, `o` and `d` (n_lanes, 3) f32 and `out` (the buffer of
-// closest_hit_out_bytes) are device pointers; o, d and out 16-byte aligned.
+// closest_hit_out_bytes) are device pointers.
 // Returns cudaGetLastError() of the launch: nonzero means it never ran.
 int closest_hit_launch(const float* table, int n_prims, const float* o,
                        const float* d, float t_min, int record, void* out,
                        long long n_lanes, void* stream) {
   if (n_prims <= 0 || n_prims > MAX_PRIMS || n_lanes < 0) {
     return (int)cudaErrorInvalidValue;
-  }
-  if (((uintptr_t)o | (uintptr_t)d | (uintptr_t)out) & 15) {
-    return (int)cudaErrorMisalignedAddress;
   }
   if (n_lanes == 0) return (int)cudaSuccess;
   const long long rp = (n_lanes + 15) / 16 * 16;

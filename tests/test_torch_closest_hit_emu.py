@@ -3,8 +3,7 @@
 ``ops/csrc/closest_hit.cu`` is built with g++ against ``tests/cuda_emu.h``
 (one std::thread a CUDA thread, blocks of 256, ``__syncthreads``; a card of
 2 SMs holding one block each, so 1,000 lanes take 2 blocks over 4 tiles),
-its launches run by ``emu_launch`` and its 16-byte ``cp.async`` copies
-made at once.  Both instantiations are held against
+its launches run by ``emu_launch``.  Both instantiations are held against
 ``closest_hit_plain`` / ``closest_hit_record_plain`` on lanes made from a
 numpy seed, the outputs read through ``closest_hit.carve`` from the one
 buffer the launch fills.
@@ -14,11 +13,8 @@ bit for bit (the same IEEE f32 expressions; g++ contracts no multiply-add
 and the plain version's sqrt is correctly rounded).  A sphere's u and v
 come from acosf / atan2f, whose last bit may differ between the C library
 and PyTorch's CPU kernels: within CH_RTOL rel + CH_ATOL abs, the tolerance
-chip_smoke.py holds the card to.  The emulation copies at once, so it
-cannot show a race of the async copies: only the card can.
+chip_smoke.py holds the card to.
 """
-
-import re
 
 import numpy as np
 import pytest
@@ -38,17 +34,12 @@ FILL = 0x7F  # every byte of the output buffer before a launch
 
 @pytest.fixture(scope="module")
 def emu_lib(tmp_path_factory):
-    """``closest_hit.cu`` with its cp.async as a copy, built by
-    ``emu_build``."""
+    """``closest_hit.cu`` built by ``emu_build``."""
     from test_torch_projected_rows import emu_build
 
     src = (CSRC / "closest_hit.cu").read_text()
-    src, n_copy = re.subn(r'asm volatile\("cp\.async\.cg.*\);', "std::memcpy(dst, src, 16);",
-                          src)
-    src, n_asm = re.subn(r"asm volatile\(.*\);", ";", src)
-    src = src.replace("static_cast<unsigned>(__cvta_generic_to_shared(dst))", "0u")
     lib, n_launch = emu_build(tmp_path_factory.mktemp("closest_hit"), "closest_hit", src)
-    assert (n_copy, n_asm, n_launch) == (1, 2, 2)
+    assert n_launch == 2
     return lib
 
 
@@ -122,8 +113,7 @@ def launch_emulated(lib, table, o, d, record):
     R = o.shape[0]
     n_bytes = lib.closest_hit_out_bytes(R, int(record))
     assert n_bytes == ch.OUT_BYTES_A_LANE[record] * (-(-R // ch.PAD_LANES) * ch.PAD_LANES)
-    buf = torch.full((n_bytes,), FILL, dtype=torch.uint8)
-    assert buf.data_ptr() % 16 == 0 and o.data_ptr() % 16 == 0 and d.data_ptr() % 16 == 0
+    buf = torch.full((n_bytes,), FILL, dtype=torch.uint8).view(torch.float32)
     err = lib.closest_hit_launch(table.data_ptr(), table.shape[1], o.data_ptr(),
                                  d.data_ptr(), T_MIN, int(record), buf.data_ptr(), R, None)
     assert err == 0
@@ -137,8 +127,8 @@ def _bits(x):
 @pytest.mark.parametrize("record", [False, True], ids=["K4", "K3"])
 @pytest.mark.parametrize("case", list(CASES))
 def test_emulated_kernel_source_matches_plain(case, record, emu_lib):
-    """Both instantiations, ragged lane counts (1, 257, 1,000: the last
-    tile's rows copied partly in 16-byte quads, partly word by word), on
+    """Both instantiations, ragged lane counts (1, 257, 1,000: 2 blocks
+    over 4 tiles, the last tile part full), on
     the every-kind scene and on the edge scene (ties, zero direction
     components, hits at exactly t_min, a hollow shell, a back-facing
     triangle): every plane of the buffer equal to the plain version's,
@@ -176,15 +166,3 @@ def test_emulated_kernel_source_matches_plain(case, record, emu_lib):
         assert at_min.sum() >= 2 and (want["idx"].numpy()[at_min] == 10).all()
         assert (d_np == 0).any(axis=1).sum() > 20
 
-
-
-def test_misaligned_rays_raise():
-    """The wrapper's alignment check: a fresh (R, 3) tensor and a view
-    four rows in (48 bytes) pass; a view one row in (12 bytes) raises,
-    whichever of o and d it is."""
-    o = torch.zeros(9, 3)
-    ch.check_aligned("closest_hit", o, o)
-    ch.check_aligned("closest_hit", o[4:], o[4:])
-    for a, b in ((o[1:], o[4:]), (o[4:], o[1:])):
-        with pytest.raises(ValueError, match="multiple of 16 bytes"):
-            ch.check_aligned("closest_hit", a, b)
