@@ -4,16 +4,16 @@
     python3 k34_variants.py [--tree LABEL=DIR ...]
 
 K3 and K4 (``ops/csrc/closest_hit.cu``) load each lane's rays and store
-its outputs from the thread, and walk 256-lane tiles in a grid of WAVES
-times the blocks the card holds at once.  This script copies
+its outputs from the thread, and walk 256-lane tiles in a grid of
+BLOCKS_PER_SM blocks on each SM.  This script copies
 ``rust_pathtracer_tpu_torch`` under ``output/k34_variants/`` once a
 variant, with the source rewritten:
 
-* ``committed``: the source as it is;
-* ``waves2``, ``waves4``: WAVES = 2, 4;
+* ``committed``: the source as it is (16 blocks an SM);
+* ``sm6``, ``sm8``, ``sm32``: 6, 8, 32 blocks an SM (the card holds 6 of
+  K4's blocks an SM at once and 5 of K3's, so 6 is about one resident
+  wave that loops over tiles);
 * ``tile_a_block``: one block a tile of 256 lanes (no grid stride);
-* ``min_blocks8``: ``__launch_bounds__(256, 8)``, so the compiler keeps
-  each thread to 32 registers and the card holds 8 blocks an SM;
 
 and, with ``--tree LABEL=DIR`` (repeatable), other checkouts as they are
 (e.g. a parent commit unpacked with ``git archive`` under ``output/``).
@@ -47,13 +47,13 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(REPO, "output", "k34_variants")
 PKG = "rust_pathtracer_tpu_torch"
 SRC = os.path.join("ops", "csrc", "closest_hit.cu")
-VARIANTS = {"committed": {}, "waves2": dict(waves=2), "waves4": dict(waves=4),
-            "tile_a_block": dict(waves=1 << 20), "min_blocks8": dict(min_blocks=8)}
+VARIANTS = {"committed": {}, "sm6": dict(blocks_per_sm=6), "sm8": dict(blocks_per_sm=8),
+            "sm32": dict(blocks_per_sm=32), "tile_a_block": dict(blocks_per_sm=1 << 20)}
 REPS = 20
 HOST_CALLS = 200
 
 
-def make_variant(name, waves=None, min_blocks=None):
+def make_variant(name, blocks_per_sm=None):
     """A copy of the package with K3/K4's source rewritten; returns its root."""
     root = os.path.join(OUT, name)
     shutil.rmtree(root, ignore_errors=True)
@@ -62,15 +62,12 @@ def make_variant(name, waves=None, min_blocks=None):
     path = os.path.join(root, PKG, SRC)
     with open(path) as f:
         src = f.read()
-    n = 1
-    if waves is not None:
-        src, n = re.subn(r"constexpr int WAVES = \d+;", f"constexpr int WAVES = {waves};",
-                         src)
-    if min_blocks is not None:
-        src, n = re.subn(r"__launch_bounds__\(THREADS\)",
-                         f"__launch_bounds__(THREADS, {min_blocks})", src)
-    if n != 1:
-        raise SystemExit(f"k34_variants: the source no longer has what {name} rewrites")
+    if blocks_per_sm is not None:
+        src, n = re.subn(r"constexpr int BLOCKS_PER_SM = \d+;",
+                         f"constexpr int BLOCKS_PER_SM = {blocks_per_sm};", src)
+        if n != 1:
+            raise SystemExit(f"k34_variants: the source no longer has what {name} "
+                             "rewrites")
     with open(path, "w") as f:
         f.write(src)
     return root

@@ -68,8 +68,6 @@ SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
         "error_string": ([_c_int], ctypes.c_char_p),
     },
     "closest_hit": {
-        # n_lanes, record -> bytes of the launch's output buffer
-        "closest_hit_out_bytes": ([ctypes.c_longlong, _c_int], ctypes.c_longlong),
         # table, n_prims, o, d, t_min, record (0: K4, 1: K3), out (one
         # buffer, planes at multiples of 16 bytes), n_lanes, stream
         "closest_hit_launch": (

@@ -22,8 +22,9 @@ first primitive wins a tie.  Dead lanes are swept like live ones, as
 in the JAX package; the integrator masks them afterwards.
 
 Both wrappers dispatch on where their tensors lie: CUDA tensors launch
-the kernel (and count in ``hit_launches`` / ``record_launches``); CPU
-tensors run the plain version; anything else raises.
+the kernel (and count in ``hit_launches`` / ``record_launches``), whose
+outputs are views of one buffer (``carve``); CPU tensors run the plain
+version; anything else raises.
 """
 
 from __future__ import annotations

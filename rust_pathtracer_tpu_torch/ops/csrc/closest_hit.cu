@@ -23,13 +23,16 @@
 // 9 B, K3 reads 24 B and writes 46 B; the sweep is about 30 f32 operations
 // a primitive (an IEEE division or two and a sqrt among them, each many
 // instructions).  At the generic scenes' 2-3 primitives both are bound by
-// bytes and run at 1.1-1.3x that bound; from about 7 primitives the
+// bytes and run at 1.05-1.35x that bound; from about 7 primitives the
 // sweep's instructions take over.
 //
-// Design:
+// Design (k34_variants.py times the alternatives; PERF.md):
 // * one thread a lane; a block of 256 threads walks tiles of 256 lanes
-//   (grid stride) and the grid is WAVES times the blocks the card holds at
-//   once (launch_blocks), at most one a tile;
+//   (grid stride) in a grid of BLOCKS_PER_SM blocks on each SM of the card
+//   (launch_blocks), at most one a tile.  The card holds 5 (K3) or 6 (K4)
+//   of these blocks an SM at once, so the grid is 2-3 waves and the block
+//   scheduler evens out the last one; one resident wave that loops over
+//   tiles measured 1-20% slower, one block a tile 1-6%;
 // * the (16, P) table sits in shared memory (at most 8 KB), read as a
 //   broadcast; the loop over primitives is the same for every thread, so
 //   the switch on the kind does not diverge within a warp;
@@ -38,9 +41,9 @@
 //   component triple touch the same 384 bytes a warp, which L1 and L2
 //   merge, so a warp moves whole sectors.  Staging a tile's rows through
 //   shared memory in 16-byte cp.async copies and float4 stores measured
-//   10-30% slower (k34_variants.py, PERF.md);
+//   12-30% slower (the barriers a tile hold each block's warps together);
 // * the caller hands one buffer for all the outputs, laid out as
-//   closest_hit_out_bytes says.
+//   closest_hit_launch says.
 //
 // Numerics: build without --use_fast_math and with --fmad=false, so every
 // f32 op rounds as the plain version's does.  Only acosf / atan2f differ
@@ -55,8 +58,8 @@ constexpr int PRIM_SPHERE = 0, PRIM_RECT = 1;
 constexpr int TABLE_ROWS = 16;  // rows 0-11 data, 12 kind, 13 aux, 14 mat
 constexpr int ROW_KIND = 12, ROW_AUX = 13, ROW_MAT = 14;
 constexpr int MAX_PRIMS = 128;
-constexpr int THREADS = 256;  // threads a block, lanes a tile
-constexpr int WAVES = 1;      // grid: WAVES x the blocks the card holds at once
+constexpr int THREADS = 256;       // threads a block, lanes a tile
+constexpr int BLOCKS_PER_SM = 16;  // the grid's blocks an SM (2-3 waves at 256 lanes)
 constexpr int MAX_DEVICES = 64;
 
 constexpr float T_MISS = 3.0e38f;
@@ -221,24 +224,18 @@ closest_hit_kernel(const float* __restrict__ table, int n_prims,
   }
 }
 
-// Blocks of a launch over `tiles` tiles on the current device: WAVES times
-// the blocks the card holds at once, at most one a tile.  The occupancy is
-// asked once a device and kernel.  0 on an error.
-template <bool RECORD>
+// Blocks of a launch over `tiles` tiles on the current device: BLOCKS_PER_SM
+// times its SMs (asked once a device), at most one a tile.  0 on an error.
 long long launch_blocks(long long tiles) {
-  static int resident[MAX_DEVICES];  // blocks the card holds at once; 0: not asked yet
+  static int sm_count[MAX_DEVICES];  // 0: not asked yet
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= MAX_DEVICES) return 0;
-  if (resident[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, closest_hit_kernel<RECORD>, THREADS, 0) != cudaSuccess) {
-      return 0;
-    }
-    resident[dev] = sms * (per_sm > 0 ? per_sm : 1);
+  if (sm_count[dev] == 0 &&
+      cudaDeviceGetAttribute(&sm_count[dev], cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess) {
+    return 0;
   }
-  const long long cap = (long long)WAVES * resident[dev];
+  const long long cap = (long long)BLOCKS_PER_SM * sm_count[dev];
   return tiles < cap ? tiles : cap;
 }
 
@@ -246,22 +243,17 @@ long long launch_blocks(long long tiles) {
 
 extern "C" {
 
-// Bytes of the output buffer of a launch over n_lanes lanes: each plane
-// (row-major (R, 3) for point and normal) starts at a multiple of 16 bytes,
-// R rounded up to 16 lanes (Rp):
+// Launch K4 (record = 0) or K3 (record = 1) on `stream`.  `table`
+// (16, n_prims) f32, `o` and `d` (n_lanes, 3) f32 and `out` are device
+// pointers.  `out` holds every output plane, each (row-major (R, 3) for
+// point and normal) at a multiple of 16 bytes, R rounded up to 16 lanes
+// (Rp):
 //   K4: t f32 @ 0, idx i32 @ 4 Rp, hit bool @ 8 Rp; 9 Rp bytes;
 //   K3: point @ 0, normal @ 12 Rp, t @ 24 Rp, u @ 28 Rp, v @ 32 Rp,
 //       idx i32 @ 36 Rp, mat i32 @ 40 Rp, hit @ 44 Rp, front @ 45 Rp;
-//       46 Rp bytes.
-long long closest_hit_out_bytes(long long n_lanes, int record) {
-  const long long rp = (n_lanes + 15) / 16 * 16;
-  return (record ? 46 : 9) * rp;
-}
-
-// Launch K4 (record = 0) or K3 (record = 1) on `stream`.  `table`
-// (16, n_prims) f32, `o` and `d` (n_lanes, 3) f32 and `out` (the buffer of
-// closest_hit_out_bytes) are device pointers.
-// Returns cudaGetLastError() of the launch: nonzero means it never ran.
+//       46 Rp bytes
+// (closest_hit.py's K4_PLANES / K3_PLANES).  Returns cudaGetLastError() of
+// the launch: nonzero means it never ran.
 int closest_hit_launch(const float* table, int n_prims, const float* o,
                        const float* d, float t_min, int record, void* out,
                        long long n_lanes, void* stream) {
@@ -288,7 +280,7 @@ int closest_hit_launch(const float* table, int n_prims, const float* o,
     outs.hit = reinterpret_cast<bool*>(base + 8 * rp);
   }
   const long long tiles = (n_lanes + THREADS - 1) / THREADS;
-  const long long blocks = record ? launch_blocks<true>(tiles) : launch_blocks<false>(tiles);
+  const long long blocks = launch_blocks(tiles);
   if (blocks <= 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (record) {

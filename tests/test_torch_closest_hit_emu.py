@@ -2,11 +2,11 @@
 
 ``ops/csrc/closest_hit.cu`` is built with g++ against ``tests/cuda_emu.h``
 (one std::thread a CUDA thread, blocks of 256, ``__syncthreads``; a card of
-2 SMs holding one block each, so 1,000 lanes take 2 blocks over 4 tiles),
-its launches run by ``emu_launch``.  Both instantiations are held against
-``closest_hit_plain`` / ``closest_hit_record_plain`` on lanes made from a
-numpy seed, the outputs read through ``closest_hit.carve`` from the one
-buffer the launch fills.
+2 SMs), its launches run by ``emu_launch``, as it is and in a copy whose
+grid is one block an SM, so that 2 blocks walk 4 tiles.  Both
+instantiations are held against ``closest_hit_plain`` /
+``closest_hit_record_plain`` on lanes made from a numpy seed, the outputs
+read through ``closest_hit.carve`` from the one buffer the launch fills.
 
 Tolerances and why: hit, idx, mat, front, t, point and normal are EQUAL,
 bit for bit (the same IEEE f32 expressions; g++ contracts no multiply-add
@@ -15,6 +15,8 @@ come from acosf / atan2f, whose last bit may differ between the C library
 and PyTorch's CPU kernels: within CH_RTOL rel + CH_ATOL abs, the tolerance
 chip_smoke.py holds the card to.
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -32,12 +34,18 @@ CH_RTOL, CH_ATOL = 1e-5, 1e-6  # sphere u, v only (chip_smoke.py's)
 FILL = 0x7F  # every byte of the output buffer before a launch
 
 
-@pytest.fixture(scope="module")
-def emu_lib(tmp_path_factory):
-    """``closest_hit.cu`` built by ``emu_build``."""
+@pytest.fixture(scope="module", params=["source", "one_block_an_sm"])
+def emu_lib(request, tmp_path_factory):
+    """``closest_hit.cu`` built by ``emu_build``: as it is (1,000 lanes
+    are 4 blocks of one tile each), and in a copy with BLOCKS_PER_SM = 1,
+    so that the emulated card's 2 blocks walk the 4 tiles (grid stride)."""
     from test_torch_projected_rows import emu_build
 
     src = (CSRC / "closest_hit.cu").read_text()
+    if request.param == "one_block_an_sm":
+        src, n = re.subn(r"constexpr int BLOCKS_PER_SM = \d+;",
+                         "constexpr int BLOCKS_PER_SM = 1;", src)
+        assert n == 1
     lib, n_launch = emu_build(tmp_path_factory.mktemp("closest_hit"), "closest_hit", src)
     assert n_launch == 2
     return lib
@@ -111,8 +119,7 @@ def launch_emulated(lib, table, o, d, record):
     """``closest_hit._launch``'s call on CPU tensors; returns the planes
     by name (``carve``) of a buffer filled with FILL before the launch."""
     R = o.shape[0]
-    n_bytes = lib.closest_hit_out_bytes(R, int(record))
-    assert n_bytes == ch.OUT_BYTES_A_LANE[record] * (-(-R // ch.PAD_LANES) * ch.PAD_LANES)
+    n_bytes = ch.OUT_BYTES_A_LANE[record] * (-(-R // ch.PAD_LANES) * ch.PAD_LANES)
     buf = torch.full((n_bytes,), FILL, dtype=torch.uint8).view(torch.float32)
     err = lib.closest_hit_launch(table.data_ptr(), table.shape[1], o.data_ptr(),
                                  d.data_ptr(), T_MIN, int(record), buf.data_ptr(), R, None)
@@ -127,8 +134,8 @@ def _bits(x):
 @pytest.mark.parametrize("record", [False, True], ids=["K4", "K3"])
 @pytest.mark.parametrize("case", list(CASES))
 def test_emulated_kernel_source_matches_plain(case, record, emu_lib):
-    """Both instantiations, ragged lane counts (1, 257, 1,000: 2 blocks
-    over 4 tiles, the last tile part full), on
+    """Both instantiations, ragged lane counts (1, 257, 1,000: 4 tiles,
+    the last one part full), on
     the every-kind scene and on the edge scene (ties, zero direction
     components, hits at exactly t_min, a hollow shell, a back-facing
     triangle): every plane of the buffer equal to the plain version's,

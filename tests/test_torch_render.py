@@ -214,11 +214,13 @@ def _imported_modules(path):
 
 
 def test_port_imports_no_jax():
-    """No module of the port, nor chip_smoke.py, imports jax or the JAX
-    package, not even its numpy-only modules (bvh, obj_loader): the
-    machine with the card has neither.  The big-scene modules are among
-    those checked."""
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    """No module of the port, nor the root scripts that run on the card
+    (chip_smoke.py, profile_port.py, k2_variants.py, k34_variants.py),
+    imports jax or the JAX package, not even its numpy-only modules (bvh,
+    obj_loader): the machine with the card has neither.  The big-scene
+    modules are among those checked."""
+    files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "profile_port.py",
+                                            "k2_variants.py", "k34_variants.py")]
     for root, _, names in os.walk(os.path.join(REPO, "rust_pathtracer_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
