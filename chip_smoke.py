@@ -6,16 +6,19 @@
 Drives ``rust_pathtracer_tpu_torch`` (never JAX) through its paths:
 the fused forward render and differentiable step of ``bench.py``'s
 shape (K1, K2), the generic bounce path (K3, K4) forward and
-differentiable, and the big-scene path (K5, K6, K7), whose main path is
-the SphereField forward render at the scene's own width (phase 15).  It
-checks them:
+differentiable, the big-scene path (K5, K6, K7), whose main path is
+the SphereField forward render at the scene's own width (phase 15), and
+the regeneration wavefront (K1 at per-lane depth; the draw kernel on
+the generic routes), whose main path is LightTest at its own width and
+depth (phase 21).  It checks them:
 
 1. device: a CUDA GPU must be present (no CPU fallback); prints the
    card's name and power limit and the torch and nvcc versions;
 2. build: builds K1 (``ops/csrc/fused_bounce.cu``), K2
-   (``ops/csrc/fused_bounce_bwd.cu``), K3/K4 (``ops/csrc/closest_hit.cu``)
-   and K5/K6/K7 (``ops/csrc/projected.cu``) with nvcc for sm_90a, and
-   the native BVH builder (``native.py``) with g++, in parallel;
+   (``ops/csrc/fused_bounce_bwd.cu``), K3/K4 (``ops/csrc/closest_hit.cu``),
+   K5/K6/K7 (``ops/csrc/projected.cu``) and the draw kernel
+   (``ops/csrc/draws.cu``) with nvcc for sm_90a, and the native BVH
+   builder (``native.py``) with g++, in parallel;
 3. K1 against its plain PyTorch version on the CPU on 1,000,000 random
    lanes with random keys, at bounce 0, of a scene that covers every
    branch: alive mask, hit mask and winning
@@ -112,7 +115,36 @@ checks them:
     bit, on 1,000,000 random
     lanes with random keys at bounces 0 and 7, roulette and residuals
     on and off, and at the serving and bench paths' first bounce (run
-    after phase 7).
+    after phase 7);
+19. K1 at per-lane depth (the regen wavefront's) against its plain
+    version on phase 3's 1,000,000 lanes, random depths 0-49, roulette
+    from depth 3: the 13 columns and the winners bit for bit; timed
+    (events, device time) beside the plain version, with its bound;
+20. the draw kernel (``ops/draws.py``) against ``sampling.bounce_draws``
+    on 1,000,000 random keys at bounce 7 and at per-lane depths 0-49, bit
+    for bit; timed beside the plain version, with its bound (threefry's
+    int32 operations);
+21. the regen main path: LightTest regen at 854x480, 50 bounces, 16 spp
+    (cut from 2000: 6,558,720 paths through the pool of 2**20 lanes), K1
+    at per-lane depth once a bounce iteration: finite, >= 0, the
+    occupancy every path at bounce 0, two renders bit for bit, the
+    whole-pool spawn (``pool_spawn``) bit for bit the same and timed;
+    wall, segments/s, windows,
+    the split into bounce, spawn and window end by CUDA events and the
+    device's idle share (profiler); the chunked render of the same key
+    timed and held under the image contract;
+22. SphereField regen at 854x480, 20 bounces, 8 spp: K6 and the draw
+    kernel once a bounce iteration, the same checks and numbers against
+    the chunked render;
+23. 64x36 regen of LightTest (K1) and the image-textured scene (K3, the
+    draw kernel), roulette from 3, on the card against the CPU under the
+    image contract;
+24. the chunked SphereField frame of phase 15 with the draw kernel
+    against the same frame with the draws hoisted in tensor ops
+    (``integrator._precompute_draws``), bit for bit, timed in turns.
+
+Phases 11-13 and 15-17 also check that the generic routes launch the
+draw kernel once a bounce.
 
 Each path runs with every launch count set to 0 just before it and
 read just after.  Any failed check exits non-zero.  On success the last
@@ -167,7 +199,7 @@ SMALL_STEP = dict(width=64, height=64, spp=4, bounces=8, rr_start=4)
 STEP = dict(reps=5, batches=5, max_batches=12, spread_tol=0.10)
 CORNELL_CAM = ((278.0, 278.0, -800.0), (278.0, 278.0, 0.0), (0.0, 1.0, 0.0),
                40.0, 1.0, 0.0, 10.0)
-KERNELS = ("fused_bounce", "fused_bounce_bwd", "closest_hit", "projected")
+KERNELS = ("fused_bounce", "fused_bounce_bwd", "closest_hit", "projected", "draws")
 LEAF_NAMES = ("tex_color", "tex_images", "background", "lookfrom", "lookat", "up",
               "vfov_deg", "aspect", "aperture", "focus_dist")
 
@@ -265,7 +297,8 @@ def phase_device(torch):
 
 
 def phase_build():
-    log("== phase 2: build K1, K2, K3/K4, K5/K6/K7 and the native BVH builder")
+    log("== phase 2: build K1, K2, K3/K4, K5/K6/K7, the draw kernel and the native "
+        "BVH builder")
     from concurrent.futures import ThreadPoolExecutor
 
     from rust_pathtracer_tpu_torch.ops import _build
@@ -905,11 +938,10 @@ def phase_bench_step(torch, device, card, time_reps):
         return _make_lanes(cam, key, pix, 0, width=W, height=H, spp_chunk=spp,
                            spp_total=spp)
 
-    split = _step_split(torch, leaves, forward, lanes_fn, nb, hoisted=False)
+    split = _step_split(torch, leaves, forward, lanes_fn)
     log(f"step split on {card} (CUDA events, median of 3): forward "
-        f"{split['forward']:.2f} ms = lanes {split['lanes']:.2f} + RNG draws in "
-        f"tensor ops {split['draws']:.2f} (none: K1 draws them) + bounce loop with "
-        f"residuals and the rest {split['loop']:.2f}; backward "
+        f"{split['forward']:.2f} ms = lanes {split['lanes']:.2f} + bounce loop with "
+        f"residuals (K1 draws in the kernel) and the rest {split['loop']:.2f}; backward "
         f"{split['backward']:.2f} ms")
 
     # K1, K1 with residuals, K2 and the plain versions at the step's width:
@@ -1131,8 +1163,9 @@ def phase_generic_forward(torch, device, card, time_reps):
         f"{img_np.mean():.6f}")
     check(np.isfinite(img_np).all(), "the generic render has non-finite pixels")
     check((img_np >= 0).all(), "the generic render has negative pixels")
-    check(counts["K3"] == stats.bounces > 0,
-          f"K3 launched {counts['K3']} times in {stats.bounces} bounces")
+    check(counts["K3"] == counts["draws"] == stats.bounces > 0,
+          f"K3 and the draw kernel launched {counts['K3']} and {counts['draws']} times "
+          f"in {stats.bounces} bounces")
     check(counts["K1"] == counts["K4"] == 0, "the generic forward left its route")
     img2, _ = render_radiance(scene, cam, settings, key, device=device)
     check(torch.equal(img, img2), "the generic render twice differs")
@@ -1231,7 +1264,9 @@ def phase_main_step(torch, device, card, time_reps):
         f"({(peak - base) / 1e9:.3f} GB above the {base / 1e9:.3f} GB before the step: "
         f"{kept:.1f} B a lane-bounce with remat 'none')")
     log("gradients: " + _grad_sums(grads))
-    check(counts["K4"] == nb, f"K4 launched {counts['K4']} times, want {nb}")
+    check(counts["K4"] == counts["draws"] == nb,
+          f"K4 and the draw kernel launched {counts['K4']} and {counts['draws']} times, "
+          f"want {nb}")
     check(counts["K1"] == counts["K1-res"] == counts["K2"] == counts["K3"] == 0,
           "the generic step left its route")
     check(all(np.isfinite(g).all() for g in grads), "non-finite gradients")
@@ -1254,10 +1289,10 @@ def phase_main_step(torch, device, card, time_reps):
         return _make_lanes(cam, key, pix, 0, width=W, height=H, spp_chunk=spp,
                            spp_total=spp)
 
-    split = _step_split(torch, leaves, forward, lanes_fn, nb)
+    split = _step_split(torch, leaves, forward, lanes_fn)
     log(f"step split on {card} (CUDA events, median of 3): forward "
-        f"{split['forward']:.2f} ms = lanes {split['lanes']:.2f} + RNG draws "
-        f"{split['draws']:.2f} + bounce loop and the rest {split['loop']:.2f}; "
+        f"{split['forward']:.2f} ms = lanes {split['lanes']:.2f} + bounce loop (the "
+        f"draw kernel included) and the rest {split['loop']:.2f}; "
         f"backward {split['backward']:.2f} ms")
 
     # K4 against its plain version at this path's shape: the first bounce
@@ -1331,8 +1366,9 @@ def phase_light_step(torch, device, card):
             f"above the {base / 1e9:.3f} GB before the step)")
     grads = _leaf_grads(leaves)
     log("gradients: " + _grad_sums(grads))
-    check(counts["K4"] == nb,
-          f"K4 launched {counts['K4']} times over forward and backward, want {nb}")
+    check(counts["K4"] == counts["draws"] == nb,
+          f"K4 and the draw kernel launched {counts['K4']} and {counts['draws']} times "
+          f"over forward and backward, want {nb}")
     check(all(np.isfinite(g).all() for g in grads), "non-finite gradients")
     check(np.abs(grads[0]).sum() > 0, "tex_color's gradient is zero")
 
@@ -1650,8 +1686,9 @@ def phase_spherefield_forward(torch, device, card, scenes, reps):
         f"mean {img_np.mean():.6f}")
     check(np.isfinite(img_np).all() and (img_np >= 0).all(),
           "the SphereField frame has non-finite or negative pixels")
-    check(counts["K6"] == stats.bounces > 0,
-          f"K6 launched {counts['K6']} times in {stats.bounces} bounces")
+    check(counts["K6"] == counts["draws"] == stats.bounces > 0,
+          f"K6 and the draw kernel launched {counts['K6']} and {counts['draws']} times "
+          f"in {stats.bounces} bounces")
     check(all(counts[k] == 0 for k in ("K1", "K1-res", "K2", "K3", "K4", "K5", "K7")),
           "the SphereField forward left the resident route")
     img2, _ = render_radiance(scene, cam, settings, key, device=device)
@@ -1734,6 +1771,9 @@ def phase_modeltest_forward(torch, device, card, scenes, reps):
             check(counts["K7"] + counts["K5"] == stats.bounces and counts["K6"] == 0,
                   f"{name}: K7 {counts['K7']} + K5 fallback {counts['K5']} "
                   f"launches in {stats.bounces} bounces")
+        check(counts["draws"] == stats.bounces,
+              f"{name}: the draw kernel launched {counts['draws']} times in "
+              f"{stats.bounces} bounces")
         write_png(os.path.join(OUT_DIR, f"{name.replace(' ', '_')}_{W}x{H}.png"),
                   to_rgb8(img_np))
         out[name] = counts
@@ -1823,7 +1863,9 @@ def phase_spherefield_step(torch, device, card):
         f"({(peak - base) / 1e9:.3f} GB above the {base / 1e9:.3f} GB before the step: "
         f"{(peak - base) / (lanes * nb):.1f} B a lane-bounce)")
     log("gradients: " + _grad_sums(grads))
-    check(counts["K5"] == nb, f"K5 launched {counts['K5']} times, want {nb}")
+    check(counts["K5"] == counts["draws"] == nb,
+          f"K5 and the draw kernel launched {counts['K5']} and {counts['draws']} times, "
+          f"want {nb}")
     check(all(counts[k] == 0 for k in ("K1", "K1-res", "K2", "K3", "K4", "K6", "K7")),
           "the SphereField step left its route")
     check(all(np.isfinite(g).all() for g in grads), "non-finite gradients")
@@ -1847,12 +1889,471 @@ def phase_spherefield_step(torch, device, card):
         return _make_lanes(cam, key, pix, 0, width=W, height=H, spp_chunk=spp,
                            spp_total=spp)
 
-    split = _step_split(torch, leaves, forward, lanes_fn, nb)
+    split = _step_split(torch, leaves, forward, lanes_fn)
     log(f"step split on {card} (CUDA events, median of 3): forward "
-        f"{split['forward']:.2f} ms = lanes {split['lanes']:.2f} + RNG draws "
-        f"{split['draws']:.2f} + bounce loop and the rest {split['loop']:.2f}; "
+        f"{split['forward']:.2f} ms = lanes {split['lanes']:.2f} + bounce loop (the "
+        f"draw kernel included) and the rest {split['loop']:.2f}; "
         f"backward {split['backward']:.2f} ms")
     return counts["K5"]
+
+
+# ---------------------------------------------------------------------------
+# phases 19-24: the regen wavefront (K1 at per-lane depth, the draw kernel)
+# ---------------------------------------------------------------------------
+
+# phase 21 (main path): LightTest at its own 854x480 and 50 bounces, spp cut
+# from 2000 to 16 (6,558,720 paths through the default pool of 2**20 lanes)
+REGEN = dict(width=854, height=480, spp=16, bounces=50, seed=0)
+# phase 22: SphereField at its own width, spp cut from 250 to 8
+SF_REGEN = dict(width=854, height=480, spp=8, bounces=20, seed=0)
+# phases 19-20: random depths 0-49 (LightTest's 50 bounces), roulette from 3
+REGEN_DEPTHS, REGEN_RR_START = 50, 3
+DRAWS_SCALAR, DRAWS_PER_LANE = "bounce 7", f"per-lane depths 0-{REGEN_DEPTHS - 1}"
+
+
+def phase_k1_per_lane(torch, device, card, n_lanes, reps):
+    log(f"== phase 19: K1 at per-lane depth vs its plain version on {n_lanes} lanes "
+        f"(phase 3's), random depths 0-{REGEN_DEPTHS - 1}, roulette from depth "
+        f"{REGEN_RR_START}, bit for bit")
+    from rust_pathtracer_tpu_torch.integrator import T_MIN
+    from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
+
+    cols_np, keys_np = random_lanes(n_lanes)
+    depth = torch.as_tensor(np.random.default_rng(19).integers(
+        0, REGEN_DEPTHS, n_lanes).astype(np.int32), device=device)
+    scene = full_scene(device)
+    state, keys = _keyed_on(torch, cols_np, keys_np, device)
+    args = (fb.pack_prims_shaded(scene), torch.tensor((0.2, 0.1, 0.05), device=device),
+            scene.textures.perlin_seed, state, keys, depth)
+    kw = dict(with_roulette=True, rr_start=REGEN_RR_START, kinds=scene.kinds_static,
+              mat_types=scene.mat_types, tex_types=scene.tex_types, t_min=T_MIN)
+    runs = _keyed_runs(torch, args, kw)
+    _sync(torch, device)
+    bad = _keyed_mismatches(runs)
+    k_out, k_win, _ = runs["kernel"]
+    err = float(np.abs(k_out.view(np.float32).astype(np.float64)
+                       - runs["plain"][0].view(np.float32)).max())
+    alive_in = cols_np[12] > 0.5
+    rr_lanes = alive_in & (k_win >= 0) & (depth.cpu().numpy() >= REGEN_RR_START)
+    log(f"lanes differing from the plain version {int(bad.sum())} (13 columns and "
+        f"winners); hits {int((k_win >= 0).sum())}, alive out "
+        f"{int((k_out[12].view(np.float32) > 0.5).sum())}, hit lanes at depth >= "
+        f"{REGEN_RR_START} {int(rr_lanes.sum())}")
+    for i in np.nonzero(bad)[0][:5]:
+        log(f"  lane {i}: kernel {runs['kernel'][0][:, i].view(np.float32).tolist()}; "
+            f"plain {runs['plain'][0][:, i].view(np.float32).tolist()}")
+    check(not bad.any(), "K1 at per-lane depth differs from its plain version")
+
+    def k1():
+        return fb.fused_bounce_keyed(*args, **kw)
+
+    def plain():
+        return fb.fused_bounce_keyed_plain(*args, **kw)
+
+    def k1_scalar():  # the same lanes at one bounce, roulette on all of them
+        return fb.fused_bounce_keyed(*args[:5], 7, **kw)
+
+    res = time_pair(torch, device, k1, plain, reps)
+    k_ms, p_ms = statistics.mean(res["kernel"]), statistics.mean(res["plain"])
+    dev_ms, held = _device_ms(torch, k1, reps, ("fused_bounce_kernel",))
+    scalar = time_pair(torch, device, k1_scalar, k1, reps)
+    s_dev, s_held = _device_ms(torch, k1_scalar, reps, ("fused_bounce_kernel",))
+    host = []  # the wrapper's host time a call: the launch returns at once
+    for _ in range(7):
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        k1()
+        host.append((time.perf_counter() - t0) * 1e3)
+    _sync(torch, device)
+    b_ms, b_by = k1_bound(torch, args, kw, scene, residual_planes=0)
+    log(f"K1 at per-lane depth, {n_lanes} lanes on {card}: {k_ms:.4f} ms per launch "
+        f"(blocks {[round(x, 4) for x in res['kernel']]}; events around the wrapper), "
+        f"{dev_ms:.4f} ms device time (profiler, {held} of {reps} launches); plain "
+        f"version on the same CUDA tensors {p_ms:.4f} ms "
+        f"({[round(x, 4) for x in res['plain']]}); bound {b_ms:.4f} ms ({b_by}); the "
+        f"same lanes at bounce 7 (scalar, per-lane, per-lane, scalar): "
+        f"{[round(x, 4) for x in scalar['kernel']]} / "
+        f"{[round(x, 4) for x in scalar['plain']]} ms, {s_dev:.4f} ms device time "
+        f"({s_held} of {reps}); the wrapper's host time {statistics.median(host):.4f} ms "
+        f"a call (median of 7)")
+    return dict(max_abs_err=err, ms=k_ms, device_ms=(dev_ms, held, reps), plain_ms=p_ms,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def draws_bound(torch, keys, bounce, rows):
+    """The draw kernel's bound: bytes, the two key words and a per-lane
+    depth read once and ``rows`` f32 planes written once; operations,
+    threefry's int32 ones: a purpose key and a block a uniform for 2
+    sphere, 3 ball, 1 coin and, in a seventh row, 1 roulette uniform."""
+    from rust_pathtracer_tpu_torch.ops import draws
+
+    R = keys.shape[1]
+    n_bytes = (nbytes(keys) + (nbytes(bounce) if isinstance(bounce, torch.Tensor) else 0)
+               + rows * 4 * R)
+    n_int = R * (draw_ops(2) + draw_ops(3) + draw_ops(1)
+                 + (draw_ops(1) if rows > draws.N_ROWS else 0))
+    return bound(n_bytes, 0, n_int)
+
+
+def phase_draws_vs_plain(torch, device, card, n_lanes, reps):
+    log(f"== phase 20: the draw kernel vs sampling.bounce_draws on {n_lanes} random "
+        f"keys, bit for bit")
+    from rust_pathtracer_tpu_torch.ops import draws
+    from rust_pathtracer_tpu_torch.ops.fused_bounce import key_words
+
+    rng = np.random.default_rng(20)
+    keys = key_words(torch.as_tensor(rng.integers(0, 2**32, (n_lanes, 2), dtype=np.int64),
+                                     device=device))
+    depth = torch.as_tensor(rng.integers(0, REGEN_DEPTHS, n_lanes).astype(np.int32),
+                            device=device)
+    out = {}
+    for label, bounce in ((DRAWS_SCALAR, 7), (DRAWS_PER_LANE, depth)):
+        def kernel(b=bounce):
+            return draws.bounce_draws(keys, b, True)
+
+        def plain(b=bounce):
+            return draws.bounce_draws_plain(keys, b, True)
+
+        got, want = kernel(), plain()
+        _sync(torch, device)
+        bad = np.zeros(n_lanes, dtype=bool)
+        for g, w in zip(got, want):
+            g = g.contiguous().cpu().numpy().view(np.int32).reshape(n_lanes, -1)
+            w = w.cpu().numpy().view(np.int32).reshape(n_lanes, -1)
+            bad |= (g != w).any(axis=1)
+        log(f"{label}: lanes differing from the plain version {int(bad.sum())} "
+            f"(sphere_u, ball_u, coin, roulette)")
+        check(not bad.any(), f"the draw kernel differs from its plain version ({label})")
+        res = time_pair(torch, device, kernel, plain, reps)
+        k_ms, p_ms = statistics.mean(res["kernel"]), statistics.mean(res["plain"])
+        dev_ms, held = _device_ms(torch, kernel, reps, ("bounce_draws_kernel",))
+        b_ms, b_by = draws_bound(torch, keys, bounce, draws.N_ROWS + 1)
+        log(f"draw kernel, {label}, {n_lanes} lanes on {card}: {k_ms:.4f} ms per launch "
+            f"(blocks {[round(x, 4) for x in res['kernel']]}; events), {dev_ms:.4f} ms "
+            f"device time ({held} of {reps} launches); plain version on the same CUDA "
+            f"tensors {p_ms:.4f} ms ({[round(x, 4) for x in res['plain']]}); bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        out[label] = dict(max_abs_err=0.0, ms=k_ms, device_ms=(dev_ms, held, reps),
+                          plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+    return out
+
+
+@contextlib.contextmanager
+def pool_spawn():
+    """The regen refill as the JAX package makes it: the whole pool spawns
+    camera lanes (a work id 0 where a lane takes none) and the lanes that
+    take work keep theirs (``wavefront._respawn`` spawns those only)."""
+    import torch
+
+    from rust_pathtracer_tpu_torch import wavefront
+
+    respawn = wavefront._respawn
+
+    def whole_pool(fr, pool, take, wid):
+        all_wid = torch.zeros(pool.work.shape[0], dtype=torch.int64, device=wid.device)
+        all_wid[take] = wid
+        pixel, keys, state = wavefront._spawn(fr, all_wid)
+        pool.pixel[take] = pixel[take]
+        pool.keys[:, take] = keys[:, take]
+        pool.state[:, take] = state[:, take]
+        pool.depth[take] = 0
+        pool.work[take] = wid.to(torch.int32)
+
+    wavefront._respawn = whole_pool
+    try:
+        yield
+    finally:
+        wavefront._respawn = respawn
+
+
+@contextlib.contextmanager
+def regen_events(torch):
+    """CUDA events around the regen renderer's bounce, camera-lane spawn
+    and window end (``wavefront._bounce``, ``_spawn``, ``_flush_refill``):
+    yields {part: [(start, end), ...]}."""
+    from rust_pathtracer_tpu_torch import wavefront
+
+    names = {"bounce": "_bounce", "spawn": "_spawn", "flush": "_flush_refill"}
+    saved = {k: getattr(wavefront, v) for k, v in names.items()}
+    spans = {k: [] for k in names}
+
+    def timed(part, fn):
+        def run(*a, **k):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*a, **k)
+            e.record()
+            spans[part].append((s, e))
+            return out
+        return run
+
+    for k, v in names.items():
+        setattr(wavefront, v, timed(k, saved[k]))
+    try:
+        yield spans
+    finally:
+        for k, v in names.items():
+            setattr(wavefront, v, saved[k])
+
+
+def regen_split(torch, spans):
+    """ms by part: the bounces, the spawns (the first fill and the
+    refills), and the window ends less the refills' spawns."""
+    torch.cuda.synchronize()
+    ms = {k: [s.elapsed_time(e) for s, e in v] for k, v in spans.items()}
+    return {"bounce": sum(ms["bounce"]), "spawn": sum(ms["spawn"]),
+            "flush": sum(ms["flush"]) - sum(ms["spawn"][1:]),
+            "windows": len(ms["flush"])}
+
+
+def idle_share(torch, fn):
+    """One profiled call of ``fn``: (profiled wall ms, device busy ms, idle
+    share 1 - busy / wall; an upper bound, the profiler slows the host)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from profile_port import busy_ms
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = busy_ms(prof.events())
+    return wall, busy, 1 - busy / wall
+
+
+def _timed_render(torch, device, fn):
+    """(wall s, result, launches) of one render, counts reset before."""
+    _sync(torch, device)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(torch, device)
+    return time.perf_counter() - t0, out, read_counts()
+
+
+def phase_regen_light(torch, device, card):
+    cfg = REGEN
+    W, H, spp, nb = cfg["width"], cfg["height"], cfg["spp"], cfg["bounces"]
+    paths = W * H * spp
+    log(f"== phase 21 (main path): LightTest regen {W}x{H}, {spp} spp, {nb} bounces "
+        f"({paths} paths through a pool of {min(paths, 1 << 20)} lanes), K1 at per-lane "
+        f"depth; against the chunked render of the same key")
+    from rust_pathtracer_tpu_torch.models import get_scene
+    from rust_pathtracer_tpu_torch.render import RenderSettings, render_radiance
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+    from rust_pathtracer_tpu_torch.utils.image import image_agreement, to_rgb8, write_png
+    from rust_pathtracer_tpu_torch.wavefront import render_radiance_regen
+
+    sd = get_scene("LightTest")
+    scene = sd.build(device=device)
+    cam = sd.camera_at(0.0, device=device)
+    key = prng_key(cfg["seed"], device=device)
+    bg = sd.output.image.background
+    settings = RenderSettings(W, H, spp, nb, bg)
+    render_radiance_regen(scene, cam, RenderSettings(64, 36, 2, 4, bg), key, device=device)
+
+    def regen():
+        return render_radiance_regen(scene, cam, settings, key, device=device)
+
+    wall, (img, stats), counts = _timed_render(torch, device, regen)
+    img_np = img.cpu().numpy()
+    seg = float(stats.segments)
+    windows = stats.bounces // 2
+    log(f"regen on {card}: wall {wall:.3f} s, segments {seg:.0f}, segments/s "
+        f"{seg / wall:.4e}, bounce iterations {stats.bounces} ({windows} windows of 2), "
+        f"launches {counts}, image mean {img_np.mean():.6f}")
+    check(np.isfinite(img_np).all() and (img_np >= 0).all(),
+          "the LightTest regen image has non-finite or negative pixels")
+    check(counts["K1"] == stats.bounces > 0,
+          f"K1 launched {counts['K1']} times in {stats.bounces} bounce iterations")
+    check(all(counts[k] == 0 for k in ("K1-res", "K2", "K3", "K4", "K5", "K6", "K7",
+                                       "draws")),
+          "the LightTest regen left the fused route")
+    check(float(stats.occupancy[0]) == paths and float(stats.occupancy.sum()) == seg,
+          "the regen occupancy is not every path at bounce 0, or does not sum to the "
+          "segments")
+    img2, _ = regen()
+    check(torch.equal(img, img2), "the LightTest regen image twice differs")
+    log("regen rendered twice: bitwise equal")
+    with pool_spawn():
+        pool_wall, (img3, _), _ = _timed_render(torch, device, regen)
+    check(torch.equal(img, img3), "spawning the whole pool changed the image")
+    log(f"spawning the whole pool each window (as the JAX package): wall "
+        f"{pool_wall:.3f} s against the taken lanes only {wall:.3f} s; bitwise equal")
+    with regen_events(torch) as spans:
+        regen()
+    split = regen_split(torch, spans)
+    log(f"regen split by CUDA events: bounces {split['bounce']:.2f} ms, spawns "
+        f"{split['spawn']:.2f} ms, window ends less their spawns {split['flush']:.2f} ms "
+        f"({split['windows']} windows)")
+    pwall, busy, idle = idle_share(torch, regen)
+    log(f"regen profiled: wall {pwall:.2f} ms, device busy {busy:.2f} ms, idle share "
+        f"{idle:.4f}")
+
+    cwall, (cimg, cstats), ccounts = _timed_render(
+        torch, device, lambda: render_radiance(scene, cam, settings, key, device=device))
+    cimg_np = cimg.cpu().numpy()
+    cseg = float(cstats.segments)
+    chunk = settings.resolve_chunk()
+    log(f"chunked on {card}: wall {cwall:.3f} s, segments {cseg:.0f}, segments/s "
+        f"{cseg / cwall:.4e}, {-(-spp // chunk)} chunks of {W * H * chunk} lanes, "
+        f"bounces {cstats.bounces}, launches {ccounts}, image mean {cimg_np.mean():.6f}")
+    cpwall, cbusy, cidle = idle_share(
+        torch, lambda: render_radiance(scene, cam, settings, key, device=device))
+    log(f"chunked profiled: wall {cpwall:.2f} ms, device busy {cbusy:.2f} ms, idle "
+        f"share {cidle:.4f}")
+    a = image_agreement(img_np, cimg_np)
+    log(f"regen vs chunked: mean rel {a['mean_rel']:.2e}, pixels close "
+        f"{a['frac_close']:.4f}, max abs {float(np.abs(img_np - cimg_np).max()):.3e}, "
+        f"segments {seg:.0f} vs {cseg:.0f}")
+    check(a["ok"], "the LightTest regen breaks the image contract against chunked")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    png = os.path.join(OUT_DIR, f"LightTest_regen_{W}x{H}_{spp}spp.png")
+    write_png(png, to_rgb8(img_np))
+    log(f"wrote {png}")
+    return dict(k1_launches=counts["K1"])
+
+
+def phase_regen_spherefield(torch, device, card, scenes):
+    cfg = SF_REGEN
+    W, H, spp, nb = cfg["width"], cfg["height"], cfg["spp"], cfg["bounces"]
+    paths = W * H * spp
+    log(f"== phase 22: SphereField regen {W}x{H}, {spp} spp, {nb} bounces ({paths} "
+        f"paths through a pool of {min(paths, 1 << 20)} lanes): K6 and the draw kernel "
+        f"at per-lane depth; against the chunked render of the same key")
+    from rust_pathtracer_tpu_torch.render import RenderSettings, render_radiance
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+    from rust_pathtracer_tpu_torch.utils.image import image_agreement
+    from rust_pathtracer_tpu_torch.wavefront import render_radiance_regen
+
+    sd, scene = scenes["SphereField"]
+    cam = sd.camera_at(0.0, device=device)
+    key = prng_key(cfg["seed"], device=device)
+    settings = RenderSettings(W, H, spp, nb, SF_BG)
+    render_radiance_regen(scene, cam, RenderSettings(64, 36, 2, 4, SF_BG), key,
+                          device=device)
+
+    def regen():
+        return render_radiance_regen(scene, cam, settings, key, device=device)
+
+    wall, (img, stats), counts = _timed_render(torch, device, regen)
+    img_np = img.cpu().numpy()
+    seg = float(stats.segments)
+    log(f"regen on {card}: wall {wall:.3f} s, segments {seg:.0f}, segments/s "
+        f"{seg / wall:.4e}, bounce iterations {stats.bounces}, launches {counts}, "
+        f"image mean {img_np.mean():.6f}")
+    check(np.isfinite(img_np).all() and (img_np >= 0).all(),
+          "the SphereField regen image has non-finite or negative pixels")
+    check(counts["K6"] == counts["draws"] == stats.bounces > 0,
+          f"K6 {counts['K6']} and draw kernel {counts['draws']} launches in "
+          f"{stats.bounces} bounce iterations")
+    check(all(counts[k] == 0 for k in ("K1", "K1-res", "K2", "K3", "K4", "K5", "K7")),
+          "the SphereField regen left the resident route")
+    img2, _ = regen()
+    check(torch.equal(img, img2), "the SphereField regen image twice differs")
+    log("regen rendered twice: bitwise equal")
+    with regen_events(torch) as spans:
+        regen()
+    split = regen_split(torch, spans)
+    log(f"regen split by CUDA events: bounces {split['bounce']:.2f} ms, spawns "
+        f"{split['spawn']:.2f} ms, window ends less their spawns {split['flush']:.2f} ms "
+        f"({split['windows']} windows)")
+    pwall, busy, idle = idle_share(torch, regen)
+    log(f"regen profiled: wall {pwall:.2f} ms, device busy {busy:.2f} ms, idle share "
+        f"{idle:.4f}")
+    cwall, (cimg, cstats), ccounts = _timed_render(
+        torch, device, lambda: render_radiance(scene, cam, settings, key, device=device))
+    cimg_np = cimg.cpu().numpy()
+    cseg = float(cstats.segments)
+    log(f"chunked on {card}: wall {cwall:.3f} s, segments {cseg:.0f}, segments/s "
+        f"{cseg / cwall:.4e}, bounces {cstats.bounces}, launches {ccounts}, image mean "
+        f"{cimg_np.mean():.6f}")
+    a = image_agreement(img_np, cimg_np)
+    log(f"regen vs chunked: mean rel {a['mean_rel']:.2e}, pixels close "
+        f"{a['frac_close']:.4f}, max abs {float(np.abs(img_np - cimg_np).max()):.3e}, "
+        f"segments {seg:.0f} vs {cseg:.0f}")
+    check(a["ok"], "the SphereField regen breaks the image contract against chunked")
+    return dict(draws_launches=counts["draws"])
+
+
+def phase_regen_card_vs_cpu(torch, device):
+    log("== phase 23: 64x36 regen of LightTest (fused) and the image-textured scene "
+        "(generic, K3) on the card against the CPU")
+    from rust_pathtracer_tpu_torch.camera import make_camera
+    from rust_pathtracer_tpu_torch.models import get_scene
+    from rust_pathtracer_tpu_torch.render import RenderSettings
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+    from rust_pathtracer_tpu_torch.utils.image import image_agreement
+    from rust_pathtracer_tpu_torch.wavefront import render_radiance_regen
+
+    sd = get_scene("LightTest")
+    cases = (("LightTest", sd.build, sd.camera_at(0.0), (0.0, 0.0, 0.0), 16),
+             ("image scene", simple_scene,
+              make_camera(*SIMPLE_CAM[:4], 64.0 / 36.0, *SIMPLE_CAM[5:]), SIMPLE_BG, 8))
+    for name, build, cam, bg, nb in cases:
+        s = RenderSettings(64, 36, 16, nb, bg, russian_roulette_start=3)
+        imgs = {}
+        for dev in (device, "cpu"):
+            reset_counts()
+            img, st = render_radiance_regen(build(device=dev), cam, s,
+                                            prng_key(GOLDEN_SEED), lanes=4096, device=dev)
+            imgs[dev] = img.cpu().numpy()
+            if dev == device:
+                counts = read_counts()
+        a = image_agreement(imgs[device], imgs["cpu"])
+        log(f"{name} 64x36 spp=16 bounces={nb}, roulette from 3, 4096 lanes: card vs "
+            f"CPU mean rel {a['mean_rel']:.2e}, pixels close {a['frac_close']:.4f}, nan "
+            f"{a['has_nan']}; launches on the card {counts}")
+        check(a["ok"], f"the card's {name} regen breaks the image contract against the CPU")
+        check(counts["K1"] > 0 if name == "LightTest" else counts["K3"] == counts["draws"] > 0,
+              f"the {name} regen on the card left its route: {counts}")
+
+
+def phase_sf_frame_hoisted(torch, device, card, scenes):
+    cfg = SF
+    W, H, spp, nb = cfg["width"], cfg["height"], cfg["spp"], cfg["bounces"]
+    log(f"== phase 24: the chunked SphereField frame {W}x{H}, {spp} spp, {nb} bounces "
+        f"with the draw kernel against the same frame with the draws hoisted in tensor "
+        f"ops (integrator._precompute_draws, the parent's route), bit for bit")
+    from rust_pathtracer_tpu_torch import integrator
+    from rust_pathtracer_tpu_torch.ops.fused_bounce import _lane_keys
+    from rust_pathtracer_tpu_torch.render import RenderSettings, render_radiance
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+
+    sd, scene = scenes["SphereField"]
+    cam = sd.camera_at(0.0, device=device)
+    key = prng_key(cfg["seed"], device=device)
+    settings = RenderSettings(W, H, spp, nb, SF_BG)
+    table = {}
+
+    def hoisted(keys, bounce, with_roulette):
+        if bounce == 0:
+            table.update(integrator._precompute_draws(_lane_keys(keys), nb, nb + 1))
+        return table["sphere_u"][bounce], table["ball_u"][bounce], table["coin"][bounce], None
+
+    walls = {"kernel": [], "hoisted": []}
+    imgs = {}
+    kernel_draws = integrator.bounce_draws
+    for route in ("hoisted", "kernel", "kernel", "hoisted"):
+        integrator.bounce_draws = hoisted if route == "hoisted" else kernel_draws
+        try:
+            wall, (img, stats), counts = _timed_render(
+                torch, device, lambda: render_radiance(scene, cam, settings, key,
+                                                       device=device))
+        finally:
+            integrator.bounce_draws = kernel_draws
+        table.clear()
+        walls[route].append(wall)
+        imgs[route] = img
+        check(counts["draws"] == (stats.bounces if route == "kernel" else 0),
+              f"{route}: the draw kernel launched {counts['draws']} times")
+    check(torch.equal(imgs["kernel"], imgs["hoisted"]),
+          "the SphereField frame with the draw kernel differs from the hoisted draws")
+    log(f"on {card}: with the draw kernel {[round(x, 4) for x in walls['kernel']]} s, "
+        f"hoisted {[round(x, 4) for x in walls['hoisted']]} s (hoisted, kernel, kernel, "
+        f"hoisted); images bitwise equal")
 
 
 # ---------------------------------------------------------------------------
@@ -1863,11 +2364,12 @@ def phase_spherefield_step(torch, device, card):
 def reset_counts():
     """Every kernel's launch count to 0."""
     from rust_pathtracer_tpu_torch.ops import closest_hit as ch
+    from rust_pathtracer_tpu_torch.ops import draws
     from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
     from rust_pathtracer_tpu_torch.ops import fused_bounce_bwd as fbb
     from rust_pathtracer_tpu_torch.ops import projected, resident, worklist
 
-    fb.launches = fb.residual_launches = fbb.launches = 0
+    fb.launches = fb.residual_launches = fbb.launches = draws.launches = 0
     ch.hit_launches = ch.record_launches = 0
     projected.launches = resident.launches = 0
     worklist.launches = 0
@@ -1877,13 +2379,15 @@ def read_counts():
     """Launches by kernel.  On the pair route K5 runs only as K7's
     overflow fallback, so there "K5" counts the fallbacks."""
     from rust_pathtracer_tpu_torch.ops import closest_hit as ch
+    from rust_pathtracer_tpu_torch.ops import draws
     from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
     from rust_pathtracer_tpu_torch.ops import fused_bounce_bwd as fbb
     from rust_pathtracer_tpu_torch.ops import projected, resident, worklist
 
     return {"K1": fb.launches - fb.residual_launches, "K1-res": fb.residual_launches,
             "K2": fbb.launches, "K3": ch.record_launches, "K4": ch.hit_launches,
-            "K5": projected.launches, "K6": resident.launches, "K7": worklist.launches}
+            "K5": projected.launches, "K6": resident.launches, "K7": worklist.launches,
+            "draws": draws.launches}
 
 
 def _grad_sums(grads):
@@ -1924,25 +2428,20 @@ def _events_ms(torch, fn):
     return a.elapsed_time(b), out
 
 
-def _step_split(torch, leaves, forward, lanes_fn, nb, hoisted=True):
-    """A step's split by CUDA events, median of 3: lanes, RNG draws in
-    tensor ops (``_precompute_draws``, on a route that hoists them; 0 on
-    the fused route, whose K1 draws in the kernel), the bounce loop (the
-    forward less the two), the backward."""
-    from rust_pathtracer_tpu_torch.integrator import _precompute_draws
-
-    split = {"lanes": [], "draws": [], "forward": [], "backward": []}
+def _step_split(torch, leaves, forward, lanes_fn):
+    """A step's split by CUDA events, median of 3: lanes, the bounce loop
+    (the forward less the lanes; every route draws its uniforms inside it,
+    K1 in the kernel, the generic route with the draw kernel), the
+    backward."""
+    split = {"lanes": [], "forward": [], "backward": []}
     for _ in range(3):
-        ms, lk = _events_ms(torch, lanes_fn)
-        split["lanes"].append(ms)
-        split["draws"].append(_events_ms(
-            torch, lambda: _precompute_draws(lk[0], nb, nb + 1))[0] if hoisted else 0.0)
+        split["lanes"].append(_events_ms(torch, lanes_fn)[0])
         _zero_grads(leaves)
         ms, (loss, _) = _events_ms(torch, forward)
         split["forward"].append(ms)
         split["backward"].append(_events_ms(torch, loss.backward)[0])
     split = {k: statistics.median(v) for k, v in split.items()}
-    split["loop"] = split["forward"] - split["lanes"] - split["draws"]
+    split["loop"] = split["forward"] - split["lanes"]
     return split
 
 
@@ -2061,13 +2560,14 @@ def k1_bound(torch, args, kw, scene, residual_planes):
     their winners' materials (one check launch with ``winner_out``): a
     lambertian lane draws 2 uniforms, a metal 3, a dielectric 1 (with
     residuals every lane draws the coin in a scene with a dielectric),
-    a continuing lane 1 more under roulette."""
+    a continuing lane 1 more under roulette (at a per-lane depth, only
+    from ``rr_start`` on); a per-lane depth is read once too."""
     from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
     from rust_pathtracer_tpu_torch.scene.types import (
         MAT_DIELECTRIC, MAT_LAMBERTIAN, MAT_METAL,
     )
 
-    table, bg, _, state, keys, _ = args
+    table, bg, _, state, keys, bounce = args
     R = state.shape[1]
     win = torch.empty(R, dtype=torch.int32, device=state.device)
     out = fb.fused_bounce_keyed(*args, **dict(kw, with_roulette=False), winner_out=win)
@@ -2080,19 +2580,24 @@ def k1_bound(torch, args, kw, scene, residual_planes):
     coins = (R if residual_planes and MAT_DIELECTRIC in scene.mat_types
              else lanes_of(MAT_DIELECTRIC))
     rr = kw["with_roulette"]
+    per_lane = isinstance(bounce, torch.Tensor)
+    rr_lanes = (out[12] > 0.5) & (bounce >= kw.get("rr_start", 0) if per_lane else True)
     int_ops = (lanes_of(MAT_LAMBERTIAN) * draw_ops(2) + lanes_of(MAT_METAL) * draw_ops(3)
-               + (coins + (int((out[12] > 0.5).sum()) if rr else 0)) * draw_ops(1))
+               + (coins + (int(rr_lanes.sum()) if rr else 0)) * draw_ops(1))
     planes_out = 13 + residual_planes + (1 if residual_planes and rr else 0)
-    return bound(nbytes(table, bg, state, keys) + planes_out * 4 * R,
-                 sweep_ops(scene.kinds_static, R), int_ops)
+    in_bytes = nbytes(table, bg, state, keys) + (nbytes(bounce) if per_lane else 0)
+    return bound(in_bytes + planes_out * 4 * R, sweep_ops(scene.kinds_static, R), int_ops)
 
 
 # The card's peaks (NVIDIA H100 SXM data sheet)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
-# int32 operations: 64 int32 lanes a clock on each of 132 SMs at the
-# 1.98 GHz boost clock (NVIDIA Hopper architecture white paper)
-PEAK_INT32_PER_S = 64 * 132 * 1.98e9
+# int32 operations: the dispatch limit, one warp instruction a clock on each
+# of an SM's four schedulers (128 lanes a clock) on each of 132 SMs at the
+# 1.98 GHz boost clock (NVIDIA Hopper architecture white paper).  Not the 64
+# INT32 units an SM: the compiler runs integer adds as IMAD on the FMA pipe
+# too, and the draw kernel (phase 20) runs faster than 64 a clock allows
+PEAK_INT32_PER_S = 128 * 132 * 1.98e9
 # int32 operations of one threefry-2x32 block (ops/csrc/threefry.cuh: the
 # key schedule 2, the key added 2, 20 rounds of add, rotate and xor 60,
 # five injections of 3) and of turning its words into a uniform (xor,
@@ -2190,6 +2695,12 @@ def main() -> int:
     k5["later"] += k5_fallback
     k6["later"] += k6_later
     k5["launches"] = phase_spherefield_step(torch, device, card)
+    k1_lane = phase_k1_per_lane(torch, device, card, K1_LANES, reps=20)
+    dr = phase_draws_vs_plain(torch, device, card, K1_LANES, reps=20)
+    regen = phase_regen_light(torch, device, card)
+    sf_regen = phase_regen_spherefield(torch, device, card, scenes)
+    phase_regen_card_vs_cpu(torch, device)
+    phase_sf_frame_hoisted(torch, device, card, scenes)
 
     def sweep_err(kernel, main):
         errs = [main["max_abs_err"]] + [v["max_abs_err"] for (_, k), v in ph14.items()
@@ -2249,6 +2760,23 @@ def main() -> int:
         entry("pair_sweep (K7)", "projected.cu", "worklist.py:169",
               k7["launches"], sweep_err("K7", k7), k7["ms"], k7["plain_ms"],
               (k7["bound_ms"], k7["bound_by"]), later=k7["later"]),
+        # phase 19's 1M lanes; launches: the LightTest regen's (phase 21)
+        entry("fused_bounce at per-lane depth (K1, regen)", "fused_bounce.cu",
+              "fused_bounce.py:169", regen["k1_launches"], k1_lane["max_abs_err"],
+              k1_lane["ms"], k1_lane["plain_ms"],
+              (k1_lane["bound_ms"], k1_lane["bound_by"]), k1_lane["device_ms"]),
+        # no Pallas kernel: it replaces XLA's threefry in the JAX package's
+        # sampling.bounce_draws; phase 20's 1M keys at per-lane depths (and,
+        # under "scalar", at bounce 7); launches: the SphereField regen's
+        dict(entry("bounce_draws", "draws.cu", "", sf_regen["draws_launches"],
+                   max(v["max_abs_err"] for v in dr.values()),
+                   dr[DRAWS_PER_LANE]["ms"], dr[DRAWS_PER_LANE]["plain_ms"],
+                   (dr[DRAWS_PER_LANE]["bound_ms"], dr[DRAWS_PER_LANE]["bound_by"]),
+                   dr[DRAWS_PER_LANE]["device_ms"]),
+             replaces="rust_pathtracer_tpu/sampling.py:212 (XLA's threefry; no Pallas "
+                      "kernel)",
+             scalar={k: dr[DRAWS_SCALAR][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                       "bound_by")}),
     ]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,9 +4,11 @@
     python3 profile_port.py --scene SphereField --mode step
     python3 profile_port.py --scene ModelTest --mode frame
     python3 profile_port.py --scene CornellBox --mode frame --root output/parent
+    python3 profile_port.py --scene LightTest --mode regen
 
 Runs ``rust_pathtracer_tpu_torch`` (never JAX) on the card: one warm-up,
-then the same frame (``render_radiance``) or differentiable step
+then the same frame (``render_radiance``), regen frame
+(``wavefront.render_radiance_regen``) or differentiable step
 (``render_radiance`` with ``differentiable=True``, loss = mean(img),
 ``backward``) under ``torch.profiler`` with CPU and CUDA activities.
 Prints:
@@ -28,7 +30,9 @@ generic route, K3 at 3 primitives).  ModelTest renders
 ``scene.obj_loader.write_benchmark_obj``'s asset, ModelTest20k its
 20,000-triangle mesh (rows=101, cols=100: the pair route, K7).  CornellBox's frame is
 the serving shape (400x400, 60 spp in chunks of 6, 960,000 lanes a
-chunk), its step ``bench.py``'s (512x512, 4 spp, one chunk).
+chunk), its step ``bench.py``'s (512x512, 4 spp, one chunk).  LightTest's
+frame and regen frame are chip_smoke.py's phase 21 (854x480, 16 spp, 50
+bounces), SphereField's regen frame its phase 22 (8 spp).
 ``--root`` imports the package from another checkout (a parent commit
 unpacked with ``git archive``), so that two versions are timed by one
 script on one card.
@@ -47,7 +51,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # scene -> mode -> (width, height, spp, bounces, spp a chunk): the
 # scene's own width, spp cut to one chunk; CornellBox as chip_smoke.py
 # serves it and as bench.py steps it
-SHAPES = {"SphereField": dict.fromkeys(("frame", "step"), (854, 480, 2, 20, 2)),
+SHAPES = {"SphereField": {**dict.fromkeys(("frame", "step"), (854, 480, 2, 20, 2)),
+                         "regen": (854, 480, 8, 20, 2)},
+          "LightTest": dict.fromkeys(("frame", "regen"), (854, 480, 16, 50, 2)),
           "ModelTest": dict.fromkeys(("frame", "step"), (800, 800, 1, 20, 1)),
           "ModelTest20k": dict.fromkeys(("frame", "step"), (800, 800, 1, 20, 1)),
           "TwoSphereCheckers": dict.fromkeys(("frame", "step"), (854, 480, 2, 20, 2)),
@@ -100,7 +106,7 @@ def busy_ms(events):
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--scene", default="SphereField", choices=sorted(SHAPES))
-    p.add_argument("--mode", default="step", choices=["step", "frame"])
+    p.add_argument("--mode", default="step", choices=["step", "frame", "regen"])
     p.add_argument("--root", default=REPO,
                    help="the checkout whose rust_pathtracer_tpu_torch to import")
     p.add_argument("--kernel", action="append", default=[],
@@ -135,6 +141,9 @@ def main() -> int:
         path = os.path.join(root, "output", "profile", f"{args.scene}.obj")
         write_benchmark_obj(path, **MESHES[args.scene])
         kw["obj_path"] = path
+    if args.mode not in SHAPES[args.scene]:
+        print(f"FAIL: no {args.mode} shape for {args.scene}", flush=True)
+        return 1
     W, H, spp, nb, chunk = SHAPES[args.scene][args.mode]
     dev = "cuda"
     if args.scene == "ImageScene":
@@ -156,6 +165,10 @@ def main() -> int:
         leaves = [x.detach().clone().requires_grad_(True) for x in params.leaves()]
 
     def run():
+        if args.mode == "regen":
+            from rust_pathtracer_tpu_torch.wavefront import render_radiance_regen
+
+            return render_radiance_regen(scene, cam, settings, key, device=dev)
         if leaves is None:
             return render_radiance(scene, cam, settings, key, device=dev)
         for x in leaves:

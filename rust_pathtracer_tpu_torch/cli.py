@@ -8,14 +8,18 @@ Counterpart of ``rust_pathtracer_tpu/cli.py``; plain host code.
     python -m rust_pathtracer_tpu_torch.cli --scene ModelTest \
         --obj-path ./model.obj --spp 4
 
+    python -m rust_pathtracer_tpu_torch.cli --scene LightTest --spp 16 --regen
+
 The default device is ``cuda``; ``--device cuda`` where there is no GPU
 exits non-zero (there is no CPU fallback).  One frame, the camera at
 t = 0.  Prints the ray segments traced, the wall seconds of the render
 (the kernels' first-use builds are done before the clock starts) and
-segments per second.
+segments per second.  ``--regen`` renders with the regeneration
+wavefront (``wavefront.render_radiance_regen``, a pool of ``--lanes``
+lanes), as the JAX CLI routes it.
 
 Not ported yet (ROADMAP queue 1 item 13): ``--scene-json``, animation
-frames and GIFs (``--frames``), ``--mesh``, ``--regen``, ``--cascade``,
+frames and GIFs (``--frames``), ``--mesh``, ``--cascade``,
 ``--checkpoint``, profiling and metrics files.
 """
 
@@ -48,6 +52,15 @@ def build_parser() -> argparse.ArgumentParser:
         help="enable russian roulette from this bounce (off by default: "
              "reference semantics)",
     )
+    p.add_argument(
+        "--regen", action="store_true",
+        help="regeneration wavefront: terminated lanes refill from the "
+             "sample queue (best for deep-bounce scenes, e.g. LightTest)",
+    )
+    p.add_argument(
+        "--lanes", type=int, default=None,
+        help="lane-pool size for --regen (default min(total, 2^20))",
+    )
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return p
 
@@ -61,6 +74,7 @@ def main(argv=None) -> int:
     from rust_pathtracer_tpu_torch.render import render_radiance
     from rust_pathtracer_tpu_torch.sampling import prng_key
     from rust_pathtracer_tpu_torch.utils.image import frame_path, to_rgb8, write_png
+    from rust_pathtracer_tpu_torch.wavefront import render_radiance_regen
 
     if args.device == "cuda" and not torch.cuda.is_available():
         print("error: --device cuda, but torch.cuda.is_available() is False",
@@ -95,13 +109,17 @@ def main(argv=None) -> int:
 
         # first-use builds of the kernels the scene's routes launch:
         # set-up, not render time
-        libs = (("fused_bounce", "closest_hit") if scene.kinds_static is not None
-                else ("projected",))
+        libs = (("fused_bounce", "closest_hit", "draws") if scene.kinds_static is not None
+                else ("projected", "draws"))
         for name in libs:
             load_library(name)
 
     t0 = time.perf_counter()
-    img, stats = render_radiance(scene, cam, settings, key, device=args.device)
+    if args.regen:
+        img, stats = render_radiance_regen(scene, cam, settings, key, lanes=args.lanes,
+                                           device=args.device)
+    else:
+        img, stats = render_radiance(scene, cam, settings, key, device=args.device)
     img = img.cpu().numpy()  # waits for the device
     seconds = time.perf_counter() - t0
 
@@ -113,7 +131,8 @@ def main(argv=None) -> int:
     print(f"wrote {path}")
     print(f"{sd.name} {settings.width}x{settings.height} "
           f"spp={settings.samples_per_pixel} bounces={settings.max_bounces} "
-          f"on {device_name}: segments={segments:.0f} seconds={seconds:.3f} "
+          f"{'regen ' if args.regen else ''}on {device_name}: "
+          f"segments={segments:.0f} seconds={seconds:.3f} "
           f"segments/s={segments / seconds:.4g}")
     return 0
 

@@ -32,18 +32,22 @@ Two routes, chosen per scene as in the JAX package:
   row; the differentiable search is K5.  The differentiable record is
   ``record_from_rows`` on the gathered primitive rows; shading and
   scatter are plain tensor ops (``materials.py``, ``textures.py``) and
-  autograd differentiates them.  Its uniforms are hoisted
-  (``_precompute_draws``), as in the JAX package.
+  autograd differentiates them.  It draws each bounce's uniforms with
+  the draw kernel (``ops/draws.py``), where the JAX package hoists them
+  for every bounce (``_precompute_draws``, kept as the reference).
 
 The non-differentiable loops stop at ``max_bounces`` or once no lane is
 alive; the differentiable ones run exactly ``max_bounces`` bounces.
 Optional russian roulette (off by default; the reference has none) runs
 between bounces.  t_min = 0.001 (ray.rs:25) is in units of |direction|.
 
+The regen wavefront (``wavefront.py``) runs the same two routes on a
+lane pool at per-lane depth.
+
 Not ported: the geometry-gradient re-derivation (``RPT_DIFF_T=rederive``),
 ``remat="bf16"``, the diff cascade, the between-bounce wavefront
 reorder of big scenes (ROADMAP queue 1 items 8, 11 and 14; the reorder
-changes no per-lane result), the regen wavefront (item 9).
+changes no per-lane result).
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ from rust_pathtracer_tpu_torch.ops.closest_hit import (
     closest_hit_record,
     pack_prims,
 )
+from rust_pathtracer_tpu_torch.ops.draws import bounce_draws
 from rust_pathtracer_tpu_torch.ops.fused_bounce import (
     _COL_KEYS,
     fused_bounce_diff_ok,
@@ -115,8 +120,10 @@ def _precompute_draws(lane_keys, max_bounces, rr_start, start_bounce=0):
     path state, so they are drawn for every bounce at once.  Returns a
     dict of (B, R, ...) tensors: ``sphere_u`` (B, R, 2), ``ball_u``
     (B, R, 3), ``coin`` (B, R) and, when roulette can fire,
-    ``roulette`` (B, R).  Bit-equal to the JAX legacy stream.  The
-    generic route's; the fused route draws inside K1.
+    ``roulette`` (B, R).  Bit-equal to the JAX legacy stream.  The JAX
+    package's hoisted form; the port's routes draw bounce by bounce (the
+    fused route inside K1, the generic route with ``bounce_draws``), and
+    the tests hold them to this.
     """
     rr = rr_start < max_bounces
     b = torch.arange(start_bounce, max_bounces, dtype=torch.int64,
@@ -310,8 +317,8 @@ def _stats(alive, bounce, segments, occupancy):
     return segments + n_alive
 
 
-def _trace_generic(scene, origins, directions, background, max_bounces,
-                   rr_start, draws, differentiable, mode):
+def _trace_generic(scene, origins, directions, keys, background, max_bounces,
+                   rr_start, differentiable, mode):
     dev = origins.device
     table = scene.proj if scene.kinds_static is None else pack_prims(scene.prims)
     R = origins.shape[0]
@@ -322,17 +329,16 @@ def _trace_generic(scene, origins, directions, background, max_bounces,
     bounce = 0
     while bounce < max_bounces and (differentiable or bool(state[4].any())):
         segments = _stats(state[4].to(torch.float32), bounce, segments, occupancy)
-        draws_b = {k: v[bounce] for k, v in draws.items()}
-        rr_u = draws["roulette"][bounce] if bounce >= rr_start else None
+        su, bu, coin, rr_u = bounce_draws(keys, bounce, bounce >= rr_start)
+        draws_b = dict(sphere_u=su, ball_u=bu, coin=coin)
         state = _bounce_step(scene, table, state, draws_b, background, rr_u,
                              differentiable, mode)
         bounce += 1
     return state[3], TraceStats(segments=segments, bounces=bounce, occupancy=occupancy)
 
 
-def _trace_fused(scene, origins, directions, lane_keys, background, max_bounces,
+def _trace_fused(scene, origins, directions, keys, background, max_bounces,
                  rr_start, differentiable):
-    keys = key_words(lane_keys)
     zeros = torch.zeros_like(origins[:, 0])
     ones = torch.ones_like(zeros)
     cols = (origins[:, 0], origins[:, 1], origins[:, 2],
@@ -410,9 +416,9 @@ def trace(
     )
     mode = (resolve_remat_mode(remat, origins.shape[0], max_bounces)
             if differentiable else None)
+    keys = key_words(lane_keys)
     if (fused_bounce_diff_ok if differentiable else fused_bounce_ok)(scene):
-        return _trace_fused(scene, origins, directions, lane_keys, background,
+        return _trace_fused(scene, origins, directions, keys, background,
                             max_bounces, rr_start, differentiable)
-    draws = _precompute_draws(lane_keys, max_bounces, rr_start)
-    return _trace_generic(scene, origins, directions, background, max_bounces,
-                          rr_start, draws, differentiable, mode)
+    return _trace_generic(scene, origins, directions, keys, background, max_bounces,
+                          rr_start, differentiable, mode)

@@ -43,13 +43,14 @@ _c_void_p, _c_int, _c_uint = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
     "fused_bounce": {
         # table, n_prims, bg, seed, t_min, mat_flags, tex_flags, in (13
-        # or 19 rows), keys (2 rows, or NULL: uniforms in), bounce,
-        # roulette, out (13 rows), res (9 or 10 rows, or NULL), flags,
-        # winner (or NULL), n_lanes, stream
+        # rows), keys (2 rows), bounce, roulette, depth (a per-lane bounce,
+        # or NULL), rr_start, out (13 rows), res (9 or 10 rows, or NULL),
+        # flags, winner (or NULL), n_lanes, stream
         "fused_bounce_launch": (
             [_c_void_p, _c_int, _c_void_p, _c_uint, ctypes.c_float, _c_int,
-             _c_int, _c_void_p, _c_void_p, _c_uint, _c_int, _c_void_p, _c_void_p,
-             _c_void_p, _c_void_p, ctypes.c_longlong, _c_void_p],
+             _c_int, _c_void_p, _c_void_p, _c_uint, _c_int, _c_void_p, _c_int,
+             _c_void_p, _c_void_p, _c_void_p, _c_void_p, ctypes.c_longlong,
+             _c_void_p],
             _c_int,
         ),
         "error_string": ([_c_int], ctypes.c_char_p),
@@ -63,6 +64,16 @@ SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
         "fused_bounce_bwd_launch": (
             [_c_void_p, _c_void_p, _c_void_p, _c_int, _c_int, _c_void_p,
              _c_void_p, ctypes.c_longlong, _c_void_p],
+            _c_int,
+        ),
+        "error_string": ([_c_int], ctypes.c_char_p),
+    },
+    "draws": {
+        # keys (2 rows), depth (a per-lane bounce, or NULL), bounce,
+        # roulette, out (6 or 7 rows), n_lanes, stream
+        "bounce_draws_launch": (
+            [_c_void_p, _c_void_p, _c_uint, _c_int, _c_void_p, ctypes.c_longlong,
+             _c_void_p],
             _c_int,
         ),
         "error_string": ([_c_int], ctypes.c_char_p),

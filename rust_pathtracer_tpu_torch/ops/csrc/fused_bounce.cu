@@ -20,6 +20,9 @@
 // are the bits integrator._precompute_draws hoists in tensor ops (the
 // JAX package hoists them because XLA makes threefry cheap on the TPU;
 // on the H100 that int64 tensor-op threefry took 86% of the bench step).
+// The regen wavefront (../../wavefront.py) passes a depth row: each lane
+// draws at its own path depth, and roulette acts where that depth is at
+// least rr_start (JAX wavefront.py:274-331).
 //
 // What bounds it on the card: a lane reads 13 f32 state columns
 // and 2 key words and writes 13 columns, 112 B per lane-bounce, so about
@@ -316,7 +319,8 @@ __global__ void __launch_bounds__(THREADS)
 fused_bounce_kernel(const float* __restrict__ table, int n_prims,
                     const float* __restrict__ bg, uint32_t seed, float t_min,
                     int mat_flags, int tex_flags, uint32_t bounce, bool roulette,
-                    Columns cols, int* __restrict__ winner, long long n) {
+                    const int* __restrict__ depth, int rr_start, Columns cols,
+                    int* __restrict__ winner, long long n) {
   __shared__ float tab[PAY_W * MAX_PRIMS];
   for (int i = threadIdx.x; i < PAY_W * n_prims; i += blockDim.x) tab[i] = table[i];
   __syncthreads();
@@ -343,7 +347,12 @@ fused_bounce_kernel(const float* __restrict__ table, int n_prims,
       continue;
     }
 
-    const Draws draws{cols.key[0][i], cols.key[1][i], bounce};
+    // the launch's bounce, or the lane's own path depth (the regen pool,
+    // whose lanes are at different depths); roulette acts on the lane from
+    // rr_start on
+    const uint32_t lane_bounce = depth ? (uint32_t)depth[i] : bounce;
+    const bool lane_roulette = roulette && (!depth || depth[i] >= rr_start);
+    const Draws draws{cols.key[0][i], cols.key[1][i], lane_bounce};
     // the residuals' dielectric terms take the coin on every lane
     const float res_coin = RES && (mat_flags & MATF_DIELECTRIC) ? draws.coin() : 0.0f;
 
@@ -576,7 +585,7 @@ fused_bounce_kernel(const float* __restrict__ table, int n_prims,
     // its uniform is below p, boosted by 1/p, else it dies ----------------
     bool alive_out = cont;
     int rr_flag = 0;
-    if (roulette) {
+    if (lane_roulette) {
       const float m = max2_nan(max2_nan(t_out0, t_out1), t_out2);
       const float p = m != m ? m : fminf(fmaxf(m, RR_P_MIN), RR_P_MAX);
       const bool act = cont && draws.roulette() < p;
@@ -614,8 +623,10 @@ extern "C" {
 // n_lanes: `table` (32, n_prims) f32, `bg` (3,) f32; `in` the 13 state
 // rows (o0 o1 o2 d0 d1 d2 t0 t1 t2 r0 r1 r2 al); `keys` the lane key's
 // two uint32 rows, from which the lanes draw `bounce`'s uniforms;
-// `roulette` applies russian roulette after the bounce; `out` the 13 new
-// state rows.  `res`,
+// `roulette` applies russian roulette after the bounce.  `depth`, NULL for
+// none, gives each lane its own bounce (an int32 row: the lane's path
+// depth), and roulette then acts on the lanes whose depth is at least
+// `rr_start`; it takes no `res`.  `out` the 13 new state rows.  `res`,
 // NULL for none, receives the nine f32 residual rows (t nx ny nz v0 v1
 // v2 ratio invr) and, with `roulette`, roulette's p as a tenth; `flags`
 // (with `res`) the int32 flags.  `winner`, optional (NULL for none),
@@ -625,9 +636,11 @@ extern "C" {
 int fused_bounce_launch(const float* table, int n_prims, const float* bg,
                         unsigned int seed, float t_min, int mat_flags,
                         int tex_flags, const float* in, const unsigned int* keys,
-                        unsigned int bounce, int roulette, float* out, float* res,
-                        int* flags, int* winner, long long n_lanes, void* stream) {
-  if (n_prims <= 0 || n_prims > MAX_PRIMS || n_lanes < 0 || !keys || (res && !flags)) {
+                        unsigned int bounce, int roulette, const int* depth,
+                        int rr_start, float* out, float* res, int* flags, int* winner,
+                        long long n_lanes, void* stream) {
+  if (n_prims <= 0 || n_prims > MAX_PRIMS || n_lanes < 0 || !keys || (res && !flags) ||
+      (res && depth)) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_lanes == 0) return (int)cudaSuccess;
@@ -646,7 +659,7 @@ int fused_bounce_launch(const float* table, int n_prims, const float* bg,
 #define RPT_K1(RES_)                                                              \
   fused_bounce_kernel<RES_><<<grid, THREADS, 0, s>>>(                             \
       table, n_prims, bg, (uint32_t)seed, t_min, mat_flags, tex_flags,            \
-      (uint32_t)bounce, rr, cols, winner, n_lanes)
+      (uint32_t)bounce, rr, depth, rr_start, cols, winner, n_lanes)
   if (res) {
     RPT_K1(true);
   } else {

@@ -429,14 +429,17 @@ def state_cols(state: torch.Tensor) -> Dict[str, torch.Tensor]:
 
 
 def fused_bounce_keyed_plain(table, bg, seed, state, keys, bounce, *, with_roulette,
-                             kinds, mat_types, tex_types, t_min, winner_out=None,
-                             want_residuals=False):
+                             kinds, mat_types, tex_types, t_min, rr_start=0,
+                             winner_out=None, want_residuals=False):
     """The keyed bounce in plain tensor ops; same arguments and result as
     ``fused_bounce_keyed``.  Runs on any device: ``sampling.bounce_draws``
-    draws the bounce's uniforms from the keys, ``fused_bounce_cols_plain``
-    runs the bounce on them, then ``roulette`` where ``with_roulette`` is
-    set."""
-    su, bu, coin, rl = sampling.bounce_draws(_lane_keys(keys), bounce, with_roulette)
+    draws the bounce's uniforms from the keys (at each lane's own depth
+    where ``bounce`` is a tensor), ``fused_bounce_cols_plain`` runs the
+    bounce on them, then ``roulette`` where ``with_roulette`` is set (on
+    the lanes at depth ``rr_start`` or more, for a per-lane ``bounce``)."""
+    per_lane = isinstance(bounce, torch.Tensor)
+    draw_at = bounce.to(torch.int64) if per_lane else bounce
+    su, bu, coin, rl = sampling.bounce_draws(_lane_keys(keys), draw_at, with_roulette)
     out = fused_bounce_cols_plain(
         table, bg, seed, state_cols(state), su[..., 0], su[..., 1], bu[..., 0],
         bu[..., 1], bu[..., 2], coin, kinds=kinds, mat_types=mat_types,
@@ -444,7 +447,7 @@ def fused_bounce_keyed_plain(table, bg, seed, state, keys, bounce, *, with_roule
         want_residuals=want_residuals)
     out, res = out if want_residuals else (out, None)
     if with_roulette:
-        out, p, act = roulette(out, rl)
+        out, p, act = roulette(out, rl, bounce >= rr_start if per_lane else None)
         if want_residuals:
             res = dict(res, flags=res["flags"] | act.to(torch.int32) * FLG_RR_ACT,
                        rr_p=p)
@@ -494,18 +497,21 @@ def _check_winner(winner_out, dev, R):
 
 
 def fused_bounce_keyed(table, bg, seed, state, keys, bounce, *, with_roulette,
-                       kinds, mat_types, tex_types, t_min, winner_out=None,
-                       want_residuals=False):
+                       kinds, mat_types, tex_types, t_min, rr_start=0,
+                       winner_out=None, want_residuals=False):
     """One fused bounce over R lanes that draws its own uniforms: the
     main path's K1.
 
     ``state`` the (13, R) f32 state, rows in ``_COL_KEYS`` order;
     ``keys`` the lanes' threefry keys as (2, R) int32 rows
-    (``key_words(lane_keys)``); ``bounce`` the bounce index.  Each lane
-    draws the uniforms ``sampling.bounce_draws(lane_keys, bounce,
-    with_roulette)`` gives it (the purposes its material consumes); with
-    ``with_roulette`` the bounce ends in ``roulette`` on the lane's own
-    uniform.  ``table``, ``bg``, ``seed``, the static fields and
+    (``key_words(lane_keys)``); ``bounce`` the bounce index, or an (R,)
+    int32 tensor of each lane's own path depth (the regen wavefront's
+    pool, forward only).  Each lane draws the uniforms
+    ``sampling.bounce_draws(lane_keys, bounce, with_roulette)`` gives it
+    (the purposes its material consumes); with ``with_roulette`` the
+    bounce ends in ``roulette`` on the lane's own uniform, for a per-lane
+    ``bounce`` only on the lanes whose depth is ``rr_start`` or more.
+    ``table``, ``bg``, ``seed``, the static fields and
     ``winner_out`` as in ``fused_bounce_cols_plain``.  Returns the new
     (13, R) state; with ``want_residuals``, ``(state, res)``, ``res`` as
     in ``fused_bounce_cols_plain`` plus, with roulette, ``rr_p``, roulette's (R,)
@@ -525,30 +531,40 @@ def fused_bounce_keyed(table, bg, seed, state, keys, bounce, *, with_roulette,
     R = state.shape[1]
     if keys.shape != (2, R) or keys.dtype != torch.int32 or keys.device != dev:
         raise ValueError(f"fused_bounce_keyed: keys must be (2, {R}) int32 rows on {dev}")
-    if not 0 <= int(bounce) <= _M32:
+    if isinstance(bounce, torch.Tensor):
+        if bounce.shape != (R,) or bounce.dtype != torch.int32 or bounce.device != dev:
+            raise ValueError(f"fused_bounce_keyed: a per-lane bounce must be ({R},) "
+                             f"int32 on {dev}")
+        if want_residuals:
+            raise ValueError("fused_bounce_keyed: a per-lane bounce is forward only "
+                             "(no residuals)")
+    elif not 0 <= int(bounce) <= _M32:
         raise ValueError(f"fused_bounce_keyed: bounce {bounce} out of range")
     _check_winner(winner_out, dev, R)
     if dev.type == "cpu":
         return fused_bounce_keyed_plain(
             table, bg, seed, state, keys, bounce, with_roulette=with_roulette,
             kinds=kinds, mat_types=mat_types, tex_types=tex_types, t_min=t_min,
-            winner_out=winner_out, want_residuals=want_residuals)
+            rr_start=rr_start, winner_out=winner_out, want_residuals=want_residuals)
     if dev.type != "cuda":
         raise ValueError(f"fused_bounce_keyed: no kernel for device {dev}")
-    return _launch(table, bg, seed, state, keys, int(bounce), bool(with_roulette),
-                   mat_types, tex_types, t_min, winner_out, want_residuals)
+    return _launch(table, bg, seed, state, keys, bounce, bool(with_roulette),
+                   int(rr_start), mat_types, tex_types, t_min, winner_out,
+                   want_residuals)
 
 
-def _launch(table, bg, seed, state, keys, bounce, with_roulette, mat_types,
+def _launch(table, bg, seed, state, keys, bounce, with_roulette, rr_start, mat_types,
             tex_types, t_min, winner_out, want_residuals):
-    """Launch K1 on the (13, R) ``state`` and (2, R) ``keys``; returns the
-    (13, R) state, and the residuals with ``want_residuals``."""
+    """Launch K1 on the (13, R) ``state`` and (2, R) ``keys`` at ``bounce``
+    (an int, or a per-lane (R,) int32 depth); returns the (13, R) state,
+    and the residuals with ``want_residuals``."""
     global launches, residual_launches
     from rust_pathtracer_tpu_torch.ops._build import load_library
 
     lib = load_library("fused_bounce")
     table, bg = table.contiguous(), bg.contiguous()
     state, keys = state.contiguous(), keys.contiguous()
+    depth = bounce.contiguous() if isinstance(bounce, torch.Tensor) else None
     dev, R = state.device, state.shape[1]
     out = torch.empty((len(_COL_KEYS), R), dtype=torch.float32, device=dev)
     res_f = flags = None
@@ -561,8 +577,9 @@ def _launch(table, bg, seed, state, keys, bounce, with_roulette, mat_types,
             table.data_ptr(), table.shape[1], bg.data_ptr(), int(seed) & _M32,
             float(t_min), _type_flags(mat_types, _MAT_BITS, "material"),
             _type_flags(tex_types, _TEX_BITS, "texture"), state.data_ptr(),
-            keys.data_ptr(), bounce, int(with_roulette),
-            out.data_ptr(), None if res_f is None else res_f.data_ptr(),
+            keys.data_ptr(), 0 if depth is not None else int(bounce),
+            int(with_roulette), None if depth is None else depth.data_ptr(),
+            int(rr_start), out.data_ptr(), None if res_f is None else res_f.data_ptr(),
             None if flags is None else flags.data_ptr(),
             None if winner_out is None else winner_out.data_ptr(), R,
             torch.cuda.current_stream().cuda_stream,
@@ -586,13 +603,15 @@ def _launch(table, bg, seed, state, keys, bounce, with_roulette, mat_types,
 # ---------------------------------------------------------------------------
 
 
-def roulette(cols, u):
+def roulette(cols, u, sel=None):
     """Russian roulette (``_trace_fused_cols`` :845-869): survivors are
-    boosted by 1/p, p = clip(max throughput, 0.05, 1).  Returns
-    ``(cols, p, act)``; ``act`` marks the lanes that were boosted."""
+    boosted by 1/p, p = clip(max throughput, 0.05, 1).  ``sel``, an
+    optional (R,) bool mask, limits it to those lanes (the regen pool's
+    lanes at depth ``rr_start`` or more).  Returns ``(cols, p, act)``;
+    ``act`` marks the lanes that were boosted."""
     t0, t1, t2, al = cols["t0"], cols["t1"], cols["t2"], cols["al"]
     p = torch.clamp(torch.maximum(torch.maximum(t0, t1), t2), 0.05, 1.0)
-    live = al > 0.5
+    live = al > 0.5 if sel is None else (al > 0.5) & sel
     act = live & (u < p)
     cols = dict(
         cols,

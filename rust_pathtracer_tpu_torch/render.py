@@ -90,39 +90,43 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _make_lanes(cam: Camera, base_key, pix, sample_offset: int, *, width,
-                height, spp_chunk, spp_total):
-    """Camera lanes for len(pix)*spp_chunk (pixel, sample) items.
-
-    Returns (lane keys (R, 2), origins, directions, in_range (R,)
-    bool: False for the padded samples of the final chunk).
-    """
-    dev = pix.device
-    col = (pix % width).to(torch.float32)
-    row = pix // width
-    y = (height - 1 - row).to(torch.float32)  # renderer.rs:16: reversed rows
-
-    s_local = torch.arange(spp_chunk, dtype=torch.int64, device=dev)
-    sample_ids = sample_offset + s_local
-    # lane counter = pixel * spp_total + sample (uint32 arithmetic)
-    counters = ((pix[:, None] * spp_total + sample_ids[None, :])
-                & 0xFFFFFFFF).reshape(-1)
-    lkeys = sampling.lane_keys(base_key, counters)
-
+def camera_lanes(cam: Camera, base_key, pixel, sample, *, width, height, spp_total):
+    """Camera lanes for flat (pixel, sample) items, (R,) int64 each: the
+    lane keys (R, 2) of counter pixel * spp_total + sample (uint32
+    arithmetic), origins and directions (R, 3)."""
+    dev = pixel.device
+    lkeys = sampling.lane_keys(base_key, (pixel * spp_total + sample) & 0xFFFFFFFF)
     jit_u = sampling.uniform2(
         sampling.bounce_keys(lkeys, 0, sampling.P_PIXEL_JITTER)
     )
-    x_l = torch.repeat_interleave(col, spp_chunk)
-    y_l = torch.repeat_interleave(y, spp_chunk)
+    col = (pixel % width).to(torch.float32)
+    y = (height - 1 - pixel // width).to(torch.float32)  # renderer.rs:16: reversed rows
 
     def f32(v):  # divide by a tensor: true division on every device
         return torch.tensor(v, dtype=torch.float32, device=dev)
 
-    u = (x_l + jit_u[:, 0]) / f32(width - 1.0)   # renderer.rs:23
-    v = (y_l + jit_u[:, 1]) / f32(height - 1.0)  # renderer.rs:24
+    u = (col + jit_u[:, 0]) / f32(width - 1.0)   # renderer.rs:23
+    v = (y + jit_u[:, 1]) / f32(height - 1.0)    # renderer.rs:24
 
     lens_keys = sampling.bounce_keys(lkeys, 0, sampling.P_LENS)
     o, d = camera_rays(cam, u, v, lens_keys)
+    return lkeys, o, d
+
+
+def _make_lanes(cam: Camera, base_key, pix, sample_offset: int, *, width,
+                height, spp_chunk, spp_total):
+    """Camera lanes for len(pix)*spp_chunk (pixel, sample) items, pixel
+    major.
+
+    Returns (lane keys (R, 2), origins, directions, in_range (R,)
+    bool: False for the padded samples of the final chunk).
+    """
+    sample_ids = sample_offset + torch.arange(spp_chunk, dtype=torch.int64,
+                                              device=pix.device)
+    lkeys, o, d = camera_lanes(
+        cam, base_key, torch.repeat_interleave(pix, spp_chunk),
+        sample_ids.repeat(pix.shape[0]), width=width, height=height,
+        spp_total=spp_total)
     in_range = (sample_ids[None, :] < spp_total).expand(pix.shape[0], spp_chunk)
     return lkeys, o, d, in_range.reshape(-1)
 

@@ -560,3 +560,111 @@ def test_keyed_kernel_matches_plain_on_gpu():
                 np.testing.assert_array_equal(k_win, c_win)
                 np.testing.assert_array_equal(k_out[12], c_out[12])
                 np.testing.assert_allclose(k_out, c_out, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 257, 70001])
+def test_keyed_kernel_per_lane_depth_on_gpu(n):
+    """K1 at per-lane depth (the regen wavefront's: random depths 0-49,
+    roulette from depth 3, and off) against the keyed plain version on the
+    same CUDA tensors: every column and winner bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    scene = t_full_scene().to("cuda")
+    cols, _ = _random_lanes(n, seed=27)
+    state, keys = _keyed_inputs(cols, "cuda")
+    depth = torch.as_tensor(np.random.default_rng(n).integers(0, 50, n).astype(np.int32),
+                            device="cuda")
+    table, bg = fb.pack_prims_shaded(scene), torch.tensor((0.2, 0.1, 0.05), device="cuda")
+    for rr in (False, True):
+        runs = []
+        for fn in (fb.fused_bounce_keyed, fb.fused_bounce_keyed_plain):
+            win = torch.empty(n, dtype=torch.int32, device="cuda")
+            before = fb.launches
+            out = fn(table, bg, scene.textures.perlin_seed, state, keys, depth,
+                     with_roulette=rr, rr_start=3, kinds=scene.kinds_static,
+                     mat_types=scene.mat_types, tex_types=scene.tex_types, t_min=T_MIN,
+                     winner_out=win)
+            torch.cuda.synchronize()
+            assert fb.launches == before + (fn is fb.fused_bounce_keyed)
+            runs.append((out.cpu().numpy(), win.cpu().numpy()))
+        (k_out, k_win), (p_out, p_win) = runs
+        np.testing.assert_array_equal(k_out.view(np.int32), p_out.view(np.int32))
+        np.testing.assert_array_equal(k_win, p_win)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 255, 257, 70001])
+def test_draw_kernel_matches_plain_on_gpu(n):
+    """The draw kernel against ``sampling.bounce_draws`` on the same CUDA
+    tensors and on the CPU, at scalar bounces (one whose ``bounce * 8 +
+    purpose`` wraps past 2**32) and per-lane depths, roulette off and on:
+    bit for bit (exact integer arithmetic)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from rust_pathtracer_tpu_torch import sampling
+    from rust_pathtracer_tpu_torch.ops import draws
+
+    lk = sampling.lane_keys(sampling.prng_key(21), torch.arange(n))
+    keys = fb.key_words(lk).to("cuda")
+    depth = torch.from_numpy(np.random.default_rng(n).integers(0, 64, n).astype(np.int32))
+    for bounce in (0, 19, 2**29 + 5, depth):
+        b_gpu = bounce.to("cuda") if isinstance(bounce, torch.Tensor) else bounce
+        for rr in (False, True):
+            before = draws.launches
+            got = draws.bounce_draws(keys, b_gpu, rr)
+            torch.cuda.synchronize()
+            assert draws.launches == before + 1
+            plain = draws.bounce_draws_plain(keys, b_gpu, rr)
+            cpu = draws.bounce_draws(keys.cpu(), bounce, rr)
+            for g, p, c in zip(got, plain, cpu):
+                if c is None:
+                    assert g is None and p is None
+                    continue
+                g = g.cpu().contiguous().numpy().view(np.int32)
+                np.testing.assert_array_equal(g, p.cpu().numpy().view(np.int32))
+                np.testing.assert_array_equal(g, c.numpy().view(np.int32))
+
+
+@pytest.mark.cuda
+def test_regen_on_gpu_matches_cpu():
+    """A 24x16 regen render of LightTest (K1 at per-lane depth) and of the
+    image-textured scene (K3 and the draw kernel), 8 spp, 8 bounces,
+    roulette from bounce 3, 256 lanes: on the card against the CPU under
+    the image contract, and two renders on the card bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from rust_pathtracer_tpu_torch.camera import make_camera
+    from rust_pathtracer_tpu_torch.models import get_scene
+    from rust_pathtracer_tpu_torch.ops import draws
+    from rust_pathtracer_tpu_torch.render import RenderSettings
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+    from rust_pathtracer_tpu_torch.utils.image import image_agreement
+    from rust_pathtracer_tpu_torch.wavefront import render_radiance_regen
+
+    b = SceneBuilder()
+    b.add_sphere((0.0, 0.5, -3.0), 0.5, b.lambertian((0.4, 0.5, 0.6)))
+    ramp = np.linspace(0.1, 0.9, 8 * 8 * 3).reshape(8, 8, 3).astype(np.float32)
+    b.add_sphere((0.0, -100.0, -3.0), 100.0, b.lambertian(b.image_texture(ramp)))
+    b.add_rect("xz", (-2.0, 4.0, -5.0), (2.0, 4.0, -1.0), -1.0,
+               b.diffuse_light((5.0, 5.0, 5.0)))
+    sd = get_scene("LightTest")
+    cases = (("LightTest", sd.build(), sd.camera_at(0.0), (0.0, 0.0, 0.0)),
+             ("image", b.build(use_bvh=False),
+              make_camera((0.0, 1.0, 2.0), (0.0, 0.5, -3.0), (0.0, 1.0, 0.0), 50.0, 1.5,
+                          0.0, 10.0), (0.1, 0.1, 0.1)))
+    for name, scene, cam, bg in cases:
+        s = RenderSettings(24, 16, 8, 8, bg, russian_roulette_start=3)
+        imgs = {}
+        for dev in ("cpu", "cuda", "cuda2"):
+            before = (fb.launches, draws.launches)
+            img, _ = render_radiance_regen(scene, cam, s, prng_key(5), lanes=256,
+                                           device=dev[:4])
+            imgs[dev] = img.cpu().numpy()
+            if dev == "cuda":
+                launched = (fb.launches - before[0], draws.launches - before[1])
+                assert launched[0 if name == "LightTest" else 1] > 0, (name, launched)
+        a = image_agreement(imgs["cuda"], imgs["cpu"])
+        assert a["ok"], (name, a)
+        np.testing.assert_array_equal(imgs["cuda"].view(np.int32),
+                                      imgs["cuda2"].view(np.int32))

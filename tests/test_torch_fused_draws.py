@@ -9,6 +9,10 @@ arithmetic, so every comparison here is BIT FOR BIT:
 * the keyed plain bounce against ``_precompute_draws`` followed by the
   uniforms-in plain bounce and ``roulette`` (the fused route's parent
   form), at bounces 0, 7 and 19, roulette and residuals on and off;
+* the keyed plain bounce at per-lane depth (the regen wavefront's)
+  against ``sampling.bounce_draws`` at those depths, the uniforms-in
+  plain bounce and roulette on the lanes at depth ``rr_start`` or more,
+  and against the scalar keyed bounce at each depth, lane by lane;
 * ``trace`` and ``render_loss_and_grad`` on CornellBox against the same
   run with the bounce swapped for that hoisted form;
 * ``ops/csrc/threefry.cuh`` (the kernel's draws), compiled for the host
@@ -106,6 +110,56 @@ def test_keyed_plain_equals_hoisted_draws(bounce, with_roulette, want_residuals)
         assert (got[12].numpy() > 0.5).sum() < cont.sum()
 
 
+@pytest.mark.parametrize("with_roulette", [False, True])
+def test_keyed_plain_per_lane_depth(with_roulette):
+    """1024 lanes of the every-kind scene at random depths 0-49, roulette
+    from depth 3: the 13 columns and the winners bit for bit against (a)
+    ``sampling.bounce_draws`` at the lanes' depths, the uniforms-in plain
+    bounce and per-lane roulette, and (b) for each depth, the scalar keyed
+    bounce of that depth (roulette where the depth is 3 or more) on the
+    same lanes."""
+    scene = t_full_scene()
+    n, rr_start = 1024, 3
+    cols, _ = _random_lanes(n, seed=41)
+    state = torch.from_numpy(cols)
+    lk = sampling.lane_keys(sampling.prng_key(12), torch.arange(n))
+    keys = fb.key_words(lk)
+    depth = torch.from_numpy(np.random.default_rng(4).integers(0, 50, n).astype(np.int32))
+    table, bg = fb.pack_prims_shaded(scene), torch.tensor((0.2, 0.1, 0.05))
+    kw = dict(kinds=scene.kinds_static, mat_types=scene.mat_types,
+              tex_types=scene.tex_types, t_min=T_MIN)
+    win = torch.empty(n, dtype=torch.int32)
+    got = fb.fused_bounce_keyed(table, bg, scene.textures.perlin_seed, state, keys, depth,
+                                with_roulette=with_roulette, rr_start=rr_start,
+                                winner_out=win, **kw)
+
+    su, bu, coin, rl = sampling.bounce_draws(lk, depth.long(), with_roulette)
+    want = fb.fused_bounce_cols_plain(
+        table, bg, scene.textures.perlin_seed, fb.state_cols(state), su[:, 0], su[:, 1],
+        bu[:, 0], bu[:, 1], bu[:, 2], coin, **kw)
+    if with_roulette:
+        want, _, act = fb.roulette(want, rl, depth >= rr_start)
+        assert act.any() and (act & (depth < rr_start)).sum() == 0
+    want = torch.stack([want[k] for k in fb._COL_KEYS])
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+    for b in torch.unique(depth).tolist():
+        sel = depth == b
+        w = torch.empty(int(sel.sum()), dtype=torch.int32)
+        one = fb.fused_bounce_keyed_plain(
+            table, bg, scene.textures.perlin_seed, state[:, sel].contiguous(),
+            keys[:, sel].contiguous(), b, with_roulette=with_roulette and b >= rr_start,
+            winner_out=w, **kw)
+        np.testing.assert_array_equal(_bits(got[:, sel]), _bits(one), err_msg=f"depth {b}")
+        assert torch.equal(win[sel], w)
+    with pytest.raises(ValueError, match="forward only"):
+        fb.fused_bounce_keyed(table, bg, 0, state, keys, depth, with_roulette=False,
+                              want_residuals=True, **kw)
+    with pytest.raises(ValueError, match="per-lane"):
+        fb.fused_bounce_keyed(table, bg, 0, state, keys, depth.long(),
+                              with_roulette=False, **kw)
+
+
 def test_keyed_wrapper_dispatch(monkeypatch):
     """CPU tensors take the keyed plain version (no launch is counted);
     the meta device, mixed devices and malformed keys raise; the key
@@ -194,27 +248,31 @@ def test_loss_and_grad_bit_identical_to_hoisted_draws(rr, hoisted_route):
 
 
 def test_fused_route_draws_nothing_hoisted(monkeypatch):
-    """The fused route, forward and differentiable, never calls
-    ``_precompute_draws``; the generic route (TwoSphereCheckers' perlin
-    marble, differentiable) still does, once a trace."""
+    """No route calls ``_precompute_draws``: the fused route, forward and
+    differentiable, draws inside K1; the generic route (TwoSphereCheckers'
+    perlin marble, differentiable) draws with ``bounce_draws`` once a
+    bounce."""
     calls = []
-    hoist = integrator._precompute_draws
 
-    def spy(*a, **k):
-        calls.append(1)
-        return hoist(*a, **k)
+    def spy(name, fn):
+        def counted(*a, **k):
+            calls.append(name)
+            return fn(*a, **k)
+        return counted
 
-    monkeypatch.setattr(integrator, "_precompute_draws", spy)
+    monkeypatch.setattr(integrator, "_precompute_draws",
+                        spy("hoisted", integrator._precompute_draws))
+    monkeypatch.setattr(integrator, "bounce_draws", spy("kernel", integrator.bounce_draws))
     for name, diff, want in (("CornellBox", False, 0), ("CornellBox", True, 0),
                              ("TwoSphereCheckers", False, 0),
-                             ("TwoSphereCheckers", True, 1)):
+                             ("TwoSphereCheckers", True, 3)):
         calls.clear()
         sd = get_scene(name)
         settings = RenderSettings(6, 4, 1, 3, (0.3, 0.3, 0.3), differentiable=diff,
                                   russian_roulette_start=1)
         img, _ = render_radiance(sd.build(), sd.camera_at(0.0), settings,
                                  sampling.prng_key(1), device="cpu")
-        assert torch.isfinite(img).all() and len(calls) == want, (name, diff, calls)
+        assert torch.isfinite(img).all() and calls == ["kernel"] * want, (name, diff, calls)
 
 
 _HOST_DRAWS = r"""
