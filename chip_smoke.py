@@ -127,15 +127,19 @@ depth (phase 21).  It checks them:
 21. the regen main path: LightTest regen at 854x480, 50 bounces, 16 spp
     (cut from 2000: 6,558,720 paths through the pool of 2**20 lanes), K1
     at per-lane depth once a bounce iteration: finite, >= 0, the
-    occupancy every path at bounce 0, two renders bit for bit, the
-    whole-pool spawn (``pool_spawn``) bit for bit the same and timed;
-    wall, segments/s, windows,
-    the split into bounce, spawn and window end by CUDA events and the
-    device's idle share (profiler); the chunked render of the same key
-    timed and held under the image contract;
+    occupancy every path at bounce 0, two renders bit for bit; K1
+    against its plain version, bit for bit, on the pools (state, keys,
+    depths) the second render hands it at its sixth, middle and last
+    bounce iteration; wall, segments/s, windows, the split into bounce, spawn
+    and window end by CUDA events and the device's idle share
+    (profiler); the chunked render of the same key timed, held under the
+    image contract and under JAX's regen-vs-chunked bounds (mean abs
+    < 1e-5, max abs < 5e-3), with the same segments and occupancy (the
+    two renderers trace the same paths with the same draws);
 22. SphereField regen at 854x480, 20 bounces, 8 spp: K6 and the draw
     kernel once a bounce iteration, the same checks and numbers against
-    the chunked render;
+    the chunked render, the draw kernel held bit for bit to its plain
+    version on the second render's pools as K1 is in phase 21;
 23. 64x36 regen of LightTest (K1) and the image-textured scene (K3, the
     draw kernel), roulette from 3, on the card against the CPU under the
     image contract;
@@ -1995,6 +1999,25 @@ def draws_bound(torch, keys, bounce, rows):
     return bound(n_bytes, 0, n_int)
 
 
+def _draws_mismatches(torch, device, got, want):
+    """(lanes where any plane of the draw kernel's ``got`` differs in a
+    bit from the plain version's ``want``, the largest absolute
+    difference); a plane that is None in both (no roulette) is skipped."""
+    _sync(torch, device)
+    n = want[0].shape[0]
+    bad, err = np.zeros(n, dtype=bool), 0.0
+    for g, w in zip(got, want):
+        check((g is None) == (w is None), "the draw kernel and its plain version "
+              "disagree on the roulette plane")
+        if w is None:
+            continue
+        g = g.contiguous().cpu().numpy().reshape(n, -1)
+        w = w.contiguous().cpu().numpy().reshape(n, -1)
+        bad |= (g.view(np.int32) != w.view(np.int32)).any(axis=1)
+        err = max(err, float(np.abs(g.astype(np.float64) - w).max()))
+    return bad, err
+
+
 def phase_draws_vs_plain(torch, device, card, n_lanes, reps):
     log(f"== phase 20: the draw kernel vs sampling.bounce_draws on {n_lanes} random "
         f"keys, bit for bit")
@@ -2014,15 +2037,9 @@ def phase_draws_vs_plain(torch, device, card, n_lanes, reps):
         def plain(b=bounce):
             return draws.bounce_draws_plain(keys, b, True)
 
-        got, want = kernel(), plain()
-        _sync(torch, device)
-        bad = np.zeros(n_lanes, dtype=bool)
-        for g, w in zip(got, want):
-            g = g.contiguous().cpu().numpy().view(np.int32).reshape(n_lanes, -1)
-            w = w.cpu().numpy().view(np.int32).reshape(n_lanes, -1)
-            bad |= (g != w).any(axis=1)
+        bad, err = _draws_mismatches(torch, device, kernel(), plain())
         log(f"{label}: lanes differing from the plain version {int(bad.sum())} "
-            f"(sphere_u, ball_u, coin, roulette)")
+            f"(sphere_u, ball_u, coin, roulette), max abs difference {err:.3e}")
         check(not bad.any(), f"the draw kernel differs from its plain version ({label})")
         res = time_pair(torch, device, kernel, plain, reps)
         k_ms, p_ms = statistics.mean(res["kernel"]), statistics.mean(res["plain"])
@@ -2033,37 +2050,58 @@ def phase_draws_vs_plain(torch, device, card, n_lanes, reps):
             f"device time ({held} of {reps} launches); plain version on the same CUDA "
             f"tensors {p_ms:.4f} ms ({[round(x, 4) for x in res['plain']]}); bound "
             f"{b_ms:.4f} ms ({b_by})")
-        out[label] = dict(max_abs_err=0.0, ms=k_ms, device_ms=(dev_ms, held, reps),
+        out[label] = dict(max_abs_err=err, ms=k_ms, device_ms=(dev_ms, held, reps),
                           plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
     return out
 
 
 @contextlib.contextmanager
-def pool_spawn():
-    """The regen refill as the JAX package makes it: the whole pool spawns
-    camera lanes (a work id 0 where a lane takes none) and the lanes that
-    take work keep theirs (``wavefront._respawn`` spawns those only)."""
-    import torch
-
+def capture_calls(torch, name, at):
+    """Wraps ``wavefront.<name>`` (the regen bounce's K1 or draw kernel)
+    so that its calls numbered ``at`` (from 0) keep clones of their
+    tensor arguments: yields {call: (args, kwargs)}, filled as the render
+    runs.  The pool's rows are updated in place later, hence the clones."""
     from rust_pathtracer_tpu_torch import wavefront
 
-    respawn = wavefront._respawn
+    fn, calls, seen = getattr(wavefront, name), {}, [0]
 
-    def whole_pool(fr, pool, take, wid):
-        all_wid = torch.zeros(pool.work.shape[0], dtype=torch.int64, device=wid.device)
-        all_wid[take] = wid
-        pixel, keys, state = wavefront._spawn(fr, all_wid)
-        pool.pixel[take] = pixel[take]
-        pool.keys[:, take] = keys[:, take]
-        pool.state[:, take] = state[:, take]
-        pool.depth[take] = 0
-        pool.work[take] = wid.to(torch.int32)
+    def wrapped(*a, **k):
+        if seen[0] in at:
+            calls[seen[0]] = (tuple(x.clone() if isinstance(x, torch.Tensor) else x
+                                    for x in a), dict(k))
+        seen[0] += 1
+        return fn(*a, **k)
 
-    wavefront._respawn = whole_pool
+    setattr(wavefront, name, wrapped)
     try:
-        yield
+        yield calls
     finally:
-        wavefront._respawn = respawn
+        setattr(wavefront, name, fn)
+
+
+def _pool_depths(depth, alive):
+    """A log line on a captured pool's live lanes and their depths."""
+    d = depth.cpu().numpy()[alive.cpu().numpy()]
+    if d.size == 0:
+        return "no live lane"
+    return (f"{d.size} live lanes at depths {int(d.min())}-{int(d.max())} "
+            f"({np.unique(d).size} distinct, mean {d.mean():.3f})")
+
+
+def check_regen_vs_chunked(torch, name, img, stats, cimg, cstats):
+    """The regen and chunked renderers trace the same paths with the same
+    draws: JAX's regen-vs-chunked bounds on the image (mean abs < 1e-5,
+    max abs < 5e-3), the same segments and the same occupancy."""
+    diff = np.abs(img.cpu().numpy().astype(np.float64) - cimg.cpu().numpy())
+    seg, cseg = float(stats.segments), float(cstats.segments)
+    occ, cocc = stats.occupancy.cpu(), cstats.occupancy.cpu()
+    log(f"regen vs chunked: mean abs {diff.mean():.3e}, max abs {diff.max():.3e}, "
+        f"segments {seg:.0f} vs {cseg:.0f}, occupancy differs at "
+        f"{int((occ != cocc).sum())} bounces")
+    check(diff.mean() < 1e-5 and diff.max() < 5e-3,
+          f"the {name} regen image is further from chunked than JAX's bounds")
+    check(seg == cseg, f"the {name} regen traced {seg:.0f} segments, chunked {cseg:.0f}")
+    check(torch.equal(occ, cocc), f"the {name} regen occupancy differs from chunked")
 
 
 @contextlib.contextmanager
@@ -2174,14 +2212,25 @@ def phase_regen_light(torch, device, card):
     check(float(stats.occupancy[0]) == paths and float(stats.occupancy.sum()) == seg,
           "the regen occupancy is not every path at bounce 0, or does not sum to the "
           "segments")
-    img2, _ = regen()
+    at = sorted({5, stats.bounces // 2, stats.bounces - 1})  # a full pool, the tail
+    with capture_calls(torch, "fused_bounce_keyed", at) as calls:
+        img2, _ = regen()
     check(torch.equal(img, img2), "the LightTest regen image twice differs")
     log("regen rendered twice: bitwise equal")
-    with pool_spawn():
-        pool_wall, (img3, _), _ = _timed_render(torch, device, regen)
-    check(torch.equal(img, img3), "spawning the whole pool changed the image")
-    log(f"spawning the whole pool each window (as the JAX package): wall "
-        f"{pool_wall:.3f} s against the taken lanes only {wall:.3f} s; bitwise equal")
+    err = 0.0
+    for i in at:  # K1 against its plain version on the pool the render gave it
+        check(i in calls, f"bounce iteration {i} of the second render was not captured")
+        args, kw = calls[i]
+        runs = _keyed_runs(torch, args, kw)
+        _sync(torch, device)
+        bad = _keyed_mismatches(runs)
+        err = max(err, float(np.abs(runs["kernel"][0].view(np.float32).astype(np.float64)
+                                    - runs["plain"][0].view(np.float32)).max()))
+        log(f"bounce iteration {i}: pool of {args[3].shape[1]} lanes, "
+            f"{_pool_depths(args[5], args[3][12] > 0.5)}; lanes where K1 differs from "
+            f"its plain version {int(bad.sum())} (13 columns and winners)")
+        check(not bad.any(), f"K1 at per-lane depth differs from its plain version on "
+                             f"the pool of bounce iteration {i}")
     with regen_events(torch) as spans:
         regen()
     split = regen_split(torch, spans)
@@ -2206,14 +2255,14 @@ def phase_regen_light(torch, device, card):
         f"share {cidle:.4f}")
     a = image_agreement(img_np, cimg_np)
     log(f"regen vs chunked: mean rel {a['mean_rel']:.2e}, pixels close "
-        f"{a['frac_close']:.4f}, max abs {float(np.abs(img_np - cimg_np).max()):.3e}, "
-        f"segments {seg:.0f} vs {cseg:.0f}")
+        f"{a['frac_close']:.4f}")
     check(a["ok"], "the LightTest regen breaks the image contract against chunked")
+    check_regen_vs_chunked(torch, "LightTest", img, stats, cimg, cstats)
     os.makedirs(OUT_DIR, exist_ok=True)
     png = os.path.join(OUT_DIR, f"LightTest_regen_{W}x{H}_{spp}spp.png")
     write_png(png, to_rgb8(img_np))
     log(f"wrote {png}")
-    return dict(k1_launches=counts["K1"])
+    return dict(k1_launches=counts["K1"], max_abs_err=err)
 
 
 def phase_regen_spherefield(torch, device, card, scenes):
@@ -2251,9 +2300,25 @@ def phase_regen_spherefield(torch, device, card, scenes):
           f"{stats.bounces} bounce iterations")
     check(all(counts[k] == 0 for k in ("K1", "K1-res", "K2", "K3", "K4", "K5", "K7")),
           "the SphereField regen left the resident route")
-    img2, _ = regen()
+    from rust_pathtracer_tpu_torch.ops import draws
+
+    at = sorted({5, stats.bounces // 2, stats.bounces - 1})  # a full pool, the tail
+    with capture_calls(torch, "bounce_draws", at) as calls:
+        img2, _ = regen()
     check(torch.equal(img, img2), "the SphereField regen image twice differs")
     log("regen rendered twice: bitwise equal")
+    err = 0.0
+    for i in at:  # the draw kernel against its plain version on the render's pool
+        check(i in calls, f"bounce iteration {i} of the second render was not captured")
+        (keys, depth, with_roulette), _ = calls[i]
+        bad, e = _draws_mismatches(torch, device, draws.bounce_draws(keys, depth, with_roulette),
+                                   draws.bounce_draws_plain(keys, depth, with_roulette))
+        err = max(err, e)
+        log(f"bounce iteration {i}: pool of {keys.shape[1]} lanes at depths "
+            f"{int(depth.min())}-{int(depth.max())}; lanes where the draw kernel differs "
+            f"from its plain version {int(bad.sum())}, max abs difference {e:.3e}")
+        check(not bad.any(), f"the draw kernel differs from its plain version on the "
+                             f"pool of bounce iteration {i}")
     with regen_events(torch) as spans:
         regen()
     split = regen_split(torch, spans)
@@ -2272,10 +2337,10 @@ def phase_regen_spherefield(torch, device, card, scenes):
         f"{cimg_np.mean():.6f}")
     a = image_agreement(img_np, cimg_np)
     log(f"regen vs chunked: mean rel {a['mean_rel']:.2e}, pixels close "
-        f"{a['frac_close']:.4f}, max abs {float(np.abs(img_np - cimg_np).max()):.3e}, "
-        f"segments {seg:.0f} vs {cseg:.0f}")
+        f"{a['frac_close']:.4f}")
     check(a["ok"], "the SphereField regen breaks the image contract against chunked")
-    return dict(draws_launches=counts["draws"])
+    check_regen_vs_chunked(torch, "SphereField", img, stats, cimg, cstats)
+    return dict(draws_launches=counts["draws"], max_abs_err=err)
 
 
 def phase_regen_card_vs_cpu(torch, device):
@@ -2460,16 +2525,17 @@ def _spread(v):
     return (max(v) - min(v)) / statistics.mean(v)
 
 
-def _device_ms(torch, fn, reps, kernels, attempts=4):
+def _device_ms(torch, fn, reps, kernels, attempts=8):
     """Device time of one call of ``fn``, the sum over the CUDA kernels
     it launches once a call, each named by a string its name holds
     (``kernels``), from ``torch.profiler``'s ``key_averages`` over
     ``reps`` calls after a warm-up: the kernels' own time, without the
     wrapper's host work that ``_time_ms``'s events also take in.  The
     trace should hold all ``reps`` launches of each; where it drops some
-    (most readings hold 19 of 20, one held 16, one none at all), the
-    reading is taken again, and the fullest one is kept once it holds at
-    least half of them, after at most ``attempts`` readings: each
+    (most readings hold 19 of 20; the draw kernel's often 0-9 of 20, up
+    to four readings in a row), the reading is taken again, and the
+    fullest one is kept once it holds at least half of them, after at
+    most ``attempts`` readings: each
     kernel's mean is over the launches it holds.  Returns
     (ms, the fewest launches the trace held of one kernel); the kernels
     line shows both."""
@@ -2760,16 +2826,19 @@ def main() -> int:
         entry("pair_sweep (K7)", "projected.cu", "worklist.py:169",
               k7["launches"], sweep_err("K7", k7), k7["ms"], k7["plain_ms"],
               (k7["bound_ms"], k7["bound_by"]), later=k7["later"]),
-        # phase 19's 1M lanes; launches: the LightTest regen's (phase 21)
+        # phase 19's 1M lanes (max_abs_err: those and the pools phase 21's
+        # render gave it); launches: the LightTest regen's (phase 21)
         entry("fused_bounce at per-lane depth (K1, regen)", "fused_bounce.cu",
-              "fused_bounce.py:169", regen["k1_launches"], k1_lane["max_abs_err"],
+              "fused_bounce.py:169", regen["k1_launches"],
+              max(k1_lane["max_abs_err"], regen["max_abs_err"]),
               k1_lane["ms"], k1_lane["plain_ms"],
               (k1_lane["bound_ms"], k1_lane["bound_by"]), k1_lane["device_ms"]),
         # no Pallas kernel: it replaces XLA's threefry in the JAX package's
         # sampling.bounce_draws; phase 20's 1M keys at per-lane depths (and,
-        # under "scalar", at bounce 7); launches: the SphereField regen's
+        # under "scalar", at bounce 7; max_abs_err: those and the pools
+        # phase 22's render gave it); launches: the SphereField regen's
         dict(entry("bounce_draws", "draws.cu", "", sf_regen["draws_launches"],
-                   max(v["max_abs_err"] for v in dr.values()),
+                   max([v["max_abs_err"] for v in dr.values()] + [sf_regen["max_abs_err"]]),
                    dr[DRAWS_PER_LANE]["ms"], dr[DRAWS_PER_LANE]["plain_ms"],
                    (dr[DRAWS_PER_LANE]["bound_ms"], dr[DRAWS_PER_LANE]["bound_by"]),
                    dr[DRAWS_PER_LANE]["device_ms"]),

@@ -273,12 +273,14 @@ def _bounce_diff(scene, state, search, draws_b, background, rr_u, stage):
 
 
 def _bounce_tail(scene, state, hit, rec, draws_b, background, rr_u, stage,
-                 shade_row=None):
+                 shade_row=None, rr_sel=None):
     """The bounce after the hit record (JAX ``_bounce_step`` :562-631): the
     shading inputs (from the tables, or the payload ``shade_row``),
     background and emission banking, scatter, the state commit and
-    roulette.  ``stage(fn, *args)`` runs the shading inputs and the
-    scatter (directly, or checkpointed)."""
+    roulette on ``rr_u`` (None: none); ``rr_sel``, an optional (R,) bool
+    mask, limits roulette to those lanes (the regen pool's lanes at depth
+    ``rr_start`` or more).  ``stage(fn, *args)`` runs the shading inputs
+    and the scatter (directly, or checkpointed)."""
     o, d, thr, rad, alive = state
     si = stage(shade_inputs, scene, rec, shade_row)
 
@@ -300,9 +302,10 @@ def _bounce_tail(scene, state, hit, rec, draws_b, background, rr_u, stage,
     alive = cont
     if rr_u is not None:  # russian roulette (no reference counterpart)
         p = torch.clamp(thr.detach().amax(dim=-1), 0.05, 1.0)
+        live = alive if rr_sel is None else alive & rr_sel
         survive = rr_u < p
-        thr = torch.where((alive & survive)[..., None], thr / p[..., None], thr)
-        alive = alive & survive
+        thr = torch.where((live & survive)[..., None], thr / p[..., None], thr)
+        alive = alive & (survive | ~live)
     return o, d, thr, rad, alive
 
 

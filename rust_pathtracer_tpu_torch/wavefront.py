@@ -8,7 +8,7 @@ lanes in lockstep until all of them die; in a deep-bounce scene with a
 black background (LightTest: 50 bounces) most lanes die within a few
 bounces and the rest hold the chunk open.  Here a fixed pool of lanes
 stays occupied: a lane whose path ended takes the next (pixel, sample)
-work item.  Every ``flush_every`` bounces a window ends: the finished
+work item.  Every ``FLUSH_EVERY`` bounces a window ends: the finished
 lanes' radiance goes into the image, and each of them takes a work item
 and spawns its camera ray.
 
@@ -32,7 +32,7 @@ that lane is dead, and nothing reads a dead lane's origin, direction or
 throughput again (the flush reads radiance, a respawn overwrites), so
 the image does not change.
 
-Work handout (``mode``): "queue" (and "auto"): the finished lanes take
+Work handout (``mode``): "queue": the finished lanes take
 the next work ids in lane order (JAX's exclusive cumsum: a finished
 lane's rank among the finished lanes is its slot) and their radiance is
 added into the image each window; "stripe": each lane owns a
@@ -45,8 +45,9 @@ turn), so one key gives the same image bit for bit; never
 
 Not ported: the between-bounce reorder of big scenes (it changes no
 per-lane result), the "none" flush (a biased probe) and the JAX
-package's environment knobs (``RPT_FLUSH_EVERY``, ``RPT_REGEN_MODE``,
-``RPT_REGEN_FLUSH``): ``flush_every`` and ``mode`` are arguments.
+package's environment knobs: ``RPT_REGEN_MODE`` is the ``mode``
+argument, ``RPT_FLUSH_EVERY`` the constant ``FLUSH_EVERY`` (JAX's
+default) and ``RPT_REGEN_FLUSH`` goes with the "none" flush.
 """
 
 from __future__ import annotations
@@ -75,7 +76,9 @@ from rust_pathtracer_tpu_torch.ops.fused_bounce import (
 )
 from rust_pathtracer_tpu_torch.render import RenderSettings, camera_lanes, resolve_device
 
-MODES = ("auto", "queue", "stripe")
+MODES = ("queue", "stripe")
+# bounces a window: a flush and refill after every second bounce
+FLUSH_EVERY = 2
 
 
 def _stripe_len(total: int, spp: int, lanes: int):
@@ -177,13 +180,8 @@ def _bounce_generic(fr: _Frame, state, keys, depth):
     su, bu, coin, rl = bounce_draws(keys, depth, fr.roulette)
     o, d, thr, rad, cont = _bounce_tail(
         fr.scene, (o, d, thr, rad, alive), hit, rec,
-        dict(sphere_u=su, ball_u=bu, coin=coin), fr.bg, None, _call, shade_row)
-    if fr.roulette:  # p from the committed throughput
-        p = torch.clamp(thr.amax(dim=-1), 0.05, 1.0)
-        sel = cont & (depth >= fr.rr_start)
-        survive = rl < p
-        thr = torch.where((sel & survive)[:, None], thr / p[:, None], thr)
-        cont = cont & (~sel | survive)
+        dict(sphere_u=su, ball_u=bu, coin=coin), fr.bg, rl, _call, shade_row,
+        rr_sel=depth >= fr.rr_start if fr.roulette else None)
     return torch.cat([o.T, d.T, thr.T, rad.T, cont.to(torch.float32)[None]])
 
 
@@ -250,16 +248,15 @@ def _advance_stripe(fr: _Frame, pool: _Pool, hist):
 
 
 def render_radiance_regen(scene, cam: Camera, settings: RenderSettings, key,
-                          lanes: Optional[int] = None, flush_every: int = 2,
-                          mode: str = "auto", *, device):
+                          lanes: Optional[int] = None, mode: str = "queue", *,
+                          device):
     """Linear radiance image (H, W, 3) and TraceStats via the regeneration
     wavefront, rendered on ``device`` (scene, camera and key are moved
     there).  The same estimator as ``render.render_radiance`` on the same
     key; the per-pixel sums are added in another order.
 
     ``lanes``: the pool, default min(total, 2**20), total = width *
-    height * spp.  ``flush_every``: bounces a window (at least 1).
-    ``mode``: "queue" (and "auto") or "stripe" (see the module
+    height * spp.  ``mode``: "queue" or "stripe" (see the module
     docstring; the pool is then one lane a stripe).
     ``TraceStats.bounces`` counts the loop's bounce iterations,
     ``occupancy[b]`` the paths longer than b.
@@ -278,7 +275,6 @@ def render_radiance_regen(scene, cam: Camera, settings: RenderSettings, key,
     lanes = min(total, 1 << 20) if lanes is None else int(min(lanes, total))
     if lanes <= 0:
         raise ValueError(f"lane pool must be positive, got {lanes}")
-    flush_every = max(1, int(flush_every))
     if total >= 2 ** 31:
         raise ValueError(
             f"regen wavefront work queue is int32-indexed: width*height*spp = "
@@ -322,7 +318,7 @@ def render_radiance_regen(scene, cam: Camera, settings: RenderSettings, key,
     segments = torch.zeros((), dtype=torch.float32, device=dev)
     issued, iters = lanes, 0
     while True:  # every lane is alive entering the first window
-        for _ in range(flush_every):
+        for _ in range(FLUSH_EVERY):
             segments = segments + _bounce(fr, pool)
             iters += 1
         if stripe:

@@ -236,7 +236,8 @@ def test_stripe_len():
 def test_regen_errors():
     """JAX's errors (a non-positive pool, total >= 2**31, stripe without a
     pixel-aligned stripe), an unknown mode, and a differentiable
-    setting; "auto" with a pool smaller than the image takes the queue."""
+    setting; the default mode, with a pool smaller than the image, takes
+    the queue."""
     scene, cam, s = _cornell(64, 64, 4, 6)
     key = prng_key(KEY)
     with pytest.raises(ValueError, match="stripe"):
@@ -246,13 +247,14 @@ def test_regen_errors():
     with pytest.raises(ValueError, match="int32"):
         render_radiance_regen(scene, cam, dataclasses.replace(
             s, width=65536, height=32768, samples_per_pixel=1), key, device="cpu")
-    with pytest.raises(ValueError, match="mode"):
-        render_radiance_regen(scene, cam, s, key, mode="sorted", device="cpu")
+    for mode in ("sorted", "auto"):
+        with pytest.raises(ValueError, match="mode"):
+            render_radiance_regen(scene, cam, s, key, mode=mode, device="cpu")
     with pytest.raises(NotImplementedError, match="forward only"):
         render_radiance_regen(scene, cam, dataclasses.replace(s, differentiable=True),
                               key, device="cpu")
     a, _ = render_radiance(scene, cam, s, key, device="cpu")
-    b, _ = render_radiance_regen(scene, cam, s, key, lanes=128, mode="auto", device="cpu")
+    b, _ = render_radiance_regen(scene, cam, s, key, lanes=128, device="cpu")
     assert np.abs(a.numpy() - b.numpy()).max() < 5e-3
 
 
@@ -278,7 +280,7 @@ def test_regen_finished_lane_state_never_consumed(monkeypatch):
     scene, cam = sd.build(), sd.camera_at(0.0)
     s = RenderSettings(16, 10, 6, 1, (0.0, 0.0, 0.0))
     img0, st0 = render_radiance_regen(scene, cam, s, prng_key(KEY), lanes=256,
-                                      flush_every=2, device="cpu")
+                                      device="cpu")
     real = wavefront.fused_bounce_keyed
 
     def poisoned(*args, **kwargs):
@@ -288,7 +290,7 @@ def test_regen_finished_lane_state_never_consumed(monkeypatch):
 
     monkeypatch.setattr(wavefront, "fused_bounce_keyed", poisoned)
     img1, st1 = render_radiance_regen(scene, cam, s, prng_key(KEY), lanes=256,
-                                      flush_every=2, device="cpu")
+                                      device="cpu")
     np.testing.assert_array_equal(img0.numpy().view(np.int32), img1.numpy().view(np.int32))
     assert float(st0.segments) == float(st1.segments)
     assert torch.isfinite(img0).all() and img0.sum() > 0
