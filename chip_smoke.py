@@ -10,7 +10,8 @@ differentiable, the big-scene path (K5, K6, K7), whose main path is
 the SphereField forward render at the scene's own width (phase 15), and
 the regeneration wavefront (K1 at per-lane depth; the draw kernel on
 the generic routes), whose main path is LightTest at its own width and
-depth (phase 21).  It checks them:
+depth (phase 21), and the cascade renderer with checkpoints, whose main
+path is SphereField at its own width (phase 25).  It checks them:
 
 1. device: a CUDA GPU must be present (no CPU fallback); prints the
    card's name and power limit and the torch and nvcc versions;
@@ -145,7 +146,30 @@ depth (phase 21).  It checks them:
     image contract;
 24. the chunked SphereField frame of phase 15 with the draw kernel
     against the same frame with the draws hoisted in tensor ops
-    (``integrator._precompute_draws``), bit for bit, timed in turns.
+    (``integrator._precompute_draws``), bit for bit, timed in turns;
+25. the cascade main path: SphereField at 854x480, 20 bounces, 8 spp
+    (as phase 22), one key three ways: ``cascade_schedule="auto"``, the
+    dynamic cascade and the explicit schedule CASCADE_SF_SCHEDULE, each
+    bit for bit the chunked render (image, segments, bounces, occupancy,
+    ``occupancy[-1] == 0``), K6 and the draw kernel once a bounce (and
+    the auto probe's); wall, segments/s and idle share beside the
+    chunked and the regen render; K6 and the draw kernel held bit for
+    bit to their plain versions on the compacted pools the explicit and
+    the dynamic cascade hand them right after their middle and last
+    boundary (``capture_bounces``, ``hold_pools``);
+26. ModelTest at 800x800, 1 spp, 20 bounces on the 10k and the 20k mesh
+    through CASCADE_MT_SCHEDULE, the same way (the 20k: K7, and K5 as
+    its fallback, held on the pools);
+27. serving CornellBox (phase 5's shape) with ``cascade_schedule="auto"``
+    on the fused route: bit for bit chunked, K1 held on the pools;
+28. the image-textured scene of phase 11 through the dynamic cascade:
+    bit for bit chunked, K3 and the draw kernel held on its pool;
+29. an explicit too-tight schedule (CASCADE_TIGHT) raises
+    ``CascadeOverflowError`` on the card;
+30. a checkpointed SphereField render (phase 25's shape, 4 chunks),
+    stopped after 2 chunks and resumed (``utils/checkpoint.py``), plain
+    and through CASCADE_SF_SCHEDULE: bit for bit the uninterrupted
+    render and phase 25's chunked image.
 
 Phases 11-13 and 15-17 also check that the generic routes launch the
 draw kernel once a bounce.
@@ -160,6 +184,7 @@ bound, plain and library times) and the JSON verdict
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import faulthandler
 import json
 import os
@@ -2144,15 +2169,18 @@ def regen_split(torch, spans):
             "windows": len(ms["flush"])}
 
 
-def idle_share(torch, fn):
+def idle_share(torch, fn, cuda_only=False):
     """One profiled call of ``fn``: (profiled wall ms, device busy ms, idle
-    share 1 - busy / wall; an upper bound, the profiler slows the host)."""
+    share 1 - busy / wall; an upper bound, the profiler slows the host).
+    ``cuda_only`` traces the device alone, which slows the host less and
+    reads back in a fraction of the time."""
     from torch.profiler import ProfilerActivity, profile
 
     from profile_port import busy_ms
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([] if cuda_only else [ProfilerActivity.CPU])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2419,6 +2447,436 @@ def phase_sf_frame_hoisted(torch, device, card, scenes):
     log(f"on {card}: with the draw kernel {[round(x, 4) for x in walls['kernel']]} s, "
         f"hoisted {[round(x, 4) for x in walls['hoisted']]} s (hoisted, kernel, kernel, "
         f"hoisted); images bitwise equal")
+
+
+# ---------------------------------------------------------------------------
+# the cascade renderer and checkpoints (phases 25-30)
+# ---------------------------------------------------------------------------
+
+CASCADE_SF = dict(width=854, height=480, spp=8, bounces=20, seed=0)
+# explicit schedules with room: SphereField keeps 29% of its lanes alive
+# at bounce 3, 10% at 5, 4% at 7; ModelTest 9% at 2, 4% at 3, 1% at 5
+# (214x120 and 200x200 at 1 spp on the CPU)
+CASCADE_SF_SCHEDULE = "3:2,5:4,7:16"
+CASCADE_MT_SCHEDULE = "1:1,2:4,3:8,5:32"
+CASCADE_TIGHT = "1:16"
+CASCADE_KERNEL_FNS = ("fused_bounce_keyed", "bounce_draws", "closest_hit_record",
+                      "closest_hit_record_projected")
+
+
+def held_bounces(schedule):
+    """The bounces right after a schedule's middle and last boundary (the
+    dynamic cascade's one boundary where ``schedule`` is None)."""
+    from rust_pathtracer_tpu_torch.render import CASCADE_B1, parse_cascade_schedule
+
+    bs = [CASCADE_B1] if schedule is None else [b for b, _ in
+                                                parse_cascade_schedule(schedule)]
+    return sorted({bs[len(bs) // 2], bs[-1]})
+
+
+@contextlib.contextmanager
+def capture_bounces(torch, at):
+    """Wraps the integrator's kernel entry points (K1's wrapper, the draw
+    kernel's, K3's and the projected search's) so that the first call at
+    each bounce in ``at`` keeps clones of its tensor arguments: yields
+    {(name, bounce): (args, kwargs)}, filled as a render runs.  The
+    generic loop draws before it searches, so a search takes the bounce
+    of the draw before it."""
+    from rust_pathtracer_tpu_torch import integrator
+
+    saved = {n: getattr(integrator, n) for n in CASCADE_KERNEL_FNS}
+    calls, bounce = {}, [None]
+
+    def wrap(name):
+        def run(*a, **k):
+            if name == "fused_bounce_keyed":
+                bounce[0] = a[5]
+            elif name == "bounce_draws":
+                bounce[0] = a[1]
+            if bounce[0] in at and (name, bounce[0]) not in calls:
+                calls[(name, bounce[0])] = (tuple(
+                    x.clone() if isinstance(x, torch.Tensor) else x for x in a), dict(k))
+            return saved[name](*a, **k)
+        return run
+
+    for n in CASCADE_KERNEL_FNS:
+        setattr(integrator, n, wrap(n))
+    try:
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(integrator, n, fn)
+
+
+def hold_pools(torch, device, label, calls, want):
+    """Each kernel the cascade launched at the captured bounces against its
+    plain version on the same compacted pool, bit for bit (K3's sphere
+    u, v: ``compare_hits``' tolerance): K1, the draw kernel, K3, and the
+    projected route's sweep (K6; K7 and K5, its fallback, on the pair
+    route).  ``want``: the kernels that must have been held.  Returns
+    (max abs error, {kernel: pools held})."""
+    from rust_pathtracer_tpu_torch.ops import closest_hit as ch
+    from rust_pathtracer_tpu_torch.ops import draws
+    from rust_pathtracer_tpu_torch.ops.projected import default_route
+
+    err, held = 0.0, {}
+    for (name, b), (args, kw) in sorted(calls.items(), key=lambda x: (x[0][1], x[0][0])):
+        if name == "fused_bounce_keyed":
+            runs = _keyed_runs(torch, args, kw)
+            bad = _keyed_mismatches(runs)
+            err = max(err, float(np.abs(runs["kernel"][0].view(np.float32).astype(np.float64)
+                                        - runs["plain"][0].view(np.float32)).max()))
+            kernels, lanes = ["K1"], args[3].shape[1]
+        elif name == "bounce_draws":
+            bad, e = _draws_mismatches(torch, device, draws.bounce_draws(*args),
+                                       draws.bounce_draws_plain(*args))
+            err, kernels, lanes = max(err, e), ["draws"], args[0].shape[1]
+        elif name == "closest_hit_record":
+            err = max(err, compare_hits(f"K3 {label} bounce {b}",
+                                        ch.closest_hit_record(*args, **kw),
+                                        ch.closest_hit_record_plain(*args, **kw),
+                                        np.array([k for k, _ in kw["kinds"]])))
+            bad, kernels, lanes = np.zeros(1, bool), ["K3"], args[1].shape[0]
+        else:
+            scene, o, d = args[0], args[1], args[2]
+            kernels = {"resident": ["K6"], "pairs": ["K7", "K5"],
+                       "dense": ["K5"]}[default_route(scene.proj)]
+            fns = _sweep_fns(torch, scene.proj, o, d)
+            bad, lanes = np.zeros(o.shape[0], bool), o.shape[0]
+            for k in kernels:
+                got, ref = fns[k][0](), fns[k][1]()
+                _sync(torch, device)
+                for x, y in zip(got, ref):
+                    bad |= (x != y).reshape(x.shape[0], -1).any(dim=1).cpu().numpy()
+                    err = max(err, float(torch.where(x == y, 0.0,
+                                                     (x.double() - y.double()).abs()).max()))
+        log(f"{label} bounce {b}: {'/'.join(kernels)} on the cascade's pool of {lanes} "
+            f"lanes; lanes differing from the plain version {int(bad.sum())}")
+        check(not bad.any(), f"{label}: {'/'.join(kernels)} differ from the plain version "
+                             f"on the pool of bounce {b}")
+        for k in kernels:
+            held[k] = held.get(k, 0) + 1
+    check(all(held.get(k, 0) >= 1 for k in want),
+          f"{label}: pools held {held}, want every one of {want}")
+    return err, held
+
+
+def check_cascade_vs_chunked(torch, name, img, stats, cimg, cstats):
+    """Every lane traces its chunked path, so the image, the segments, the
+    bounces and the occupancy are the chunked render's bit for bit, and
+    no live lane was dropped (occupancy[-1] == 0)."""
+    check(torch.equal(img, cimg), f"{name}: the cascade image differs from chunked")
+    check(torch.equal(stats.segments, cstats.segments) and stats.bounces == cstats.bounces,
+          f"{name}: cascade segments {float(stats.segments):.0f} in {stats.bounces} "
+          f"bounces, chunked {float(cstats.segments):.0f} in {cstats.bounces}")
+    check(torch.equal(stats.occupancy, cstats.occupancy),
+          f"{name}: the cascade occupancy differs from chunked")
+    check(float(stats.occupancy[-1]) == 0.0, f"{name}: the cascade dropped live lanes")
+
+
+def cascade_runs(torch, device, card, name, scene, cam, settings, key, modes, kernel,
+                 regen=True, idle=True):
+    """The chunked render, each cascade mode of ``modes`` ({label:
+    settings overrides}) and, with ``regen``, the regen render of one key:
+    wall, segments/s and, with ``idle``, the idle share of each (a trace
+    of the device alone); each cascade
+    held bit for bit to chunked, its route's ``kernel`` launched once a
+    bounce with the draw kernel beside it on the generic routes (the
+    "auto" probe's bounces added).  Returns {label: (wall, img, stats)}."""
+    from rust_pathtracer_tpu_torch.render import derive_cascade_schedule, render_radiance
+    from rust_pathtracer_tpu_torch.wavefront import render_radiance_regen
+
+    def chunked():
+        return render_radiance(scene, cam, settings, key, device=device)
+
+    renders = {"chunked": chunked}
+    for label, kw in modes.items():
+        s = dataclasses.replace(settings, **kw)
+        renders[label] = lambda s=s: render_radiance(scene, cam, s, key, device=device)
+    if regen:
+        renders["regen"] = lambda: render_radiance_regen(scene, cam, settings, key,
+                                                         device=device)
+    out = {}
+    for label, fn in renders.items():
+        _, (img, stats), counts = _timed_render(torch, device, fn)
+        wall, walls = median_wall(torch, device, fn)
+        seg = float(stats.segments)
+        log(f"{name} {label} on {card}: wall {wall:.4f} s (median of "
+            f"{[round(w, 4) for w in walls]}), segments {seg:.0f}, segments/s "
+            f"{seg / wall:.4e}, bounces {stats.bounces}, launches {counts}"
+            + (_idle_note(torch, fn) if idle else ""))
+        check(np.isfinite(img.cpu().numpy()).all(), f"{name} {label}: non-finite pixels")
+        if label not in ("chunked", "regen"):
+            check_cascade_vs_chunked(torch, f"{name} {label}", img, stats, *out["chunked"][1:])
+            probe = 0
+            if modes[label].get("cascade_schedule") == "auto":  # the probe's launches
+                _sync(torch, device)
+                reset_counts()
+                sched = derive_cascade_schedule(scene, cam, settings, key, device=device)
+                probe = read_counts()[kernel]
+                log(f"{name}: the auto schedule {sched!r}, its probe {probe} {kernel} "
+                    f"launches")
+                check(sched is not None, f"{name}: auto derived no schedule")
+            check(counts[kernel] == stats.bounces + probe,
+                  f"{name} {label}: {kernel} launched {counts[kernel]} times in "
+                  f"{stats.bounces} bounces (and {probe} of the probe)")
+            if kernel != "K1":
+                check(counts["draws"] == counts[kernel],
+                      f"{name} {label}: the draw kernel launched {counts['draws']} times")
+        out[label] = (wall, img, stats)
+    return out
+
+
+def _idle_note(torch, fn):
+    pwall, busy, idle = idle_share(torch, fn, cuda_only=True)
+    return (f"; profiled (the device's trace) wall {pwall:.2f} ms, device busy "
+            f"{busy:.2f} ms, idle share {idle:.4f}")
+
+
+def median_wall(torch, device, fn, runs=3):
+    """(median, all) wall seconds of ``runs`` more calls of ``fn``, each
+    closed by a device sync: the host's clock varies by tens of percent
+    between calls of one render on this machine."""
+    walls = []
+    for _ in range(runs):
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        fn()
+        _sync(torch, device)
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls), walls
+
+
+def phase_cascade_spherefield(torch, device, card, scenes):
+    cfg = CASCADE_SF
+    W, H, spp, nb = cfg["width"], cfg["height"], cfg["spp"], cfg["bounces"]
+    log(f"== phase 25 (cascade): SphereField {W}x{H}, {spp} spp, {nb} bounces: the "
+        f"cascade (auto, dynamic, {CASCADE_SF_SCHEDULE!r}) against the chunked and the "
+        f"regen render of one key; K6 and the draw kernel on the cascade's pools")
+    from rust_pathtracer_tpu_torch.render import RenderSettings, render_radiance
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+
+    sd, scene = scenes["SphereField"]
+    cam = sd.camera_at(0.0, device=device)
+    key = prng_key(cfg["seed"], device=device)
+    settings = RenderSettings(W, H, spp, nb, SF_BG)
+    render_radiance(scene, cam, RenderSettings(64, 36, 2, 6, SF_BG, cascade=True), key,
+                    device=device)
+    modes = {"auto": dict(cascade_schedule="auto"), "dynamic": dict(cascade=True),
+             "explicit": dict(cascade_schedule=CASCADE_SF_SCHEDULE)}
+    out = cascade_runs(torch, device, card, "SphereField", scene, cam, settings, key,
+                       modes, "K6")
+    err = 0.0
+    for label, sched in (("explicit", CASCADE_SF_SCHEDULE), ("dynamic", None)):
+        at = held_bounces(sched)
+        with capture_bounces(torch, at) as calls:
+            img2, _ = render_radiance(scene, cam, dataclasses.replace(settings,
+                                                                      **modes[label]),
+                                      key, device=device)
+        check(torch.equal(img2, out[label][1]), f"SphereField {label} twice differs")
+        err = max(err, hold_pools(torch, device, f"SphereField {label}", calls,
+                                  ("K6", "draws"))[0])
+    c = out["chunked"][0]
+    log("SphereField walls (s): " + ", ".join(f"{k} {v[0]:.4f} ({c / v[0]:.3f}x chunked)"
+                                               for k, v in out.items()))
+    return dict(max_abs_err=err, chunked=out["chunked"])
+
+
+def phase_cascade_modeltest(torch, device, card, scenes):
+    cfg = MT
+    W, H, spp, nb = cfg["width"], cfg["height"], cfg["spp"], cfg["bounces"]
+    log(f"== phase 26 (cascade): ModelTest {W}x{H}, {spp} spp, {nb} bounces on the 10k "
+        f"(K6) and 20k (K7, K5) meshes through {CASCADE_MT_SCHEDULE!r}, against chunked "
+        f"and regen; the sweeps and the draw kernel on the cascade's pools")
+    from rust_pathtracer_tpu_torch.render import RenderSettings, render_radiance
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+
+    settings = RenderSettings(W, H, spp, nb, (1.0, 1.0, 1.0))
+    modes = {"explicit": dict(cascade_schedule=CASCADE_MT_SCHEDULE)}
+    err = 0.0
+    for name, kernel, want in (("ModelTest", "K6", ("K6", "draws")),
+                               ("ModelTest 20k", "K7", ("K7", "K5", "draws"))):
+        sd, scene = scenes[name]
+        cam = sd.camera_at(0.0, device=device)
+        key = prng_key(cfg["seed"], device=device)
+        if kernel == "K7":  # K7 and its K5 fallbacks share the bounces
+            out = cascade_runs(torch, device, card, name, scene, cam, settings, key, {},
+                               kernel)
+            def explicit():
+                return render_radiance(scene, cam, dataclasses.replace(
+                    settings, **modes["explicit"]), key, device=device)
+
+            _, (img, stats), counts = _timed_render(torch, device, explicit)
+            check_cascade_vs_chunked(torch, f"{name} explicit", img, stats,
+                                     *out["chunked"][1:])
+            check(counts["K7"] >= 1 and counts["K7"] + counts["K5"] == stats.bounces
+                  == counts["draws"], f"{name} explicit: K7 {counts['K7']} + K5 "
+                                      f"{counts['K5']} in {stats.bounces} bounces")
+            wall, walls = median_wall(torch, device, explicit)
+            seg = float(stats.segments)
+            log(f"{name} explicit on {card}: wall {wall:.4f} s (median of "
+                f"{[round(w, 4) for w in walls]}), segments {seg:.0f}, segments/s "
+                f"{seg / wall:.4e}, bounces {stats.bounces}, launches {counts}"
+                + _idle_note(torch, explicit))
+            out["explicit"] = (wall, img, stats)
+        else:
+            out = cascade_runs(torch, device, card, name, scene, cam, settings, key, modes,
+                               kernel)
+        with capture_bounces(torch, held_bounces(CASCADE_MT_SCHEDULE)) as calls:
+            render_radiance(scene, cam, dataclasses.replace(settings, **modes["explicit"]),
+                            key, device=device)
+        err = max(err, hold_pools(torch, device, f"{name} explicit", calls, want)[0])
+        c = out["chunked"][0]
+        log(f"{name} walls (s): " + ", ".join(f"{k} {v[0]:.4f} ({c / v[0]:.3f}x chunked)"
+                                               for k, v in out.items()))
+    return dict(max_abs_err=err)
+
+
+def phase_cascade_serving(torch, device, card):
+    cfg = SERVE
+    W, H, spp, nb = cfg["width"], cfg["height"], cfg["spp"], cfg["bounces"]
+    log(f"== phase 27 (cascade): serving CornellBox {W}x{H}, {spp} spp, {nb} bounces, "
+        f"{W * H * cfg['spp_chunk']} lanes a chunk, the fused route, "
+        f"cascade_schedule='auto'; K1 on the cascade's pools")
+    from rust_pathtracer_tpu_torch.models import get_scene
+    from rust_pathtracer_tpu_torch.render import (
+        RenderSettings,
+        derive_cascade_schedule,
+        render_radiance,
+    )
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+
+    sd = get_scene("CornellBox")
+    scene = sd.build(device=device)
+    cam = sd.camera_at(0.0, device=device)
+    key = prng_key(cfg["seed"], device=device)
+    settings = RenderSettings(W, H, spp, nb, (0.0, 0.0, 0.0), spp_chunk=cfg["spp_chunk"])
+    auto = dict(cascade_schedule="auto")
+    out = cascade_runs(torch, device, card, "CornellBox", scene, cam, settings, key,
+                       {"auto": auto}, "K1", regen=False, idle=False)
+    sched = derive_cascade_schedule(scene, cam, settings, key, device=device)
+    with capture_bounces(torch, held_bounces(sched)) as calls:
+        render_radiance(scene, cam, dataclasses.replace(settings, **auto), key,
+                        device=device)
+    err, _ = hold_pools(torch, device, "CornellBox auto", calls, ("K1",))
+    return dict(max_abs_err=err, walls={k: v[0] for k, v in out.items()})
+
+
+def phase_cascade_generic(torch, device, card):
+    cfg = GENERIC
+    W, H, spp, nb = cfg["width"], cfg["height"], cfg["spp"], cfg["bounces"]
+    log(f"== phase 28 (cascade): the image-textured scene {W}x{H}, {spp} spp, {nb} "
+        f"bounces through the dynamic cascade; K3 and the draw kernel on its pool")
+    from rust_pathtracer_tpu_torch.camera import make_camera
+    from rust_pathtracer_tpu_torch.render import RenderSettings, render_radiance
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+
+    scene = simple_scene(device)
+    cam = make_camera(*SIMPLE_CAM, device=device)
+    key = prng_key(cfg["seed"], device=device)
+    settings = RenderSettings(W, H, spp, nb, SIMPLE_BG)
+    dyn = dict(cascade=True)
+    cascade_runs(torch, device, card, "image scene", scene, cam, settings, key,
+                 {"dynamic": dyn}, "K3", regen=False, idle=False)
+    with capture_bounces(torch, held_bounces(None)) as calls:
+        render_radiance(scene, cam, dataclasses.replace(settings, **dyn), key,
+                        device=device)
+    return dict(max_abs_err=hold_pools(torch, device, "image scene dynamic", calls,
+                                       ("K3", "draws"))[0])
+
+
+def phase_cascade_overflow(torch, device, scenes):
+    log(f"== phase 29 (cascade): an explicit too-tight schedule {CASCADE_TIGHT!r} on "
+        f"SphereField {CASCADE_SF['width']}x{CASCADE_SF['height']} raises "
+        f"CascadeOverflowError")
+    from rust_pathtracer_tpu_torch.render import (
+        CascadeOverflowError,
+        RenderSettings,
+        _cascade_static_schedule,
+        render_radiance,
+    )
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+
+    sd, scene = scenes["SphereField"]
+    cfg = CASCADE_SF
+    settings = RenderSettings(cfg["width"], cfg["height"], 2, cfg["bounces"], SF_BG,
+                              cascade_schedule=CASCADE_TIGHT)
+    lanes = cfg["width"] * cfg["height"] * settings.resolve_chunk()
+    check(bool(_cascade_static_schedule(cfg["bounces"], lanes, CASCADE_TIGHT)),
+          f"{CASCADE_TIGHT!r} is no static schedule for {lanes} lanes")
+    try:
+        render_radiance(scene, sd.camera_at(0.0, device=device), settings,
+                        prng_key(cfg["seed"], device=device), device=device)
+    except CascadeOverflowError as e:
+        log(f"raised: {e}")
+        return
+    fail(f"the schedule {CASCADE_TIGHT!r} returned an image instead of raising")
+
+
+class _Stop(Exception):
+    pass
+
+
+def phase_checkpoint_resume(torch, device, card, scenes, chunked):
+    cfg = CASCADE_SF
+    W, H, spp, nb = cfg["width"], cfg["height"], cfg["spp"], cfg["bounces"]
+    log(f"== phase 30: checkpointed SphereField {W}x{H}, {spp} spp, {nb} bounces, "
+        f"stopped after 2 of its chunks and resumed, plain and through "
+        f"{CASCADE_SF_SCHEDULE!r}: bit for bit the uninterrupted render")
+    from rust_pathtracer_tpu_torch import render
+    from rust_pathtracer_tpu_torch.render import RenderSettings
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+    from rust_pathtracer_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+        render_radiance_checkpointed,
+    )
+
+    sd, scene = scenes["SphereField"]
+    cam = sd.camera_at(0.0, device=device)
+    key = prng_key(cfg["seed"], device=device)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    for label, sched, fn in (("plain", None, "_render_chunk"),
+                             ("cascade", CASCADE_SF_SCHEDULE, "_render_chunk_cascaded")):
+        settings = RenderSettings(W, H, spp, nb, SF_BG, cascade_schedule=sched)
+        n_chunks = -(-spp // settings.resolve_chunk())
+        check(n_chunks >= 3, f"the frame has {n_chunks} chunks")
+        paths = {k: os.path.join(OUT_DIR, f"ckpt_{label}_{k}.npz") for k in ("full", "part")}
+        for p in paths.values():
+            if os.path.exists(p):
+                os.unlink(p)
+        full, fst = render_radiance_checkpointed(scene, cam, settings, key, paths["full"],
+                                                 device=device)
+        real, done = getattr(render, fn), []
+
+        def stopping(*a, **k):
+            if len(done) == 2:
+                raise _Stop()
+            done.append(a[3])
+            return real(*a, **k)
+
+        setattr(render, fn, stopping)
+        try:
+            render_radiance_checkpointed(scene, cam, settings, key, paths["part"],
+                                         device=device)
+            fail(f"{label}: the checkpointed render was not stopped")
+        except _Stop:
+            pass
+        finally:
+            setattr(render, fn, real)
+        saved = load_checkpoint(paths["part"])
+        t0 = time.perf_counter()
+        img, st = render_radiance_checkpointed(scene, cam, settings, key, paths["part"],
+                                               device=device)
+        _sync(torch, device)
+        wall = time.perf_counter() - t0
+        log(f"{label}: stopped after chunks at samples {done} ({saved.samples_done} of "
+            f"{spp} samples saved), resumed the other {n_chunks - 2} chunks in {wall:.3f} s "
+            f"on {card}; segments {float(st.segments):.0f} vs {float(fst.segments):.0f}")
+        check(torch.equal(img, full), f"{label}: the resumed image differs")
+        check(float(st.segments) == float(fst.segments), f"{label}: the resumed segments "
+                                                         "differ")
+        check(torch.equal(full, chunked[1]), f"{label}: the checkpointed image differs "
+                                             "from render_radiance's")
 
 
 # ---------------------------------------------------------------------------
@@ -2767,6 +3225,26 @@ def main() -> int:
     sf_regen = phase_regen_spherefield(torch, device, card, scenes)
     phase_regen_card_vs_cpu(torch, device)
     phase_sf_frame_hoisted(torch, device, card, scenes)
+    t_casc = [time.perf_counter()]
+
+    def took(n):
+        t_casc.append(time.perf_counter())
+        log(f"phase {n} took {t_casc[-1] - t_casc[-2]:.1f} s")
+
+    casc = phase_cascade_spherefield(torch, device, card, scenes)
+    took(25)
+    phase_cascade_modeltest(torch, device, card, scenes)
+    took(26)
+    phase_cascade_serving(torch, device, card)
+    took(27)
+    phase_cascade_generic(torch, device, card)
+    took(28)
+    phase_cascade_overflow(torch, device, scenes)
+    took(29)
+    phase_checkpoint_resume(torch, device, card, scenes, casc["chunked"])
+    took(30)
+    log(f"phases 25-30 (the cascade and checkpoints) took "
+        f"{t_casc[-1] - t_casc[0]:.1f} s")
 
     def sweep_err(kernel, main):
         errs = [main["max_abs_err"]] + [v["max_abs_err"] for (_, k), v in ph14.items()

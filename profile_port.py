@@ -5,6 +5,7 @@
     python3 profile_port.py --scene ModelTest --mode frame
     python3 profile_port.py --scene CornellBox --mode frame --root output/parent
     python3 profile_port.py --scene LightTest --mode regen
+    python3 profile_port.py --scene SphereField --mode frame --cascade 3:2,5:4,7:16
 
 Runs ``rust_pathtracer_tpu_torch`` (never JAX) on the card: one warm-up,
 then the same frame (``render_radiance``), regen frame
@@ -35,12 +36,14 @@ frame and regen frame are chip_smoke.py's phase 21 (854x480, 16 spp, 50
 bounces), SphereField's regen frame its phase 22 (8 spp).
 ``--root`` imports the package from another checkout (a parent commit
 unpacked with ``git archive``), so that two versions are timed by one
-script on one card.
+script on one card.  ``--cascade`` renders a frame through the cascade
+renderer: "dynamic", "auto" or a static schedule.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import subprocess
 import sys
@@ -109,6 +112,9 @@ def main() -> int:
     p.add_argument("--mode", default="step", choices=["step", "frame", "regen"])
     p.add_argument("--root", default=REPO,
                    help="the checkout whose rust_pathtracer_tpu_torch to import")
+    p.add_argument("--cascade", default=None, metavar="SCHEDULE",
+                   help="frame mode: render through the cascade, 'dynamic', "
+                        "'auto' or a schedule such as 3:2,5:4")
     p.add_argument("--kernel", action="append", default=[],
                    help="also print the device time and launches of the kernels "
                         "whose name holds this string (repeatable)")
@@ -158,6 +164,13 @@ def main() -> int:
         cam_params = sd.camera_at(0.0, device=dev, make=CameraParams.create)
     settings = RenderSettings(W, H, spp, nb, bg, spp_chunk=chunk,
                               differentiable=args.mode == "step")
+    if args.cascade is not None:
+        if args.mode != "frame":
+            print("FAIL: --cascade renders a frame (--mode frame)", flush=True)
+            return 1
+        settings = dataclasses.replace(
+            settings, cascade=True,
+            cascade_schedule=None if args.cascade == "dynamic" else args.cascade)
     key = prng_key(0, device=dev)
     leaves = None
     if args.mode == "step":  # the camera's seven parameters as leaves too
@@ -192,8 +205,9 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     busy = busy_ms(prof.events())
-    print(f"{args.scene} {args.mode} {W}x{H}, {spp} spp ({chunk} a chunk), {nb} "
-          f"bounces on {card}: "
+    print(f"{args.scene} {args.mode}"
+          f"{'' if args.cascade is None else f' cascade {args.cascade}'} {W}x{H}, "
+          f"{spp} spp ({chunk} a chunk), {nb} bounces on {card}: "
           f"wall {plain_wall:.2f} ms unprofiled, {wall:.2f} ms profiled; device busy "
           f"{busy:.2f} ms, idle share {1 - busy / wall:.4f} of the profiled wall; "
           f"segments {float(stats.segments):.0f}", flush=True)

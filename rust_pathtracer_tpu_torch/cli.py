@@ -10,17 +10,24 @@ Counterpart of ``rust_pathtracer_tpu/cli.py``; plain host code.
 
     python -m rust_pathtracer_tpu_torch.cli --scene LightTest --spp 16 --regen
 
+    python -m rust_pathtracer_tpu_torch.cli --scene SphereField --cascade auto \
+        --checkpoint ./output/frame.ckpt --checkpoint-every 4
+
 The default device is ``cuda``; ``--device cuda`` where there is no GPU
 exits non-zero (there is no CPU fallback).  One frame, the camera at
 t = 0.  Prints the ray segments traced, the wall seconds of the render
 (the kernels' first-use builds are done before the clock starts) and
 segments per second.  ``--regen`` renders with the regeneration
 wavefront (``wavefront.render_radiance_regen``, a pool of ``--lanes``
-lanes), as the JAX CLI routes it.
+lanes), as the JAX CLI routes it.  ``--cascade`` renders with the
+cascade: bare, the dynamic one; ``auto``, a schedule derived from a
+probe; or an explicit schedule such as ``3:2,6:4``, checked when the
+arguments are parsed.  ``--checkpoint FILE`` saves the frame's progress
+every ``--checkpoint-every`` sample chunks and resumes from FILE where
+it matches the job (``utils/checkpoint.py``).
 
 Not ported yet (ROADMAP queue 1 item 13): ``--scene-json``, animation
-frames and GIFs (``--frames``), ``--mesh``, ``--cascade``,
-``--checkpoint``, profiling and metrics files.
+frames and GIFs (``--frames``), ``--mesh``, profiling and metrics files.
 """
 
 from __future__ import annotations
@@ -61,18 +68,51 @@ def build_parser() -> argparse.ArgumentParser:
         "--lanes", type=int, default=None,
         help="lane-pool size for --regen (default min(total, 2^20))",
     )
+    p.add_argument(
+        "--cascade", default=None, metavar="SCHEDULE", nargs="?", const="dynamic",
+        help="compact the wavefront once lanes die (the same image as the "
+             "chunked render).  Bare --cascade: the dynamic cascade; 'auto': "
+             "a schedule from a probe render; or a static schedule such as "
+             "5:8,9:64 (boundary:shrink,...; a shrink may be a rational like "
+             "16/11)",
+    )
+    p.add_argument("--checkpoint", help="accumulation checkpoint file (exact resume)")
+    p.add_argument(
+        "--checkpoint-every", type=int, default=1, metavar="CHUNKS",
+        help="save every N sample chunks (each save costs a device sync and "
+             "a disk write)",
+    )
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return p
 
 
+def _check_args(parser: argparse.ArgumentParser, args) -> None:
+    """The checks argparse cannot make; errors exit as argparse's do."""
+    from rust_pathtracer_tpu_torch.render import parse_cascade_schedule
+
+    if args.cascade is not None:
+        if args.regen:
+            parser.error("--cascade and --regen are mutually exclusive renderer modes")
+        if args.cascade not in ("dynamic", "auto"):
+            try:
+                parse_cascade_schedule(args.cascade)
+            except ValueError as e:
+                parser.error(str(e))
+    if args.checkpoint_every < 1:
+        parser.error("--checkpoint-every must be at least 1")
+
+
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    _check_args(parser, args)
 
     import torch
 
     from rust_pathtracer_tpu_torch.models import get_scene
     from rust_pathtracer_tpu_torch.render import render_radiance
     from rust_pathtracer_tpu_torch.sampling import prng_key
+    from rust_pathtracer_tpu_torch.utils.checkpoint import render_radiance_checkpointed
     from rust_pathtracer_tpu_torch.utils.image import frame_path, to_rgb8, write_png
     from rust_pathtracer_tpu_torch.wavefront import render_radiance_regen
 
@@ -98,6 +138,10 @@ def main(argv=None) -> int:
         overrides["spp_chunk"] = args.spp_chunk
     if args.russian_roulette is not None:
         overrides["russian_roulette_start"] = args.russian_roulette
+    if args.cascade is not None:
+        overrides["cascade"] = True
+        if args.cascade != "dynamic":
+            overrides["cascade_schedule"] = args.cascade
     if overrides:
         settings = dataclasses.replace(settings, **overrides)
 
@@ -118,6 +162,10 @@ def main(argv=None) -> int:
     if args.regen:
         img, stats = render_radiance_regen(scene, cam, settings, key, lanes=args.lanes,
                                            device=args.device)
+    elif args.checkpoint:
+        img, stats = render_radiance_checkpointed(
+            scene, cam, settings, key, args.checkpoint,
+            checkpoint_every=args.checkpoint_every, device=args.device)
     else:
         img, stats = render_radiance(scene, cam, settings, key, device=args.device)
     img = img.cpu().numpy()  # waits for the device
@@ -131,7 +179,8 @@ def main(argv=None) -> int:
     print(f"wrote {path}")
     print(f"{sd.name} {settings.width}x{settings.height} "
           f"spp={settings.samples_per_pixel} bounces={settings.max_bounces} "
-          f"{'regen ' if args.regen else ''}on {device_name}: "
+          f"{'regen ' if args.regen else ''}"
+          f"{'' if args.cascade is None else f'cascade={args.cascade} '}on {device_name}: "
           f"segments={segments:.0f} seconds={seconds:.3f} "
           f"segments/s={segments / seconds:.4g}")
     return 0

@@ -41,6 +41,9 @@ alive; the differentiable ones run exactly ``max_bounces`` bounces.
 Optional russian roulette (off by default; the reference has none) runs
 between bounces.  t_min = 0.001 (ray.rs:25) is in units of |direction|.
 
+``trace_resume`` continues the forward loop of either route on a given
+wavefront state from any bounce; ``trace`` is its bounce-0 case, and
+the cascade renderer (``render.py``) calls it on each compacted slice.
 The regen wavefront (``wavefront.py``) runs the same two routes on a
 lane pool at per-lane depth.
 
@@ -320,16 +323,14 @@ def _stats(alive, bounce, segments, occupancy):
     return segments + n_alive
 
 
-def _trace_generic(scene, origins, directions, keys, background, max_bounces,
-                   rr_start, differentiable, mode):
-    dev = origins.device
+def _trace_generic(scene, state, keys, background, start_bounce, max_bounces,
+                   rr_start, segments, occupancy, differentiable=False, mode=None):
+    """Bounces [start_bounce, max_bounces) of the generic route on ``state``
+    = (o, d, thr, rad, alive); stops early once no lane is alive unless
+    ``differentiable``.  Returns (state, segments, occupancy, bounces
+    run)."""
     table = scene.proj if scene.kinds_static is None else pack_prims(scene.prims)
-    R = origins.shape[0]
-    state = (origins, directions, torch.ones((R, 3), device=dev),
-             torch.zeros((R, 3), device=dev), torch.ones(R, dtype=torch.bool, device=dev))
-    segments = torch.zeros((), dtype=torch.float32, device=dev)
-    occupancy = torch.zeros(MAX_BOUNCE_STATS, dtype=torch.float32, device=dev)
-    bounce = 0
+    bounce = start_bounce
     while bounce < max_bounces and (differentiable or bool(state[4].any())):
         segments = _stats(state[4].to(torch.float32), bounce, segments, occupancy)
         su, bu, coin, rr_u = bounce_draws(keys, bounce, bounce >= rr_start)
@@ -337,32 +338,28 @@ def _trace_generic(scene, origins, directions, keys, background, max_bounces,
         state = _bounce_step(scene, table, state, draws_b, background, rr_u,
                              differentiable, mode)
         bounce += 1
-    return state[3], TraceStats(segments=segments, bounces=bounce, occupancy=occupancy)
+    return state, segments, occupancy, bounce - start_bounce
 
 
-def _trace_fused(scene, origins, directions, keys, background, max_bounces,
-                 rr_start, differentiable):
-    zeros = torch.zeros_like(origins[:, 0])
-    ones = torch.ones_like(zeros)
-    cols = (origins[:, 0], origins[:, 1], origins[:, 2],
-            directions[:, 0], directions[:, 1], directions[:, 2],
-            ones, ones, ones, zeros, zeros, zeros, ones)
+def _trace_fused(scene, state, keys, background, start_bounce, max_bounces,
+                 rr_start, segments, occupancy, differentiable=False):
+    """Bounces [start_bounce, max_bounces) of the fused route on the
+    (13, R) ``state`` (rows in ``_COL_KEYS`` order).  Forward: one keyed
+    K1 launch a bounce, until no lane is alive.  Differentiable: the
+    whole-scan ``fused_scan_trace`` over exactly ``max_bounces`` bounces
+    from bounce 0.  Returns (state, segments, occupancy, bounces run)."""
     if differentiable:
-        cols = dict(zip(_COL_KEYS, cols))
+        if start_bounce:
+            raise ValueError("the differentiable fused trace starts at bounce 0")
         cols, segments, occupancy = fused_scan_trace(
-            scene, cols, keys, background, T_MIN, max_bounces, rr_start,
-            MAX_BOUNCE_STATS)
-        rad = torch.stack([cols["r0"], cols["r1"], cols["r2"]], dim=1)
-        return rad, TraceStats(segments=segments, bounces=max_bounces,
-                               occupancy=occupancy)
+            scene, dict(zip(_COL_KEYS, state.unbind(0))), keys, background, T_MIN,
+            max_bounces, rr_start, MAX_BOUNCE_STATS)
+        return (torch.stack([cols[k] for k in _COL_KEYS]), segments, occupancy,
+                max_bounces)
 
     table = pack_prims_shaded(scene)
     seed = scene.textures.perlin_seed
-    state = torch.stack(cols)  # (13, R), rows in _COL_KEYS order
-    segments = torch.zeros((), dtype=torch.float32, device=origins.device)
-    occupancy = torch.zeros(MAX_BOUNCE_STATS, dtype=torch.float32,
-                            device=origins.device)
-    bounce = 0
+    bounce = start_bounce
     while bounce < max_bounces and bool((state[12] > 0.5).any()):
         segments = _stats(state[12], bounce, segments, occupancy)
         state = fused_bounce_keyed(
@@ -371,9 +368,61 @@ def _trace_fused(scene, origins, directions, keys, background, max_bounces,
             mat_types=scene.mat_types, tex_types=scene.tex_types, t_min=T_MIN,
         )
         bounce += 1
+    return state, segments, occupancy, bounce - start_bounce
 
-    rad = state[9:12].T.contiguous()
-    return rad, TraceStats(segments=segments, bounces=bounce, occupancy=occupancy)
+
+def trace_resume(scene, o, d, thr, rad, alive, lane_keys, background,
+                 start_bounce: int, max_bounces: int,
+                 russian_roulette_start: Optional[int] = None, *,
+                 segments=None, occupancy=None, differentiable: bool = False,
+                 mode: Optional[str] = None):
+    """Continue the bounce loop on an explicit wavefront state over
+    bounces [start_bounce, max_bounces) (JAX ``trace_resume``).
+
+    o, d, thr, rad: (R, 3) f32; alive: (R,) bool; lane_keys: (R, 2).
+    The draws key on (lane key, bounce), so a lane continues exactly as
+    it would have in one uninterrupted trace, wherever it now sits in
+    the wavefront.  The forward stops once no lane is alive.
+    ``segments`` (f32 scalar) and ``occupancy`` (MAX_BOUNCE_STATS,)
+    carry the counts of the bounces before (zeros when None); the
+    forward writes occupancy in place.  The route is ``trace``'s: keyed
+    K1 on the fused scenes, else the generic bounce (K3, or K6 / K7 /
+    K5) with the draw kernel.  ``differentiable`` / ``mode`` serve
+    ``trace``'s differentiable loops, which start at bounce 0.  Returns
+    (state dict with o, d, thr, rad, alive, segments, occupancy;
+    bounces run)."""
+    if scene.prims.data.requires_grad:
+        raise NotImplementedError(
+            "gradients of the primitive geometry (scene.prims.data) are not "
+            "ported: the hit distance is linearised in the ray only, so they "
+            "would come back zero (JAX RPT_DIFF_T=rederive; ROADMAP queue 1 "
+            "item 8)")
+    dev = o.device
+    if scene.device != dev:
+        raise ValueError(f"scene on {scene.device}, rays on {dev}")
+    background = torch.as_tensor(background, dtype=torch.float32, device=dev)
+    rr_start = (max_bounces + 1 if russian_roulette_start is None
+                else russian_roulette_start)
+    if segments is None:
+        segments = torch.zeros((), dtype=torch.float32, device=dev)
+    if occupancy is None:
+        occupancy = torch.zeros(MAX_BOUNCE_STATS, dtype=torch.float32, device=dev)
+    keys = key_words(lane_keys)
+    if (fused_bounce_diff_ok if differentiable else fused_bounce_ok)(scene):
+        state = torch.stack([o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2],
+                             thr[:, 0], thr[:, 1], thr[:, 2],
+                             rad[:, 0], rad[:, 1], rad[:, 2], alive.to(o.dtype)])
+        state, segments, occupancy, n = _trace_fused(
+            scene, state, keys, background, start_bounce, max_bounces, rr_start,
+            segments, occupancy, differentiable)
+        o, d, thr = state[0:3].T, state[3:6].T, state[6:9].T
+        rad, alive = state[9:12].T.contiguous(), state[12] > 0.5
+    else:
+        (o, d, thr, rad, alive), segments, occupancy, n = _trace_generic(
+            scene, (o, d, thr, rad, alive), keys, background, start_bounce,
+            max_bounces, rr_start, segments, occupancy, differentiable, mode)
+    return dict(o=o, d=d, thr=thr, rad=rad, alive=alive, segments=segments,
+                occupancy=occupancy), n
 
 
 def trace(
@@ -403,25 +452,13 @@ def trace(
     route (see ``resolve_remat_mode``); the fused route keeps its
     residuals, 64-72 B a lane-bounce.
     """
-    if scene.prims.data.requires_grad:
-        raise NotImplementedError(
-            "gradients of the primitive geometry (scene.prims.data) are not "
-            "ported: the hit distance is linearised in the ray only, so they "
-            "would come back zero (JAX RPT_DIFF_T=rederive; ROADMAP queue 1 "
-            "item 8)")
     dev = origins.device
-    if scene.device != dev:
-        raise ValueError(f"scene on {scene.device}, rays on {dev}")
-    background = torch.as_tensor(background, dtype=torch.float32, device=dev)
-    rr_start = (
-        max_bounces + 1 if russian_roulette_start is None
-        else russian_roulette_start
-    )
-    mode = (resolve_remat_mode(remat, origins.shape[0], max_bounces)
-            if differentiable else None)
-    keys = key_words(lane_keys)
-    if (fused_bounce_diff_ok if differentiable else fused_bounce_ok)(scene):
-        return _trace_fused(scene, origins, directions, keys, background,
-                            max_bounces, rr_start, differentiable)
-    return _trace_generic(scene, origins, directions, keys, background, max_bounces,
-                          rr_start, differentiable, mode)
+    R = origins.shape[0]
+    mode = resolve_remat_mode(remat, R, max_bounces) if differentiable else None
+    st, n = trace_resume(
+        scene, origins, directions, torch.ones((R, 3), device=dev),
+        torch.zeros((R, 3), device=dev), torch.ones(R, dtype=torch.bool, device=dev),
+        lane_keys, background, 0, max_bounces, russian_roulette_start,
+        differentiable=differentiable, mode=mode)
+    return st["rad"], TraceStats(segments=st["segments"], bounces=n,
+                                 occupancy=st["occupancy"])

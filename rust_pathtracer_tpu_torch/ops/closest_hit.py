@@ -16,7 +16,8 @@ plain PyTorch twins, which follow the Pallas kernels op for op:
   inside the kernel).
 
 The sweep: sphere half-b with the nearest root in ``[t_min, best]`` and
-true divisions, the rect plane solve, one-sided Moller-Trumbore with
+true divisions (the quadratic in f64, its roots rounded to f32:
+``sphere_roots``; the Pallas kernels' is f32), the rect plane solve, one-sided Moller-Trumbore with
 the ``|det| > 1e-30`` guard, and the strict ``t < best`` update, so the
 first primitive wins a tie.  Dead lanes are swept like live ones, as
 in the JAX package; the integrator masks them afterwards.
@@ -90,13 +91,7 @@ def prim_candidate(table, p, kind, aux, o_c, d_c, a, t_min, best_t, uv=False):
     u = v = zeros
     if kind == PRIM_SPHERE:
         cx, cy, cz, r = s(0), s(1), s(2), s(3)
-        ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
-        half_b = dx * ocx + dy * ocy + dz * ocz
-        c = ocx * ocx + ocy * ocy + ocz * ocz - r * r
-        dis = half_b * half_b - a * c
-        sqrtd = sqrt(torch.clamp(dis, min=0.0))
-        root1 = (-half_b - sqrtd) / a
-        root2 = (-half_b + sqrtd) / a
+        root1, root2, dis = sphere_roots(o_c, d_c, (cx, cy, cz), r)
         ok1 = (root1 >= t_min) & (root1 <= best_t)
         ok2 = (root2 >= t_min) & (root2 <= best_t)
         t = torch.where(ok1, root1, root2)
@@ -143,6 +138,33 @@ def prim_candidate(table, p, kind, aux, o_c, d_c, a, t_min, best_t, uv=False):
     else:
         raise ValueError(f"unknown static kind {kind}")
     return dict(t=t, valid=valid, n=n, inv_r=inv_r, u=u, v=v)
+
+
+def sphere_roots(o_c, d_c, center, r):
+    """The two roots of |o + t d - c|^2 = r^2 for every lane, rounded to
+    f32, and the discriminant, which is >= 0 where they are real.
+
+    The quadratic runs in f64 on the f32 inputs.  In f32, half_b^2 - a c
+    cancels where a ray meets a sphere far from its centre compared with
+    the radius (CornellBox's camera rays: 450x), and the root then lands
+    up to ~1e-4 of t off, deep enough inside the surface that the
+    reflected ray meets the same sphere again beyond t_min.  In f64 the
+    root is the f64 oracle's to the last f32 bit on such rays
+    (tests/test_torch_oracle.py pins one).  K1 and K3/K4 on the card run
+    the same f64 operations in the same order."""
+    f64 = torch.float64
+    ox, oy, oz = (x.to(f64) for x in o_c)
+    dx, dy, dz = (x.to(f64) for x in d_c)
+    cx, cy, cz = (x.to(f64) for x in center)
+    r = r.to(f64)
+    ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
+    half_b = dx * ocx + dy * ocy + dz * ocz
+    c = ocx * ocx + ocy * ocy + ocz * ocz - r * r
+    a = dx * dx + dy * dy + dz * dz
+    dis = half_b * half_b - a * c
+    sqrtd = torch.sqrt(torch.clamp(dis, min=0.0))
+    f32 = o_c[0].dtype
+    return ((-half_b - sqrtd) / a).to(f32), ((-half_b + sqrtd) / a).to(f32), dis
 
 
 def _planes(o, d):

@@ -14,7 +14,8 @@
 // closest_hit_record_plain in ../closest_hit.py.
 //
 // The sweep is the Pallas kernels': sphere half-b with the nearest root in
-// [t_min, best] and true divisions, the rect plane solve, one-sided
+// [t_min, best] and true divisions (the quadratic in f64, its roots rounded
+// to f32: closest_hit.sphere_roots), the rect plane solve, one-sided
 // Moller-Trumbore with the |det| > 1e-30 guard, and the strict t < best
 // update (the first primitive wins a tie).  Every lane is swept, dead ones
 // included, as the JAX package does; the integrator masks them afterwards.
@@ -46,7 +47,7 @@
 //   closest_hit_launch says.
 //
 // Numerics: build without --use_fast_math and with --fmad=false, so every
-// f32 op rounds as the plain version's does.  Only acosf / atan2f differ
+// f32 (and f64) op rounds as the plain version's does.  Only acosf / atan2f differ
 // from the CPU's by an ulp.
 
 #include <cuda_runtime.h>
@@ -110,17 +111,23 @@ closest_hit_kernel(const float* __restrict__ table, int n_prims,
       if (kind == PRIM_SPHERE) {
         const float cx = tab[0 * P + p], cy = tab[1 * P + p], cz = tab[2 * P + p];
         const float r = tab[3 * P + p];
-        const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
-        const float half_b = dx * ocx + dy * ocy + dz * ocz;
-        const float c = ocx * ocx + ocy * ocy + ocz * ocz - r * r;
-        const float dis = half_b * half_b - a * c;
-        const float sqrtd = sqrtf((dis != dis || dis > 0.0f) ? dis : 0.0f);  // NaN-propagating max
-        const float root1 = (-half_b - sqrtd) / a;
-        const float root2 = (-half_b + sqrtd) / a;
+        // the quadratic in f64, as closest_hit.sphere_roots (the plain
+        // version) has it: in f32 half_b^2 - a c cancels on rays that meet
+        // a sphere near its rim, and the root can land inside the surface
+        const double ocx = (double)ox - (double)cx, ocy = (double)oy - (double)cy,
+                     ocz = (double)oz - (double)cz;
+        const double dx64 = dx, dy64 = dy, dz64 = dz;
+        const double half_b = dx64 * ocx + dy64 * ocy + dz64 * ocz;
+        const double c = ocx * ocx + ocy * ocy + ocz * ocz - (double)r * (double)r;
+        const double a64 = dx64 * dx64 + dy64 * dy64 + dz64 * dz64;
+        const double dis = half_b * half_b - a64 * c;
+        const double sqrtd = sqrt((dis != dis || dis > 0.0) ? dis : 0.0);  // NaN-propagating max
+        const float root1 = (float)((-half_b - sqrtd) / a64);
+        const float root2 = (float)((-half_b + sqrtd) / a64);
         const bool ok1 = (root1 >= t_min) & (root1 <= best_t);
         const bool ok2 = (root2 >= t_min) & (root2 <= best_t);
         t = ok1 ? root1 : root2;
-        valid = (dis >= 0.0f) & (ok1 | ok2);
+        valid = (dis >= 0.0) & (ok1 | ok2);
         if (RECORD) {
           const float inv_r = 1.0f / r;
           nx = (ox + t * dx - cx) * inv_r;

@@ -2,7 +2,7 @@
 //
 // Replaces rust_pathtracer_tpu/ops/fused_bounce.py::_kernel (the Pallas
 // TPU kernel, want_residuals=False).  Per lane: closest hit over the
-// static primitive list (sphere half-b nearest root, rect plane solve,
+// static primitive list (sphere half-b nearest root in f64, rect plane solve,
 // one-sided Moller-Trumbore with det >= TRI_DET_EPS, strict t < best),
 // front-face flip, texture (solid / checker sin-product / perlin
 // marble), background banking on a miss and emission banking on a
@@ -56,7 +56,11 @@
 // Numerics: build without --use_fast_math and with --fmad=false, so every
 // f32 op rounds as the plain version's does (IEEE division and sqrt, no
 // contraction, no flush to zero).  Integer powers are explicit multiplies,
-// as XLA's integer_pow expands them.  The metal's cube root is the f64
+// as XLA's integer_pow expands them.  A sphere's quadratic runs in f64 and
+// its roots round to f32, as closest_hit.sphere_roots has it (in f32 the
+// discriminant cancels on rays that meet a sphere near its rim, and the
+// root can land inside the surface by more than t_min; the JAX package's
+// f32 root differs).  The metal's cube root is the f64
 // power rounded to f32, as vecmath.cbrt takes it; sinf / cosf are CUDA's,
 // which PyTorch's CUDA sin / cos also use, so on the card the kernel and
 // its plain version agree bit for bit, and sin / cos differ from the
@@ -371,17 +375,23 @@ fused_bounce_kernel(const float* __restrict__ table, int n_prims,
       if (kind == PRIM_SPHERE) {
         const float cx = tab[0 * P + p], cy = tab[1 * P + p], cz = tab[2 * P + p];
         const float r = tab[3 * P + p];
-        const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
-        const float half_b = dx * ocx + dy * ocy + dz * ocz;
-        const float c = ocx * ocx + ocy * ocy + ocz * ocz - r * r;
-        const float dis = half_b * half_b - a * c;
-        const float sqrtd = sqrtf(max_nan(dis, 0.0f));
-        const float root1 = (-half_b - sqrtd) / a;
-        const float root2 = (-half_b + sqrtd) / a;
+        // the quadratic in f64, as closest_hit.sphere_roots (the plain
+        // version) has it: in f32 half_b^2 - a c cancels on rays that meet
+        // a sphere near its rim, and the root can land inside the surface
+        const double ocx = (double)ox - (double)cx, ocy = (double)oy - (double)cy,
+                     ocz = (double)oz - (double)cz;
+        const double dx64 = dx, dy64 = dy, dz64 = dz;
+        const double half_b = dx64 * ocx + dy64 * ocy + dz64 * ocz;
+        const double c = ocx * ocx + ocy * ocy + ocz * ocz - (double)r * (double)r;
+        const double a64 = dx64 * dx64 + dy64 * dy64 + dz64 * dz64;
+        const double dis = half_b * half_b - a64 * c;
+        const double sqrtd = sqrt((dis != dis || dis > 0.0) ? dis : 0.0);  // NaN-propagating max
+        const float root1 = (float)((-half_b - sqrtd) / a64);
+        const float root2 = (float)((-half_b + sqrtd) / a64);
         const bool ok1 = (root1 >= t_min) & (root1 <= best_t);
         const bool ok2 = (root2 >= t_min) & (root2 <= best_t);
         t = ok1 ? root1 : root2;
-        valid = (dis >= 0.0f) & (ok1 | ok2);
+        valid = (dis >= 0.0) & (ok1 | ok2);
         const float inv_r = 1.0f / r;
         cand_invr = inv_r;
         nx = (ox + t * dx - cx) * inv_r;

@@ -33,12 +33,18 @@ torch.set_num_threads(2)
 
 # The single-bounce contract of tests/test_torch_fused_bounce.py: the
 # port rounds every f32 op; XLA:CPU contracts multiply-adds into FMAs in
-# the interpreted kernel, and the sphere discriminant's cancellation
-# amplifies that to ~1e-3 relative on a few lanes (grazing hits, the
-# r=100 and r=555-box scales).  So: at least 95% of lanes within
-# rtol 1e-5 / atol 1e-6, every lane within rtol 2e-3 / atol 1e-4.
+# the interpreted kernel.  Away from spheres: at least 95% of lanes within
+# rtol 1e-5 / atol 1e-6.  A sphere's roots the port takes in f64
+# (``closest_hit.sphere_roots``), where JAX's f32 discriminant cancels,
+# to ~1e-3 relative on some lanes (grazing hits, the r=100 and r=555-box
+# scales): on the lanes a sphere wins, the port's t is the f64 root
+# rounded to f32 (within F64_T_RTOL) and its hit point within
+# F64_POINT_RTOL of max(1, |p|) of the f64 point.  Every lane within
+# rtol 2e-3 / atol 1e-4 of JAX's.
 TIGHT = dict(rtol=1e-5, atol=1e-6)
 LOOSE = dict(rtol=2e-3, atol=1e-4)
+F64_T_RTOL = 1.2e-7    # half an f32 ulp, with room for the root's own rounding
+F64_POINT_RTOL = 5e-7  # and the f32 rounding of o + t d
 
 
 def cornell_rays(n, seed):
@@ -65,12 +71,30 @@ def _cases():
 CASES = _cases()
 
 
-def _close(got, want):
-    """The single-bounce contract over lanes (rows of got / want)."""
+def _close(got, want, sphere):
+    """The single-bounce contract over lanes (rows of got / want);
+    ``sphere`` marks the lanes a sphere won, held to f64 instead."""
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     tight = np.isclose(got, want, **TIGHT).reshape(len(got), -1).all(axis=1)
-    assert tight.mean() >= 0.95, tight.mean()
+    assert tight[~sphere].mean() >= 0.95, tight[~sphere].mean()
     np.testing.assert_allclose(got, want, **LOOSE)
+
+
+def _hold_spheres_to_f64(tscene, o, d, t, idx, sphere, point=None):
+    """On the ``sphere`` lanes, t (and the hit point) against the f64
+    roots of the winning sphere, nearest in [T_MIN, inf)."""
+    data = tscene.prims.data.numpy().astype(np.float64)
+    o, d = o.astype(np.float64), d.astype(np.float64)
+    for i in np.flatnonzero(sphere):
+        oc = o[i] - data[idx[i], 0:3]
+        a, half_b = d[i] @ d[i], d[i] @ oc
+        sq = np.sqrt(half_b * half_b - a * (oc @ oc - data[idx[i], 3] ** 2))
+        t64 = (-half_b - sq) / a
+        t64 = t64 if t64 >= T_MIN else (-half_b + sq) / a
+        assert abs(t[i] - t64) <= F64_T_RTOL * abs(t64), (i, t[i], t64)
+        if point is not None:
+            p = o[i] + t64 * d[i]
+            assert np.abs(point[i] - p).max() <= F64_POINT_RTOL * max(1.0, np.abs(p).max()), i
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -91,7 +115,9 @@ def test_k4_plain_matches_pallas_interpret(case):
     # every prim won somewhere, bar the two box faces that lie on the floor
     assert len(set(ti.numpy()[hit])) >= tscene.num_prims - 2
     np.testing.assert_array_equal(tt.numpy()[~hit], np.float32(tx.T_MISS))
-    _close(tt.numpy()[hit, None], np.asarray(jt)[hit, None])
+    sphere = hit & (tscene.prims.kind.numpy()[ti.numpy()] == 0)
+    _close(tt.numpy()[hit, None], np.asarray(jt)[hit, None], sphere[hit])
+    _hold_spheres_to_f64(tscene, o, d, tt.numpy(), ti.numpy(), sphere)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -119,7 +145,10 @@ def test_k3_plain_matches_pallas_interpret(case):
     want = np.concatenate([np.asarray(jt)[:, None], np.asarray(jrec.point),
                            np.asarray(jrec.normal), np.asarray(jrec.u)[:, None],
                            np.asarray(jrec.v)[:, None]], 1)
-    _close(got, want)
+    sphere = hit & (kinds[ti.numpy()] == 0)
+    _close(got, want, sphere)
+    _hold_spheres_to_f64(tscene, o, d, tt.numpy(), ti.numpy(), sphere,
+                         point=trec.point.numpy())
     assert (kinds[ti.numpy()[hit]] == 0).any() and (kinds[ti.numpy()[hit]] == 1).any()
 
 

@@ -668,3 +668,67 @@ def test_regen_on_gpu_matches_cpu():
         assert a["ok"], (name, a)
         np.testing.assert_array_equal(imgs["cuda"].view(np.int32),
                                       imgs["cuda2"].view(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,schedule", [
+    (n, sched) for n, explicit in (("CornellBox", "6:2"), ("image", "3:2"),
+                                   ("SphereField", "3:2,5:4"))
+    for sched in (explicit, None, "auto")])
+def test_cascade_on_gpu_matches_chunked(name, schedule):
+    """The cascade on the card, explicit, dynamic (None) and "auto" (K1 on
+    CornellBox, K3 and the draw kernel on the image-textured scene, K6
+    and the draw kernel on SphereField; 48x32, 4 spp in 2 chunks, 10
+    bounces) equals the chunked render on the card bit for bit, with the
+    segments and the occupancy; and a checkpointed render stopped after
+    one chunk resumes to the same image."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import dataclasses
+    import tempfile
+
+    from rust_pathtracer_tpu_torch.models import get_scene
+    from rust_pathtracer_tpu_torch.render import (
+        RenderSettings,
+        _render_chunk_cascaded,
+        render_radiance,
+    )
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+    from rust_pathtracer_tpu_torch.utils import checkpoint as ck
+
+    if name == "image":
+        from rust_pathtracer_tpu_torch.camera import make_camera
+
+        b = SceneBuilder()
+        b.add_sphere((0.0, 0.5, -3.0), 0.5, b.lambertian((0.4, 0.5, 0.6)))
+        ramp = np.linspace(0.1, 0.9, 8 * 8 * 3).reshape(8, 8, 3).astype(np.float32)
+        b.add_sphere((0.0, -100.0, -3.0), 100.0, b.lambertian(b.image_texture(ramp)))
+        b.add_rect("xz", (-2.0, 4.0, -5.0), (2.0, 4.0, -1.0), -1.0,
+                   b.diffuse_light((5.0, 5.0, 5.0)))
+        scene = b.build(use_bvh=False, device="cuda")
+        cam = make_camera((0.0, 1.0, 2.0), (0.0, 0.5, -3.0), (0.0, 1.0, 0.0), 50.0, 1.5,
+                          0.0, 10.0, device="cuda")
+    else:
+        sd = get_scene(name)
+        scene, cam = sd.build(device="cuda"), sd.camera_at(0.0, device="cuda")
+    key = prng_key(2, device="cuda")
+    bg = {"CornellBox": (0.0, 0.0, 0.0), "image": (0.1, 0.1, 0.1)}.get(name, (1.0, 1.0, 1.0))
+    s = RenderSettings(48, 32, 4, 10, bg, spp_chunk=2)
+    ref, st0 = render_radiance(scene, cam, s, key, device="cuda")
+    cs = dataclasses.replace(s, cascade=True, cascade_schedule=schedule)
+    img, st = render_radiance(scene, cam, cs, key, device="cuda")
+    assert torch.equal(img, ref) and torch.equal(st.segments, st0.segments)
+    assert torch.equal(st.occupancy, st0.occupancy) and float(st.occupancy[-1]) == 0.0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/part.npz"
+        # the first chunk's sums (any cascade mode gives the chunked ones)
+        acc, _ = _render_chunk_cascaded(scene, cam, key, 0, torch.tensor(bg, device="cuda"),
+                                        width=48, height=32, spp_chunk=2, spp_total=4,
+                                        max_bounces=10, rr_start=None,
+                                        schedule=None if schedule == "auto" else schedule)
+        ck.save_checkpoint(path, ck.RenderCheckpoint(
+            acc=acc.cpu().numpy(), samples_done=2, width=48, height=32, spp_total=4,
+            key_data=ck.key_data(key), segments=0.0))
+        resumed, _ = ck.render_radiance_checkpointed(scene, cam, cs, key, path,
+                                                     device="cuda")
+    assert torch.equal(resumed, ref)

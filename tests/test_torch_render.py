@@ -154,17 +154,21 @@ def test_no_fallback_without_gpu(tmp_path):
 
 
 def test_not_ported_settings_raise():
-    """The cascade raises, and so does the remat mode the port lacks
-    ("bf16"); differentiable renders of CornellBox (fused route) and of a
-    perlin scene (TwoSphereCheckers, generic route) run."""
+    """The remat mode the port lacks ("bf16") raises; the cascade, which
+    raised before it was ported, renders the chunked image bit for bit
+    (``tests/test_torch_cascade.py`` holds it at length); differentiable
+    renders of CornellBox (fused route) and of a perlin scene
+    (TwoSphereCheckers, generic route) run."""
     sd = get_scene("CornellBox")
     base = RenderSettings(4, 4, 1, 2, (0.0, 0.0, 0.0))
-    for kw, item in (({"cascade": True}, "item 11"),
-                     ({"cascade_schedule": "5:8"}, "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            render_radiance(sd.build(), sd.camera_at(0.0),
-                            dataclasses.replace(base, **kw), prng_key(0),
-                            device="cpu")
+    want, st = render_radiance(sd.build(), sd.camera_at(0.0), base, prng_key(0),
+                               device="cpu")
+    for kw in ({"cascade": True}, {"cascade_schedule": "5:8"},
+               {"cascade_schedule": "1:1"}):
+        img, st2 = render_radiance(sd.build(), sd.camera_at(0.0),
+                                   dataclasses.replace(base, **kw), prng_key(0),
+                                   device="cpu")
+        assert torch.equal(img, want) and torch.equal(st2.segments, st.segments), kw
     diff = dataclasses.replace(base, differentiable=True)
     img, _ = render_radiance(sd.build(), sd.camera_at(0.0), diff, prng_key(0),
                              device="cpu")

@@ -110,8 +110,9 @@ def test_image_scene_carries_jax_scene():
 def test_not_ported_yet_raises():
     """SphereField and ModelTest build now, with a BVH past 64 primitives
     and the projected tables past 128; what the port still lacks on such
-    a scene raises: the cascade renderer (ROADMAP queue 1 item 11) and
-    geometry gradients (item 8)."""
+    a scene raises: geometry gradients (ROADMAP queue 1 item 8).  The
+    cascade renderer, which raised before it was ported, renders the
+    chunked image bit for bit."""
     import dataclasses
 
     from rust_pathtracer_tpu_torch.render import RenderSettings, render_radiance
@@ -128,10 +129,12 @@ def test_not_ported_yet_raises():
     assert mid.bvh is not None and mid.kinds_static is not None and mid.proj is None
     assert b.build(use_bvh=False).bvh is None
     settings = RenderSettings(4, 3, 1, 2, (1.0, 1.0, 1.0))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        render_radiance(scene, sd.camera_at(0.0),
-                        dataclasses.replace(settings, cascade=True), prng_key(0),
-                        device="cpu")
+    want, st = render_radiance(scene, sd.camera_at(0.0), settings, prng_key(0),
+                               device="cpu")
+    img, st2 = render_radiance(scene, sd.camera_at(0.0),
+                               dataclasses.replace(settings, cascade=True), prng_key(0),
+                               device="cpu")
+    assert torch.equal(img, want) and torch.equal(st2.occupancy, st.occupancy)
     prims = dataclasses.replace(scene.prims,
                                 data=scene.prims.data.clone().requires_grad_(True))
     with pytest.raises(NotImplementedError, match="item 8"):

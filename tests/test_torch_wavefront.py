@@ -9,18 +9,21 @@ the numpy BVH).  Tolerances and why:
 
 * port regen against JAX regen: each path draws the same random numbers
   on both sides, but XLA:CPU contracts multiply-adds into FMAs and the
-  port does not (ROADMAP queue 3), so a few paths take another branch.
-  The chunked renderers diverge on exactly those paths: CornellBox on
-  key 7 has one, which moves the 20x20 image's mean by 2.35%, beyond the
-  image contract's 1% in both renderers.  So a regen case holds (a) the
-  image contract's pixel part (``IMAGE_MIN_CLOSE`` of the pixels close,
-  no NaN) and the segments within the 5% of
+  port does not (ROADMAP queue 3), so a path may take another branch.
+  A regen case holds (a) the image contract (``IMAGE_MIN_CLOSE`` of the
+  pixels close, the mean within ``IMAGE_MEAN_RTOL``, no NaN) and the
+  segments within the 5% of
   ``test_torch_render.py::test_render_matches_jax_render``, and (b) the
   regen's disagreement to the chunked renderers' own on the same key:
   (port regen - JAX regen) - (port chunked - JAX chunked) within JAX's
   regen-vs-chunked bounds, mean abs < 1e-5 and max < 5e-3, i.e. regen
-  adds no disagreement of its own.  Where the contract's mean holds for
-  the chunked pair it is asserted for the regen pair too;
+  adds no disagreement of its own.  CornellBox on key 7 once missed the
+  mean by 2.35%: one camera ray met the glass sphere near its rim, where
+  the f32 sphere discriminant cancels, and the port's root landed inside
+  the surface by more than t_min, so the reflected ray met the sphere
+  again.  The f64 path follows JAX's (``tests/test_torch_oracle.py::
+  test_key7_lane_follows_f64``), and the port now takes a sphere's roots
+  in f64;
 * port regen against port chunked: JAX's own bounds
   (``tests/test_wavefront.py``: mean abs < 1e-5, max < 5e-3, segments
   within 0.1%).  On these settings no path differs: the segment counts
@@ -155,9 +158,8 @@ def test_regen_matches_jax_regen(name, mode, rr, proj_interpret):
     cimg, _ = _port_chunked(name, rr)
     jcimg, _ = _jax_chunked(name, rr)
     a = image_agreement(img, jimg)
-    assert a["frac_close"] >= IMAGE_MIN_CLOSE and not a["has_nan"], a
-    if image_agreement(cimg, jcimg)["mean_rel"] <= IMAGE_MEAN_RTOL:
-        assert a["ok"], a
+    assert a["ok"] and a["frac_close"] >= IMAGE_MIN_CLOSE and not a["has_nan"], a
+    assert a["mean_rel"] <= IMAGE_MEAN_RTOL, a
     assert abs(float(st.segments) - float(jst.segments)) <= 0.05 * float(jst.segments)
     own = np.abs((img - jimg) - (cimg - jcimg))
     assert own.mean() < 1e-5 and own.max() < 5e-3, (own.mean(), own.max())
