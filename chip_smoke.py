@@ -169,7 +169,26 @@ path is SphereField at its own width (phase 25).  It checks them:
 30. a checkpointed SphereField render (phase 25's shape, 4 chunks),
     stopped after 2 chunks and resumed (``utils/checkpoint.py``), plain
     and through CASCADE_SF_SCHEDULE: bit for bit the uninterrupted
-    render and phase 25's chunked image.
+    render and phase 25's chunked image;
+31-34. sharded rendering (``parallel/``): four ranks started with
+    torch.multiprocessing (spawn) share the card over gloo, a 2x2 grid and
+    a 1x1 and a 1x2 grid over its first ranks; each rank only loads the
+    kernels phase 2 built.  31: serving CornellBox (phase 5's shape, K1);
+    32: the bench-shaped step (phase 9's shape, loss = mean(img), K1-res
+    and K2) with its gradients; 33: the SphereField frame of phase 25
+    through CASCADE_SF_SCHEDULE (K6, the draw kernel); 34: that frame
+    checkpointed on 2x2, stopped as every rank starts its second half of
+    chunks, resumed on 1x2.  Each against the single-process run of the
+    same key: the 1x1 grid bit for bit, the 2x2 grid within JAX's atol
+    2e-6 plus spp ulps of the pixel (the samples axis sums in another
+    grouping; the step: the loss within 1e-6, each gradient within 1e-4
+    of its leaf's largest), the resumed 1x2 render bit for bit the
+    uninterrupted 2x2 one; every rank's result the same; each rank
+    launched the path's kernels; K1 and K6 (with the draw kernel) held bit
+    for bit to their plain versions on rank 0's own pool at bounce
+    SHARD_HOLD_BOUNCE; rank 0's wall (barrier and device sync) beside the
+    single process's.  A rank that fails, or the ranks not done within
+    SHARD_TIMEOUT_S, fails the script.
 
 Phases 11-13 and 15-17 also check that the generic routes launch the
 draw kernel once a bounce.
@@ -268,19 +287,21 @@ MESH_20K = dict(rows=101, cols=100)
 SCENE_BOX = {"SphereField": ((-11.0, 0.05, -11.0), (11.0, 3.0, 11.0)),
              "ModelTest": ((-3.0, 0.05, -3.0), (3.0, 3.5, 3.0))}
 PARKED = 3.0e33
-# f32 operations the projected sweep's function needs (compares and
-# selects none; see cluster_ops for the projections): a real column's
-# formula past its projections by type (a sphere's half-b quadratic and
-# two roots in the q domain, 2 divisions more in the t domain; a rect's
-# plane solve; a triangle's Woop solve and det), a slab test, a lane's
-# set-up (|o|^2, o.d, |d|^2, t_min |d|^2, 1 / d)
-FORMULA_OPS = {0: 10, 1: 5, 2: 7}
-SPHERE_T_OPS = 2
-SLAB_OPS, PROJ_LANE_OPS = 12, 19
+# operations the projected sweep's function needs (compares and selects
+# none; see cluster_ops for the projections): a real column's formula past
+# its projections by type (a rect's plane solve and a triangle's Woop solve
+# and det in f32; a sphere's quadratic in f64, no projections: o - c 3,
+# half_b 5, |o - c|^2 - r^2 7, the discriminant 3, its root 1, the two
+# roots 2, and in the t domain 2 divisions more in f32), a slab test, a
+# lane's set-up (|d|^2, t_min |d|^2, 1 / d in f32; |d|^2 in f64, a
+# sphere's a)
+FORMULA_OPS = {0: 0, 1: 5, 2: 7}
+SPHERE_F64_OPS, SPHERE_T_OPS = 21, 2
+SLAB_OPS, PROJ_LANE_OPS, PROJ_LANE_F64_OPS = 12, 9, 5
 # bytes a lane: rays in (24), t, column and payload out (4 + 4 + 128)
 PROJ_LANE_BYTES = 24 + 136
 # the words of a real column's compact row (ProjTables.rows) by type: a
-# sphere's centre and K0; a rect's axis, its 6 coefficients and K0-K3; a
+# sphere's centre and radius; a rect's axis, its 6 coefficients and K0-K3; a
 # triangle's three Woop rows with their offsets, and K0
 ROW_WORDS = {0: 4, 1: 12, 2: 13}
 
@@ -1570,14 +1591,15 @@ def table_bytes(tables):
 
 
 def cluster_ops(tables, q_flags):
-    """(G,) the f32 operations one lane's sweep of each cluster needs,
-    counted from the tables' sparsity: a projection takes a multiply for
-    each nonzero origin or direction coefficient other than +-1 and an
-    add for each nonzero term past the first (the ray's 1 adds the
-    constant, its 0 drops the eighth term); a real column adds its
-    type's FORMULA_OPS (SPHERE_T_OPS more for a sphere outside the q
-    domain), a padding column (K0 = 1e30) nothing; a q-domain sphere
-    cluster divides its winner once."""
+    """((G,) f32, (G,) f64) operations one lane's sweep of each cluster
+    needs, counted from the tables' sparsity: a rect's or triangle's
+    projection takes a multiply for each nonzero origin or direction
+    coefficient other than +-1 and an add for each nonzero term past the
+    first (the ray's 1 adds the constant, its 0 drops the eighth term); a
+    real column adds its type's FORMULA_OPS, a real sphere column
+    SPHERE_F64_OPS in f64 (SPHERE_T_OPS more in f32 outside the q domain)
+    and no projection, a padding column (K0 = 1e30) nothing; a q-domain
+    sphere cluster divides its winner once in f32."""
     G = tables.num_groups
     rows = np.concatenate([tables.a.cpu().numpy(), tables.b.cpu().numpy()])[:, :7]
     nz = rows != 0
@@ -1585,25 +1607,29 @@ def cluster_ops(tables, q_flags):
            + np.maximum(nz.sum(axis=1) - 1, 0).sum(axis=0))
     kinds = np.repeat(np.asarray(tables.group_kinds), 128)
     q = np.repeat(np.asarray(q_flags, bool), 128)
-    form = np.select([kinds == 0, kinds == 1, kinds == 2],
-                     [FORMULA_OPS[0] + np.where(q, 0, SPHERE_T_OPS),
-                      FORMULA_OPS[1], FORMULA_OPS[2]], 0)
+    form = np.select([kinds == 1, kinds == 2], [FORMULA_OPS[1], FORMULA_OPS[2]], 0)
     real = tables.const[0].cpu().numpy() != np.float32(1e30)
-    per_col = ops + np.where(real, form, 0)
+    sphere = real & (kinds == 0)
+    per_col = (np.where(kinds == 0, 0, ops) + np.where(real, form, 0)
+               + np.where(sphere & ~q, SPHERE_T_OPS, 0))
+    per_col64 = np.where(sphere, SPHERE_F64_OPS, 0)
     winner = (np.asarray(tables.group_kinds) == 0) & np.asarray(q_flags, bool)
-    return per_col.reshape(G, 128).sum(axis=1) + winner
+    return (per_col.reshape(G, 128).sum(axis=1) + winner,
+            per_col64.reshape(G, 128).sum(axis=1))
 
 
 def proj_bound(tables, n_lanes, stats, read_bytes, q_flags):
     """The least time for one sweep: the bytes (rays in, outputs out, and
     ``read_bytes``: the tables and slots read once) over the memory rate
-    against the f32 operations these inputs need (the plain version's
-    count of slab tests and of each cluster's sweeps, times
-    ``cluster_ops``) over the f32 peak."""
+    against the operations these inputs need (the plain version's count
+    of slab tests and of each cluster's sweeps, times ``cluster_ops``)
+    over the f32 and f64 peaks."""
     swept = np.asarray(stats.get("swept", [0] * tables.num_groups), np.int64)
+    f32_ops, f64_ops = cluster_ops(tables, q_flags)
     ops = (stats.get("slab_tests", 0) * SLAB_OPS + n_lanes * PROJ_LANE_OPS
-           + int((swept * cluster_ops(tables, q_flags)).sum()))
-    return bound(n_lanes * PROJ_LANE_BYTES + read_bytes, ops)
+           + int((swept * f32_ops).sum()))
+    return bound(n_lanes * PROJ_LANE_BYTES + read_bytes, ops,
+                 n_f64_ops=n_lanes * PROJ_LANE_F64_OPS + int((swept * f64_ops).sum()))
 
 
 def time_sweep(torch, device, card, label, fns, tables, n_lanes, reps):
@@ -2550,7 +2576,7 @@ def hold_pools(torch, device, label, calls, want):
                     bad |= (x != y).reshape(x.shape[0], -1).any(dim=1).cpu().numpy()
                     err = max(err, float(torch.where(x == y, 0.0,
                                                      (x.double() - y.double()).abs()).max()))
-        log(f"{label} bounce {b}: {'/'.join(kernels)} on the cascade's pool of {lanes} "
+        log(f"{label} bounce {b}: {'/'.join(kernels)} on the pool of {lanes} "
             f"lanes; lanes differing from the plain version {int(bad.sum())}")
         check(not bad.any(), f"{label}: {'/'.join(kernels)} differ from the plain version "
                              f"on the pool of bounce {b}")
@@ -2880,6 +2906,352 @@ def phase_checkpoint_resume(torch, device, card, scenes, chunked):
 
 
 # ---------------------------------------------------------------------------
+# phases 31-34: sharded rendering over a (tiles, samples) grid of ranks
+# ---------------------------------------------------------------------------
+
+# The ranks share the one card, so they run over gloo (NCCL refuses two
+# ranks on one device): a 2x2 grid, and a 1x1 and a 1x2 grid over the first
+# ranks of the same group.  Only all_reduce and barrier run; gloo takes CUDA
+# tensors for both (and for broadcast, all_gather and reduce_scatter, as a
+# probe on the H100 machine found), so nothing is staged through the host
+# here.
+SHARD_WORLD = 4
+SHARD_TIMEOUT_S = 300
+SHARD_HOLD_BOUNCE = 10   # K1 and K6 held to plain on rank 0's pool at it
+SHARD_ATOL = 2e-6        # tests/test_sharding.py's, where samples > 1
+
+
+def shard_bound(spp):
+    """The image tolerance where the samples axis is 2: JAX's atol, plus
+    the re-association bound of a mean of ``spp`` non-negative f32 terms
+    summed in another grouping (spp ulps of the pixel)."""
+    return SHARD_ATOL, spp * 2.0 ** -24
+
+
+def _shard_timed(torch, mesh, fn):
+    """(rank 0's wall s, result, this rank's launches) of ``fn``, opened
+    and closed by a device sync and a barrier of the grid."""
+    torch.cuda.synchronize()
+    mesh.barrier()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    mesh.barrier()
+    return time.perf_counter() - t0, out, read_counts()
+
+
+def shard_rank(rank, world, init, out):
+    """One rank of phases 31-34, started by torch.multiprocessing (spawn).
+    Phase 2 built every kernel in the parent; each rank's
+    ``ops._build.load_library`` finds the library under ops/build/ by its
+    source hash and only loads it (checked first: no rank runs nvcc, where
+    four ranks building at once could deadlock on one file).  Writes its
+    results to ``out/rank{rank}.pt``; any failed check exits non-zero."""
+    sys.path.insert(0, REPO)
+    import torch
+
+    from rust_pathtracer_tpu_torch.grad import DiffParams, apply_params
+    from rust_pathtracer_tpu_torch.models import get_scene
+    from rust_pathtracer_tpu_torch.ops import _build
+    from rust_pathtracer_tpu_torch.parallel import (
+        distributed_init,
+        make_mesh,
+        reduce_replicated_grads,
+        render_radiance_sharded,
+    )
+    from rust_pathtracer_tpu_torch.parallel.shard import ShardedChunkPlan
+    from rust_pathtracer_tpu_torch.render import RenderSettings
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+    from rust_pathtracer_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+        render_radiance_sharded_checkpointed,
+    )
+
+    for name in KERNELS:
+        check(_build._library_path(name).exists(), f"rank {rank}: {name} is not built")
+    dev = distributed_init("gloo", init, world, rank, device="cuda")
+    grids = {"2x2": make_mesh(2, 2, device=dev),
+             "1x1": make_mesh(1, 1, device=dev, ranks=[0]),
+             "1x2": make_mesh(1, 2, device=dev, ranks=[0, 1])}
+    res = {}
+
+    def run(label, grid, fn, hold=None):
+        """``fn`` on ``grid`` (ranks outside it skip): a warm-up run (on
+        rank 0 capturing the pools of SHARD_HOLD_BOUNCE, where ``hold``
+        names the kernels to hold), then the timed run."""
+        mesh = grids[grid]
+        if mesh is None:
+            return
+        if hold and mesh.rank == 0:
+            with capture_bounces(torch, {SHARD_HOLD_BOUNCE}) as calls:
+                fn(mesh)
+            err, held = hold_pools(torch, dev, f"{label} {grid} rank 0", calls, hold)
+            res[f"{label} {grid} hold"] = (err, held)
+        else:
+            fn(mesh)
+        wall, out_, counts = _shard_timed(torch, mesh, lambda: fn(mesh))
+        res[f"{label} {grid}"] = dict(wall=wall, counts=counts, **out_)
+
+    # phase 31: serving CornellBox (K1)
+    sd = get_scene("CornellBox")
+    cb, cb_cam = sd.build(device=dev), sd.camera_at(0.0, device=dev)
+    sv = SERVE
+    serve = RenderSettings(sv["width"], sv["height"], sv["spp"], sv["bounces"],
+                           (0.0, 0.0, 0.0), spp_chunk=sv["spp_chunk"])
+
+    def serving(mesh):
+        img, st = render_radiance_sharded(cb, cb_cam, serve, prng_key(sv["seed"], device=dev),
+                                          mesh)
+        return dict(img=img.cpu(), segments=float(st.segments), bounces=st.bounces)
+
+    run("serving", "2x2", serving, hold=("K1",))
+    run("serving", "1x1", serving)
+
+    # phase 32: the bench-shaped differentiable step (K1-res, K2)
+    step_s = RenderSettings(BENCH["width"], BENCH["height"], BENCH["spp"], BENCH["bounces"],
+                            (0.0, 0.0, 0.0), spp_chunk=BENCH["spp"], differentiable=True)
+
+    def step(mesh):
+        leaves = _diff_leaves(torch, cb, CORNELL_CAM, (0.0, 0.0, 0.0), dev)
+        p = DiffParams.from_leaves(leaves)
+        img, st = render_radiance_sharded(apply_params(cb, p), p.camera.build(), step_s,
+                                          prng_key(0, device=dev), mesh,
+                                          background=p.background)
+        loss = img.mean()
+        loss.backward()
+        grads = reduce_replicated_grads(leaves, mesh)
+        return dict(loss=float(loss.detach()), grads=[g.cpu() for g in grads],
+                    segments=float(st.segments))
+
+    run("step", "2x2", step)
+    run("step", "1x1", step)
+
+    # phase 33: the SphereField frame through the explicit cascade (K6, draws)
+    sfd = get_scene("SphereField")
+    sf, sf_cam = sfd.build(device=dev), sfd.camera_at(0.0, device=dev)
+    c = CASCADE_SF
+    sf_s = RenderSettings(c["width"], c["height"], c["spp"], c["bounces"], SF_BG,
+                          cascade_schedule=CASCADE_SF_SCHEDULE)
+
+    def frame(mesh):
+        img, st = render_radiance_sharded(sf, sf_cam, sf_s, prng_key(c["seed"], device=dev),
+                                          mesh)
+        return dict(img=img.cpu(), segments=float(st.segments),
+                    dropped=float(st.occupancy[-1]))
+
+    run("frame", "2x2", frame, hold=("K6", "draws"))
+    run("frame", "1x1", frame)
+
+    # phase 34: the frame checkpointed on 2x2, stopped as every rank starts
+    # its group's second half of chunks, resumed on 1x2
+    path = os.path.join(out, "sf_sharded.npz")
+    key = prng_key(c["seed"], device=dev)
+    plan_chunks = ShardedChunkPlan(sf, sf_cam, sf_s, key, grids["2x2"]).n_chunks
+    real, done = ShardedChunkPlan.run_chunk, []
+
+    def stopping(plan, ci):
+        if ci == plan_chunks // 2:
+            raise _Stop()
+        done.append(ci)
+        return real(plan, ci)
+
+    ShardedChunkPlan.run_chunk = stopping
+    try:
+        render_radiance_sharded_checkpointed(sf, sf_cam, sf_s, key, grids["2x2"], path)
+        fail(f"rank {rank}: the sharded checkpointed render was not stopped")
+    except _Stop:
+        pass
+    finally:
+        ShardedChunkPlan.run_chunk = real
+    grids["2x2"].barrier()
+    if grids["1x2"] is not None:
+        saved = load_checkpoint(path)
+        wall, (img, st), _ = _shard_timed(torch, grids["1x2"], lambda: (
+            render_radiance_sharded_checkpointed(sf, sf_cam, sf_s, key, grids["1x2"], path)))
+        res["resume 1x2"] = dict(img=img.cpu(), segments=float(st.segments), wall=wall,
+                                 stopped_after=list(done), n_chunks=plan_chunks,
+                                 samples_done=saved.samples_done,
+                                 samples_axis=saved.samples_axis)
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def phase_sharded(torch, device, card):
+    log(f"== phases 31-34: sharded rendering, {SHARD_WORLD} ranks (a 2x2 grid, and 1x1 "
+        f"and 1x2 over its first ranks) on the one card over gloo, against the "
+        f"single-process runs of the same keys")
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from rust_pathtracer_tpu_torch.grad import DiffParams, apply_params
+    from rust_pathtracer_tpu_torch.models import get_scene
+    from rust_pathtracer_tpu_torch.render import RenderSettings, render_radiance
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+
+    # the single-process references, timed as the ranks time theirs
+    sd = get_scene("CornellBox")
+    cb, cb_cam = sd.build(device=device), sd.camera_at(0.0, device=device)
+    sv = SERVE
+    serve = RenderSettings(sv["width"], sv["height"], sv["spp"], sv["bounces"],
+                           (0.0, 0.0, 0.0), spp_chunk=sv["spp_chunk"])
+    single = {}
+
+    def timed(label, fn):
+        fn()
+        _sync(torch, device)
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(torch, device)
+        single[label] = (time.perf_counter() - t0, out, read_counts())
+
+    timed("serving", lambda: render_radiance(cb, cb_cam, serve,
+                                             prng_key(sv["seed"], device=device),
+                                             device=device))
+    step_s = RenderSettings(BENCH["width"], BENCH["height"], BENCH["spp"], BENCH["bounces"],
+                            (0.0, 0.0, 0.0), spp_chunk=BENCH["spp"], differentiable=True)
+
+    def step():
+        leaves = _diff_leaves(torch, cb, CORNELL_CAM, (0.0, 0.0, 0.0), device)
+        p = DiffParams.from_leaves(leaves)
+        img, st = render_radiance(apply_params(cb, p), p.camera.build(), step_s,
+                                  prng_key(0, device=device), background=p.background,
+                                  device=device)
+        loss = img.mean()
+        loss.backward()
+        return float(loss.detach()), [torch.as_tensor(g) for g in _leaf_grads(leaves)]
+
+    timed("step", step)
+    sfd = get_scene("SphereField")
+    sf, sf_cam = sfd.build(device=device), sfd.camera_at(0.0, device=device)
+    c = CASCADE_SF
+    sf_s = RenderSettings(c["width"], c["height"], c["spp"], c["bounces"], SF_BG,
+                          cascade_schedule=CASCADE_SF_SCHEDULE)
+    timed("frame", lambda: render_radiance(sf, sf_cam, sf_s, prng_key(c["seed"], device=device),
+                                           device=device))
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as out:
+        init = "file://" + os.path.join(out, "store")
+        ctx = mp.start_processes(shard_rank, args=(SHARD_WORLD, init, out),
+                                 nprocs=SHARD_WORLD, join=False, start_method="spawn")
+        deadline = time.monotonic() + SHARD_TIMEOUT_S
+        while not ctx.join(timeout=5):  # raises where a rank failed
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                fail(f"the {SHARD_WORLD} ranks were not done within {SHARD_TIMEOUT_S} s")
+        ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+                 for r in range(SHARD_WORLD)]
+    log(f"the ranks took {time.perf_counter() - t0:.1f} s (start-up included)")
+    r0 = ranks[0]
+
+    # phase 31
+    wall1, (img, st), counts1 = single["serving"]
+    atol, rtol = shard_bound(sv["spp"])
+    for r, rec in enumerate(ranks):
+        got = rec["serving 2x2"]
+        check(torch.equal(got["img"], ranks[0]["serving 2x2"]["img"]),
+              f"serving 2x2: rank {r}'s image differs from rank 0's")
+        check(got["counts"]["K1"] > 0, f"serving 2x2: rank {r} launched K1 no time")
+    g22, g11 = r0["serving 2x2"], r0["serving 1x1"]
+    err22 = float((g22["img"] - img.cpu()).abs().max())
+    check(torch.allclose(g22["img"], img.cpu(), rtol=rtol, atol=atol),
+          f"serving 2x2 differs from the single-process image by {err22:.3e}")
+    check(abs(g22["segments"] - float(st.segments)) <= 1e-6 * float(st.segments),
+          f"serving 2x2 segments {g22['segments']:.0f} vs {float(st.segments):.0f}")
+    check(torch.equal(g11["img"], img.cpu()) and g11["segments"] == float(st.segments),
+          "serving 1x1 is not the single-process render bit for bit")
+    err, held = r0["serving 2x2 hold"]
+    log(f"phase 31: serving CornellBox {sv['width']}x{sv['height']}, {sv['spp']} spp, "
+        f"{sv['bounces']} bounces on {card}: 2x2 wall {g22['wall']:.4f} s (rank 0, barrier "
+        f"and sync), 1x1 {g11['wall']:.4f} s, single process {wall1:.4f} s; max abs err "
+        f"2x2 {err22:.3e} (bound {atol:g} + {rtol:.3g} rel), 1x1 0 (bit for bit); "
+        f"segments {g22['segments']:.0f} vs {float(st.segments):.0f}; K1 launches a rank "
+        f"{[rec['serving 2x2']['counts']['K1'] for rec in ranks]}, single process "
+        f"{counts1['K1']}; K1 held to plain on rank 0's pool at bounce "
+        f"{SHARD_HOLD_BOUNCE}: {held}, max abs err {err:.3e}")
+
+    # phase 32
+    wall2, (loss, grads), counts2 = single["step"]
+    s22, s11 = r0["step 2x2"], r0["step 1x1"]
+    for r, rec in enumerate(ranks):
+        got = rec["step 2x2"]
+        check(got["loss"] == s22["loss"] and all(torch.equal(a, b) for a, b in
+                                                 zip(got["grads"], s22["grads"])),
+              f"step 2x2: rank {r}'s loss or gradients differ from rank 0's")
+        check(got["counts"]["K1-res"] == BENCH["bounces"] and
+              got["counts"]["K2"] == BENCH["bounces"],
+              f"step 2x2: rank {r} launched {got['counts']}")
+    check(abs(s22["loss"] - loss) <= 1e-6 * abs(loss),
+          f"step 2x2 loss {s22['loss']:.9f} vs single process {loss:.9f}")
+    floor = 1e-6 * max(float(g.abs().max()) for g in grads)
+    worst = 0.0
+    for name, got, want in zip(LEAF_NAMES, s22["grads"], grads):
+        want = want.cpu().to(torch.float32)
+        tol = 1e-4 * float(want.abs().max()) + floor
+        d = float((got - want).abs().max())
+        worst = max(worst, d / max(tol, 1e-30))
+        check(d <= tol, f"step 2x2 gradient {name}: max abs difference {d:.3e} > {tol:.3e}")
+    check(s11["loss"] == loss and all(torch.equal(a, b.cpu().to(torch.float32)) for a, b in
+                                      zip(s11["grads"], grads)),
+          "step 1x1 is not the single-process step bit for bit")
+    log(f"phase 32: the bench-shaped step {BENCH['width']}x{BENCH['height']}, "
+        f"{BENCH['spp']} spp, {BENCH['bounces']} bounces, loss = mean(img) on {card}: 2x2 "
+        f"wall {s22['wall']:.4f} s, 1x1 {s11['wall']:.4f} s, single process "
+        f"{wall2:.4f} s; loss {s22['loss']:.9f} vs {loss:.9f}; the largest gradient "
+        f"difference {worst:.3f} of its tolerance (1e-4 of the leaf's largest + 1e-6 of "
+        f"the largest); 1x1 bit for bit; launches a rank "
+        f"{[(rec['step 2x2']['counts']['K1-res'], rec['step 2x2']['counts']['K2']) for rec in ranks]} "
+        f"(K1-res, K2), single process ({counts2['K1-res']}, {counts2['K2']})")
+
+    # phase 33
+    wall3, (img3, st3), counts3 = single["frame"]
+    atol, rtol = shard_bound(c["spp"])
+    f22, f11 = r0["frame 2x2"], r0["frame 1x1"]
+    for r, rec in enumerate(ranks):
+        got = rec["frame 2x2"]
+        check(torch.equal(got["img"], f22["img"]), f"frame 2x2: rank {r}'s image differs")
+        check(got["counts"]["K6"] > 0 and got["counts"]["draws"] > 0,
+              f"frame 2x2: rank {r} launched {got['counts']}")
+        check(got["dropped"] == 0.0, "frame 2x2: the cascade dropped live lanes")
+    err33 = float((f22["img"] - img3.cpu()).abs().max())
+    check(torch.allclose(f22["img"], img3.cpu(), rtol=rtol, atol=atol),
+          f"frame 2x2 differs from the single-process image by {err33:.3e}")
+    check(torch.equal(f11["img"], img3.cpu()) and f11["segments"] == float(st3.segments),
+          "frame 1x1 is not the single-process render bit for bit")
+    err, held = r0["frame 2x2 hold"]
+    log(f"phase 33: SphereField {c['width']}x{c['height']}, {c['spp']} spp, {c['bounces']} "
+        f"bounces, {CASCADE_SF_SCHEDULE!r} on {card}: 2x2 wall {f22['wall']:.4f} s, 1x1 "
+        f"{f11['wall']:.4f} s, single process {wall3:.4f} s; max abs err 2x2 {err33:.3e} "
+        f"(bound {atol:g} + {rtol:.3g} rel); segments {f22['segments']:.0f} vs "
+        f"{float(st3.segments):.0f}; K6 / draws launches a rank "
+        f"{[(rec['frame 2x2']['counts']['K6'], rec['frame 2x2']['counts']['draws']) for rec in ranks]}, "
+        f"single process ({counts3['K6']}, {counts3['draws']}); K6 and the draw kernel held "
+        f"to plain on rank 0's pool at bounce {SHARD_HOLD_BOUNCE}: {held}, max abs err "
+        f"{err:.3e}")
+
+    # phase 34
+    rs = r0["resume 1x2"]
+    check(rs["stopped_after"] == list(range(rs["n_chunks"] // 2)),
+          f"the stopped run traced chunks {rs['stopped_after']}")
+    check(rs["samples_axis"] == 2 and rs["samples_done"] > 0, "the saved file is wrong")
+    check(torch.equal(rs["img"], f22["img"]) and rs["segments"] == f22["segments"],
+          "the resumed 1x2 render is not the uninterrupted 2x2 render bit for bit")
+    check(torch.equal(ranks[1]["resume 1x2"]["img"], rs["img"]),
+          "rank 1's resumed image differs from rank 0's")
+    log(f"phase 34: the frame checkpointed on 2x2, stopped after chunks "
+        f"{rs['stopped_after']} of {rs['n_chunks']} a sample group ({rs['samples_done']} "
+        f"samples a group saved), resumed on 1x2 in {rs['wall']:.4f} s on {card}: bit for "
+        f"bit the uninterrupted 2x2 render, segments {rs['segments']:.0f}")
+    return dict(k1_launches=[rec["serving 2x2"]["counts"]["K1"] for rec in ranks],
+                k6_launches=[rec["frame 2x2"]["counts"]["K6"] for rec in ranks])
+
+
+# ---------------------------------------------------------------------------
 # shared helpers: launch counts, batches, splits, bounds
 # ---------------------------------------------------------------------------
 
@@ -3113,9 +3485,10 @@ def k1_bound(torch, args, kw, scene, residual_planes):
     return bound(in_bytes + planes_out * 4 * R, sweep_ops(scene.kinds_static, R), int_ops)
 
 
-# The card's peaks (NVIDIA H100 SXM data sheet)
+# The card's peaks (NVIDIA H100 SXM data sheet; f64 outside the tensor cores)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+PEAK_F64_PER_S = 34e12
 # int32 operations: the dispatch limit, one warp instruction a clock on each
 # of an SM's four schedulers (128 lanes a clock) on each of 132 SMs at the
 # 1.98 GHz boost clock (NVIDIA Hopper architecture white paper).  Not the 64
@@ -3142,12 +3515,15 @@ K2_LANE_OPS = 150
 K2_KERNELS = ("fused_bounce_bwd_kernel", "reduce_partials_kernel")
 
 
-def bound(n_bytes, n_ops, n_int_ops=0):
+def bound(n_bytes, n_ops, n_int_ops=0, n_f64_ops=0):
     """The least time the card could take: the larger of the bytes over
-    the memory rate and the operations' time, the f32 operations over the
-    f32 peak plus the int32 operations over the int32 rate."""
+    the memory rate and the operations' time, the larger of the f32
+    operations over the f32 peak plus the int32 operations over the int32
+    rate, and the f64 operations over the f64 peak (an SM's FP64 units
+    are a pipe of their own, beside the FP32 and INT32 ones)."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = (n_ops / PEAK_F32_PER_S + n_int_ops / PEAK_INT32_PER_S) * 1e3
+    t_ops = max(n_ops / PEAK_F32_PER_S + n_int_ops / PEAK_INT32_PER_S,
+                n_f64_ops / PEAK_F64_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -3245,6 +3621,10 @@ def main() -> int:
     took(30)
     log(f"phases 25-30 (the cascade and checkpoints) took "
         f"{t_casc[-1] - t_casc[0]:.1f} s")
+    t_shard = time.perf_counter()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    phase_sharded(torch, device, card)
+    log(f"phases 31-34 (sharded rendering) took {time.perf_counter() - t_shard:.1f} s")
 
     def sweep_err(kernel, main):
         errs = [main["max_abs_err"]] + [v["max_abs_err"] for (_, k), v in ph14.items()

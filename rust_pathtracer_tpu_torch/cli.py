@@ -13,6 +13,9 @@ Counterpart of ``rust_pathtracer_tpu/cli.py``; plain host code.
     python -m rust_pathtracer_tpu_torch.cli --scene SphereField --cascade auto \
         --checkpoint ./output/frame.ckpt --checkpoint-every 4
 
+    torchrun --nproc-per-node 4 -m rust_pathtracer_tpu_torch.cli \
+        --scene SphereField --mesh 2x2 --backend gloo
+
 The default device is ``cuda``; ``--device cuda`` where there is no GPU
 exits non-zero (there is no CPU fallback).  One frame, the camera at
 t = 0.  Prints the ray segments traced, the wall seconds of the render
@@ -26,14 +29,26 @@ arguments are parsed.  ``--checkpoint FILE`` saves the frame's progress
 every ``--checkpoint-every`` sample chunks and resumes from FILE where
 it matches the job (``utils/checkpoint.py``).
 
+``--mesh TILESxSAMPLES`` renders over a grid of ``torch.distributed``
+ranks (``parallel/shard.py``), one process a rank, started by
+``torchrun --nproc-per-node TILES*SAMPLES``; a world size that is not
+TILES*SAMPLES exits non-zero (never a single-device render instead).
+``--backend`` is NCCL (a card a rank; the default on ``cuda``) or gloo
+(ranks that share a card, or the CPU; the default on ``cpu``); the
+ranks meet at ``--init-method`` (torchrun's ``env://`` by default).
+With ``--checkpoint`` the sharded checkpoint runs.  Rank 0 writes the
+PNG and prints the line.  ``--mesh`` with ``--regen`` is an error, as
+in the JAX CLI.
+
 Not ported yet (ROADMAP queue 1 item 13): ``--scene-json``, animation
-frames and GIFs (``--frames``), ``--mesh``, profiling and metrics files.
+frames and GIFs (``--frames``), profiling and metrics files.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 import time
 
@@ -82,8 +97,33 @@ def build_parser() -> argparse.ArgumentParser:
         help="save every N sample chunks (each save costs a device sync and "
              "a disk write)",
     )
+    p.add_argument(
+        "--mesh", default=None, metavar="TILESxSAMPLES",
+        help="shard over a grid of torch.distributed ranks, e.g. 2x2 (launch "
+             "TILES*SAMPLES ranks with torchrun; default: one device)",
+    )
+    p.add_argument(
+        "--backend", choices=["nccl", "gloo"], default=None,
+        help="collectives of --mesh: nccl (a card a rank; the default on cuda) "
+             "or gloo (ranks that share a card, or the CPU; the default on cpu)",
+    )
+    p.add_argument(
+        "--init-method", default=None, metavar="URL",
+        help="where the --mesh ranks meet (default env://, torchrun's)",
+    )
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return p
+
+
+def parse_mesh(raw: str):
+    """"TxS" as (tiles, samples), both at least 1; ValueError otherwise."""
+    try:
+        tiles, samples = (int(x) for x in raw.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh {raw!r} is not TILESxSAMPLES, e.g. 2x2") from None
+    if tiles < 1 or samples < 1:
+        raise ValueError(f"--mesh {raw!r}: tiles and samples must be at least 1")
+    return tiles, samples
 
 
 def _check_args(parser: argparse.ArgumentParser, args) -> None:
@@ -100,6 +140,16 @@ def _check_args(parser: argparse.ArgumentParser, args) -> None:
                 parser.error(str(e))
     if args.checkpoint_every < 1:
         parser.error("--checkpoint-every must be at least 1")
+    if args.mesh is None and (args.backend or args.init_method):
+        parser.error("--backend and --init-method apply to --mesh only")
+    if args.mesh is not None:
+        if args.regen:
+            parser.error("--mesh and --regen are mutually exclusive renderer modes "
+                         "(the regeneration wavefront is single-device)")
+        try:
+            parse_mesh(args.mesh)
+        except ValueError as e:
+            parser.error(str(e))
 
 
 def main(argv=None) -> int:
@@ -120,6 +170,21 @@ def main(argv=None) -> int:
         print("error: --device cuda, but torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
+    mesh = None
+    device = args.device
+    if args.mesh is not None:
+        from rust_pathtracer_tpu_torch.parallel import distributed_init, make_mesh
+
+        tiles, samples = parse_mesh(args.mesh)
+        world = int(os.environ.get("WORLD_SIZE", 1))
+        if world != tiles * samples:
+            print(f"error: --mesh {args.mesh} needs {tiles * samples} ranks, but the "
+                  f"world size is {world} (launch with torchrun --nproc-per-node "
+                  f"{tiles * samples})", file=sys.stderr)
+            return 2
+        backend = args.backend or ("nccl" if args.device == "cuda" else "gloo")
+        device = distributed_init(backend, args.init_method, device=args.device)
+        mesh = make_mesh(tiles, samples, device=device)
 
     kwargs = {"obj_path": args.obj_path} if args.scene == "ModelTest" else {}
     use_bvh = {"auto": "auto", "on": True, "off": False}[args.bvh]
@@ -145,21 +210,41 @@ def main(argv=None) -> int:
     if overrides:
         settings = dataclasses.replace(settings, **overrides)
 
-    scene = sd.build(device=args.device)
-    cam = sd.camera_at(0.0, device=args.device)
-    key = prng_key(args.seed, device=args.device)
+    scene = sd.build(device=device)
+    cam = sd.camera_at(0.0, device=device)
+    key = prng_key(args.seed, device=device)
     if args.device == "cuda":
         from rust_pathtracer_tpu_torch.ops._build import load_library
 
         # first-use builds of the kernels the scene's routes launch:
-        # set-up, not render time
+        # set-up, not render time.  On a mesh the first rank of each host
+        # builds them, and its other ranks load them after a barrier
         libs = (("fused_bounce", "closest_hit", "draws") if scene.kinds_static is not None
                 else ("projected", "draws"))
+        first = mesh is None or int(os.environ.get("LOCAL_RANK", 0)) == 0
+        if not first:
+            mesh.barrier()
         for name in libs:
             load_library(name)
+        if mesh is not None and first:
+            mesh.barrier()
 
+    if mesh is not None:
+        mesh.barrier()  # every rank's kernels loaded: the clock starts together
     t0 = time.perf_counter()
-    if args.regen:
+    if mesh is not None and args.checkpoint:
+        from rust_pathtracer_tpu_torch.utils.checkpoint import (
+            render_radiance_sharded_checkpointed,
+        )
+
+        img, stats = render_radiance_sharded_checkpointed(
+            scene, cam, settings, key, mesh, args.checkpoint,
+            checkpoint_every=args.checkpoint_every)
+    elif mesh is not None:
+        from rust_pathtracer_tpu_torch.parallel import render_radiance_sharded
+
+        img, stats = render_radiance_sharded(scene, cam, settings, key, mesh)
+    elif args.regen:
         img, stats = render_radiance_regen(scene, cam, settings, key, lanes=args.lanes,
                                            device=args.device)
     elif args.checkpoint:
@@ -169,7 +254,14 @@ def main(argv=None) -> int:
     else:
         img, stats = render_radiance(scene, cam, settings, key, device=args.device)
     img = img.cpu().numpy()  # waits for the device
+    if mesh is not None:
+        mesh.barrier()  # the render ends with the last rank's
     seconds = time.perf_counter() - t0
+    if mesh is not None:
+        rank = mesh.rank
+        torch.distributed.destroy_process_group()
+        if rank != 0:
+            return 0
 
     path = frame_path(args.output_dir, 0)
     write_png(path, to_rgb8(img))
@@ -180,6 +272,7 @@ def main(argv=None) -> int:
     print(f"{sd.name} {settings.width}x{settings.height} "
           f"spp={settings.samples_per_pixel} bounces={settings.max_bounces} "
           f"{'regen ' if args.regen else ''}"
+          f"{'' if mesh is None else f'mesh={mesh.tiles}x{mesh.samples} '}"
           f"{'' if args.cascade is None else f'cascade={args.cascade} '}on {device_name}: "
           f"segments={segments:.0f} seconds={seconds:.3f} "
           f"segments/s={segments / seconds:.4g}")

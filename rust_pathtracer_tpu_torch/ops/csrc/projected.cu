@@ -38,10 +38,12 @@
 // (../projected.py, module note).  Built with --fmad=false and without fast
 // math, so every f32 operation rounds as the plain version's does; max / min
 // propagate NaN as jnp.maximum / minimum; sqrtf and the divisions are IEEE.
+// A sphere's quadratic runs in f64 (column_value), rounded to f32 at the
+// roots, as the plain version's does.
 //
 // What bounds it on the card.  Per lane 24 B of rays in and 136 B out (t,
-// column, payload); per swept column the f32 operations of its type's
-// formula (chip_smoke.cluster_ops: ~20 a sphere, ~6 a rect, ~40 a
+// column, payload); per swept column the operations of its type's
+// formula (chip_smoke.cluster_ops: 21 f64 a sphere, ~6 f32 a rect, ~40 a
 // triangle), per visited cluster a slab test of 12.  The work depends on
 // the data: which clusters each lane's slab test passes.  A dense per-lane
 // sweep is bound by instructions: 8 scalar loads a projection
@@ -120,7 +122,8 @@ __device__ __forceinline__ float nan_min(float a, float b) {
 // A lane's ray and what its formulas read.
 struct Ray {
   float ox, oy, oz, dx, dy, dz;
-  float onorm, odot, dnorm, tmin_a;
+  float dnorm, tmin_a;
+  double dnorm64;  // |d|^2 in f64, a sphere's quadratic's a
 };
 
 __device__ __forceinline__ Ray shfl_ray(const Ray& R, int src) {
@@ -131,10 +134,9 @@ __device__ __forceinline__ Ray shfl_ray(const Ray& R, int src) {
   S.dx = __shfl_sync(FULL, R.dx, src);
   S.dy = __shfl_sync(FULL, R.dy, src);
   S.dz = __shfl_sync(FULL, R.dz, src);
-  S.onorm = __shfl_sync(FULL, R.onorm, src);
-  S.odot = __shfl_sync(FULL, R.odot, src);
   S.dnorm = __shfl_sync(FULL, R.dnorm, src);
   S.tmin_a = __shfl_sync(FULL, R.tmin_a, src);
+  S.dnorm64 = __shfl_sync(FULL, R.dnorm64, src);
   return S;
 }
 
@@ -148,26 +150,36 @@ template <int KIND, bool Q>
 __device__ __forceinline__ float column_value(const float4* p, const Ray& R,
                                               float t_min) {
   if constexpr (KIND == PRIM_SPHERE) {
-    const float4 c = p[0];  // centre, K0
-    const float O0 = ((R.ox * c.x + R.oy * c.y) + R.oz * c.z) + 0.0f;
-    const float D0 = ((R.dx * c.x + R.dy * c.y) + R.dz * c.z) + 0.0f;
-    const float half_b = R.odot - D0;
-    const float cterm = R.onorm - 2.0f * O0 + c.w;
-    const float dis = half_b * half_b - R.dnorm * cterm;
-    const float sqrtd = sqrtf((dis != dis || dis > 0.0f) ? dis : 0.0f);
-    float r1, r2, lim;
+    // The quadratic in f64 on the f32 ray and row (its discriminant as
+    // ../closest_hit.py sphere_roots takes it; a = |d|^2 once a lane, in
+    // the Ray), the q-domain roots rounded to f32; _sphere_values
+    // (../projected.py) runs the same operations.  In f32 the expanded
+    // |o|^2 - 2 o.c + K0 cancels where a ray leaves a sphere's surface or
+    // grazes it, and a root then lands past t_min on a sphere that f64
+    // says the ray misses.
+    const float4 c = p[0];  // centre, radius (NaN on padding: every test fails)
+    const double ocx = (double)R.ox - (double)c.x;
+    const double ocy = (double)R.oy - (double)c.y;
+    const double ocz = (double)R.oz - (double)c.z;
+    const double dx = R.dx, dy = R.dy, dz = R.dz, r = c.w;
+    const double half_b = (dx * ocx + dy * ocy) + dz * ocz;
+    const double cterm = ((ocx * ocx + ocy * ocy) + ocz * ocz) - r * r;
+    const double dis = half_b * half_b - R.dnorm64 * cterm;
+    const double sqrtd = sqrt((dis != dis || dis > 0.0) ? dis : 0.0);
+    // the q-domain roots; in the t domain each is divided by |d|^2 in f32,
+    // as the q domain divides its winner, so both domains give a sphere hit
+    // the same bits (K5 compares some streamed clusters in t, K7 in q)
+    float r1 = (float)(-half_b - sqrtd), r2 = (float)(-half_b + sqrtd), lim;
     if constexpr (Q) {
-      r1 = -half_b - sqrtd;
-      r2 = -half_b + sqrtd;
       lim = R.tmin_a;
     } else {
-      r1 = (-half_b - sqrtd) / R.dnorm;
-      r2 = (-half_b + sqrtd) / R.dnorm;
+      r1 = r1 / R.dnorm;
+      r2 = r2 / R.dnorm;
       lim = t_min;
     }
     const bool ok1 = r1 >= lim;
     const float val = ok1 ? r1 : r2;
-    const bool valid = (dis >= 0.0f) & (ok1 | (r2 >= lim));
+    const bool valid = (dis >= 0.0) & (ok1 | (r2 >= lim));
     return valid ? val : T_MISS;
   } else if constexpr (KIND == PRIM_RECT) {
     // (f, A[0,6], K0, K1), (K2, K3, A[0,f], A[1,fa]), (A[2,fb], B[0,3+f],
@@ -348,10 +360,9 @@ sweep_kernel(Tables T, Slots S, const float* __restrict__ o, const float* __rest
     const float dz = active ? d[3 * i + 2] : 0.0f;
     R.ox = ox; R.oy = oy; R.oz = oz;
     R.dx = dx; R.dy = dy; R.dz = dz;
-    R.onorm = ox * ox + oy * oy + oz * oz;
-    R.odot = ox * dx + oy * dy + oz * dz;
     R.dnorm = dx * dx + dy * dy + dz * dz;
     R.tmin_a = t_min * R.dnorm;
+    R.dnorm64 = ((double)dx * dx + (double)dy * dy) + (double)dz * dz;
     const float dd[3] = {dx, dy, dz};
 #pragma unroll
     for (int ax = 0; ax < 3; ++ax) {

@@ -30,8 +30,10 @@ Pallas kernels run it:
 * sphere groups compare in q = t |d|^2 (no division per column) and
   divide only the group winner by |d|^2.  K6 and K7 always do; K5 does
   where the group's slot is sphere or padding in every p-block
-  (``col_block`` columns), so on streamed tables (more than 16,384
-  columns) K5 may differ from K6 / K7 in the last ulp of a sphere hit.
+  (``col_block`` columns).  A sphere's t has the same bits in either
+  domain (``_sphere_values``), so on streamed tables (more than 16,384
+  columns) K5 may differ from K6 / K7 only where two sphere columns tie
+  in t and not in q, or a root sits on t_min.
 
 K5 and K6 visit every cluster; K7 the slots of its block's worklist.
 The TPU's K6 sweeps the clusters its block of lanes lists, since a grid
@@ -83,7 +85,6 @@ from rust_pathtracer_tpu_torch.scene.types import (
     TEX_IMAGE,
     TEX_SOLID,
 )
-from rust_pathtracer_tpu_torch.vecmath import sqrt
 
 GROUP = 128          # columns of one cluster, all of one primitive type
 COL_BLOCK = 2048     # columns of one p-block of a streamed table
@@ -193,9 +194,12 @@ class ProjTables:
         column's nonzero coefficients, quad q of column j at [g, q, j],
         so a warp reads a quad of 32 columns in one coalesced load.  The
         words are copies of the f32 values of ``a`` and ``const`` (``b``
-        holds the same values, see ``build_projected``):
+        holds the same values, see ``build_projected``), and a sphere's
+        radius:
 
-        * sphere, quad 0: A[0, 0:3] (the centre) and K0;
+        * sphere, quad 0: A[0, 0:3] (the centre) and the radius, from the
+          payload's primitive row (NaN on a padding column, K0 = 1e30:
+          every test of the f64 quadratic fails on NaN);
         * rect, quads 0-2: (f, A[0, 6], K0, K1), (K2, K3, A[0, f],
           A[1, fa]), (A[2, fb], B[0, 3 + f], B[1, 3 + fa], B[2, 3 + fb])
           with f the fixed axis and (fa, fb) the free ones; the
@@ -211,7 +215,9 @@ class ProjTables:
         rows = torch.zeros((C, 16), dtype=torch.float32, device=dev)
         sph, rect, tri = (kind == x for x in (PRIM_SPHERE, PRIM_RECT, PRIM_TRIANGLE))
         rows[sph, 0:3] = a[0, 0:3][:, sph].T
-        rows[sph, 3] = k[0, sph]
+        radius = torch.where(k[0] >= 1e30, torch.full_like(k[0], float("nan")),
+                             self.payload[:, 3])
+        rows[sph, 3] = radius[sph]
         for j in range(3):
             rows[tri, 4 * j:4 * j + 3] = a[j, 0:3][:, tri].T
             rows[tri, 4 * j + 3] = a[j, 6, tri]
@@ -457,10 +463,11 @@ def slab_bounds(cluster_bounds, o, d, t_min):
 
 
 def _projections(tables: ProjTables, kind, g, o, d):
-    """The projections and constants of cluster ``g`` (of type ``kind``)
-    for the lanes (o, d) (n, 3): (O, D, K) with O = [O_0..], D = [D_0..]
-    the (n, 128) projections a type reads (1 a sphere, 3 a rect or a
-    triangle) and K its (128,) constants (K0, or K0-K3 a rect).  Each
+    """The projections and constants of rect or triangle cluster ``g``
+    (of type ``kind``) for the lanes (o, d) (n, 3): (O, D, K) with O =
+    [O_0..], D = [D_0..] the (n, 128) projections a type reads (3) and K
+    its (128,) constants (K0, or K0-K3 a rect); a sphere reads its row
+    in ``_sphere_values``.  Each
     projection sums its nonzero terms from ``tables.rows`` in the k
     order of ``rays . a[j]`` (a coefficient 1 multiplies as the dense
     product does), then adds +0: the dense 8-term sum bit for bit on
@@ -468,10 +475,6 @@ def _projections(tables: ProjTables, kind, g, o, d):
     q = tables.rows[g]  # (4, 128, 4)
     ox, oy, oz = (o[:, i:i + 1] for i in range(3))
     dx, dy, dz = (d[:, i:i + 1] for i in range(3))
-    if kind == PRIM_SPHERE:
-        cx, cy, cz, k0 = q[0].unbind(1)
-        return ([((ox * cx + oy * cy) + oz * cz) + 0.0],
-                [((dx * cx + dy * cy) + dz * cz) + 0.0], (k0,))
     if kind == PRIM_TRIANGLE:
         O, D = [], []
         for j in range(3):
@@ -491,31 +494,58 @@ def _projections(tables: ProjTables, kind, g, o, d):
     raise ValueError(f"no formula for cluster kind {kind}")
 
 
-def _group_values(kind, q, O, D, K, onorm, odot, dnorm, tmin):
-    """(n, 128) candidate values of one cluster, T_MISS where invalid:
-    q = t |d|^2 for a sphere group compared in the q domain
-    (``_group_q_sphere``), else t (``_group_t``).  O, D, K: as
-    ``_projections`` returns them; norms (n, 1); tmin: f32 scalar
-    tensor."""
+def _dnorms(d):
+    """A lane's |d|^2, (n, 1) in f32 and in f64 (a sphere's quadratic's
+    a), each summed in the order (x + y) + z."""
+    d64 = d.to(torch.float64)
+    return tuple(((x[:, 0] * x[:, 0] + x[:, 1] * x[:, 1]) + x[:, 2] * x[:, 2])[:, None]
+                 for x in (d, d64))
+
+
+def _sphere_values(q, o, d, quad, dnorm, dnorm64, tmin):
+    """(n, 128) candidate values of a sphere cluster, T_MISS where
+    invalid: q = t |d|^2 where ``q`` (the cluster is compared in the q
+    domain), else t.  The quadratic runs in f64 on the f32 ray and row
+    (the discriminant as ``closest_hit.sphere_roots`` takes it), and the
+    q-domain roots round to f32: in f32 the tables' expanded |o|^2 - 2
+    o.c + K0 cancels where a ray leaves a sphere's surface or grazes it,
+    and a root then lands past t_min on a sphere f64 says the ray misses
+    (tests/test_torch_projected_f64.py).  ``quad``: the cluster's (128,
+    4) quad 0 rows (centre, radius); ``dnorm``, ``dnorm64``: the lanes'
+    (n, 1) |d|^2 in f32 and f64 (``_dnorms``, once a lane); ``tmin``: f32
+    scalar tensor.  The kernel's ``column_value``."""
+    f64 = torch.float64
+    cx, cy, cz, r = (x.to(f64) for x in quad.unbind(1))
+    ox, oy, oz = (o[:, i:i + 1].to(f64) for i in range(3))
+    dx, dy, dz = (d[:, i:i + 1].to(f64) for i in range(3))
+    ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
+    half_b = (dx * ocx + dy * ocy) + dz * ocz
+    cterm = ((ocx * ocx + ocy * ocy) + ocz * ocz) - r * r
+    dis = half_b * half_b - dnorm64 * cterm
+    sqrtd = torch.sqrt(torch.where((dis > 0.0) | torch.isnan(dis), dis,
+                                   torch.zeros_like(dis)))
+    # the q-domain roots; in the t domain each is divided by |d|^2 in f32,
+    # as the q domain divides its winner, so both domains give a sphere hit
+    # the same bits (K5 compares some streamed clusters in t, K7 in q)
+    r1 = (-half_b - sqrtd).to(torch.float32)
+    r2 = (-half_b + sqrtd).to(torch.float32)
+    if q:
+        lim = tmin * dnorm
+    else:
+        lim = tmin
+        r1, r2 = r1 / dnorm, r2 / dnorm
+    ok1 = r1 >= lim
+    val = torch.where(ok1, r1, r2)
+    valid = (dis >= 0.0) & (ok1 | (r2 >= lim))
+    return torch.where(valid, val, torch.full_like(val, T_MISS))
+
+
+def _group_values(kind, O, D, K, tmin):
+    """(n, 128) candidate values t of a rect or triangle cluster, T_MISS
+    where invalid.  O, D, K: as ``_projections`` returns them; tmin: f32
+    scalar tensor."""
     k0 = K[0]
-    if kind == PRIM_SPHERE:
-        half_b = odot - D[0]
-        cterm = onorm - 2.0 * O[0] + k0
-        dis = half_b * half_b - dnorm * cterm
-        sqrtd = sqrt(torch.where((dis > 0.0) | torch.isnan(dis), dis,
-                                 torch.zeros_like(dis)))
-        if q:
-            tmin_a = tmin * dnorm
-            r1 = -half_b - sqrtd
-            r2 = -half_b + sqrtd
-        else:
-            tmin_a = tmin
-            r1 = (-half_b - sqrtd) / dnorm
-            r2 = (-half_b + sqrtd) / dnorm
-        ok1 = r1 >= tmin_a
-        val = torch.where(ok1, r1, r2)
-        valid = (dis >= 0.0) & (ok1 | (r2 >= tmin_a))
-    elif kind == PRIM_RECT:
+    if kind == PRIM_RECT:
         val = -O[0] / D[0]  # NaN / inf when parallel: the bounds fail
         av = O[1] + val * D[1]
         bv = O[2] + val * D[2]
@@ -561,9 +591,7 @@ def _sweep_plain(tables: ProjTables, o, d, t_min, *, q_flags, listed=None,
     for s in range(0, R, chunk):
         oc, dc = o[s:s + chunk], d[s:s + chunk]
         n = oc.shape[0]
-        onorm = ((oc[:, 0] * oc[:, 0] + oc[:, 1] * oc[:, 1]) + oc[:, 2] * oc[:, 2])[:, None]
-        odot = ((oc[:, 0] * dc[:, 0] + oc[:, 1] * dc[:, 1]) + oc[:, 2] * dc[:, 2])[:, None]
-        dnorm = ((dc[:, 0] * dc[:, 0] + dc[:, 1] * dc[:, 1]) + dc[:, 2] * dc[:, 2])[:, None]
+        dnorm, dnorm64 = _dnorms(dc)
         lo, hi = slab_bounds(tables.cluster_bounds, oc, dc, t_min)
         blk = (torch.arange(s, s + n, device=dev) // rb) if listed is not None else None
         tb = torch.full((n,), T_MISS, dtype=f32, device=dev)
@@ -588,9 +616,13 @@ def _sweep_plain(tables: ProjTables, o, d, t_min, *, q_flags, listed=None,
             if idx.numel() == 0:
                 continue
             q = q_flags[g]
-            O, D, K = _projections(tables, kind, g, oc[idx], dc[idx])
             dn = dnorm[idx]
-            vals = _group_values(kind, q, O, D, K, onorm[idx], odot[idx], dn, tmin)
+            if kind == PRIM_SPHERE:
+                vals = _sphere_values(q, oc[idx], dc[idx], tables.rows[g, 0], dn,
+                                      dnorm64[idx], tmin)
+            else:
+                vals = _group_values(kind, *_projections(tables, kind, g, oc[idx],
+                                                         dc[idx]), tmin)
             raw = vals.min(dim=1, keepdim=True).values
             gc = torch.where(vals <= raw, iota, big).min(dim=1).values
             gt = raw[:, 0]

@@ -373,9 +373,10 @@ def _live_first(alive):
 def _render_chunk_cascaded(scene, cam: Camera, base_key, sample_offset: int,
                            background, *, width: int, height: int,
                            spp_chunk: int, spp_total: int, max_bounces: int,
-                           rr_start: Optional[int], schedule=None):
-    """One sample chunk through the cascade; returns (sum_radiance (H*W,
-    3), stats), as ``_render_chunk``.
+                           rr_start: Optional[int], schedule=None, pix=None):
+    """One sample chunk through the cascade; returns (sum_radiance (len(pix),
+    3), stats), as ``_render_chunk``.  ``pix``: the pixel ids to trace
+    (a tile of the image, ``parallel/shard.py``), all of them by default.
 
     Static (``schedule`` applies, ``_cascade_static_schedule``): the
     slice after each boundary has the schedule's fixed width, with no
@@ -388,12 +389,13 @@ def _render_chunk_cascaded(scene, cam: Camera, base_key, sample_offset: int,
 
     Padded lanes of a final chunk (sample >= spp_total) start dead, as
     in the JAX package, so they add no segments there."""
-    R = width * height * spp_chunk
+    if pix is None:
+        pix = torch.arange(width * height, dtype=torch.int64, device=scene.device)
+    R = pix.shape[0] * spp_chunk
     stages = _cascade_static_schedule(max_bounces, R, schedule)
     static = bool(stages)
     if not static:
         stages = [(CASCADE_B1, None)] if 0 < CASCADE_B1 < max_bounces else []
-    pix = torch.arange(width * height, dtype=torch.int64, device=scene.device)
     lkeys, o, d, alive = _make_lanes(cam, base_key, pix, sample_offset, width=width,
                                      height=height, spp_chunk=spp_chunk,
                                      spp_total=spp_total)
@@ -435,7 +437,7 @@ def _render_chunk_cascaded(scene, cam: Camera, base_key, sample_offset: int,
         b0 = b1
     if static:
         occupancy[-1] += overflow.to(torch.float32)
-    acc = banked.reshape(width * height, spp_chunk, 3).sum(dim=1)
+    acc = banked.reshape(pix.shape[0], spp_chunk, 3).sum(dim=1)
     return acc, TraceStats(segments=segments, bounces=bounces, occupancy=occupancy)
 
 

@@ -1,4 +1,4 @@
-"""Render checkpoints with exact resume (single device).
+"""Render checkpoints with exact resume, on one device or sharded.
 
 Counterpart of ``rust_pathtracer_tpu/utils/checkpoint.py``; plain host
 code around the renderer.
@@ -11,8 +11,9 @@ The file is the JAX package's ``.npz`` with the same fields; ``key_data``
 holds the key's two 32-bit words, so a file that either package wrote
 loads in the other.
 
-Not ported yet: ``render_radiance_sharded_checkpointed``, which waits for
-sharding (ROADMAP queue 1 item 12).
+A sharded render (``render_radiance_sharded_checkpointed``) keeps the
+same file, with the samples-axis extent and the chunk, so that its
+files also cross between the packages.
 """
 
 from __future__ import annotations
@@ -178,6 +179,102 @@ def render_radiance_checkpointed(scene, cam, settings, key, checkpoint_path: str
                 key_data=words, segments=segments + float(seg_dev)))
     acc, seg_dev = guard(acc, seg_dev, overflow_dev)
     segments += float(seg_dev)
+
+    img = (acc / torch.tensor(float(spp), dtype=torch.float32, device=dev)
+           ).reshape(settings.height, settings.width, 3)
+    return img, TraceStats(
+        segments=torch.tensor(segments, dtype=torch.float32, device=dev), bounces=0,
+        occupancy=torch.zeros(MAX_BOUNCE_STATS, dtype=torch.float32, device=dev))
+
+
+def render_radiance_sharded_checkpointed(scene, cam, settings, key, mesh,
+                                         checkpoint_path: str, checkpoint_every: int = 1,
+                                         background=None):
+    """The sharded render (``parallel/shard.py``) with a checkpoint every
+    ``checkpoint_every`` sample chunks; every rank of ``mesh`` calls it
+    with the same arguments and gets the image on ``mesh.device``.
+
+    The file holds the full image's radiance sums, the samples done (per
+    sample group, a whole number of chunks) and the key; every rank reads
+    it, and rank 0 writes it (atomically, ``save_checkpoint``) after a
+    barrier, so no rank reads a file newer than its start.  A job may
+    resume with another tile count (the RNG keys off global (pixel,
+    sample), so which rank traces a pixel does not matter); the samples
+    axis and the chunk must match, since each sample group owns a
+    disjoint sample range: a file that does not match is ignored and the
+    render starts again.  The restored sums are the running accumulator,
+    so a resumed render equals the uninterrupted one bit for bit.  Returns
+    (image (H, W, 3), TraceStats with the segments; bounces and
+    occupancy are not kept across a resume, so they are 0).
+
+    "auto" resolves its schedule on chunk 0 as ``render_radiance_sharded``
+    does (a plain calibration run, whose radiance only measures); that is
+    deterministic, so a resumed run derives the same schedule.  A chunk
+    whose explicit schedule dropped live lanes raises
+    CascadeOverflowError; under "auto", the chunk renders again on the
+    plain path."""
+    import dataclasses
+
+    import torch
+
+    from rust_pathtracer_tpu_torch.integrator import MAX_BOUNCE_STATS, TraceStats
+    from rust_pathtracer_tpu_torch.parallel.shard import ShardedChunkPlan
+    from rust_pathtracer_tpu_torch.render import (
+        AUTO_MARGIN,
+        CascadeOverflowError,
+        _derive_cascade_schedule,
+        _maybe_prepend_reorder,
+        uses_cascade,
+    )
+
+    plan_plain = None
+    if settings.cascade_schedule == "auto" and uses_cascade(settings):
+        plain = dataclasses.replace(settings, cascade=False, cascade_schedule=None)
+        plan_plain = ShardedChunkPlan(scene, cam, plain, key, mesh, background)
+        sched = None
+        if plan_plain.n_chunks > 1:
+            om0 = plan_plain.run_chunk(0)[4]
+            sched = _maybe_prepend_reorder(_derive_cascade_schedule(
+                om0.cpu().numpy(), plan_plain.lanes_per_shard, settings.max_bounces,
+                margin=AUTO_MARGIN), plan_plain.scene)
+        settings = dataclasses.replace(settings, cascade=sched is not None,
+                                       cascade_schedule=sched)
+
+    plan = ShardedChunkPlan(scene, cam, settings, key, mesh, background)
+    dev = mesh.device
+    spp, npix = settings.samples_per_pixel, settings.width * settings.height
+    words = key_data(key)
+    start, segments = 0, 0.0
+    acc = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
+    ckpt = load_checkpoint(checkpoint_path)
+    if ckpt is not None and (
+            (ckpt.width, ckpt.height, ckpt.spp_total, ckpt.samples_axis, ckpt.chunk)
+            == (settings.width, settings.height, spp, plan.n_samples_axis, plan.chunk)
+            and np.array_equal(ckpt.key_data, words)):
+        # samples_done counts a sample group's chunks of plan.chunk
+        start, segments = ckpt.samples_done // plan.chunk, ckpt.segments
+        acc = torch.as_tensor(ckpt.acc, dtype=torch.float32, device=dev)
+
+    for c in range(start, plan.n_chunks):
+        a, s, _, o, _ = plan.run_chunk(c)
+        if plan.cascade_stages and float(o[-1]) > 0.0:
+            if plan_plain is None:
+                raise CascadeOverflowError(
+                    f"sharded static cascade schedule {settings.cascade_schedule!r} "
+                    f"dropped {float(o[-1]):.0f} live lanes in chunk {c}: the image is "
+                    "biased.  Widen the schedule.")
+            a, s, _, o, _ = plan_plain.run_chunk(c)  # exact, and deterministic
+        acc = acc + a[:npix]
+        segments += float(s)
+        if (c + 1 - start) % checkpoint_every == 0:
+            mesh.barrier()
+            if mesh.rank == 0:
+                save_checkpoint(checkpoint_path, RenderCheckpoint(
+                    acc=acc.detach().cpu().numpy(), samples_done=(c + 1) * plan.chunk,
+                    width=settings.width, height=settings.height, spp_total=spp,
+                    key_data=words, segments=segments, samples_axis=plan.n_samples_axis,
+                    chunk=plan.chunk))
+    mesh.barrier()  # the last file is whole before any rank returns
 
     img = (acc / torch.tensor(float(spp), dtype=torch.float32, device=dev)
            ).reshape(settings.height, settings.width, 3)

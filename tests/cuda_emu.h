@@ -49,18 +49,19 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t
 template <class T> T __ldg(const T* p) { return *p; }
 
 constexpr int EMU_MAX_WARPS = 8;
-struct Warp { std::barrier<>* bar; uint32_t slot[32]; };
+struct Warp { std::barrier<>* bar; uint64_t slot[32]; };
 inline Warp g_warps[EMU_MAX_WARPS];
 inline std::barrier<>* g_block_bar;
 inline int lane_id() { return threadIdx.x & 31; }
-template <class T> T xchg(T v, int src) {
+template <class T> T xchg(T v, int src) {  // a 4- or 8-byte T
+  static_assert(sizeof(T) <= 8, "a shuffle moves 4 or 8 bytes");
   Warp& w = g_warps[threadIdx.x / 32];
-  uint32_t u; std::memcpy(&u, &v, 4);
+  uint64_t u = 0; std::memcpy(&u, &v, sizeof(T));
   w.slot[lane_id()] = u;
   w.bar->arrive_and_wait();
-  uint32_t r = w.slot[src & 31];
+  uint64_t r = w.slot[src & 31];
   w.bar->arrive_and_wait();
-  T out; std::memcpy(&out, &r, 4); return out;
+  T out; std::memcpy(&out, &r, sizeof(T)); return out;
 }
 template <class T> T __shfl_sync(unsigned, T v, int src) { return xchg(v, src); }
 template <class T> T __shfl_xor_sync(unsigned, T v, int off) { return xchg(v, lane_id() ^ off); }

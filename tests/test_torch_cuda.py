@@ -732,3 +732,29 @@ def test_cascade_on_gpu_matches_chunked(name, schedule):
         resumed, _ = ck.render_radiance_checkpointed(scene, cam, cs, key, path,
                                                      device="cuda")
     assert torch.equal(resumed, ref)
+
+
+@pytest.mark.cuda
+def test_sharded_render_on_gpu_matches_single_process(tmp_path):
+    """Two gloo ranks on cuda:0 (one card, so gloo: NCCL refuses two
+    ranks on one device), a (2, 1) mesh: every rank's image equals the
+    single-process render on the card bit for bit (a samples axis of 1),
+    with the segments."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from rust_pathtracer_tpu_torch.models import get_scene
+    from rust_pathtracer_tpu_torch.render import RenderSettings, render_radiance
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+    from torch_spawn import run_ranks
+
+    cfg = dict(width=48, height=32, samples_per_pixel=4, max_bounces=8,
+               background=[0.0, 0.0, 0.0], spp_chunk=2)
+    res = run_ranks("render", 2, tmp_path, timeout=300, device="cuda", jobs=[dict(
+        mesh=[2, 1], scene="CornellBox", settings=cfg, key=5)])
+    sd = get_scene("CornellBox")
+    ref, st = render_radiance(sd.build(device="cuda"), sd.camera_at(0.0, device="cuda"),
+                              RenderSettings(**dict(cfg, background=(0.0, 0.0, 0.0))),
+                              prng_key(5, device="cuda"), device="cuda")
+    for r in res:
+        assert torch.equal(r["jobs"][0]["img"], ref.cpu())
+        assert r["jobs"][0]["segments"] == float(st.segments)

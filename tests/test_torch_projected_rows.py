@@ -119,7 +119,10 @@ def make_case(case, tmp_path):
 def dense_from_rows(tables):
     """(a, b, const) rebuilt from ``tables.rows`` by the layout its
     docstring gives, zeros elsewhere; the padding clusters, which no
-    kernel visits and the rows leave at zero, get K0 = 1e30."""
+    kernel visits and the rows leave at zero, get K0 = 1e30.  A sphere's
+    row holds its radius in the place of K0, so a sphere column's K0 is
+    taken from ``const``, and its radius is held to the payload's
+    primitive row (NaN on a padding column)."""
     G, C = tables.num_groups, tables.num_cols
     rows = tables.rows.permute(0, 2, 1, 3).reshape(C, 16)
     kind = np.repeat(np.asarray(tables.group_kinds), P.GROUP)
@@ -131,7 +134,11 @@ def dense_from_rows(tables):
         if kind[c] == 0:
             a[0, 0:3, c] = r[0:3]
             b[0, 3:6, c] = r[0:3]
-            k[0, c] = r[3]
+            k[0, c] = tables.const[0, c]
+            if k[0, c] >= 1e30:
+                assert torch.isnan(r[3]), c
+            else:
+                assert r[3].view(torch.int32) == tables.payload[c, 3].view(torch.int32), c
         elif kind[c] == 2:
             for j in range(3):
                 a[j, 0:3, c] = r[4 * j:4 * j + 3]
@@ -154,9 +161,9 @@ def dense_from_rows(tables):
                                   "SphereField", "ModelTest", "ModelTest 20k"])
 def test_rows_hold_the_tables_nonzero_coefficients(case, tmp_path):
     """The compact rows give back ``a``, ``b`` and ``const`` bit for bit
-    (every nonzero coefficient, by type; zeros where the type has none),
-    they hold nothing past a type's quads, and ``bounds8`` holds the
-    cluster AABBs."""
+    (every nonzero coefficient, by type; zeros where the type has none;
+    a sphere's radius in the place of K0), they hold nothing past a
+    type's quads, and ``bounds8`` holds the cluster AABBs."""
     tables = make_case(case, tmp_path)[0]
     rows = tables.rows
     assert rows.shape == (tables.num_groups, 4, P.GROUP, 4)
@@ -284,13 +291,14 @@ def test_sparse_sweep_equals_dense_sweep(case, lanes, tmp_path, monkeypatch):
 def test_sparse_projections_equal_dense_projections():
     """Column by column, every projection of the sparse form is the dense
     one's bits (+0 where the dense sum ends in a zero), on lanes with
-    signed zeros and parked origins, for every cluster of a mixed table."""
+    signed zeros and parked origins, for every rect and triangle cluster
+    of a mixed table (a sphere's quadratic reads its row directly)."""
     tables = _tables_of(mixed_scene(60, 20, 50, seed=5))
     o, d = lane_set("signed_zeros", BOXES["mixed"], 512, seed=3)
     o[::7] = PARKED
     zeros = 0
     for g, kind in enumerate(tables.group_kinds):
-        if kind < 0:
+        if kind <= 0:  # padding; a sphere reads its row (_sphere_values)
             continue
         so, sd, sk = P._projections(tables, kind, g, o, d)
         do, dd, dk = dense_projections(tables, kind, g, o, d)
@@ -359,12 +367,8 @@ def test_cooperative_visit_equals_sequential_take(pool):
     else:  # the values one SphereField cluster gives random lanes
         tables = get_scene("SphereField").build().proj
         o, d = lane_set("random", BOXES["SphereField"], n, seed=5)
-        onorm = ((o[:, 0] * o[:, 0] + o[:, 1] * o[:, 1]) + o[:, 2] * o[:, 2])[:, None]
-        odot = ((o[:, 0] * d[:, 0] + o[:, 1] * d[:, 1]) + o[:, 2] * d[:, 2])[:, None]
-        dnorm = ((d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2])[:, None]
-        O, D, K = P._projections(tables, 0, 1, o, d)
-        vals = P._group_values(0, True, O, D, K, onorm, odot, dnorm,
-                               torch.tensor(T_MIN)).numpy()
+        vals = P._sphere_values(True, o, d, tables.rows[1, 0], *P._dnorms(d),
+                                torch.tensor(T_MIN)).numpy()
         vals[:, ::3] = vals[:, 1::3]  # ties between neighbours
     vals = vals.astype(np.float32)
     best, col = sequential_take(vals)

@@ -219,18 +219,21 @@ def _imported_modules(path):
 
 def test_port_imports_no_jax():
     """No module of the port, nor the root scripts that run on the card
-    (chip_smoke.py, profile_port.py, k2_variants.py, k34_variants.py),
+    (chip_smoke.py, profile_port.py, k2_variants.py, k34_variants.py,
+    sharded_timing.py),
     imports jax or the JAX package, not even its numpy-only modules (bvh,
     obj_loader): the machine with the card has neither.  The big-scene
-    modules are among those checked."""
+    and the sharding modules are among those checked."""
     files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "profile_port.py",
-                                            "k2_variants.py", "k34_variants.py")]
+                                            "k2_variants.py", "k34_variants.py",
+                                            "sharded_timing.py")]
     for root, _, names in os.walk(os.path.join(REPO, "rust_pathtracer_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
     rel = {os.path.relpath(f, REPO) for f in files}
     for mod in ("bvh.py", "scene/obj_loader.py", "ops/projected.py",
-                "ops/resident.py", "ops/worklist.py"):
+                "ops/resident.py", "ops/worklist.py", "parallel/mesh.py",
+                "parallel/shard.py", "parallel/dryrun.py"):
         assert f"rust_pathtracer_tpu_torch/{mod}" in rel, mod
     for path in files:
         for mod in _imported_modules(path):
