@@ -10,8 +10,11 @@ differentiable, the big-scene path (K5, K6, K7), whose main path is
 the SphereField forward render at the scene's own width (phase 15), and
 the regeneration wavefront (K1 at per-lane depth; the draw kernel on
 the generic routes), whose main path is LightTest at its own width and
-depth (phase 21), and the cascade renderer with checkpoints, whose main
-path is SphereField at its own width (phase 25).  It checks them:
+depth (phase 21), the cascade renderer with checkpoints, whose main
+path is SphereField at its own width (phase 25), and the command line: the
+CLI's animation loop, whose main path is SphereField's own orbit at its
+width (phase 35), scene JSON and the inverse-rendering example.  It
+checks them:
 
 1. device: a CUDA GPU must be present (no CPU fallback); prints the
    card's name and power limit and the torch and nvcc versions;
@@ -189,6 +192,31 @@ path is SphereField at its own width (phase 25).  It checks them:
     SHARD_HOLD_BOUNCE; rank 0's wall (barrier and device sync) beside the
     single process's.  A rank that fails, or the ranks not done within
     SHARD_TIMEOUT_S, fails the script.
+
+35. the command line's main path: ``cli.main`` in this process renders
+    SphereField's own orbit at 854x480, frames 297-299 of its 300, 2 of
+    its 250 spp, with ``--gif`` and ``--timing-log``: each PNG byte for
+    byte ``to_rgb8`` of ``render_radiance`` at ``camera_at(f / 300)``
+    rendered here, the timing log's segments those renders', the GIF
+    walked block by block (GIF89a, 854x480, three images, loop 0), K6 and
+    the draw kernel launched and held bit for bit to their plain versions
+    on frame 298's pools; again with ``--cascade auto`` (one schedule,
+    printed once, every frame the chunked frame's bytes), and with
+    ``--checkpoint`` at a chunk a sample, stopped in frame 298 and
+    resumed (the ``.frame0297``-``.frame0299`` files, the same PNGs);
+    the render, I/O and GIF seconds;
+36. scene JSON: CORNELL_DOC (``tests/test_json_cli.py``'s) at the
+    serving shape bit for bit the built-in CornellBox (K1, held on a
+    pool); a document with checker, perlin and PNG image textures
+    (``read_png`` gives back ``write_png``'s texels) at 854x480, 2 spp,
+    20 bounces, without an OBJ (K3 and the draw kernel) and with
+    ``write_benchmark_obj``'s 10,080 triangles (the projected route),
+    each kernel held on a pool;
+37. the inverse-rendering example (``examples/inverse_rendering.py``):
+    150 Adam steps at 64x64, 16 spp, 5 bounces recover the albedo (0.8,
+    0.2, 0.5) at 3 decimals; the first loss within 1e-5 relative of the
+    CPU's; K1-res held bit for bit and K2 within phase 7's tolerance on
+    the example's pools.
 
 Phases 11-13 and 15-17 also check that the generic routes launch the
 draw kernel once a bounce.
@@ -3252,6 +3280,511 @@ def phase_sharded(torch, device, card):
 
 
 # ---------------------------------------------------------------------------
+# phases 35-37: the command-line surface (the CLI's animation loop, scene JSON)
+# and the inverse-rendering example
+# ---------------------------------------------------------------------------
+
+# phase 35: SphereField's own 300-frame orbit at its own width, the last
+# three frames, spp cut from 250 to 2
+ANIM = dict(width=854, height=480, frames=300, start=297, spp=2)
+ANIM_HOLD_FRAME = 298
+ANIM_HOLD_BOUNCES = (2, 10)
+# phase 36: tests/test_json_cli.py's CORNELL_DOC (the built-in CornellBox
+# spelled out), copied: this script imports no JAX test
+CORNELL_DOC = {
+    "perlin_seed": 0,
+    "textures": [
+        {"type": "solid", "color": [0.65, 0.05, 0.05]},
+        {"type": "solid", "color": [0.73, 0.73, 0.73]},
+        {"type": "solid", "color": [0.12, 0.45, 0.15]},
+        {"type": "solid", "color": [15.0, 15.0, 15.0]},
+    ],
+    "materials": [
+        {"type": "lambertian", "texture": 0},
+        {"type": "lambertian", "texture": 1},
+        {"type": "lambertian", "texture": 2},
+        {"type": "light", "texture": 3},
+        {"type": "dielectric", "ir": 1.5},
+    ],
+    "primitives": [
+        {"type": "rect", "plane": "yz", "start": [555, 0, 0], "end": [555, 555, 555],
+         "direction": -1, "material": 2},
+        {"type": "rect", "plane": "yz", "start": [0, 0, 0], "end": [0, 555, 555],
+         "direction": 1, "material": 0},
+        {"type": "rect", "plane": "xz", "start": [0, 555, 0], "end": [555, 555, 555],
+         "direction": -1, "material": 1},
+        {"type": "rect", "plane": "xz", "start": [0, 0, 0], "end": [555, 0, 555],
+         "direction": 1, "material": 1},
+        {"type": "rect", "plane": "xz", "start": [213, 554, 227], "end": [343, 554, 332],
+         "direction": -1, "material": 3},
+        {"type": "rect", "plane": "xy", "start": [0, 0, 555], "end": [555, 555, 555],
+         "direction": -1, "material": 1},
+        {"type": "box", "start": [130, 0, 65], "end": [295, 165, 230], "material": 1},
+        {"type": "box", "start": [265, 0, 295], "end": [430, 330, 460], "material": 1},
+        {"type": "sphere", "center": [212.5, 255.0, 147.5], "radius": 90.0, "material": 4},
+        {"type": "sphere", "center": [347.5, 420.0, 377.5], "radius": 90.0, "material": 4},
+    ],
+    "camera": {
+        "type": "static", "lookfrom": [278, 278, -800], "lookat": [278, 278, 0],
+        "up": [0, 1, 0], "vfov": 40.0, "aperture": 0.0, "focus_dist": 10.0,
+    },
+    "image": {
+        "width": 400, "height": 400, "samples_per_pixel": 1000,
+        "max_bounces": 20, "background": [0.0, 0.0, 0.0],
+    },
+}
+JSON_FRAME = dict(width=854, height=480, spp=2, bounces=20, seed=0)
+JSON_HOLD_BOUNCES = (2,)
+# phase 37: the example's own 64x64, 16 spp, 5 bounces, 150 steps
+INVERSE_STEPS = 150
+INVERSE_LOSS_RTOL = 1e-5
+INVERSE_HOLD_BOUNCE = 2
+
+
+def gif_blocks(path):
+    """Walk a GIF's blocks (there is no Pillow on the card's machine):
+    (version, width, height, image descriptors, NETSCAPE2.0 loop count or
+    None)."""
+    import struct
+
+    data = open(path, "rb").read()
+    w, h, packed = struct.unpack("<HHB", data[6:11])
+    pos = 13 + (3 * (2 << (packed & 7)) if packed & 0x80 else 0)
+    images, loop = 0, None
+
+    def skip_sub_blocks(pos):
+        blocks = []
+        while data[pos]:
+            blocks.append(data[pos + 1:pos + 1 + data[pos]])
+            pos += 1 + data[pos]
+        return pos + 1, blocks
+
+    while pos < len(data) and data[pos] != 0x3B:
+        if data[pos] == 0x21:  # an extension: label, then sub-blocks
+            label = data[pos + 1]
+            pos, blocks = skip_sub_blocks(pos + 2)
+            if label == 0xFF and blocks and blocks[0] == b"NETSCAPE2.0":
+                loop = struct.unpack("<H", blocks[1][1:3])[0]
+        elif data[pos] == 0x2C:  # an image: descriptor, table, code size, data
+            pk = data[pos + 9]
+            pos += 10 + (3 * (2 << (pk & 7)) if pk & 0x80 else 0) + 1
+            pos, _ = skip_sub_blocks(pos)
+            images += 1
+        else:
+            fail(f"{path}: unknown GIF block 0x{data[pos]:02x} at byte {pos}")
+    check(pos < len(data), f"{path}: no GIF trailer")
+    return data[:6].decode(), w, h, images, loop
+
+
+def _run_cli(torch, device, argv):
+    """``cli.main(argv + ["--device", device])`` in this process: (exit
+    code, stdout, stderr, wall seconds closed by a device sync)."""
+    import io
+
+    from rust_pathtracer_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv + ["--device", str(torch.device(device).type)])
+    _sync(torch, device)
+    return rc, out.getvalue(), err.getvalue(), time.perf_counter() - t0
+
+
+def _frames_bytes(folder, frames):
+    return {f: open(os.path.join(folder, f"image_{f:04d}.png"), "rb").read()
+            for f in frames}
+
+
+def _png_of(torch, img, path):
+    from rust_pathtracer_tpu_torch.utils.image import to_rgb8, write_png
+
+    write_png(path, to_rgb8(img.cpu().numpy()))
+    return open(path, "rb").read()
+
+
+def phase_animation(torch, device, card):
+    import shutil
+
+    frames = range(ANIM["start"], ANIM["frames"])
+    log(f"== phase 35 (main path, the command line): the CLI's SphereField animation at "
+        f"{ANIM['width']}x{ANIM['height']}, frames {frames[0]}-{frames[-1]} of {ANIM['frames']}, "
+        f"{ANIM['spp']} spp, with the GIF and the timing log; again under --cascade "
+        f"auto, and per-frame checkpoints stopped and resumed")
+    from rust_pathtracer_tpu_torch import render
+    from rust_pathtracer_tpu_torch.models import get_scene
+    from rust_pathtracer_tpu_torch.render import render_radiance
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+    from rust_pathtracer_tpu_torch.utils.image import read_png, write_gif
+    from rust_pathtracer_tpu_torch.utils.metrics import StageTimer
+
+    out = os.path.join(OUT_DIR, "anim")
+    shutil.rmtree(out, ignore_errors=True)
+    dirs = {k: os.path.join(out, k) for k in ("chunked", "auto", "ckpt", "want")}
+    tlog = os.path.join(out, "timing.jsonl")
+    base = ["--scene", "SphereField", "--width", str(ANIM["width"]), "--height",
+            str(ANIM["height"]), "--frames", str(ANIM["frames"]), "--frame-start",
+            str(ANIM["start"]), "--spp", str(ANIM["spp"])]
+    reset_counts()
+    rc, text, err, wall = _run_cli(torch, device, base + [
+        "--gif", "--timing-log", tlog, "--output-dir", dirs["chunked"]])
+    counts = read_counts()
+    check(rc == 0, f"the CLI exited {rc}: {err[-2000:]}")
+    log(text.strip().splitlines()[-1])
+    for line in err.splitlines():
+        if line.startswith(("[metrics]", "[timing]")):
+            log(line)
+    log(f"the CLI call took {wall:.3f} s; launches {counts}")
+    check(counts["K6"] > 0 and counts["draws"] == counts["K6"],
+          f"the animation launched K6 {counts['K6']} and draws {counts['draws']} times")
+    got = _frames_bytes(dirs["chunked"], frames)
+
+    sd = get_scene("SphereField")
+    scene = sd.build(device=device)
+    settings = dataclasses.replace(sd.output.image, width=ANIM["width"],
+                                   height=ANIM["height"], samples_per_pixel=ANIM["spp"])
+    key = prng_key(0, device=device)
+    segs, err_max = {}, 0.0
+    for f in frames:
+        cam = sd.camera_at(f / ANIM["frames"], device=device)
+        if f == ANIM_HOLD_FRAME:
+            with capture_bounces(torch, ANIM_HOLD_BOUNCES) as calls:
+                img, st = render_radiance(scene, cam, settings, key, device=device)
+            err_max, held = hold_pools(torch, device, f"SphereField frame {f}", calls,
+                                       ("K6", "draws"))
+        else:
+            img, st = render_radiance(scene, cam, settings, key, device=device)
+        segs[f] = float(st.segments)
+        want = _png_of(torch, img, os.path.join(dirs["want"], f"{f}.png"))
+        check(got[f] == want, f"frame {f}: the CLI's PNG differs from render_radiance's "
+                              f"at camera_at({f}/{ANIM['frames']})")
+        check(read_png(os.path.join(dirs["chunked"], f"image_{f:04d}.png")).shape
+              == (settings.height, settings.width, 3), f"frame {f}: PNG shape")
+    lines = [json.loads(x) for x in open(tlog)]
+    check([x["frame"] for x in lines] == list(frames)
+          and [x["segments"] for x in lines] == [segs[f] for f in frames],
+          f"the timing log {lines} against the renders' segments {segs}")
+    log(f"frames {list(frames)}: each PNG byte for byte render_radiance's; timing log "
+        f"{lines}")
+    gif = os.path.join(dirs["chunked"], "animation.gif")
+    blocks = gif_blocks(gif)
+    check(blocks == ("GIF89a", settings.width, settings.height, len(frames), 0),
+          f"the GIF's blocks {blocks}")
+    rgbs = [read_png(os.path.join(dirs["chunked"], f"image_{f:04d}.png")) for f in frames]
+    gif_timer = StageTimer()
+    t0 = time.perf_counter()
+    write_gif(os.path.join(out, "again.gif"), rgbs, fps=sd.output.fps, timer=gif_timer)
+    gif_s = time.perf_counter() - t0
+    check(open(os.path.join(out, "again.gif"), "rb").read() == open(gif, "rb").read(),
+          "write_gif of the same frames wrote other bytes")
+    split = {k.split()[1]: v for k, v in gif_timer.stages.items()}  # "gif lzw" -> "lzw"
+    log(f"GIF: {blocks}, {os.path.getsize(gif)} bytes; write_gif of the {len(frames)} "
+        f"frames {gif_s:.3f} s on the host, by write_gif's own stages: the palette "
+        f"{split['palette']:.3f} s, dithering {split['dither']:.3f} s, "
+        f"LZW {split['lzw']:.3f} s")
+
+    reset_counts()
+    rc, text, err, wall_auto = _run_cli(torch, device, base + [
+        "--cascade", "auto", "--output-dir", dirs["auto"]])
+    counts = read_counts()
+    check(rc == 0, f"the CLI under --cascade auto exited {rc}: {err[-2000:]}")
+    sched = [x for x in err.splitlines() if x.startswith("auto cascade schedule:")]
+    check(len(sched) == 1 and "None" not in sched[0], f"the schedule lines {sched}")
+    check(_frames_bytes(dirs["auto"], frames) == got,
+          "a frame under the sticky auto schedule differs from the chunked frame")
+    log(f"--cascade auto: {sched[0]} (printed once); every frame the chunked frame's "
+        f"bytes; the CLI call {wall_auto:.3f} s; launches {counts}; "
+        f"{text.strip().splitlines()[-1]}")
+
+    ckpt = os.path.join(out, "ckpt_files", "anim.npz")
+    real, ran = render._render_chunk, []
+
+    def stopping(*a, **k):
+        if len(ran) == 3:  # frame 297's two chunks, then one of frame 298's
+            raise _Stop()
+        ran.append(a[3])
+        return real(*a, **k)
+
+    argv = base + ["--spp-chunk", "1", "--checkpoint", ckpt, "--output-dir", dirs["ckpt"]]
+    render._render_chunk = stopping
+    try:
+        _run_cli(torch, device, argv)
+        fail("the checkpointed animation was not stopped")
+    except _Stop:
+        pass
+    finally:
+        render._render_chunk = real
+    names = sorted(os.listdir(os.path.dirname(ckpt)))
+    check(names == ["anim.npz.frame0297", "anim.npz.frame0298"], f"checkpoint files {names}")
+    # the resumed run's chunks by frame (the camera names it): none of
+    # frame 297's, frame 298's second alone, both of frame 299's; a run
+    # that ignored the files would render their chunks again
+    frame_of = {tuple(sd.camera_at(f / ANIM["frames"], device=device).origin.tolist()): f
+                for f in frames}
+    resumed = []
+
+    def counting(*a, **k):
+        resumed.append((frame_of.get(tuple(a[1].origin.tolist())), a[3]))
+        return real(*a, **k)
+
+    render._render_chunk = counting
+    try:
+        rc, _, err, wall_resume = _run_cli(torch, device, argv)
+    finally:
+        render._render_chunk = real
+    check(rc == 0, f"the resumed animation exited {rc}: {err[-2000:]}")
+    want_chunks = [(frames[1], 1), (frames[2], 0), (frames[2], 1)]
+    check(resumed == want_chunks,
+          f"the resumed run rendered the chunks (frame, sample) {resumed}, not {want_chunks}")
+    names = sorted(os.listdir(os.path.dirname(ckpt)))
+    check(names == [f"anim.npz.frame{f:04d}" for f in frames], f"checkpoint files {names}")
+    check(_frames_bytes(dirs["ckpt"], frames) == got,
+          "the resumed checkpointed frames differ from the chunked frames")
+    log(f"--checkpoint: stopped in frame {ANIM_HOLD_FRAME} after chunks at samples {ran} "
+        f"(files {names[:2]} then), resumed in {wall_resume:.3f} s rendering only the "
+        f"chunks (frame, sample) {resumed}: {names}, every PNG the chunked frame's bytes")
+    return dict(max_abs_err=err_max, render_s=[x["seconds"] for x in lines], gif_s=gif_s,
+                **{f"gif_{k}_s": v for k, v in split.items()})
+
+
+def _textured_doc(tex_png, obj):
+    """A scene of checker, perlin and image textures (``tex_png``), a
+    metal and a glass sphere and a light, with ``obj`` (an OBJ path, or
+    None) as ModelTest places it, seen by ModelTest's camera."""
+    doc = {
+        "perlin_seed": 0,
+        "textures": [
+            {"type": "solid", "color": [0.2, 0.3, 0.1]},
+            {"type": "solid", "color": [0.9, 0.9, 0.9]},
+            {"type": "checker", "odd": 0, "even": 1},
+            {"type": "perlin", "scale": 4.0},
+            {"type": "image", "path": tex_png},
+            {"type": "solid", "color": [4.0, 4.0, 4.0]},
+            {"type": "solid", "color": [0.7, 0.6, 0.5]},
+        ],
+        "materials": [
+            {"type": "lambertian", "texture": 2},
+            {"type": "lambertian", "texture": 3},
+            {"type": "lambertian", "texture": 4},
+            {"type": "light", "texture": 5},
+            {"type": "metal", "texture": 6, "fuzz": 0.1},
+            {"type": "dielectric", "ir": 1.5},
+        ],
+        "primitives": [
+            {"type": "sphere", "center": [0, -1000, 0], "radius": 1000, "material": 0},
+            {"type": "sphere", "center": [-2.6, 1.0, 0.5], "radius": 1.0, "material": 1},
+            {"type": "sphere", "center": [2.6, 1.0, 0.5], "radius": 1.0, "material": 2},
+            {"type": "sphere", "center": [1.2, 0.4, -2.0], "radius": 0.4, "material": 4},
+            {"type": "sphere", "center": [-1.2, 0.4, -2.0], "radius": 0.4, "material": 5},
+            {"type": "rect", "plane": "xz", "start": [-2, 5, -2], "end": [2, 5, 2],
+             "direction": -1, "material": 3},
+        ],
+        "camera": {"type": "static", "lookfrom": [0.0, 2.5, -7.0], "lookat": [0.0, 1.5, 0.0],
+                   "up": [0, 1, 0], "vfov": 60.0},
+        "image": {"width": JSON_FRAME["width"], "height": JSON_FRAME["height"],
+                  "samples_per_pixel": JSON_FRAME["spp"],
+                  "max_bounces": JSON_FRAME["bounces"], "background": [0.5, 0.6, 0.8]},
+    }
+    if obj is not None:
+        doc["primitives"].append({"type": "obj", "path": obj})
+    return doc
+
+
+def phase_scene_json(torch, device, card):
+    log(f"== phase 36: scene JSON: CornellBox spelled out at the serving shape against "
+        f"the built-in scene (K1), and a textured scene at {JSON_FRAME['width']}x"
+        f"{JSON_FRAME['height']}, {JSON_FRAME['spp']} spp, {JSON_FRAME['bounces']} "
+        f"bounces without an OBJ (K3, draws) and with one (the projected route)")
+    from rust_pathtracer_tpu_torch.models import get_scene
+    from rust_pathtracer_tpu_torch.ops.projected import default_route
+    from rust_pathtracer_tpu_torch.render import RenderSettings, render_radiance
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+    from rust_pathtracer_tpu_torch.scene.json_io import load_scene_json, save_scene_json
+    from rust_pathtracer_tpu_torch.scene.obj_loader import write_benchmark_obj
+    from rust_pathtracer_tpu_torch.utils.image import read_png, write_png
+
+    folder = os.path.join(OUT_DIR, "json")
+    os.makedirs(folder, exist_ok=True)
+    sv = SERVE
+    settings = RenderSettings(sv["width"], sv["height"], sv["spp"], sv["bounces"],
+                              (0.0, 0.0, 0.0), spp_chunk=sv["spp_chunk"])
+    key = prng_key(sv["seed"], device=device)
+    save_scene_json(os.path.join(folder, "cornell.json"), CORNELL_DOC)
+    sdj = load_scene_json(os.path.join(folder, "cornell.json"))
+    sdb = get_scene("CornellBox")
+    check(sdj.output.image == sdb.output.image, "CORNELL_DOC's image settings")
+    _sync(torch, device)
+    reset_counts()
+    t0 = time.perf_counter()
+    with capture_bounces(torch, JSON_HOLD_BOUNCES) as calls:
+        img, st = render_radiance(sdj.build(device=device), sdj.camera_at(0.0, device=device),
+                                  settings, key, device=device)
+    _sync(torch, device)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    ref, rst = render_radiance(sdb.build(device=device), sdb.camera_at(0.0, device=device),
+                               settings, key, device=device)
+    check(torch.equal(img, ref) and float(st.segments) == float(rst.segments),
+          "the JSON CornellBox differs from the built-in one")
+    check(counts["K1"] == st.bounces, f"K1 launched {counts['K1']} times in {st.bounces} "
+                                      "bounces")
+    err, _ = hold_pools(torch, device, "JSON CornellBox", calls, ("K1",))
+    log(f"JSON CornellBox {sv['width']}x{sv['height']}, {sv['spp']} spp: bit for bit the "
+        f"built-in render (segments {float(st.segments):.0f}), {wall:.3f} s on {card} "
+        f"(first render), launches {counts}")
+
+    rng = np.random.default_rng(36)
+    tex = np.clip(np.add.outer(np.arange(48) * 4, np.arange(64) * 3)[..., None]
+                  + rng.integers(0, 40, (48, 64, 3)), 0, 255).astype(np.uint8)
+    write_png(os.path.join(folder, "tex.png"), tex)
+    check(np.array_equal(read_png(os.path.join(folder, "tex.png")), tex),
+          "read_png does not give back write_png's texels")
+    tris = write_benchmark_obj(os.path.join(folder, "model.obj"))
+    key = prng_key(JSON_FRAME["seed"], device=device)
+    for label, obj in (("textured", None), ("textured + OBJ", "model.obj")):
+        path = os.path.join(folder, f"{label.replace(' + ', '_')}.json")
+        save_scene_json(path, _textured_doc("tex.png", obj))
+        sd = load_scene_json(path)
+        t0 = time.perf_counter()
+        scene = sd.build(device=device)
+        build_s = time.perf_counter() - t0
+        texels = scene.textures.images[0, :48, :64].cpu().numpy()
+        check(np.array_equal(texels, (tex.astype(np.float32) / 255.0) ** 2.0),
+              f"{label}: the image texture's texels")
+        if scene.kinds_static is not None:
+            kernels = ("K3", "draws")
+        else:
+            kernels = {"resident": ("K6",), "pairs": ("K7",),
+                       "dense": ("K5",)}[default_route(scene.proj)] + ("draws",)
+        cam = sd.camera_at(0.0, device=device)
+        _sync(torch, device)
+        reset_counts()
+        t0 = time.perf_counter()
+        with capture_bounces(torch, JSON_HOLD_BOUNCES) as calls:
+            img, st = render_radiance(scene, cam, sd.output.image, key, device=device)
+        _sync(torch, device)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        a = img.cpu().numpy()
+        check(np.isfinite(a).all() and (a >= 0).all(), f"{label}: non-finite or negative")
+        check(counts[kernels[0]] > 0 and counts["draws"] == st.bounces,
+              f"{label}: launches {counts} in {st.bounces} bounces")
+        e, _ = hold_pools(torch, device, f"JSON {label}", calls, kernels)
+        err = max(err, e)
+        log(f"JSON {label}: {scene.num_prims} primitives"
+            + ("" if obj is None else f" ({tris} triangles)")
+            + f", built in {build_s:.2f} s; {a.shape[1]}x{a.shape[0]} in {wall:.3f} s "
+              f"(first render), mean {a.mean():.5f}, segments {float(st.segments):.0f}, "
+              f"launches {counts}")
+    return dict(max_abs_err=err)
+
+
+@contextlib.contextmanager
+def capture_fused_step(torch, bounce):
+    """Wraps K1's wrapper (``fused_bounce.fused_bounce_keyed``) and K2's
+    (``fused_bounce_bwd.fused_bounce_bwd``) as the differentiable fused
+    trace calls them: the first K1-res call at ``bounce`` and the first K2
+    call (the backward's last bounce) keep clones of their tensor
+    arguments.  Yields {"K1-res" | "K2": (args, kwargs)}."""
+    from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
+    from rust_pathtracer_tpu_torch.ops import fused_bounce_bwd as fbb
+
+    def clone(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        if isinstance(x, dict):
+            return {k: clone(v) for k, v in x.items()}
+        if isinstance(x, (tuple, list)):
+            return type(x)(clone(v) for v in x)
+        return x
+
+    real_fwd, real_bwd, calls = fb.fused_bounce_keyed, fbb.fused_bounce_bwd, {}
+
+    def fwd(*a, **k):
+        if k.get("want_residuals") and a[5] == bounce and "K1-res" not in calls:
+            calls["K1-res"] = (clone(a), dict(k))
+        return real_fwd(*a, **k)
+
+    def bwd(*a, **k):
+        if "K2" not in calls:
+            calls["K2"] = (clone(a), dict(k))
+        return real_bwd(*a, **k)
+
+    fb.fused_bounce_keyed, fbb.fused_bounce_bwd = fwd, bwd
+    try:
+        yield calls
+    finally:
+        fb.fused_bounce_keyed, fbb.fused_bounce_bwd = real_fwd, real_bwd
+
+
+def phase_inverse(torch, device, card):
+    from rust_pathtracer_tpu_torch.examples import inverse_rendering as inv
+    from rust_pathtracer_tpu_torch.grad import render_loss_and_grad
+    from rust_pathtracer_tpu_torch.ops import fused_bounce_bwd as fbb
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+
+    s = inv.SETTINGS
+    log(f"== phase 37: the inverse-rendering example, {s.width}x{s.height}, "
+        f"{s.samples_per_pixel} spp, {s.max_bounces} bounces, {INVERSE_STEPS} Adam steps "
+        f"on the card (K1-res, K2); its first loss against the CPU's")
+    scene_c, _, target_c, params_c = inv.setup(s, device="cpu")
+    loss_cpu, _ = render_loss_and_grad(params_c, scene_c, s, prng_key(inv.SEED), target_c,
+                                       device="cpu")
+    scene, truth, target, params = inv.setup(s, device=device)
+    _sync(torch, device)
+    reset_counts()
+    t0 = time.perf_counter()
+    ends = []  # each step ends in a device -> host fetch of its loss
+    with capture_fused_step(torch, INVERSE_HOLD_BOUNCE) as calls:
+        final, losses = inv.recover(scene, params, target, INVERSE_STEPS, s, device=device,
+                                    on_step=lambda *_: ends.append(time.perf_counter()))
+    _sync(torch, device)
+    wall = time.perf_counter() - t0
+    steps_ms = np.diff([t0] + ends) * 1e3
+    counts = read_counts()
+    row = final.tex_color[0].cpu().numpy()
+    rel = abs(losses[0] - float(loss_cpu)) / abs(float(loss_cpu))
+    log(f"{INVERSE_STEPS} steps in {wall:.3f} s on {card}: the first {steps_ms[0]:.2f} ms, "
+        f"the median of the others {np.median(steps_ms[1:]):.2f} ms (min "
+        f"{steps_ms[1:].min():.2f}, max {steps_ms[1:].max():.2f}); loss {losses[0]:.6e} -> {losses[-1]:.3e} "
+        f"(CPU's first {float(loss_cpu):.6e}, rel {rel:.2e}); recovered {row.tolist()} "
+        f"(true {list(inv.TRUE_ALBEDO)}); launches {counts}")
+    check(rel <= INVERSE_LOSS_RTOL, f"the first loss {losses[0]} against the CPU's "
+                                    f"{float(loss_cpu)}: rel {rel:.2e}")
+    check(np.round(row.astype(np.float64), 3).tolist() == list(inv.TRUE_ALBEDO),
+          f"recovered {row.tolist()}, want {inv.TRUE_ALBEDO} at 3 decimals")
+    check(counts["K1-res"] > 0 and counts["K2"] > 0, f"launches {counts}")
+    check(torch.equal(final.tex_color[1:], truth.tex_color[1:]),
+          "a texture row other than the unknown one moved")
+
+    args, kw = calls["K1-res"]
+    runs = _keyed_runs(torch, args, kw)
+    bad = _keyed_mismatches(runs)
+    err = float(np.abs(runs["kernel"][0].view(np.float32).astype(np.float64)
+                       - runs["plain"][0].view(np.float32)).max())
+    check(not bad.any(), f"K1-res differs from its plain version on {int(bad.sum())} lanes "
+                         f"of the example's bounce {INVERSE_HOLD_BOUNCE}")
+    args, kw = calls["K2"]
+    k_g, k_tex, k_bg = fbb.fused_bounce_bwd(*args, **kw)
+    p_g, p_tex, p_bg = fbb.fused_bounce_bwd_plain(*args, **kw)
+    got = torch.stack([k_g[k] for k in fbb._GRAD_KEYS]).double()
+    want = torch.stack([p_g[k] for k in fbb._GRAD_KEYS]).double()
+    red = torch.cat([k_tex.ravel(), k_bg]).double()
+    red_want = torch.cat([p_tex.ravel(), p_bg]).double()
+    for name, x, y in (("cotangent columns", got, want), ("reductions", red, red_want)):
+        e = (x - y).abs()
+        tol = K2_RTOL * y.abs() + K2_ATOL_REL * y.abs().max()
+        check(bool((e <= tol).all()), f"K2's {name} differ from the plain version on the "
+                                      "example's last bounce")
+        err = max(err, float(e.max()))
+    log(f"K1-res bit for bit its plain version on the pool of {runs['kernel'][0].shape[1]} "
+        f"lanes at bounce {INVERSE_HOLD_BOUNCE}; K2 within phase 7's tolerance of its plain version on the "
+        f"backward's last bounce (max abs err {err:.3e})")
+    return dict(max_abs_err=err, step_ms=float(np.median(steps_ms[1:])))
+
+
+# ---------------------------------------------------------------------------
 # shared helpers: launch counts, batches, splits, bounds
 # ---------------------------------------------------------------------------
 
@@ -3625,6 +4158,12 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     phase_sharded(torch, device, card)
     log(f"phases 31-34 (sharded rendering) took {time.perf_counter() - t_shard:.1f} s")
+    t_drv = [time.perf_counter()]
+    for n, phase in ((35, phase_animation), (36, phase_scene_json), (37, phase_inverse)):
+        phase(torch, device, card)
+        t_drv.append(time.perf_counter())
+        log(f"phase {n} took {t_drv[-1] - t_drv[-2]:.1f} s")
+    log(f"phases 35-37 (the command-line surface) took {t_drv[-1] - t_drv[0]:.1f} s")
 
     def sweep_err(kernel, main):
         errs = [main["max_abs_err"]] + [v["max_abs_err"] for (_, k), v in ph14.items()

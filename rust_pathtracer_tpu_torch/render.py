@@ -99,12 +99,19 @@ class RenderSettings:
 class OutputSettings:
     """OutputSettings (scene.rs:27-36): one static frame, or fps *
     duration animation frames with the camera at t = frame / frames
-    (main.rs:51-53).  The port renders single frames (the CLI's t = 0);
-    the animation loop is not ported yet (ROADMAP queue 1 item 13)."""
+    (main.rs:51-53)."""
 
     image: RenderSettings
     fps: float = 0.0
     duration: float = 0.0
+
+    @property
+    def is_animation(self) -> bool:
+        return self.fps > 0.0 and self.duration > 0.0
+
+    @property
+    def num_frames(self) -> int:
+        return int(self.fps * self.duration) if self.is_animation else 1
 
 
 def resolve_device(device) -> torch.device:

@@ -224,8 +224,8 @@ def test_cli_bvh_off_applies_to_builtin_scenes(tmp_path, monkeypatch):
     for flags, want_bvh, leaf in ((["--bvh", "off"], False, 0),
                                   (["--bvh", "on", "--leaf-size", "2"], True, 2)):
         built.clear()
-        rc = cli.main(["--scene", "SphereField", *flags, "--width", "6", "--height", "4",
-                       "--spp", "1", "--max-bounces", "2", "--device", "cpu",
+        rc = cli.main(["--scene", "SphereField", *flags, "--frames", "1", "--width", "6",
+                       "--height", "4", "--spp", "1", "--max-bounces", "2", "--device", "cpu",
                        "--output-dir", str(tmp_path)])
         assert rc == 0 and len(built) == 1
         assert (built[0].bvh is not None) == want_bvh and built[0].leaf_size == leaf
@@ -376,7 +376,7 @@ def test_cli_renders_big_scenes(tmp_path, capsys, obj_path):
     for argv in (["--scene", "SphereField"],
                  ["--scene", "ModelTest", "--obj-path", obj_path, "--leaf-size", "2"]):
         out = tmp_path / argv[1]
-        rc = cli.main(argv + ["--width", "8", "--height", "6", "--spp", "1",
+        rc = cli.main(argv + ["--frames", "1", "--width", "8", "--height", "6", "--spp", "1",
                               "--max-bounces", "3", "--device", "cpu",
                               "--output-dir", str(out)])
         assert rc == 0 and (out / "image_0000.png").exists()

@@ -758,3 +758,43 @@ def test_sharded_render_on_gpu_matches_single_process(tmp_path):
     for r in res:
         assert torch.equal(r["jobs"][0]["img"], ref.cpu())
         assert r["jobs"][0]["segments"] == float(st.segments)
+
+
+@pytest.mark.cuda
+def test_cli_animation_on_gpu_matches_cpu(tmp_path):
+    """A 3-frame SphereField animation through the CLI (K6 and the draw
+    kernel): each card frame's PNG is the card's ``render_radiance`` at
+    the frame's camera, byte for byte, and the card's render of each
+    frame holds the image contract against the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from rust_pathtracer_tpu_torch import cli
+    from rust_pathtracer_tpu_torch.models import get_scene
+    from rust_pathtracer_tpu_torch.render import RenderSettings, render_radiance
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+    from rust_pathtracer_tpu_torch.utils.image import (
+        image_agreement,
+        read_png,
+        to_rgb8,
+        write_png,
+    )
+
+    args = ["--scene", "SphereField", "--width", "48", "--height", "27", "--spp", "2",
+            "--max-bounces", "6", "--frames", "3", "--quiet"]
+    for dev in ("cuda", "cpu"):
+        assert cli.main(args + ["--device", dev, "--output-dir", str(tmp_path / dev)]) == 0
+    sd = get_scene("SphereField")
+    s = RenderSettings(48, 27, 2, 6, (1.0, 1.0, 1.0))
+    for f in range(3):
+        name = f"image_{f:04d}.png"
+        imgs = {}
+        for dev in ("cuda", "cpu"):
+            img, _ = render_radiance(sd.build(device=dev), sd.camera_at(f / 3, device=dev),
+                                     s, prng_key(0, device=dev), device=dev)
+            imgs[dev] = img.cpu().numpy()
+            write_png(str(tmp_path / f"want_{dev}.png"), to_rgb8(imgs[dev]))
+            got = open(str(tmp_path / dev / name), "rb").read()
+            assert got == open(str(tmp_path / f"want_{dev}.png"), "rb").read(), (dev, f)
+        agree = image_agreement(imgs["cuda"], imgs["cpu"])
+        assert agree["ok"], (f, agree)
+        assert read_png(str(tmp_path / "cuda" / name)).shape == (27, 48, 3)

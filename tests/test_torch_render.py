@@ -222,8 +222,9 @@ def test_port_imports_no_jax():
     (chip_smoke.py, profile_port.py, k2_variants.py, k34_variants.py,
     sharded_timing.py),
     imports jax or the JAX package, not even its numpy-only modules (bvh,
-    obj_loader): the machine with the card has neither.  The big-scene
-    and the sharding modules are among those checked."""
+    obj_loader), nor Pillow: the machine with the card has none of them.
+    The big-scene and the sharding modules, the scene JSON, the metrics
+    and the inverse-rendering example are among those checked."""
     files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "profile_port.py",
                                             "k2_variants.py", "k34_variants.py",
                                             "sharded_timing.py")]
@@ -233,7 +234,8 @@ def test_port_imports_no_jax():
     rel = {os.path.relpath(f, REPO) for f in files}
     for mod in ("bvh.py", "scene/obj_loader.py", "ops/projected.py",
                 "ops/resident.py", "ops/worklist.py", "parallel/mesh.py",
-                "parallel/shard.py", "parallel/dryrun.py"):
+                "parallel/shard.py", "parallel/dryrun.py", "scene/json_io.py",
+                "utils/metrics.py", "examples/inverse_rendering.py"):
         assert f"rust_pathtracer_tpu_torch/{mod}" in rel, mod
     for path in files:
         for mod in _imported_modules(path):
