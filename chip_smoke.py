@@ -13,8 +13,9 @@ the generic routes), whose main path is LightTest at its own width and
 depth (phase 21), the cascade renderer with checkpoints, whose main
 path is SphereField at its own width (phase 25), and the command line: the
 CLI's animation loop, whose main path is SphereField's own orbit at its
-width (phase 35), scene JSON and the inverse-rendering example.  It
-checks them:
+width (phase 35), scene JSON and the inverse-rendering example, and the
+packed RNG scheme and the geometry gradient, whose main path is the
+CornellBox step with ``diff_t="rederive"`` (phase 40).  It checks them:
 
 1. device: a CUDA GPU must be present (no CPU fallback); prints the
    card's name and power limit and the torch and nvcc versions;
@@ -216,7 +217,47 @@ checks them:
     150 Adam steps at 64x64, 16 spp, 5 bounces recover the albedo (0.8,
     0.2, 0.5) at 3 decimals; the first loss within 1e-5 relative of the
     CPU's; K1-res held bit for bit and K2 within phase 7's tolerance on
-    the example's pools.
+    the example's pools;
+38. the packed RNG scheme (``rng_scheme="packed"``, the JAX package's
+    ``RPT_RNG_SCHEME=packed``) on 1,000,000 random lanes of phase 3's
+    scene: K1 (bounces 0 and 7, roulette and residuals on and off) and K1
+    at per-lane depths 0-49 (roulette from 3) against
+    ``fused_bounce_keyed_plain(..., rng_scheme="packed")``, the draw
+    kernel at bounce 7 and at per-lane depths against
+    ``bounce_draws_plain(..., "packed")``, bit for bit, and none of them
+    the legacy stream; each timed beside the legacy kernel on the same
+    inputs in one call (legacy, packed, packed, legacy), with its device
+    time, its packed plain version and its bound;
+39. the packed paths at full size: serving CornellBox (phase 5's shape)
+    packed against legacy, in turns: finite, K1 once a bounce, no
+    tensor-op threefry, the channel means within 1% of legacy's, K1 held
+    bit for bit on the render's pools; the bench-shaped step (phase 9's
+    shape) under both schemes: K1-res and K2 20 times, finite gradients,
+    the loss within 1% of legacy's, the two steps' medians in turns;
+    LightTest regen (phase 21's shape) against chunked, both packed,
+    within the bounds of phase 21 and no further apart than its legacy
+    pair; the SphereField cascade (phase 25's shape, CASCADE_SF_SCHEDULE)
+    bit for bit the chunked render, packed, K6 and the draw kernel held
+    on its pools;
+40. the slice's main path, the geometry gradient (``diff_t="rederive"``):
+    the CornellBox step at phase 9's shape, loss = mean(img), with
+    ``scene.prims.data`` a leaf beside the DiffParams leaves: K4 and the
+    draw kernel once a bounce and no K1; the re-derived t equal to K4's
+    on every hit lane of the step's 20 searches; K4 bit for bit its plain
+    version on the step's pools of bounces 0, 10 and 19; two steps bit for
+    bit; every gradient finite; the prims.data gradient zero, as the
+    estimator makes it on a scene of solid colours (JAX's too,
+    ``tests/test_torch_geometry_grad.py``); the loss and the DiffParams
+    gradients against the analytic (fused) step under the port's JAX
+    tolerances; the step's median beside the analytic step's, peak memory
+    and the row gather's backward (``index_put_`` with accumulate) timed
+    alone and in the step; then the TwoSphereCheckers step at phase 12's
+    shape, whose perlin sphere makes the gradient of both spheres'
+    centres and radii nonzero, twice bit for bit;
+41. the geometry gradient on SphereField (phase 17's shape) with K5 as
+    the search: K5 and the draw kernel once a bounce, a finite prims.data
+    gradient, the re-derived t within 1e-6 of K5's and never a miss,
+    time and peak memory.
 
 Phases 11-13 and 15-17 also check that the generic routes launch the
 draw kernel once a bounce.
@@ -2063,18 +2104,23 @@ def phase_k1_per_lane(torch, device, card, n_lanes, reps):
                 bound_ms=b_ms, bound_by=b_by)
 
 
-def draws_bound(torch, keys, bounce, rows):
+def draws_bound(torch, keys, bounce, rows, packed=False):
     """The draw kernel's bound: bytes, the two key words and a per-lane
     depth read once and ``rows`` f32 planes written once; operations,
-    threefry's int32 ones: a purpose key and a block a uniform for 2
-    sphere, 3 ball, 1 coin and, in a seventh row, 1 roulette uniform."""
+    threefry's int32 ones: under the legacy scheme a purpose key and a
+    block a uniform for 2 sphere, 3 ball, 1 coin and, in a seventh row, 1
+    roulette uniform; under the packed scheme a block a word pair, 3
+    blocks for the six rows and a fourth for roulette's."""
     from rust_pathtracer_tpu_torch.ops import draws
 
     R = keys.shape[1]
+    rr = rows > draws.N_ROWS
     n_bytes = (nbytes(keys) + (nbytes(bounce) if isinstance(bounce, torch.Tensor) else 0)
                + rows * 4 * R)
-    n_int = R * (draw_ops(2) + draw_ops(3) + draw_ops(1)
-                 + (draw_ops(1) if rows > draws.N_ROWS else 0))
+    if packed:
+        n_int = R * packed_ops(3 + rr, rows)
+    else:
+        n_int = R * (draw_ops(2) + draw_ops(3) + draw_ops(1) + (draw_ops(1) if rr else 0))
     return bound(n_bytes, 0, n_int)
 
 
@@ -2181,6 +2227,7 @@ def check_regen_vs_chunked(torch, name, img, stats, cimg, cstats):
           f"the {name} regen image is further from chunked than JAX's bounds")
     check(seg == cseg, f"the {name} regen traced {seg:.0f} segments, chunked {cseg:.0f}")
     check(torch.equal(occ, cocc), f"the {name} regen occupancy differs from chunked")
+    return float(diff.max())
 
 
 @contextlib.contextmanager
@@ -2339,12 +2386,12 @@ def phase_regen_light(torch, device, card):
     log(f"regen vs chunked: mean rel {a['mean_rel']:.2e}, pixels close "
         f"{a['frac_close']:.4f}")
     check(a["ok"], "the LightTest regen breaks the image contract against chunked")
-    check_regen_vs_chunked(torch, "LightTest", img, stats, cimg, cstats)
+    max_diff = check_regen_vs_chunked(torch, "LightTest", img, stats, cimg, cstats)
     os.makedirs(OUT_DIR, exist_ok=True)
     png = os.path.join(OUT_DIR, f"LightTest_regen_{W}x{H}_{spp}spp.png")
     write_png(png, to_rgb8(img_np))
     log(f"wrote {png}")
-    return dict(k1_launches=counts["K1"], max_abs_err=err)
+    return dict(k1_launches=counts["K1"], max_abs_err=err, vs_chunked=max_diff)
 
 
 def phase_regen_spherefield(torch, device, card, scenes):
@@ -2392,9 +2439,10 @@ def phase_regen_spherefield(torch, device, card, scenes):
     err = 0.0
     for i in at:  # the draw kernel against its plain version on the render's pool
         check(i in calls, f"bounce iteration {i} of the second render was not captured")
-        (keys, depth, with_roulette), _ = calls[i]
-        bad, e = _draws_mismatches(torch, device, draws.bounce_draws(keys, depth, with_roulette),
-                                   draws.bounce_draws_plain(keys, depth, with_roulette))
+        (keys, depth, with_roulette, *scheme), _ = calls[i]
+        bad, e = _draws_mismatches(
+            torch, device, draws.bounce_draws(keys, depth, with_roulette, *scheme),
+            draws.bounce_draws_plain(keys, depth, with_roulette, *scheme))
         err = max(err, e)
         log(f"bounce iteration {i}: pool of {keys.shape[1]} lanes at depths "
             f"{int(depth.min())}-{int(depth.max())}; lanes where the draw kernel differs "
@@ -2475,7 +2523,7 @@ def phase_sf_frame_hoisted(torch, device, card, scenes):
     settings = RenderSettings(W, H, spp, nb, SF_BG)
     table = {}
 
-    def hoisted(keys, bounce, with_roulette):
+    def hoisted(keys, bounce, with_roulette, rng_scheme="legacy"):
         if bounce == 0:
             table.update(integrator._precompute_draws(_lane_keys(keys), nb, nb + 1))
         return table["sphere_u"][bounce], table["ball_u"][bounce], table["coin"][bounce], None
@@ -3785,6 +3833,567 @@ def phase_inverse(torch, device, card):
 
 
 # ---------------------------------------------------------------------------
+# phases 38-41: the packed RNG scheme (K1 and the draw kernel) and the
+# geometry gradient (diff_t="rederive": K4 and K5, then autograd)
+# ---------------------------------------------------------------------------
+
+PACKED = "packed"
+# phase 40: the bench step's shape; phase 41: SphereField's own width
+GEOM = dict(BENCH, seed=0)
+GEOM_HOLD_BOUNCES = (0, 10, 19)  # K4 held to its plain version on these pools
+# phase 40's step against the analytic (fused) step: the port's JAX
+# tolerances (tests/test_torch_generic_grad.py)
+GEOM_LOSS_RTOL, GEOM_LEAF_RTOL, GEOM_LEAF_ATOL = 2e-3, 0.05, 2e-3
+PACKED_MEAN_RTOL = 0.01  # phase 39: packed against legacy, channel means and loss
+
+
+def _packed_time(torch, device, card, label, legacy, packed, plain, reps, kernels,
+                 bound_):
+    """One packed kernel against its legacy self (A B B A, blocks of
+    ``reps`` launches, CUDA events) and its packed plain twin; the packed
+    kernel's device time (profiler).  Returns the kernels-line numbers."""
+    ab = time_pair(torch, device, packed, legacy, reps)
+    pp = time_pair(torch, device, packed, plain, reps)
+    ms, leg = statistics.mean(ab["kernel"]), statistics.mean(ab["plain"])
+    dev_ms, held = _device_ms(torch, packed, reps, kernels)
+    leg_dev, leg_held = _device_ms(torch, legacy, reps, kernels)
+    p_ms = statistics.mean(pp["plain"])
+    log(f"{label} on {card}: packed {ms:.4f} ms per launch (legacy, packed, packed, "
+        f"legacy: {[round(x, 4) for x in ab['plain'][:1] + ab['kernel'] + ab['plain'][1:]]}"
+        f" ms; events), legacy {leg:.4f} ms ({leg / ms:.3f}x packed); device time packed "
+        f"{dev_ms:.4f} ms ({held} of {reps} launches), legacy {leg_dev:.4f} ms "
+        f"({leg_held} of {reps}; {leg_dev / dev_ms:.3f}x packed); packed plain version on "
+        f"the same CUDA tensors {p_ms:.4f} ms; bound {bound_[0]:.4f} ms ({bound_[1]})")
+    return dict(ms=ms, legacy_ms=leg, device_ms=(dev_ms, held, reps),
+                legacy_device_ms=leg_dev, plain_ms=p_ms, bound_ms=bound_[0],
+                bound_by=bound_[1])
+
+
+def phase_packed_kernels(torch, device, card, n_lanes, reps):
+    log(f"== phase 38: the packed scheme's K1, K1-res, K1 at per-lane depth and draw "
+        f"kernel vs their packed plain versions on {n_lanes} random lanes, bit for bit")
+    from rust_pathtracer_tpu_torch.integrator import T_MIN
+    from rust_pathtracer_tpu_torch.ops import draws
+    from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
+
+    cols_np, keys_np = random_lanes(n_lanes, seed=38)
+    scene = full_scene(device)
+    state, keys = _keyed_on(torch, cols_np, keys_np, device)
+    depth = torch.as_tensor(np.random.default_rng(38).integers(
+        0, REGEN_DEPTHS, n_lanes).astype(np.int32), device=device)
+    base = (fb.pack_prims_shaded(scene), torch.tensor((0.2, 0.1, 0.05), device=device),
+            scene.textures.perlin_seed, state, keys)
+    kw0 = dict(kinds=scene.kinds_static, mat_types=scene.mat_types,
+               tex_types=scene.tex_types, t_min=T_MIN, rng_scheme=PACKED)
+    cases = [(f"K1 packed, bounce {b}, roulette {rr}, residuals {res}", base + (b,),
+              dict(kw0, with_roulette=rr, want_residuals=res))
+             for b in (0, 7) for rr in (False, True) for res in (False, True)]
+    cases.append((f"K1 packed at per-lane depths 0-{REGEN_DEPTHS - 1}, roulette from "
+                  f"{REGEN_RR_START}", base + (depth,),
+                  dict(kw0, with_roulette=True, rr_start=REGEN_RR_START)))
+    err = {"K1": 0.0, "K1-res": 0.0}
+    for label, args, kw in cases:
+        runs = _keyed_runs(torch, args, kw)
+        _sync(torch, device)
+        bad = _keyed_mismatches(runs)
+        k_out, k_win, _ = runs["kernel"]
+        which = "K1-res" if kw.get("want_residuals") else "K1"
+        err[which] = max(err[which], float(np.abs(
+            k_out.view(np.float32).astype(np.float64)
+            - runs["plain"][0].view(np.float32)).max()))
+        log(f"{label}: lanes differing from the plain version {int(bad.sum())}; hits "
+            f"{int((k_win >= 0).sum())}, alive out "
+            f"{int((k_out[12].view(np.float32) > 0.5).sum())}")
+        check(not bad.any(), f"{label}: the kernel differs from its packed plain version")
+        legacy = fb.fused_bounce_keyed(*args, **dict(kw, rng_scheme="legacy"))
+        legacy = legacy[0] if isinstance(legacy, tuple) else legacy
+        check(not np.array_equal(legacy.cpu().numpy().view(np.int32), k_out),
+              f"{label}: the packed scheme drew the legacy stream")
+    d_err = 0.0
+    for label, bounce in ((DRAWS_SCALAR, 7), (DRAWS_PER_LANE, depth)):
+        bad, e = _draws_mismatches(torch, device,
+                                   draws.bounce_draws(keys, bounce, True, PACKED),
+                                   draws.bounce_draws_plain(keys, bounce, True, PACKED))
+        d_err = max(d_err, e)
+        log(f"draw kernel packed, {label}: lanes differing from the plain version "
+            f"{int(bad.sum())}")
+        check(not bad.any(), f"the packed draw kernel differs from its plain version "
+                             f"({label})")
+
+    out = {}
+    for name, b, res, kernels in (("K1", 7, False, ("fused_bounce_kernel",)),
+                                  ("K1-res", 7, True, ("fused_bounce_kernel",)),
+                                  ("K1 per-lane", depth, False, ("fused_bounce_kernel",))):
+        kw = dict(kw0, with_roulette=True, want_residuals=res,
+                  **({"rr_start": REGEN_RR_START} if name == "K1 per-lane" else {}))
+        args = base + (b,)
+        out[name] = _packed_time(
+            torch, device, card, f"{name} ({n_lanes} lanes, roulette)",
+            lambda a=args, k=kw: fb.fused_bounce_keyed(*a, **dict(k, rng_scheme="legacy")),
+            lambda a=args, k=kw: fb.fused_bounce_keyed(*a, **k),
+            lambda a=args, k=kw: fb.fused_bounce_keyed_plain(*a, **k), reps, kernels,
+            k1_bound(torch, args, {k: v for k, v in kw.items() if k != "want_residuals"},
+                     scene, residual_planes=10 if res else 0))
+        out[name]["max_abs_err"] = err["K1-res" if res else "K1"]
+    for name, bounce in (("draws " + DRAWS_SCALAR, 7), ("draws " + DRAWS_PER_LANE, depth)):
+        out[name] = _packed_time(
+            torch, device, card, f"{name} ({n_lanes} lanes, roulette)",
+            lambda b=bounce: draws.bounce_draws(keys, b, True),
+            lambda b=bounce: draws.bounce_draws(keys, b, True, PACKED),
+            lambda b=bounce: draws.bounce_draws_plain(keys, b, True, PACKED), reps,
+            ("bounce_draws_kernel",),
+            draws_bound(torch, keys, bounce, draws.N_ROWS + 1, packed=True))
+        out[name]["max_abs_err"] = d_err
+    return out
+
+
+def phase_packed_paths(torch, device, card, scenes, legacy_regen_diff):
+    log("== phase 39: the packed paths at full size: serving CornellBox, the bench "
+        "step, LightTest regen against chunked, the SphereField cascade")
+    from rust_pathtracer_tpu_torch.models import get_scene
+    from rust_pathtracer_tpu_torch.render import RenderSettings, render_radiance
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+    from rust_pathtracer_tpu_torch.wavefront import render_radiance_regen
+
+    out = {}
+    # serving CornellBox (phase 5's shape), packed against legacy
+    cfg = SERVE
+    sd = get_scene("CornellBox")
+    cb = sd.build(device=device)
+    cam = sd.camera_at(0.0, device=device)
+    key = prng_key(cfg["seed"], device=device)
+    serve = RenderSettings(cfg["width"], cfg["height"], cfg["spp"], cfg["bounces"],
+                           sd.output.image.background, spp_chunk=cfg["spp_chunk"])
+    packed = dataclasses.replace(serve, rng_scheme=PACKED)
+    render_radiance(cb, cam, packed, key, device=device)  # warm-up
+    walls = {}
+    for label, s in (("legacy", serve), ("packed", packed), ("packed", packed),
+                     ("legacy", serve)):
+        with count_threefry() as tf:
+            wall, (img, stats), counts = _timed_render(
+                torch, device, lambda s=s: render_radiance(cb, cam, s, key, device=device))
+        walls.setdefault(label, []).append(wall)
+        check(tf["loop"] == 0, f"the {label} serving loops called threefry in tensor ops")
+        check(counts["K1"] == stats.bounces > 0 and counts["K1-res"] == 0,
+              f"serving {label}: K1 launched {counts['K1']} times in {stats.bounces} "
+              "bounces")
+        if label == "packed":
+            out["serving_k1"], p_img = counts["K1"], img
+        else:
+            l_img = img
+    pm = p_img.double().mean(dim=(0, 1)).cpu().numpy()
+    lm = l_img.double().mean(dim=(0, 1)).cpu().numpy()
+    rel = np.abs(pm - lm) / lm
+    log(f"serving CornellBox on {card}: walls (legacy, packed, packed, legacy) "
+        f"{[round(w, 4) for w in walls['legacy'][:1] + walls['packed'] + walls['legacy'][1:]]}"
+        f" s; channel means packed {pm.tolist()} legacy {lm.tolist()}, relative gaps "
+        f"{rel.tolist()}; K1 launches {out['serving_k1']}")
+    check(np.isfinite(p_img.cpu().numpy()).all(), "the packed serving image is not finite")
+    check((rel <= PACKED_MEAN_RTOL).all(), "the packed serving image's channel means are "
+                                           "more than 1% from legacy's")
+    with capture_bounces(torch, (0, 10)) as calls:
+        render_radiance(cb, cam, packed, key, device=device)
+    check(calls and all(kw.get("rng_scheme") == PACKED for _, kw in calls.values()),
+          "a serving pool was not drawn packed")
+    out["k1_err"], _ = hold_pools(torch, device, "serving CornellBox packed", calls,
+                                  ("K1",))
+
+    # the bench-shaped step (phase 9's shape) under both schemes
+    W, H, spp, nb = BENCH["width"], BENCH["height"], BENCH["spp"], BENCH["bounces"]
+    steps = {}
+    for scheme in ("legacy", PACKED):
+        s = RenderSettings(W, H, spp, nb, (0.0, 0.0, 0.0), spp_chunk=spp,
+                           differentiable=True, rng_scheme=scheme)
+        leaves = _diff_leaves(torch, cb, CORNELL_CAM, s.background, device)
+        k0 = prng_key(0, device=device)
+
+        def step(s=s, leaves=leaves, k0=k0):
+            _zero_grads(leaves)
+            loss, stats = _diff_forward(cb, leaves, s, k0, device)
+            loss.backward()
+            return loss, stats
+
+        step()
+        _sync(torch, device)
+        reset_counts()
+        loss, _ = step()
+        _sync(torch, device)
+        counts = read_counts()
+        steps[scheme] = (float(loss.detach()), _leaf_grads(leaves), counts, step, leaves)
+        log(f"bench step {scheme}: loss {float(loss.detach()):.7f}, launches {counts}")
+        check(counts["K1-res"] == counts["K2"] == nb and counts["K1"] == 0,
+              f"the {scheme} bench step launched {counts}")
+    (l_loss, l_g, *_), (p_loss, p_g, p_counts, *_) = steps["legacy"], steps[PACKED]
+    check(all(np.isfinite(g).all() for g in p_g), "the packed step's gradients are not "
+                                                  "all finite")
+    check(abs(p_loss - l_loss) <= PACKED_MEAN_RTOL * abs(l_loss),
+          f"the packed step's loss {p_loss} is more than 1% from legacy's {l_loss}")
+    out["k1res_launches"] = p_counts["K1-res"]
+    meds = {}
+    for scheme in ("legacy", PACKED, PACKED, "legacy"):
+        med, spread, times = _batch_median(steps[scheme][3], steps[scheme][4], MAIN_STEP)
+        meds.setdefault(scheme, []).append((med, spread))
+    log(f"bench step on {card} (legacy, packed, packed, legacy; median s over batches of "
+        f"{MAIN_STEP['reps']}, spread): {meds['legacy'][0]}, {meds[PACKED]}, "
+        f"{meds['legacy'][1]}; loss gap {abs(p_loss - l_loss) / abs(l_loss):.3e}")
+
+    # LightTest regen against chunked, both packed (phase 21's shape)
+    cfg = REGEN
+    sd = get_scene("LightTest")
+    lt = sd.build(device=device)
+    cam = sd.camera_at(0.0, device=device)
+    key = prng_key(cfg["seed"], device=device)
+    s = RenderSettings(cfg["width"], cfg["height"], cfg["spp"], cfg["bounces"],
+                       sd.output.image.background, rng_scheme=PACKED)
+    wall, (img, stats), counts = _timed_render(
+        torch, device, lambda: render_radiance_regen(lt, cam, s, key, device=device))
+    out["regen_k1"] = counts["K1"]
+    check(counts["K1"] == stats.bounces > 0, f"the packed regen launched {counts}")
+    cwall, (cimg, cstats), _ = _timed_render(
+        torch, device, lambda: render_radiance(lt, cam, s, key, device=device))
+    diff = check_regen_vs_chunked(torch, "LightTest packed", img, stats, cimg, cstats)
+    log(f"LightTest packed on {card}: regen {wall:.3f} s, chunked {cwall:.3f} s; regen "
+        f"vs chunked max abs {diff:.3e} (legacy, phase 21: {legacy_regen_diff:.3e})")
+    check(diff <= max(legacy_regen_diff, 1.2e-7),
+          "the packed regen is further from chunked than the legacy one")
+
+    # the SphereField cascade (phase 25's shape and explicit schedule), packed
+    cfg = CASCADE_SF
+    sd, sf = scenes["SphereField"]
+    cam = sd.camera_at(0.0, device=device)
+    key = prng_key(cfg["seed"], device=device)
+    s = RenderSettings(cfg["width"], cfg["height"], cfg["spp"], cfg["bounces"], SF_BG,
+                       rng_scheme=PACKED)
+    casc = dataclasses.replace(s, cascade_schedule=CASCADE_SF_SCHEDULE)
+    _, (cimg, cstats), ccounts = _timed_render(
+        torch, device, lambda: render_radiance(sf, cam, s, key, device=device))
+    wall, (img, stats), counts = _timed_render(
+        torch, device, lambda: render_radiance(sf, cam, casc, key, device=device))
+    check_cascade_vs_chunked(torch, "SphereField packed", img, stats, cimg, cstats)
+    check(counts["draws"] == counts["K6"] == stats.bounces,
+          f"the packed cascade launched {counts}")
+    out["cascade_draws"] = counts["draws"]
+    with capture_bounces(torch, held_bounces(CASCADE_SF_SCHEDULE)) as calls:
+        render_radiance(sf, cam, casc, key, device=device)
+    out["cascade_err"], _ = hold_pools(torch, device, "SphereField cascade packed", calls,
+                                       ("K6", "draws"))
+    log(f"SphereField packed cascade {CASCADE_SF_SCHEDULE!r} on {card}: {wall:.4f} s, "
+        f"bit for bit chunked; launches {counts} (chunked {ccounts})")
+    return out
+
+
+def _geometry_step(torch, scene, leaves, data, settings, key, device):
+    """One step of loss = mean(img) with the DiffParams ``leaves`` and the
+    geometry leaf ``data`` (``scene.prims.data``): each leaf's ``.grad``
+    the step's gradient, zeros where the image does not depend on it."""
+    _zero_grads(leaves + [data])
+    loss, stats = _diff_forward(scene, leaves, settings, key, device)
+    grads = torch.autograd.grad(loss, leaves + [data], allow_unused=True)
+    for x, g in zip(leaves + [data], grads):
+        x.grad = torch.zeros_like(x) if g is None else g
+    return loss, stats
+
+
+def _geometry_leaves(torch, scene):
+    """``scene`` with ``prims.data`` a leaf, and the leaf."""
+    data = scene.prims.data.detach().clone().requires_grad_(True)
+    return dataclasses.replace(scene, prims=dataclasses.replace(scene.prims,
+                                                                data=data)), data
+
+
+@contextlib.contextmanager
+def capture_searches(torch):
+    """Wraps ``integrator.detached_search`` (K4, or K5 beyond 128
+    primitives): yields a list that gets one (o, d, hit, t, idx) a call,
+    clones, as a render runs."""
+    from rust_pathtracer_tpu_torch import integrator
+
+    fn, calls = integrator.detached_search, []
+
+    def run(scene, table, o, d):
+        hit, t, idx = fn(scene, table, o, d)
+        calls.append((o.clone(), d.clone(), hit.clone(), t.clone(), idx.clone()))
+        return hit, t, idx
+
+    integrator.detached_search = run
+    try:
+        yield calls
+    finally:
+        integrator.detached_search = fn
+
+
+def rederive_mismatches(torch, scene, calls):
+    """Over the captured searches, the re-derived t (``prim_intersect_t``
+    on the winner's row) against the search's t on the hit lanes: {hits,
+    differ: lanes where a bit differs, invalid: lanes the re-derivation
+    calls a miss, max_rel: the largest relative gap}."""
+    from rust_pathtracer_tpu_torch.integrator import T_MAX, T_MIN
+    from rust_pathtracer_tpu_torch.ops.intersect import gather_prim_rows, prim_intersect_t
+
+    out = dict(hits=0, differ=0, invalid=0, max_rel=0.0)
+    with torch.no_grad():
+        for o, d, hit, t, idx in calls:
+            kind, aux, data, _ = gather_prim_rows(scene.prims, idx)
+            t_re, valid = prim_intersect_t(kind, aux, data.detach(), o, d, T_MIN, T_MAX,
+                                           scene.prim_types)
+            out["hits"] += int(hit.sum())
+            out["differ"] += int((hit & (t_re.view(torch.int32) != t.view(torch.int32))).sum())
+            out["invalid"] += int((hit & ~valid).sum())
+            ok = hit & valid
+            if bool(ok.any()):
+                rel = ((t_re.double() - t.double()).abs() / t.double().abs())[ok]
+                out["max_rel"] = max(out["max_rel"], float(rel.max()))
+    return out
+
+
+def gather_backward_ms(torch, device, idx, reps):
+    """The geometry step's row-gather backward, as autograd runs it for
+    ``prims.data[idx]``: an ``index_put_(accumulate=True)`` of (R, 12)
+    cotangents into the (P, 12) rows, timed alone (CUDA events, mean of
+    ``reps``) and run twice on one input: (ms, bitwise repeatable)."""
+    P = int(idx.max()) + 1
+    g = torch.as_tensor(np.random.default_rng(40).normal(size=(idx.shape[0], 12))
+                        .astype(np.float32), device=device)
+    idx = idx.long()
+
+    def run():
+        return torch.zeros((P, 12), device=device).index_put_((idx,), g, accumulate=True)
+
+    same = torch.equal(run(), run())
+    return _time_ms(torch, device, run, reps), same
+
+
+def _index_backward_ms(torch, step):
+    """One profiled ``step``: the device time of the CUDA kernels whose
+    name holds "index" (the row gathers' backward, ``index_put_`` with
+    accumulate, and the forward gathers), by kernel name, as a string."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    rows = [a for a in prof.key_averages()
+            if a.device_type.name == "CUDA" and "index" in a.key.lower()]
+    if not rows:
+        return "no kernel whose name holds 'index' in the trace"
+    return "; ".join(
+        f"{a.key[:60]}: {a.count} launches, "
+        f"{getattr(a, 'device_time_total', getattr(a, 'cuda_time_total', 0.0)) / 1e3:.3f} ms"
+        for a in sorted(rows, key=lambda a: -getattr(a, "device_time_total",
+                                                     getattr(a, "cuda_time_total", 0.0))))
+
+
+def phase_geometry_step(torch, device, card):
+    cfg = GEOM
+    W, H, spp, nb = cfg["width"], cfg["height"], cfg["spp"], cfg["bounces"]
+    lanes = W * H * spp
+    log(f"== phase 40 (main path of the slice): the geometry-gradient step, CornellBox "
+        f"{W}x{H}, {spp} spp, {nb} bounces, loss = mean(img), diff_t='rederive', "
+        f"scene.prims.data a leaf beside the DiffParams leaves; K4 and the draw kernel")
+    from rust_pathtracer_tpu_torch.integrator import T_MIN, resolve_remat_mode
+    from rust_pathtracer_tpu_torch.models import get_scene
+    from rust_pathtracer_tpu_torch.ops import closest_hit as ch
+    from rust_pathtracer_tpu_torch.ops.closest_hit import closest_hit_plain, pack_prims
+    from rust_pathtracer_tpu_torch.render import RenderSettings
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+
+    base = get_scene("CornellBox").build(device=device)
+    scene, data = _geometry_leaves(torch, base)
+    analytic = RenderSettings(W, H, spp, nb, (0.0, 0.0, 0.0), spp_chunk=spp,
+                              differentiable=True)
+    rederive = dataclasses.replace(analytic, diff_t="rederive")
+    key = prng_key(cfg["seed"], device=device)
+    leaves = _diff_leaves(torch, base, CORNELL_CAM, analytic.background, device)
+
+    def step():
+        return _geometry_step(torch, scene, leaves, data, rederive, key, device)
+
+    t0 = time.perf_counter()
+    loss0, _ = step()
+    _sync(torch, device)
+    log(f"first step {time.perf_counter() - t0:.3f} s (remat "
+        f"{resolve_remat_mode(None, lanes, nb)!r})")
+    g0 = _leaf_grads(leaves + [data])
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    reset_counts()
+    with capture_searches(torch) as calls:
+        loss, stats = step()
+        _sync(torch, device)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    grads = _leaf_grads(leaves + [data])
+    gd = grads[-1]
+    log(f"one step: loss {float(loss.detach()):.7f}, segments {float(stats.segments):.0f}, "
+        f"launches {counts}, peak memory {peak / 1e9:.3f} GB ({(peak - mem0) / 1e9:.3f} "
+        f"GB above the {mem0 / 1e9:.3f} GB before it)")
+    check(counts["K4"] == counts["draws"] == nb, f"K4 and the draw kernel launched "
+          f"{counts['K4']} and {counts['draws']} times, want {nb}")
+    check(all(counts[k] == 0 for k in ("K1", "K1-res", "K2", "K3", "K5", "K6", "K7")),
+          "the geometry step left the generic route (K1 or another search launched)")
+    same = (float(loss0.detach()) == float(loss.detach()) and all(np.array_equal(a, b)
+                                                for a, b in zip(g0, grads)))
+    log(f"two steps on one key: loss, DiffParams and prims.data gradients bitwise "
+        f"equal: {same}")
+    check(same, "two geometry steps on one key differ")
+    check(all(np.isfinite(g).all() for g in grads), "non-finite gradients")
+    log(f"prims.data gradient: |g| max {np.abs(gd).max():.3e}, nonzero entries "
+        f"{int(np.count_nonzero(gd))} of {gd.size}; spheres (rows 18, 19) "
+        f"{gd[18:20, 0:4].tolist()}, the light rect's k {gd[4, 0]:.3e}")
+    # every texture of CornellBox is a solid colour: under the
+    # detached-sampling estimator the image is piecewise constant in the
+    # geometry, and the gradient is zero, as JAX's is
+    # (tests/test_torch_geometry_grad.py)
+    check(not gd.any(), "CornellBox's prims.data gradient is not zero")
+
+    rd = rederive_mismatches(torch, scene, calls)
+    log(f"re-derived t against K4's t over the step's {len(calls)} searches: "
+        f"{rd['differ']} of {rd['hits']} hit lanes differ, {rd['invalid']} called a miss")
+    check(len(calls) == nb and rd["differ"] == rd["invalid"] == 0,
+          "the re-derived t differs from K4's")
+    table = pack_prims(scene.prims)
+    err = 0.0
+    for b in GEOM_HOLD_BOUNCES:
+        o, d, hit, t, idx = calls[b]
+        kw = dict(kinds=scene.kinds_static, t_min=T_MIN)
+        got, want = ch.closest_hit(table, o, d, **kw), closest_hit_plain(table, o, d, **kw)
+        _sync(torch, device)
+        diff = sum(int((x.view(torch.int32) != y.view(torch.int32)).sum())
+                   if x.dtype == torch.float32 else int((x != y).sum())
+                   for x, y in zip(got, want))
+        same_as_step = all(torch.equal(x, y) for x, y in zip(got, (hit, t, idx)))
+        err = max(err, float((got[1] - want[1]).abs().max()))
+        log(f"K4 on the step's pool of bounce {b} ({o.shape[0]} lanes, {int(hit.sum())} "
+            f"hits): elements differing from the plain version {diff}; the step's "
+            f"result again {same_as_step}")
+        check(diff == 0 and same_as_step, f"K4 differs from its plain version on the "
+                                          f"pool of bounce {b}")
+
+    # against the analytic (fused) step of the same leaves
+    def analytic_step():
+        _zero_grads(leaves)
+        loss, _ = _diff_forward(base, leaves, analytic, key, device)
+        loss.backward()
+        return loss
+
+    reset_counts()
+    a_loss = float(analytic_step().detach())
+    a_g = _leaf_grads(leaves)
+    a_counts = read_counts()
+    check(a_counts["K1-res"] == nb and a_counts["K4"] == 0,
+          f"the analytic step left the fused route: {a_counts}")
+    gap = abs(float(loss) - a_loss) / abs(a_loss)
+    log(f"analytic (fused) step: loss {a_loss:.7f}, the rederive loss's gap {gap:.3e}")
+    check(gap <= GEOM_LOSS_RTOL, "the rederive loss is more than 2e-3 from the analytic")
+    for name, g, ga in zip(LEAF_NAMES, grads[:-1], a_g):
+        scale = np.abs(ga).max()
+        worst = float(np.max(np.abs(g - ga) - GEOM_LEAF_RTOL * np.abs(ga))) / max(scale,
+                                                                                 1e-30)
+        log(f"  {name}: |g| max {scale:.3e}, the rederive step's worst excess over rtol "
+            f"{GEOM_LEAF_RTOL} of {worst:.3e} x |g| max (bound {GEOM_LEAF_ATOL})")
+        check(np.allclose(g, ga, rtol=GEOM_LEAF_RTOL, atol=GEOM_LEAF_ATOL * scale),
+              f"the rederive step's {name} gradient is far from the analytic one")
+
+    med, spread, times = _batch_median(step, leaves, MAIN_STEP)
+    a_med, a_spread, _ = _batch_median(lambda: (analytic_step(), None), leaves,
+                                             MAIN_STEP)
+    g_ms, g_same = gather_backward_ms(torch, device, calls[0][4], 20)
+    log(f"geometry step on {card}: median {med * 1e3:.2f} ms over {len(times)} batches of "
+        f"{MAIN_STEP['reps']} (spread {spread:.3f}; batches "
+        f"{[round(t * 1e3, 2) for t in times]} ms); the analytic (fused) step "
+        f"{a_med * 1e3:.2f} ms (spread {a_spread:.3f}); peak memory {peak / 1e9:.3f} GB; "
+        f"the row-gather backward (index_put_ accumulate, {lanes} lanes into "
+        f"{scene.num_prims} rows) {g_ms:.4f} ms a bounce, {g_ms * nb:.3f} ms a step, "
+        f"bitwise repeatable {g_same}")
+    check(g_same, "the row-gather backward is not repeatable")
+    in_step = _index_backward_ms(torch, step)
+    log(f"in the step's backward (profiler): {in_step}")
+    out = dict(ms=med * 1e3, analytic_ms=a_med * 1e3, peak_gb=peak / 1e9,
+               gather_ms=g_ms, k4_launches=counts["K4"], max_abs_err=err)
+
+    # where the image does change with the geometry: TwoSphereCheckers'
+    # perlin sphere, at phase 12's shape
+    cfg = MAIN
+    tsc, tdata = _geometry_leaves(torch, get_scene("TwoSphereCheckers").build(device=device))
+    s = RenderSettings(cfg["width"], cfg["height"], cfg["spp"], cfg["bounces"], TSC_BG,
+                       differentiable=True, diff_t="rederive")
+    tleaves = _diff_leaves(torch, tsc, TSC_CAM, TSC_BG, device)
+    tkey = prng_key(cfg["seed"], device=device)
+    tg = []
+    for _ in range(2):
+        _zero_grads(tleaves + [tdata])
+        reset_counts()
+        t0 = time.perf_counter()
+        tloss, _ = _diff_forward(tsc, tleaves, s, tkey, device)
+        tloss.backward()
+        _sync(torch, device)
+        tg.append(tdata.grad.cpu().numpy())
+        log(f"TwoSphereCheckers geometry step {cfg['width']}x{cfg['height']}: "
+            f"{time.perf_counter() - t0:.3f} s, launches {read_counts()}")
+    log(f"TwoSphereCheckers prims.data gradient (centre, radius): {tg[0][:, 0:4].tolist()}")
+    check(np.array_equal(tg[0], tg[1]), "two TwoSphereCheckers geometry steps differ")
+    check(np.isfinite(tg[0]).all() and (np.abs(tg[0][:, 0:3]).max(axis=1) > 0).all()
+          and (tg[0][:, 3] != 0).all(),
+          "a TwoSphereCheckers sphere's centre or radius has no gradient")
+    return out
+
+
+def phase_geometry_spherefield(torch, device, card, scenes):
+    cfg = SF
+    W, H, spp, nb = cfg["width"], cfg["height"], cfg["spp"], cfg["bounces"]
+    log(f"== phase 41: the geometry gradient on a big scene, SphereField {W}x{H}, "
+        f"{spp} spp, {nb} bounces, diff_t='rederive', K5 the search")
+    from rust_pathtracer_tpu_torch.render import RenderSettings
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+
+    sd, sf = scenes["SphereField"]
+    scene, data = _geometry_leaves(torch, sf)
+    s = RenderSettings(W, H, spp, nb, SF_BG, differentiable=True, diff_t="rederive")
+    key = prng_key(cfg["seed"], device=device)
+    leaves = _diff_leaves(torch, sf, SF_CAM, SF_BG, device)
+
+    def step():
+        return _geometry_step(torch, scene, leaves, data, s, key, device)
+
+    t0 = time.perf_counter()
+    step()
+    _sync(torch, device)
+    first = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with capture_searches(torch) as calls:
+        loss, stats = step()
+        _sync(torch, device)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    g = data.grad
+    spheres = scene.prims.kind == 0
+    gc = g[spheres, 0:3]
+    log(f"one step: loss {float(loss.detach()):.7f}, launches {counts}, peak memory "
+        f"{peak / 1e9:.3f} GB; the spheres' centres' gradient: finite "
+        f"{bool(torch.isfinite(gc).all())}, |g| max {float(gc.abs().max()):.3e}")
+    check(counts["K5"] == counts["draws"] == nb, f"K5 launched {counts['K5']} times")
+    check(all(counts[k] == 0 for k in ("K1", "K1-res", "K2", "K3", "K4", "K6", "K7")),
+          "the SphereField geometry step left its route")
+    check(bool(torch.isfinite(g).all()), "non-finite prims.data gradient")
+    # K5 compares spheres in the q domain (t |d|^2, projected.py), so its t
+    # and the re-derived one part by an ulp or two; none may turn a miss
+    rd = rederive_mismatches(torch, scene, calls)
+    log(f"re-derived t against K5's t: {rd['differ']} of {rd['hits']} hit lanes differ "
+        f"in a bit (largest relative gap {rd['max_rel']:.3e}), {rd['invalid']} called a "
+        "miss")
+    check(rd["invalid"] == 0 and rd["max_rel"] <= 1e-6,
+          "the re-derived t is far from K5's, or calls a hit a miss")
+    med, spread, times = _batch_median(step, leaves, MAIN_STEP)
+    log(f"SphereField geometry step on {card}: first {first:.3f} s, median "
+        f"{med * 1e3:.2f} ms over {len(times)} batches of {MAIN_STEP['reps']} (spread "
+        f"{spread:.3f}), peak memory {peak / 1e9:.3f} GB")
+    return dict(ms=med * 1e3, peak_gb=peak / 1e9, k5_launches=counts["K5"], **rd)
+
+
+# ---------------------------------------------------------------------------
 # shared helpers: launch counts, batches, splits, bounds
 # ---------------------------------------------------------------------------
 
@@ -3990,7 +4599,9 @@ def k1_bound(torch, args, kw, scene, residual_planes):
     lambertian lane draws 2 uniforms, a metal 3, a dielectric 1 (with
     residuals every lane draws the coin in a scene with a dielectric),
     a continuing lane 1 more under roulette (at a per-lane depth, only
-    from ``rr_start`` on); a per-lane depth is read once too."""
+    from ``rr_start`` on); a per-lane depth is read once too.  Under the
+    packed scheme a lane runs only the blocks that hold its words: a
+    lambertian 1, a metal 2, a dielectric coin 1, roulette 1."""
     from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
     from rust_pathtracer_tpu_torch.scene.types import (
         MAT_DIELECTRIC, MAT_LAMBERTIAN, MAT_METAL,
@@ -4011,8 +4622,13 @@ def k1_bound(torch, args, kw, scene, residual_planes):
     rr = kw["with_roulette"]
     per_lane = isinstance(bounce, torch.Tensor)
     rr_lanes = (out[12] > 0.5) & (bounce >= kw.get("rr_start", 0) if per_lane else True)
-    int_ops = (lanes_of(MAT_LAMBERTIAN) * draw_ops(2) + lanes_of(MAT_METAL) * draw_ops(3)
-               + (coins + (int(rr_lanes.sum()) if rr else 0)) * draw_ops(1))
+    singles = coins + (int(rr_lanes.sum()) if rr else 0)
+    if kw.get("rng_scheme", "legacy") == "packed":
+        int_ops = (lanes_of(MAT_LAMBERTIAN) * packed_ops(1, 2)
+                   + lanes_of(MAT_METAL) * packed_ops(2, 3) + singles * packed_ops(1, 1))
+    else:
+        int_ops = (lanes_of(MAT_LAMBERTIAN) * draw_ops(2)
+                   + lanes_of(MAT_METAL) * draw_ops(3) + singles * draw_ops(1))
     planes_out = 13 + residual_planes + (1 if residual_planes and rr else 0)
     in_bytes = nbytes(table, bg, state, keys) + (nbytes(bounce) if per_lane else 0)
     return bound(in_bytes + planes_out * 4 * R, sweep_ops(scene.kinds_static, R), int_ops)
@@ -4033,6 +4649,7 @@ PEAK_INT32_PER_S = 128 * 132 * 1.98e9
 # five injections of 3) and of turning its words into a uniform (xor,
 # shift, or)
 THREEFRY_BLOCK_OPS, THREEFRY_UNIFORM_OPS = 79, 3
+PACKED_UNIFORM_OPS = 3
 # f32 operations a lane spends on one primitive in the sweep of K1, K3
 # and K4, counted from the kernel sources (divisions and square roots
 # count one; compares and selects none): a lower bound of the work
@@ -4064,6 +4681,13 @@ def draw_ops(n_uniforms):
     """int32 operations of drawing ``n_uniforms`` of one purpose: the
     purpose's key (one block), then one block and its bits a uniform."""
     return THREEFRY_BLOCK_OPS * (1 + n_uniforms) + THREEFRY_UNIFORM_OPS * n_uniforms
+
+
+def packed_ops(n_blocks, n_words):
+    """Operations of the packed scheme's draws: ``n_blocks`` counter-mode
+    blocks (no purpose key) and ``n_words`` words made uniforms (a shift,
+    a conversion and a product each)."""
+    return THREEFRY_BLOCK_OPS * n_blocks + PACKED_UNIFORM_OPS * n_words
 
 
 def sweep_ops(kinds, lanes, record=False):
@@ -4164,6 +4788,22 @@ def main() -> int:
         t_drv.append(time.perf_counter())
         log(f"phase {n} took {t_drv[-1] - t_drv[-2]:.1f} s")
     log(f"phases 35-37 (the command-line surface) took {t_drv[-1] - t_drv[0]:.1f} s")
+    t_slice = [time.perf_counter()]
+
+    def took_slice(n):
+        t_slice.append(time.perf_counter())
+        log(f"phase {n} took {t_slice[-1] - t_slice[-2]:.1f} s")
+
+    pk = phase_packed_kernels(torch, device, card, K1_LANES, reps=20)
+    took_slice(38)
+    pp = phase_packed_paths(torch, device, card, scenes, regen["vs_chunked"])
+    took_slice(39)
+    geo = phase_geometry_step(torch, device, card)
+    took_slice(40)
+    geo_sf = phase_geometry_spherefield(torch, device, card, scenes)
+    took_slice(41)
+    log(f"phases 38-41 (the packed scheme and the geometry gradient) took "
+        f"{t_slice[-1] - t_slice[0]:.1f} s")
 
     def sweep_err(kernel, main):
         errs = [main["max_abs_err"]] + [v["max_abs_err"] for (_, k), v in ph14.items()
@@ -4172,7 +4812,7 @@ def main() -> int:
         return max(errs)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound_,
-              device_ms=None, later=None, random=None):
+              device_ms=None, later=None, random=None, **extra):
         # ms: CUDA events around the wrapper; device_ms: the kernel's own
         # device time (torch.profiler), where measured, and
         # device_ms_launches: [launches in its trace, launches asked for];
@@ -4193,7 +4833,15 @@ def main() -> int:
                 "replaces": f"rust_pathtracer_tpu/ops/{replaces}", "launches": launches,
                 "max_abs_err": err, "ms": ms, **dev,
                 "plain_ms": plain_ms, "bound_ms": bound_[0], "bound_by": bound_[1],
-                "library_ms": None, **b2}
+                "library_ms": None, **b2, **extra}
+
+    def packed_entry(name, replaces, launches, err, t, **extra):
+        # phase 38's 1M random lanes, timed beside the legacy kernel in one
+        # call (legacy_ms); launches: phase 39's packed paths
+        return entry(name, "fused_bounce.cu" if "K1" in name else "draws.cu", replaces,
+                     launches, err, t["ms"], t["plain_ms"], (t["bound_ms"], t["bound_by"]),
+                     t["device_ms"], legacy_ms=t["legacy_ms"],
+                     legacy_device_ms=t["legacy_device_ms"], rng_scheme=PACKED, **extra)
 
     kernels = {"kernels": [
         entry("fused_bounce (K1)", "fused_bounce.cu", "fused_bounce.py:169",
@@ -4211,12 +4859,17 @@ def main() -> int:
               k3["ms"], k3["plain_ms"], (k3["bound_ms"], k3["bound_by"]),
               k3["device_ms"], random=ch10["K3"]),
         entry("closest_hit (K4)", "closest_hit.cu", "pallas_intersect.py:64",
-              k4["launches"], max(k4["max_abs_err"], ch10["K4"]["max_abs_err"]),
+              k4["launches"], max(k4["max_abs_err"], ch10["K4"]["max_abs_err"],
+                                  geo["max_abs_err"]),
               k4["ms"], k4["plain_ms"], (k4["bound_ms"], k4["bound_by"]),
-              k4["device_ms"], random=ch10["K4"]),
+              k4["device_ms"], random=ch10["K4"],
+              # phase 40's geometry step (diff_t="rederive"): K4's launches
+              rederive_launches=geo["k4_launches"]),
         entry("projected_sweep (K5)", "projected.cu", "projected.py:455",
               k5["launches"], sweep_err("K5", k5), k5["ms"], k5["plain_ms"],
-              (k5["bound_ms"], k5["bound_by"]), later=k5["later"]),
+              (k5["bound_ms"], k5["bound_by"]), later=k5["later"],
+              # phase 41's geometry step (diff_t="rederive"): K5's launches
+              rederive_launches=geo_sf["k5_launches"]),
         entry("resident_sweep (K6)", "projected.cu", "resident.py:69",
               k6["launches"], sweep_err("K6", k6), k6["ms"], k6["plain_ms"],
               (k6["bound_ms"], k6["bound_by"]), later=k6["later"]),
@@ -4243,6 +4896,22 @@ def main() -> int:
                       "kernel)",
              scalar={k: dr[DRAWS_SCALAR][k] for k in ("ms", "plain_ms", "bound_ms",
                                                        "bound_by")}),
+        packed_entry("fused_bounce packed (K1)", "fused_bounce.py:169", pp["serving_k1"],
+                     max(pk["K1"]["max_abs_err"], pp["k1_err"]), pk["K1"],
+                     per_lane={k: pk["K1 per-lane"][k]
+                               for k in ("ms", "legacy_ms", "plain_ms", "bound_ms",
+                                         "bound_by")},
+                     per_lane_launches=pp["regen_k1"]),
+        packed_entry("fused_bounce with residuals packed (K1-res)", "fused_bounce.py:464",
+                     pp["k1res_launches"], pk["K1-res"]["max_abs_err"], pk["K1-res"]),
+        dict(packed_entry("bounce_draws packed", "", pp["cascade_draws"],
+                          max(pk["draws " + DRAWS_PER_LANE]["max_abs_err"],
+                              pp["cascade_err"]), pk["draws " + DRAWS_PER_LANE],
+                          scalar={k: pk["draws " + DRAWS_SCALAR][k]
+                                  for k in ("ms", "legacy_ms", "plain_ms", "bound_ms",
+                                            "bound_by")}),
+             replaces="rust_pathtracer_tpu/sampling.py:164 (scatter_uniforms, XLA's "
+                      "threefry; no Pallas kernel)"),
     ]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,25 @@ The parameters are frozen dataclasses of tensors (not ``nn.Module``s):
 set ``requires_grad`` on the leaves, or let ``render_loss_and_grad``
 do it.
 
+Gradients of the primitive geometry (the JAX package's
+``RPT_DIFF_T=rederive``): ``DiffParams`` has no geometry leaf, as in JAX.
+Make ``scene.prims.data`` a leaf and set ``RenderSettings.diff_t =
+"rederive"``::
+
+    data = scene.prims.data.clone().requires_grad_(True)
+    scene = dataclasses.replace(
+        scene, prims=dataclasses.replace(scene.prims, data=data))
+    settings = dataclasses.replace(settings, diff_t="rederive")
+    loss, grads = render_loss_and_grad(params, scene, settings, key, target,
+                                       device="cuda")
+    # data.grad: d loss / d (prims.data), as after loss.backward()
+
+Under the detached-sampling estimator only what changes continuously
+with the hit point carries it (a perlin or image texture, and the
+points of paths that reach one): on a scene of solid colours the image
+is piecewise constant in the geometry and the gradient is zero, in JAX
+as here.
+
 Typical use::
 
     params = DiffParams.from_scene(scene, CameraParams.create(...), background)
@@ -149,11 +168,18 @@ def l2_loss(params: DiffParams, scene, settings, key, target, *,
 def render_loss_and_grad(params: DiffParams, scene, settings, key, target, *,
                          device) -> Tuple[torch.Tensor, DiffParams]:
     """(loss, dloss/dparams), the inverse-rendering training step.  The
-    gradients come as a DiffParams on the leaves' devices."""
+    gradients come as a DiffParams on the leaves' devices.  A
+    ``scene.prims.data`` that requires grad (``settings.diff_t =
+    "rederive"``) gets its gradient added into its ``.grad``, as by
+    ``loss.backward()``."""
     leaves = [x.detach().requires_grad_(True) for x in params.leaves()]
     loss = l2_loss(DiffParams.from_leaves(leaves), scene, settings, key,
                    target, device=device)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    data = scene.prims.data
+    extra = [data] if data.requires_grad else []
+    grads = torch.autograd.grad(loss, leaves + extra, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g
-             for x, g in zip(leaves, grads)]
-    return loss.detach(), DiffParams.from_leaves(grads)
+             for x, g in zip(leaves + extra, grads)]
+    if extra:
+        data.grad = grads[-1] if data.grad is None else data.grad + grads[-1]
+    return loss.detach(), DiffParams.from_leaves(grads[:len(leaves)])

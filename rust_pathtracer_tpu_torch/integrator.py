@@ -41,16 +41,28 @@ alive; the differentiable ones run exactly ``max_bounces`` bounces.
 Optional russian roulette (off by default; the reference has none) runs
 between bounces.  t_min = 0.001 (ray.rs:25) is in units of |direction|.
 
+Two choices of the JAX package's environment are arguments here.
+``rng_scheme`` (``RPT_RNG_SCHEME``): the scatter draws' stream, "legacy"
+or "packed" (``sampling.bounce_draws``), passed to every draw site (K1,
+the draw kernel), so a trace never mixes them.  ``diff_t``
+(``RPT_DIFF_T``): the differentiable hit distance.  "analytic" (the
+default) linearises K4's t in the ray (``_analytic_t``); "rederive"
+re-intersects the winning primitive's row in plain tensor ops
+(``intersect.prim_intersect_t``), so autograd also carries the
+gradient of the geometry, ``scene.prims.data``, through t, the hit
+point, the normal and uv.  Under "rederive" the fused route is not
+taken (``fused_bounce_diff_ok``): CornellBox's differentiable step runs
+K4 and autograd, big scenes keep K5 as the detached search.
+
 ``trace_resume`` continues the forward loop of either route on a given
 wavefront state from any bounce; ``trace`` is its bounce-0 case, and
 the cascade renderer (``render.py``) calls it on each compacted slice.
 The regen wavefront (``wavefront.py``) runs the same two routes on a
 lane pool at per-lane depth.
 
-Not ported: the geometry-gradient re-derivation (``RPT_DIFF_T=rederive``),
-``remat="bf16"``, the diff cascade, the between-bounce wavefront
-reorder of big scenes (ROADMAP queue 1 items 8, 11 and 14; the reorder
-changes no per-lane result).
+Not ported: ``remat="bf16"``, the diff cascade, the between-bounce
+wavefront reorder of big scenes (ROADMAP queue 1; the reorder changes
+no per-lane result).
 """
 
 from __future__ import annotations
@@ -89,10 +101,14 @@ from rust_pathtracer_tpu_torch.ops.intersect import (
     PRIM_TRIANGLE,
     axis_onehot,
     gather_prim_rows,
+    prim_intersect_t,
     record_from_rows,
 )
 
 T_MIN = 1e-3  # ray.rs:25
+T_MAX = 1.0e30  # the re-derived hit distance's upper bound (JAX T_MAX)
+# the differentiable hit distance (JAX RPT_DIFF_T)
+DIFF_T_MODES = ("analytic", "rederive")
 # a dead lane's origin in the big-scene forward: no cluster's slab test
 # passes it, so it visits no cluster (integrator.py:256-259)
 PARKED_ORIGIN = 3.0e33
@@ -116,32 +132,26 @@ class TraceStats(NamedTuple):
     occupancy: torch.Tensor  # f32 (MAX_BOUNCE_STATS,): alive lanes per bounce
 
 
-def _precompute_draws(lane_keys, max_bounces, rr_start, start_bounce=0):
+def _precompute_draws(lane_keys, max_bounces, rr_start, start_bounce=0,
+                      rng_scheme="legacy"):
     """Per-bounce uniforms for bounces [start_bounce, max_bounces).
 
     The draws depend only on (lane key, bounce, purpose), never on the
     path state, so they are drawn for every bounce at once.  Returns a
     dict of (B, R, ...) tensors: ``sphere_u`` (B, R, 2), ``ball_u``
     (B, R, 3), ``coin`` (B, R) and, when roulette can fire,
-    ``roulette`` (B, R).  Bit-equal to the JAX legacy stream.  The JAX
-    package's hoisted form; the port's routes draw bounce by bounce (the
-    fused route inside K1, the generic route with ``bounce_draws``), and
-    the tests hold them to this.
+    ``roulette`` (B, R).  Bit-equal to the JAX stream of ``rng_scheme``.
+    The JAX package's hoisted form; the port's routes draw bounce by
+    bounce (the fused route inside K1, the generic route with
+    ``bounce_draws``), and the tests hold them to this.
     """
     rr = rr_start < max_bounces
     b = torch.arange(start_bounce, max_bounces, dtype=torch.int64,
                      device=lane_keys.device)[:, None]
-    out = dict(
-        sphere_u=sampling.uniform2(
-            sampling.bounce_keys(lane_keys, b, sampling.P_LAMBERT)),
-        ball_u=sampling.uniform3(
-            sampling.bounce_keys(lane_keys, b, sampling.P_FUZZ)),
-        coin=sampling.uniform(
-            sampling.bounce_keys(lane_keys, b, sampling.P_SCHLICK)),
-    )
+    su, bu, cn, rl = sampling.bounce_draws(lane_keys, b, rr, rng_scheme)
+    out = dict(sphere_u=su, ball_u=bu, coin=cn)
     if rr:
-        out["roulette"] = sampling.uniform(
-            sampling.bounce_keys(lane_keys, b, sampling.P_ROULETTE))
+        out["roulette"] = rl
     return out
 
 
@@ -222,13 +232,22 @@ def detached_search(scene, table, o, d):
     return hit, t, idx
 
 
-def _record_diff(scene, o, d, alive, hit, t_search, idx):
-    """The differentiable route's record from K4's (hit, t, idx):
-    ``_analytic_t`` and ``record_from_rows`` on the winner's primitive
-    row, so autograd carries the (o, d) derivative."""
-    t_det = torch.where(hit, t_search, torch.ones_like(t_search))
+def _record_diff(scene, o, d, alive, hit, t_search, idx, diff_t="analytic"):
+    """The differentiable route's record from K4's (or K5's) (hit, t, idx)
+    on the winner's primitive row: the hit distance by ``diff_t``, then
+    ``record_from_rows``.  "analytic": ``_analytic_t``, so autograd
+    carries the (o, d) derivative; "rederive": ``prim_intersect_t`` on the
+    row (JAX ``_find_hit``; its ``valid`` is not read, and a miss lane
+    takes t = 1), so it also carries the derivative of the row's
+    ``prims.data``."""
     kind, aux, data, mat = gather_prim_rows(scene.prims, idx)
-    t = _analytic_t(kind, aux, data, o, d, t_det, scene.prim_types)
+    if diff_t == "rederive":
+        t_re, _ = prim_intersect_t(kind, aux, data, o, d, T_MIN, T_MAX,
+                                   scene.prim_types)
+        t = torch.where(hit, t_re, torch.ones_like(t_re))
+    else:
+        t_det = torch.where(hit, t_search, torch.ones_like(t_search))
+        t = _analytic_t(kind, aux, data, o, d, t_det, scene.prim_types)
     hit = hit & alive
     return hit, record_from_rows(kind, aux, data, mat, idx, o, d, t, hit,
                                  scene.prim_types)
@@ -243,7 +262,7 @@ def _checkpointed(fn, *args):
 
 
 def _bounce_step(scene, table, state, draws_b, background, rr_u,
-                 differentiable=False, mode="none"):
+                 differentiable=False, mode="none", diff_t="analytic"):
     """One generic bounce; ``state`` is (o, d, thr, rad, alive) with
     (R, 3) vectors and a bool alive mask, ``draws_b`` this bounce's
     uniforms, ``rr_u`` the roulette uniforms or None.  Returns the new
@@ -255,7 +274,8 @@ def _bounce_step(scene, table, state, draws_b, background, rr_u,
     checkpoints the record, the shading inputs and the scatter
     separately, so only the values between them are kept; "names"
     checkpoints the whole bounce after the search, so only its inputs
-    and the search's result are kept."""
+    and the search's result are kept.  ``diff_t`` picks the hit distance
+    (``_record_diff``)."""
     o, d = state[0], state[1]
     if not differentiable:
         hit, rec, shade_row = search_and_record(scene, table, o, d, state[4])
@@ -264,14 +284,14 @@ def _bounce_step(scene, table, state, draws_b, background, rr_u,
     search = detached_search(scene, table, o.detach(), d.detach())
     if mode == "names":
         return _checkpointed(_bounce_diff, scene, state, search, draws_b,
-                             background, rr_u, _call)
+                             background, rr_u, _call, diff_t)
     return _bounce_diff(scene, state, search, draws_b, background, rr_u,
-                        _checkpointed if mode == "mid" else _call)
+                        _checkpointed if mode == "mid" else _call, diff_t)
 
 
-def _bounce_diff(scene, state, search, draws_b, background, rr_u, stage):
+def _bounce_diff(scene, state, search, draws_b, background, rr_u, stage, diff_t):
     o, d, _, _, alive = state
-    hit, rec = stage(_record_diff, scene, o, d, alive, *search)
+    hit, rec = stage(_record_diff, scene, o, d, alive, *search, diff_t)
     return _bounce_tail(scene, state, hit, rec, draws_b, background, rr_u, stage)
 
 
@@ -324,25 +344,28 @@ def _stats(alive, bounce, segments, occupancy):
 
 
 def _trace_generic(scene, state, keys, background, start_bounce, max_bounces,
-                   rr_start, segments, occupancy, differentiable=False, mode=None):
+                   rr_start, segments, occupancy, differentiable=False, mode=None,
+                   diff_t="analytic", rng_scheme="legacy"):
     """Bounces [start_bounce, max_bounces) of the generic route on ``state``
     = (o, d, thr, rad, alive); stops early once no lane is alive unless
-    ``differentiable``.  Returns (state, segments, occupancy, bounces
-    run)."""
+    ``differentiable``.  The search tables hold no gradient (``pack_prims``
+    packs the detached geometry; the projected tables are the scene's).
+    Returns (state, segments, occupancy, bounces run)."""
     table = scene.proj if scene.kinds_static is None else pack_prims(scene.prims)
     bounce = start_bounce
     while bounce < max_bounces and (differentiable or bool(state[4].any())):
         segments = _stats(state[4].to(torch.float32), bounce, segments, occupancy)
-        su, bu, coin, rr_u = bounce_draws(keys, bounce, bounce >= rr_start)
+        su, bu, coin, rr_u = bounce_draws(keys, bounce, bounce >= rr_start, rng_scheme)
         draws_b = dict(sphere_u=su, ball_u=bu, coin=coin)
         state = _bounce_step(scene, table, state, draws_b, background, rr_u,
-                             differentiable, mode)
+                             differentiable, mode, diff_t)
         bounce += 1
     return state, segments, occupancy, bounce - start_bounce
 
 
 def _trace_fused(scene, state, keys, background, start_bounce, max_bounces,
-                 rr_start, segments, occupancy, differentiable=False):
+                 rr_start, segments, occupancy, differentiable=False,
+                 rng_scheme="legacy"):
     """Bounces [start_bounce, max_bounces) of the fused route on the
     (13, R) ``state`` (rows in ``_COL_KEYS`` order).  Forward: one keyed
     K1 launch a bounce, until no lane is alive.  Differentiable: the
@@ -353,7 +376,7 @@ def _trace_fused(scene, state, keys, background, start_bounce, max_bounces,
             raise ValueError("the differentiable fused trace starts at bounce 0")
         cols, segments, occupancy = fused_scan_trace(
             scene, dict(zip(_COL_KEYS, state.unbind(0))), keys, background, T_MIN,
-            max_bounces, rr_start, MAX_BOUNCE_STATS)
+            max_bounces, rr_start, MAX_BOUNCE_STATS, rng_scheme)
         return (torch.stack([cols[k] for k in _COL_KEYS]), segments, occupancy,
                 max_bounces)
 
@@ -366,6 +389,7 @@ def _trace_fused(scene, state, keys, background, start_bounce, max_bounces,
             table, background, seed, state, keys, bounce,
             with_roulette=bounce >= rr_start, kinds=scene.kinds_static,
             mat_types=scene.mat_types, tex_types=scene.tex_types, t_min=T_MIN,
+            rng_scheme=rng_scheme,
         )
         bounce += 1
     return state, segments, occupancy, bounce - start_bounce
@@ -375,7 +399,8 @@ def trace_resume(scene, o, d, thr, rad, alive, lane_keys, background,
                  start_bounce: int, max_bounces: int,
                  russian_roulette_start: Optional[int] = None, *,
                  segments=None, occupancy=None, differentiable: bool = False,
-                 mode: Optional[str] = None):
+                 mode: Optional[str] = None, diff_t: str = "analytic",
+                 rng_scheme: str = "legacy"):
     """Continue the bounce loop on an explicit wavefront state over
     bounces [start_bounce, max_bounces) (JAX ``trace_resume``).
 
@@ -387,16 +412,19 @@ def trace_resume(scene, o, d, thr, rad, alive, lane_keys, background,
     carry the counts of the bounces before (zeros when None); the
     forward writes occupancy in place.  The route is ``trace``'s: keyed
     K1 on the fused scenes, else the generic bounce (K3, or K6 / K7 /
-    K5) with the draw kernel.  ``differentiable`` / ``mode`` serve
-    ``trace``'s differentiable loops, which start at bounce 0.  Returns
-    (state dict with o, d, thr, rad, alive, segments, occupancy;
-    bounces run)."""
-    if scene.prims.data.requires_grad:
+    K5) with the draw kernel, drawing under ``rng_scheme``.
+    ``differentiable`` / ``mode`` / ``diff_t`` serve ``trace``'s
+    differentiable loops, which start at bounce 0.  Returns (state dict
+    with o, d, thr, rad, alive, segments, occupancy; bounces run)."""
+    if diff_t not in DIFF_T_MODES:
+        raise ValueError(f"diff_t {diff_t!r}, want one of {DIFF_T_MODES}")
+    sampling.check_rng_scheme(rng_scheme)
+    if scene.prims.data.requires_grad and not (differentiable and diff_t == "rederive"):
         raise NotImplementedError(
-            "gradients of the primitive geometry (scene.prims.data) are not "
-            "ported: the hit distance is linearised in the ray only, so they "
-            "would come back zero (JAX RPT_DIFF_T=rederive; ROADMAP queue 1 "
-            "item 8)")
+            "a gradient of the primitive geometry (scene.prims.data) needs a "
+            'differentiable trace with diff_t="rederive": under "analytic" the '
+            "hit distance is linearised in the ray only, so it would come back "
+            "zero")
     dev = o.device
     if scene.device != dev:
         raise ValueError(f"scene on {scene.device}, rays on {dev}")
@@ -408,19 +436,20 @@ def trace_resume(scene, o, d, thr, rad, alive, lane_keys, background,
     if occupancy is None:
         occupancy = torch.zeros(MAX_BOUNCE_STATS, dtype=torch.float32, device=dev)
     keys = key_words(lane_keys)
-    if (fused_bounce_diff_ok if differentiable else fused_bounce_ok)(scene):
+    if fused_bounce_diff_ok(scene, diff_t) if differentiable else fused_bounce_ok(scene):
         state = torch.stack([o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2],
                              thr[:, 0], thr[:, 1], thr[:, 2],
                              rad[:, 0], rad[:, 1], rad[:, 2], alive.to(o.dtype)])
         state, segments, occupancy, n = _trace_fused(
             scene, state, keys, background, start_bounce, max_bounces, rr_start,
-            segments, occupancy, differentiable)
+            segments, occupancy, differentiable, rng_scheme)
         o, d, thr = state[0:3].T, state[3:6].T, state[6:9].T
         rad, alive = state[9:12].T.contiguous(), state[12] > 0.5
     else:
         (o, d, thr, rad, alive), segments, occupancy, n = _trace_generic(
             scene, (o, d, thr, rad, alive), keys, background, start_bounce,
-            max_bounces, rr_start, segments, occupancy, differentiable, mode)
+            max_bounces, rr_start, segments, occupancy, differentiable, mode,
+            diff_t, rng_scheme)
     return dict(o=o, d=d, thr=thr, rad=rad, alive=alive, segments=segments,
                 occupancy=occupancy), n
 
@@ -435,6 +464,8 @@ def trace(
     russian_roulette_start: Optional[int] = None,
     differentiable: bool = False,
     remat: Optional[str] = None,
+    diff_t: str = "analytic",
+    rng_scheme: str = "legacy",
 ):
     """Estimate radiance for a wavefront of rays.
 
@@ -445,12 +476,19 @@ def trace(
     ``differentiable`` runs exactly ``max_bounces`` bounces with autograd
     live: gradients reach origins, directions, the texture colours and
     image texels and the background (the detached-sampling estimator of
-    the JAX package).  A gradient of the primitive geometry
-    (``scene.prims.data.requires_grad``) raises: the hit distance is
-    linearised in (o, d) only, so it would come back zero.  ``remat``
-    ("none", "mid", "names", or None / "auto") applies to the generic
-    route (see ``resolve_remat_mode``); the fused route keeps its
-    residuals, 64-72 B a lane-bounce.
+    the JAX package).  ``diff_t`` ("analytic", the default, or
+    "rederive"; JAX ``RPT_DIFF_T``) picks the hit distance: with
+    "rederive" the winner is re-intersected in plain tensor ops, so a
+    gradient also reaches the primitive geometry when
+    ``scene.prims.data`` requires grad (on the generic route: K4, or K5
+    beyond 128 primitives, then autograd).  Under "analytic" such a leaf
+    raises, since the hit distance is linearised in (o, d) only and its
+    gradient would come back zero.  ``rng_scheme`` ("legacy", the
+    default, or "packed"; JAX ``RPT_RNG_SCHEME``) picks the stream of the
+    scatter draws on every route.  ``remat`` ("none", "mid", "names", or
+    None / "auto") applies to the generic route (see
+    ``resolve_remat_mode``); the fused route keeps its residuals, 64-72 B
+    a lane-bounce.
     """
     dev = origins.device
     R = origins.shape[0]
@@ -459,6 +497,6 @@ def trace(
         scene, origins, directions, torch.ones((R, 3), device=dev),
         torch.zeros((R, 3), device=dev), torch.ones(R, dtype=torch.bool, device=dev),
         lane_keys, background, 0, max_bounces, russian_roulette_start,
-        differentiable=differentiable, mode=mode)
+        differentiable=differentiable, mode=mode, diff_t=diff_t, rng_scheme=rng_scheme)
     return st["rad"], TraceStats(segments=st["segments"], bounces=n,
                                  occupancy=st["occupancy"])

@@ -43,13 +43,13 @@ _c_void_p, _c_int, _c_uint = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
     "fused_bounce": {
         # table, n_prims, bg, seed, t_min, mat_flags, tex_flags, in (13
-        # rows), keys (2 rows), bounce, roulette, depth (a per-lane bounce,
-        # or NULL), rr_start, out (13 rows), res (9 or 10 rows, or NULL),
-        # flags, winner (or NULL), n_lanes, stream
+        # rows), keys (2 rows), bounce, roulette, packed, depth (a per-lane
+        # bounce, or NULL), rr_start, out (13 rows), res (9 or 10 rows, or
+        # NULL), flags, winner (or NULL), n_lanes, stream
         "fused_bounce_launch": (
             [_c_void_p, _c_int, _c_void_p, _c_uint, ctypes.c_float, _c_int,
-             _c_int, _c_void_p, _c_void_p, _c_uint, _c_int, _c_void_p, _c_int,
-             _c_void_p, _c_void_p, _c_void_p, _c_void_p, ctypes.c_longlong,
+             _c_int, _c_void_p, _c_void_p, _c_uint, _c_int, _c_int, _c_void_p,
+             _c_int, _c_void_p, _c_void_p, _c_void_p, _c_void_p, ctypes.c_longlong,
              _c_void_p],
             _c_int,
         ),
@@ -70,10 +70,10 @@ SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
     },
     "draws": {
         # keys (2 rows), depth (a per-lane bounce, or NULL), bounce,
-        # roulette, out (6 or 7 rows), n_lanes, stream
+        # roulette, packed, out (6 or 7 rows), n_lanes, stream
         "bounce_draws_launch": (
-            [_c_void_p, _c_void_p, _c_uint, _c_int, _c_void_p, ctypes.c_longlong,
-             _c_void_p],
+            [_c_void_p, _c_void_p, _c_uint, _c_int, _c_int, _c_void_p,
+             ctypes.c_longlong, _c_void_p],
             _c_int,
         ),
         "error_string": ([_c_int], ctypes.c_char_p),

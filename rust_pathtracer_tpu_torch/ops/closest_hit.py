@@ -61,11 +61,13 @@ record_launches = 0
 
 def pack_prims(prims: Primitives) -> torch.Tensor:
     """(16, P) f32 table: rows 0-11 data, 12 kind, 13 aux, 14 mat
-    (``pallas_intersect.pack_prims``)."""
+    (``pallas_intersect.pack_prims``).  The search is detached: the table
+    is packed from ``prims.data.detach()``, so a kernel never sees a
+    tensor that requires grad."""
     f32 = torch.float32
     extra = torch.stack([prims.kind.to(f32), prims.aux.to(f32),
                          prims.mat.to(f32), torch.zeros_like(prims.kind, dtype=f32)])
-    return torch.cat([prims.data.T.to(f32), extra], dim=0).contiguous()
+    return torch.cat([prims.data.detach().T.to(f32), extra], dim=0).contiguous()
 
 
 # ---------------------------------------------------------------------------

@@ -13,11 +13,14 @@
 //
 // Per lane, from its key (k0, k1) and its bounce b (the launch's, or the
 // lane's own path depth), the planes sampling.bounce_draws makes, bit for
-// bit (threefry.cuh):
+// bit (threefry.cuh).  Under the legacy scheme:
 //   rows 0-1 sphere_u: the P_LAMBERT key's uniforms 0, 1;
 //   rows 2-4 ball_u:   the P_FUZZ key's uniforms 0, 1, 2;
 //   row 5    coin:     the P_SCHLICK key's uniform 0;
 //   row 6    roulette: the P_ROULETTE key's uniform 0 (with roulette only).
+// Under the packed scheme (PACKED, a template flag chosen at launch), row r
+// is packed word r: blocks 0-2 for rows 0-5 and block 3 for roulette's, 4
+// blocks a lane with roulette where the legacy scheme runs 11.
 //
 // What bounds it on the card: operations.  A lane runs 10 threefry blocks
 // (11 with roulette), ~79 int32 operations each, ~890 in all with the
@@ -26,7 +29,9 @@
 // compiler runs integer adds on the FMA pipe too, so the 64 INT32 units
 // an SM are not the limit) and 3.35 TB/s, the integer work takes ~2.2x the
 // memory time: 0.027 ms a 1M-lane launch, which measured 0.037 ms of device
-// time (chip_smoke.py phase 20; NVIDIA H100 80GB HBM3, 700 W).  Design,
+// time (chip_smoke.py phase 20; NVIDIA H100 80GB HBM3, 700 W).  The packed
+// scheme runs 3 blocks (4 with roulette), ~330 operations against the same
+// bytes, so there the bytes bound it (chip_smoke.py phase 38).  Design,
 // simple and right first: one thread a lane, a grid of 16 blocks an SM with
 // a grid stride, rows planar so that a warp's loads and stores are
 // coalesced, no shared memory.  Every operation is an exact integer one
@@ -45,6 +50,7 @@ constexpr int BLOCKS_PER_SM = 16;
 constexpr int MAX_DEVICES = 64;
 constexpr int N_ROWS = 6;  // rows without roulette's
 
+template <bool PACKED>
 __global__ void __launch_bounds__(THREADS)
 bounce_draws_kernel(const uint32_t* __restrict__ k0s, const uint32_t* __restrict__ k1s,
                     const int* __restrict__ depth, uint32_t bounce, bool roulette,
@@ -53,6 +59,19 @@ bounce_draws_kernel(const uint32_t* __restrict__ k0s, const uint32_t* __restrict
        i += (long long)gridDim.x * blockDim.x) {
     const uint32_t k0 = k0s[i], k1 = k1s[i];
     const uint32_t b = depth ? (uint32_t)depth[i] : bounce;
+    if (PACKED) {
+      uint32_t w0, w1;
+      for (uint32_t j = 0; j < 3u; ++j) {
+        rpt::packed_block(k0, k1, b, j, w0, w1);
+        out[(2 * j) * n + i] = rpt::packed_unit(w0);
+        out[(2 * j + 1) * n + i] = rpt::packed_unit(w1);
+      }
+      if (roulette) {
+        rpt::packed_block(k0, k1, b, 3u, w0, w1);
+        out[N_ROWS * n + i] = rpt::packed_unit(w0);
+      }
+      continue;
+    }
     uint32_t p0, p1;
     rpt::bounce_key(k0, k1, b, rpt::P_LAMBERT, p0, p1);
     out[0 * n + i] = rpt::uniform_at(p0, p1, 0u);
@@ -85,6 +104,14 @@ long long launch_blocks(long long tiles) {
   return tiles < cap ? tiles : cap;
 }
 
+template <bool PACKED>
+int launch(const unsigned int* keys, const int* depth, unsigned int bounce, int roulette,
+           float* out, long long n_lanes, long long blocks, cudaStream_t s) {
+  bounce_draws_kernel<PACKED><<<(unsigned)blocks, THREADS, 0, s>>>(
+      keys, keys + n_lanes, depth, (uint32_t)bounce, roulette != 0, out, n_lanes);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -92,18 +119,19 @@ extern "C" {
 // Launch the draws on `stream`.  Device pointers: `keys` the lane keys' two
 // uint32 rows of n_lanes; `depth`, NULL for none, an int32 row of each
 // lane's own bounce (else every lane draws at `bounce`); `out` (6, n_lanes)
-// f32 rows, 7 with `roulette`, in the order above.  Returns
-// cudaGetLastError() of the launch: nonzero means it never ran.
+// f32 rows, 7 with `roulette`, in the order above.  `packed` (0 or 1) picks
+// the scheme.  Returns cudaGetLastError() of the launch: nonzero means it
+// never ran.
 int bounce_draws_launch(const unsigned int* keys, const int* depth, unsigned int bounce,
-                        int roulette, float* out, long long n_lanes, void* stream) {
+                        int roulette, int packed, float* out, long long n_lanes,
+                        void* stream) {
   if (n_lanes < 0 || !keys || !out) return (int)cudaErrorInvalidValue;
   if (n_lanes == 0) return (int)cudaSuccess;
   const long long blocks = launch_blocks((n_lanes + THREADS - 1) / THREADS);
   if (blocks <= 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  bounce_draws_kernel<<<(unsigned)blocks, THREADS, 0, s>>>(
-      keys, keys + n_lanes, depth, (uint32_t)bounce, roulette != 0, out, n_lanes);
-  return (int)cudaGetLastError();
+  return packed ? launch<true>(keys, depth, bounce, roulette, out, n_lanes, blocks, s)
+                : launch<false>(keys, depth, bounce, roulette, out, n_lanes, blocks, s);
 }
 
 const char* error_string(int err) {

@@ -12,10 +12,14 @@
 //
 // The bounce's uniforms.  A lane reads its threefry key (two uint32 words, made once a trace from
 // the lane keys) and draws, in registers, what sampling.bounce_draws
-// draws for this bounce (threefry.cuh): a lambertian lane its two
-// P_LAMBERT uniforms, a metal lane its three P_FUZZ uniforms, a
-// dielectric lane its P_SCHLICK coin, a lane that continues from
-// rr_start on its P_ROULETTE uniform.  A lane draws only what its
+// draws for this bounce (threefry.cuh).  Under the legacy scheme: a
+// lambertian lane its two P_LAMBERT uniforms, a metal lane its three P_FUZZ
+// uniforms, a dielectric lane its P_SCHLICK coin, a lane that continues
+// from rr_start on its P_ROULETTE uniform, each behind a fold.  Under the
+// packed scheme (the template flag PACKED, picked at launch) the same
+// purposes from counter-mode blocks of the raw lane key: a lambertian lane
+// block 0, a metal lane blocks 1-2, a dielectric lane block 2, roulette
+// block 3.  A lane draws only what its
 // material consumes; the integer arithmetic is exact, so the uniforms
 // are the bits integrator._precompute_draws hoists in tensor ops (the
 // JAX package hoists them because XLA makes threefry cheap on the TPU;
@@ -28,7 +32,8 @@
 // and 2 key words and writes 13 columns, 112 B per lane-bounce, so about
 // 0.11 GB per 960k-lane bounce.  The arithmetic is about 20 primitive
 // tests per lane on CornellBox plus 2-4 threefry blocks (~80 int32
-// operations each); the perlin marble (7 octaves x 8 hashed corners) is
+// operations each; 1-2 under the packed scheme, with roulette's); the
+// perlin marble (7 octaves x 8 hashed corners) is
 // the heaviest branch.
 //
 // Design, simple and right first:
@@ -126,18 +131,33 @@ struct Columns {
 };
 
 // The uniforms of one bounce of one lane, drawn from the lane key,
-// purpose by purpose, when asked.
+// purpose by purpose, when asked, under the legacy or the packed scheme.
+template <bool PACKED>
 struct Draws {
   uint32_t k0, k1, bounce;
 
   __device__ void lambert(float& u0, float& u1) const {
     uint32_t p0, p1;
+    if (PACKED) {
+      rpt::packed_block(k0, k1, bounce, 0u, p0, p1);
+      u0 = rpt::packed_unit(p0);
+      u1 = rpt::packed_unit(p1);
+      return;
+    }
     rpt::bounce_key(k0, k1, bounce, rpt::P_LAMBERT, p0, p1);
     u0 = rpt::uniform_at(p0, p1, 0u);
     u1 = rpt::uniform_at(p0, p1, 1u);
   }
   __device__ void fuzz(float& u0, float& u1, float& u2) const {
     uint32_t p0, p1;
+    if (PACKED) {  // words 2, 3, 4
+      rpt::packed_block(k0, k1, bounce, 1u, p0, p1);
+      u0 = rpt::packed_unit(p0);
+      u1 = rpt::packed_unit(p1);
+      rpt::packed_block(k0, k1, bounce, 2u, p0, p1);
+      u2 = rpt::packed_unit(p0);
+      return;
+    }
     rpt::bounce_key(k0, k1, bounce, rpt::P_FUZZ, p0, p1);
     u0 = rpt::uniform_at(p0, p1, 0u);
     u1 = rpt::uniform_at(p0, p1, 1u);
@@ -145,11 +165,19 @@ struct Draws {
   }
   __device__ float coin() const {
     uint32_t p0, p1;
+    if (PACKED) {  // word 5
+      rpt::packed_block(k0, k1, bounce, 2u, p0, p1);
+      return rpt::packed_unit(p1);
+    }
     rpt::bounce_key(k0, k1, bounce, rpt::P_SCHLICK, p0, p1);
     return rpt::uniform_at(p0, p1, 0u);
   }
   __device__ float roulette() const {
     uint32_t p0, p1;
+    if (PACKED) {  // word 6
+      rpt::packed_block(k0, k1, bounce, 3u, p0, p1);
+      return rpt::packed_unit(p0);
+    }
     rpt::bounce_key(k0, k1, bounce, rpt::P_ROULETTE, p0, p1);
     return rpt::uniform_at(p0, p1, 0u);
   }
@@ -318,7 +346,7 @@ __device__ void write_residuals(const float* tab, int P, uint32_t seed,
 
 // ---- the bounce --------------------------------------------------------
 
-template <bool RES>
+template <bool RES, bool PACKED>
 __global__ void __launch_bounds__(THREADS)
 fused_bounce_kernel(const float* __restrict__ table, int n_prims,
                     const float* __restrict__ bg, uint32_t seed, float t_min,
@@ -356,7 +384,7 @@ fused_bounce_kernel(const float* __restrict__ table, int n_prims,
     // rr_start on
     const uint32_t lane_bounce = depth ? (uint32_t)depth[i] : bounce;
     const bool lane_roulette = roulette && (!depth || depth[i] >= rr_start);
-    const Draws draws{cols.key[0][i], cols.key[1][i], lane_bounce};
+    const Draws<PACKED> draws{cols.key[0][i], cols.key[1][i], lane_bounce};
     // the residuals' dielectric terms take the coin on every lane
     const float res_coin = RES && (mat_flags & MATF_DIELECTRIC) ? draws.coin() : 0.0f;
 
@@ -633,7 +661,8 @@ extern "C" {
 // n_lanes: `table` (32, n_prims) f32, `bg` (3,) f32; `in` the 13 state
 // rows (o0 o1 o2 d0 d1 d2 t0 t1 t2 r0 r1 r2 al); `keys` the lane key's
 // two uint32 rows, from which the lanes draw `bounce`'s uniforms;
-// `roulette` applies russian roulette after the bounce.  `depth`, NULL for
+// `roulette` applies russian roulette after the bounce; `packed` (0 or 1)
+// picks the draws' scheme.  `depth`, NULL for
 // none, gives each lane its own bounce (an int32 row: the lane's path
 // depth), and roulette then acts on the lanes whose depth is at least
 // `rr_start`; it takes no `res`.  `out` the 13 new state rows.  `res`,
@@ -646,7 +675,7 @@ extern "C" {
 int fused_bounce_launch(const float* table, int n_prims, const float* bg,
                         unsigned int seed, float t_min, int mat_flags,
                         int tex_flags, const float* in, const unsigned int* keys,
-                        unsigned int bounce, int roulette, const int* depth,
+                        unsigned int bounce, int roulette, int packed, const int* depth,
                         int rr_start, float* out, float* res, int* flags, int* winner,
                         long long n_lanes, void* stream) {
   if (n_prims <= 0 || n_prims > MAX_PRIMS || n_lanes < 0 || !keys || (res && !flags) ||
@@ -666,14 +695,18 @@ int fused_bounce_launch(const float* table, int n_prims, const float* bg,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((unsigned)blocks);
   const bool rr = roulette != 0;
-#define RPT_K1(RES_)                                                              \
-  fused_bounce_kernel<RES_><<<grid, THREADS, 0, s>>>(                             \
+#define RPT_K1(RES_, PACKED_)                                                     \
+  fused_bounce_kernel<RES_, PACKED_><<<grid, THREADS, 0, s>>>(                    \
       table, n_prims, bg, (uint32_t)seed, t_min, mat_flags, tex_flags,            \
       (uint32_t)bounce, rr, depth, rr_start, cols, winner, n_lanes)
-  if (res) {
-    RPT_K1(true);
+  if (res && packed) {
+    RPT_K1(true, true);
+  } else if (res) {
+    RPT_K1(true, false);
+  } else if (packed) {
+    RPT_K1(false, true);
   } else {
-    RPT_K1(false);
+    RPT_K1(false, false);
   }
 #undef RPT_K1
   return (int)cudaGetLastError();

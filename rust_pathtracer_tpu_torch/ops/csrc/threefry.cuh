@@ -1,11 +1,17 @@
-// Threefry-2x32 draws in registers, bit for bit the JAX package's
-// legacy per-purpose stream (rust_pathtracer_tpu_torch/sampling.py,
-// rust_pathtracer_tpu/sampling.py):
+// Threefry-2x32 draws in registers, bit for bit the JAX package's two
+// streams (rust_pathtracer_tpu_torch/sampling.py,
+// rust_pathtracer_tpu/sampling.py).  The legacy per-purpose stream:
 //
 //   fold_in(k, d)          = threefry2x32(k, (0, d))
 //   bounce key of purpose  = fold_in(lane key, bounce * 8 + purpose)
 //   uniform i of a key kp  = f32 bits ((x0 ^ x1) >> 9) | 0x3f800000, minus 1,
 //                            with (x0, x1) = threefry2x32(kp, (0, i)).
+//
+// The packed counter-mode stream (sampling.scatter_uniforms): block j of a
+// lane-bounce is threefry2x32(lane key, (bounce, j)), both output words kept;
+// word w (block w / 2) converts as (w >> 8) * 2**-24.  Words 0-1 are the
+// lambertian sphere draw, 2-4 the metal's ball draw, 5 the dielectric coin,
+// 6 roulette: a lane-bounce needs at most 4 blocks, and no fold.
 //
 // One block is 20 rounds of add, rotate and xor, plus six key injections:
 // about 80 int32 operations, in registers.  On the card the rotations are
@@ -79,5 +85,17 @@ RPT_HD float uniform_at(uint32_t p0, uint32_t p1, uint32_t i) {
 #endif
   return f - 1.0f;
 }
+
+// the packed stream's block j of a lane-bounce: words (2j, 2j + 1)
+RPT_HD void packed_block(uint32_t k0, uint32_t k1, uint32_t bounce, uint32_t j,
+                         uint32_t& w0, uint32_t& w1) {
+  w0 = bounce;
+  w1 = j;
+  threefry2x32(k0, k1, w0, w1);
+}
+
+// a packed word as a uniform in [0, 1): its top 24 bits times 2**-24, both
+// steps exact in f32
+RPT_HD float packed_unit(uint32_t w) { return (float)(w >> 8) * 5.9604644775390625e-8f; }
 
 }  // namespace rpt

@@ -6,7 +6,8 @@ No Pallas counterpart: in the JAX package XLA runs threefry in
 regen wavefront).  This module wraps a CUDA kernel
 (``csrc/draws.cu``, on ``csrc/threefry.cuh``) that draws the same bits
 bounce by bounce, and holds its plain twin, ``bounce_draws_plain``
-(``sampling.bounce_draws`` on the key words).
+(``sampling.bounce_draws`` on the key words), under either scheme
+(``rng_scheme``: "legacy", or "packed", the counter-mode stream).
 
 The generic and big-scene routes (``integrator._trace_generic``) draw
 each bounce here, and the regen wavefront (``wavefront.py``) at each
@@ -40,17 +41,17 @@ def _split(rows, with_roulette):
             rows[N_ROWS] if with_roulette else None)
 
 
-def bounce_draws_plain(keys, bounce, with_roulette):
+def bounce_draws_plain(keys, bounce, with_roulette, rng_scheme="legacy"):
     """``bounce_draws`` in plain tensor ops: ``sampling.bounce_draws`` on
     the lanes' keys.  Runs on any device."""
     at = bounce.to(torch.int64) if isinstance(bounce, torch.Tensor) else bounce
-    return sampling.bounce_draws(_lane_keys(keys), at, with_roulette)
+    return sampling.bounce_draws(_lane_keys(keys), at, with_roulette, rng_scheme)
 
 
-def bounce_draws(keys, bounce, with_roulette):
+def bounce_draws(keys, bounce, with_roulette, rng_scheme="legacy"):
     """One bounce's scatter uniforms of R lanes, as ``sampling.bounce_draws``
-    draws them: ``(sphere_u (R, 2), ball_u (R, 3), coin (R,), roulette (R,)
-    or None)``, roulette's only ``with_roulette``.
+    draws them under ``rng_scheme``: ``(sphere_u (R, 2), ball_u (R, 3), coin
+    (R,), roulette (R,) or None)``, roulette's only ``with_roulette``.
 
     ``keys`` the lanes' threefry keys as (2, R) int32 rows
     (``fused_bounce.key_words``); ``bounce`` the bounce index, or an (R,)
@@ -68,14 +69,16 @@ def bounce_draws(keys, bounce, with_roulette):
                              f"on {dev}")
     elif not 0 <= int(bounce) <= _M32:
         raise ValueError(f"bounce_draws: bounce {bounce} out of range")
+    sampling.check_rng_scheme(rng_scheme)
     if dev.type == "cpu":
-        return bounce_draws_plain(keys, bounce, with_roulette)
+        return bounce_draws_plain(keys, bounce, with_roulette, rng_scheme)
     if dev.type != "cuda":
         raise ValueError(f"bounce_draws: no kernel for device {dev}")
-    return _split(_launch(keys, bounce, bool(with_roulette)), with_roulette)
+    return _split(_launch(keys, bounce, bool(with_roulette), rng_scheme == "packed"),
+                  with_roulette)
 
 
-def _launch(keys, bounce, with_roulette):
+def _launch(keys, bounce, with_roulette, packed=False):
     """One launch on CUDA tensors; returns the (6 or 7, R) rows."""
     global launches, _entry
     from rust_pathtracer_tpu_torch.ops._build import load_library
@@ -91,7 +94,8 @@ def _launch(keys, bounce, with_roulette):
     with contextlib.nullcontext() if current else torch.cuda.device(keys.device):
         err = _entry(keys.data_ptr(), None if depth is None else depth.data_ptr(),
                      0 if depth is not None else int(bounce), int(with_roulette),
-                     out.data_ptr(), R, torch.cuda.current_stream().cuda_stream)
+                     int(packed), out.data_ptr(), R,
+                     torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError("bounce_draws kernel launch failed: "
                            f"{load_library('draws').error_string(err).decode()}")

@@ -17,10 +17,11 @@ table-free (``fused_bounce_ok``):
 ``fused_bounce_keyed`` takes each lane's threefry key as two int32
 columns (``key_words``, made once a trace) and the bounce index: the
 kernel draws the bounce's uniforms itself, as ``sampling.bounce_draws``
-draws them, and applies roulette, so the fused route draws nothing in
-tensor ops.  It dispatches on where its tensors lie: CUDA tensors
-launch the kernel (and count in ``launches``); CPU tensors run the plain
-version ``fused_bounce_keyed_plain``: ``sampling.bounce_draws``, then
+draws them under ``rng_scheme`` ("legacy" or "packed"), and applies
+roulette, so the fused route draws nothing in tensor ops.  It
+dispatches on where its tensors lie: CUDA tensors launch the kernel
+(and count in ``launches``); CPU tensors run the plain version
+``fused_bounce_keyed_plain``: ``sampling.bounce_draws``, then
 ``fused_bounce_cols_plain`` (the Pallas kernel's interface, the six
 uniforms as columns, op for op; the tests hold it against the Pallas
 kernel), then ``roulette``.  With ``want_residuals`` it also returns the
@@ -106,11 +107,15 @@ def fused_bounce_ok(scene: SceneData) -> bool:
     )
 
 
-def fused_bounce_diff_ok(scene: SceneData) -> bool:
+def fused_bounce_diff_ok(scene: SceneData, diff_t: str = "analytic") -> bool:
     """Can this scene's differentiable bounce run in K1 + K2?  Perlin's
-    d(value)/d(point) has no backward, so solid and checker only."""
+    d(value)/d(point) has no backward, so solid and checker only; and the
+    geometry gradient (``diff_t="rederive"``) re-derives the hit distance
+    outside any kernel, so it takes the generic route (JAX
+    ``fused_bounce_diff_ok``)."""
     return (fused_bounce_ok(scene)
-            and set(scene.tex_types) <= {TEX_SOLID, TEX_CHECKER})
+            and set(scene.tex_types) <= {TEX_SOLID, TEX_CHECKER}
+            and diff_t == "analytic")
 
 
 def pack_prims_shaded(scene: SceneData) -> torch.Tensor:
@@ -118,7 +123,9 @@ def pack_prims_shaded(scene: SceneData) -> torch.Tensor:
     shading row.  Rows 0-11 prim data, 12 kind, 13 aux, 14 mat,
     16 material kind, 17 fuzz, 18 ir, 19 texture kind, 20 scale,
     21-23 solid color, 24-26 checker odd color, 27-29 checker even
-    color (``fused_bounce.pack_prims_shaded``)."""
+    color (``fused_bounce.pack_prims_shaded``).  The geometry rows are
+    detached (the fused route carries no geometry gradient); the colour
+    rows keep theirs."""
     prims, mats, texs = scene.prims, scene.materials, scene.textures
     f32 = torch.float32
     P = prims.kind.shape[0]
@@ -146,7 +153,7 @@ def pack_prims_shaded(scene: SceneData) -> torch.Tensor:
     evenc = torch.where(is_ck[None, :], texs.color[even].T, 0.0)     # 27-29
     pad = torch.zeros((PAY_W - PAY_EVEN - 3, P), dtype=f32,
                       device=prims.data.device)
-    return torch.cat([prims.data.T.to(f32), rows, color, oddc, evenc, pad],
+    return torch.cat([prims.data.detach().T.to(f32), rows, color, oddc, evenc, pad],
                      dim=0).contiguous()
 
 
@@ -430,16 +437,19 @@ def state_cols(state: torch.Tensor) -> Dict[str, torch.Tensor]:
 
 def fused_bounce_keyed_plain(table, bg, seed, state, keys, bounce, *, with_roulette,
                              kinds, mat_types, tex_types, t_min, rr_start=0,
-                             winner_out=None, want_residuals=False):
+                             winner_out=None, want_residuals=False,
+                             rng_scheme="legacy"):
     """The keyed bounce in plain tensor ops; same arguments and result as
     ``fused_bounce_keyed``.  Runs on any device: ``sampling.bounce_draws``
-    draws the bounce's uniforms from the keys (at each lane's own depth
-    where ``bounce`` is a tensor), ``fused_bounce_cols_plain`` runs the
-    bounce on them, then ``roulette`` where ``with_roulette`` is set (on
-    the lanes at depth ``rr_start`` or more, for a per-lane ``bounce``)."""
+    draws the bounce's uniforms from the keys under ``rng_scheme`` (at each
+    lane's own depth where ``bounce`` is a tensor),
+    ``fused_bounce_cols_plain`` runs the bounce on them, then ``roulette``
+    where ``with_roulette`` is set (on the lanes at depth ``rr_start`` or
+    more, for a per-lane ``bounce``)."""
     per_lane = isinstance(bounce, torch.Tensor)
     draw_at = bounce.to(torch.int64) if per_lane else bounce
-    su, bu, coin, rl = sampling.bounce_draws(_lane_keys(keys), draw_at, with_roulette)
+    su, bu, coin, rl = sampling.bounce_draws(_lane_keys(keys), draw_at, with_roulette,
+                                             rng_scheme)
     out = fused_bounce_cols_plain(
         table, bg, seed, state_cols(state), su[..., 0], su[..., 1], bu[..., 0],
         bu[..., 1], bu[..., 2], coin, kinds=kinds, mat_types=mat_types,
@@ -498,7 +508,7 @@ def _check_winner(winner_out, dev, R):
 
 def fused_bounce_keyed(table, bg, seed, state, keys, bounce, *, with_roulette,
                        kinds, mat_types, tex_types, t_min, rr_start=0,
-                       winner_out=None, want_residuals=False):
+                       winner_out=None, want_residuals=False, rng_scheme="legacy"):
     """One fused bounce over R lanes that draws its own uniforms: the
     main path's K1.
 
@@ -507,8 +517,9 @@ def fused_bounce_keyed(table, bg, seed, state, keys, bounce, *, with_roulette,
     (``key_words(lane_keys)``); ``bounce`` the bounce index, or an (R,)
     int32 tensor of each lane's own path depth (the regen wavefront's
     pool, forward only).  Each lane draws the uniforms
-    ``sampling.bounce_draws(lane_keys, bounce, with_roulette)`` gives it
-    (the purposes its material consumes); with ``with_roulette`` the
+    ``sampling.bounce_draws(lane_keys, bounce, with_roulette, rng_scheme)``
+    gives it (the purposes its material consumes: under "packed", only the
+    counter-mode blocks that hold them); with ``with_roulette`` the
     bounce ends in ``roulette`` on the lane's own uniform, for a per-lane
     ``bounce`` only on the lanes whose depth is ``rr_start`` or more.
     ``table``, ``bg``, ``seed``, the static fields and
@@ -541,20 +552,22 @@ def fused_bounce_keyed(table, bg, seed, state, keys, bounce, *, with_roulette,
     elif not 0 <= int(bounce) <= _M32:
         raise ValueError(f"fused_bounce_keyed: bounce {bounce} out of range")
     _check_winner(winner_out, dev, R)
+    sampling.check_rng_scheme(rng_scheme)
     if dev.type == "cpu":
         return fused_bounce_keyed_plain(
             table, bg, seed, state, keys, bounce, with_roulette=with_roulette,
             kinds=kinds, mat_types=mat_types, tex_types=tex_types, t_min=t_min,
-            rr_start=rr_start, winner_out=winner_out, want_residuals=want_residuals)
+            rr_start=rr_start, winner_out=winner_out, want_residuals=want_residuals,
+            rng_scheme=rng_scheme)
     if dev.type != "cuda":
         raise ValueError(f"fused_bounce_keyed: no kernel for device {dev}")
     return _launch(table, bg, seed, state, keys, bounce, bool(with_roulette),
                    int(rr_start), mat_types, tex_types, t_min, winner_out,
-                   want_residuals)
+                   want_residuals, rng_scheme == "packed")
 
 
 def _launch(table, bg, seed, state, keys, bounce, with_roulette, rr_start, mat_types,
-            tex_types, t_min, winner_out, want_residuals):
+            tex_types, t_min, winner_out, want_residuals, packed=False):
     """Launch K1 on the (13, R) ``state`` and (2, R) ``keys`` at ``bounce``
     (an int, or a per-lane (R,) int32 depth); returns the (13, R) state,
     and the residuals with ``want_residuals``."""
@@ -578,7 +591,7 @@ def _launch(table, bg, seed, state, keys, bounce, with_roulette, rr_start, mat_t
             float(t_min), _type_flags(mat_types, _MAT_BITS, "material"),
             _type_flags(tex_types, _TEX_BITS, "texture"), state.data_ptr(),
             keys.data_ptr(), 0 if depth is not None else int(bounce),
-            int(with_roulette), None if depth is None else depth.data_ptr(),
+            int(with_roulette), int(packed), None if depth is None else depth.data_ptr(),
             int(rr_start), out.data_ptr(), None if res_f is None else res_f.data_ptr(),
             None if flags is None else flags.data_ptr(),
             None if winner_out is None else winner_out.data_ptr(), R,
@@ -634,6 +647,7 @@ class _ScanSpec:
     max_bounces: int
     rr_start: int
     stats_slots: int
+    rng_scheme: str = "legacy"
 
 
 class FusedScanTrace(torch.autograd.Function):
@@ -675,7 +689,8 @@ class FusedScanTrace(torch.autograd.Function):
             state, res = fused_bounce_keyed(
                 table, bg, 0, state, keys, b, with_roulette=b >= spec.rr_start,
                 kinds=spec.kinds, mat_types=spec.mat_types,
-                tex_types=spec.tex_types, t_min=spec.t_min, want_residuals=True)
+                tex_types=spec.tex_types, t_min=spec.t_min, want_residuals=True,
+                rng_scheme=spec.rng_scheme)
             saved.append((res, d_thr))
         ctx.spec = spec
         ctx.bounces = saved
@@ -717,12 +732,13 @@ class FusedScanTrace(torch.autograd.Function):
 
 
 def fused_scan_trace(scene, cols, keys, background, t_min, max_bounces,
-                     rr_start, stats_slots):
+                     rr_start, stats_slots, rng_scheme="legacy"):
     """Differentiable whole-scan trace of a fused-diff scene
     (``fused_bounce_diff_ok``): ``FusedScanTrace`` over the packed table.
 
     ``cols`` the 13 state columns; ``keys`` the lanes' (2, R) int32 key
-    rows (``key_words``); ``background`` a (3,) tensor.
+    rows (``key_words``); ``background`` a (3,) tensor; ``rng_scheme`` the
+    draws' stream.
     Returns ``(cols_final, segments, occupancy)``.  Gradients reach the
     columns, ``scene.textures.color`` (through ``pack_prims_shaded``) and
     ``background``.
@@ -731,7 +747,7 @@ def fused_scan_trace(scene, cols, keys, background, t_min, max_bounces,
         kinds=scene.kinds_static, mat_types=scene.mat_types,
         tex_types=scene.tex_types, t_min=float(t_min),
         max_bounces=int(max_bounces), rr_start=int(rr_start),
-        stats_slots=int(stats_slots))
+        stats_slots=int(stats_slots), rng_scheme=rng_scheme)
     out = FusedScanTrace.apply(spec, keys, pack_prims_shaded(scene),
                                background, *[cols[k] for k in _COL_KEYS])
     n = len(_COL_KEYS)

@@ -1,15 +1,23 @@
 """Hit records on the primitive tables, in plain tensor ops.
 
 Counterpart of ``rust_pathtracer_tpu/ops/intersect.py``: the constants,
-``HitRecord``, ``gather_prim_rows``, ``record_from_rows`` and
-``hit_record``.  The record is the differentiable route's: sphere uv
-through ``safe_acos`` / ``safe_atan2``, rect uv through ``_safe_div``,
-so that no branch that ``where`` leaves out puts a NaN into the
-backward.  The closest-hit search itself is the kernels' work
-(``closest_hit.py``, K3 and K4).
+``HitRecord``, ``gather_prim_rows``, ``record_from_rows``,
+``hit_record`` and the differentiable re-intersection of one primitive
+a lane, ``prim_intersect_t`` (``sphere_t``, ``rect_t``, ``triangle_t``),
+which the geometry gradient (``integrator``, ``diff_t="rederive"``)
+runs on the winner's row.  The record is the differentiable route's:
+sphere uv through ``safe_acos`` / ``safe_atan2``, rect uv through
+``_safe_div``, so that no branch that ``where`` leaves out puts a NaN
+into the backward; the distances keep the JAX package's guards for the
+same reason.  The distances are K4's to the bit: a sphere's quadratic
+in f64 with ``closest_hit.sphere_roots``' operations in its order (the
+JAX package's is f32), rects and triangles in f32 in the kernel's order,
+sums written out, the rect's fixed axis picked by index.  The
+closest-hit search itself is the kernels' work (``closest_hit.py``, K3
+and K4).
 
-Not ported: the JAX brute-force and BVH searches and the geometry
-re-derivation ``prim_intersect_t`` (ROADMAP queue 1 items 8 and 10).
+Not ported: the JAX brute-force and BVH searches (ROADMAP queue 1,
+item 10).
 """
 
 from __future__ import annotations
@@ -126,3 +134,115 @@ def hit_record(prims: Primitives, idx, o, d, t, valid, prim_types=None) -> HitRe
     idx = idx.clamp(0, prims.kind.shape[0] - 1)
     kind, aux, data, mat = gather_prim_rows(prims, idx)
     return record_from_rows(kind, aux, data, mat, idx, o, d, t, valid, prim_types)
+
+
+# ---------------------------------------------------------------------------
+# the differentiable re-intersection (RPT_DIFF_T=rederive in JAX)
+# ---------------------------------------------------------------------------
+
+
+def _miss(valid: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    return torch.where(valid, t, torch.full_like(t, T_MISS))
+
+
+def sphere_t(data, o, d, t_min, t_max):
+    """Sphere hit distance (geometry.rs:132-163) as ``(t, valid)``, t =
+    T_MISS where invalid.  The quadratic runs in f64 on the f32 inputs,
+    with ``closest_hit.sphere_roots``' operations in its order, and its
+    roots round to f32, so a hit K4 found re-derives to K4's t; the
+    square root is ``safe_sqrt`` (zero gradient at dis <= 0), so a miss
+    lane's backward stays finite.  Autograd runs through the casts."""
+    f64 = torch.float64
+    ox, oy, oz = (o[..., k].to(f64) for k in range(3))
+    dx, dy, dz = (d[..., k].to(f64) for k in range(3))
+    cx, cy, cz, r = (data[..., k].to(f64) for k in range(4))
+    ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
+    half_b = dx * ocx + dy * ocy + dz * ocz
+    c = ocx * ocx + ocy * ocy + ocz * ocz - r * r
+    a = dx * dx + dy * dy + dz * dz
+    dis = half_b * half_b - a * c
+    sqrtd = vm.safe_sqrt(dis)
+    f32 = o.dtype
+    root1 = ((-half_b - sqrtd) / a).to(f32)
+    root2 = ((-half_b + sqrtd) / a).to(f32)
+    ok1 = (root1 >= t_min) & (root1 <= t_max)
+    ok2 = (root2 >= t_min) & (root2 <= t_max)
+    t = torch.where(ok1, root1, root2)
+    valid = (dis >= 0.0) & (ok1 | ok2)
+    return _miss(valid, t), valid
+
+
+# rect fixed axis -> its free axes, ascending (RECT_FREE as index rows)
+_RECT_A = (1, 0, 0)
+_RECT_B = (2, 2, 1)
+
+
+def _component(v, axis):
+    """v[..., axis] per lane: ``v`` (..., 3), ``axis`` (...) int64."""
+    shape = torch.broadcast_shapes(v.shape[:-1], axis.shape)
+    return torch.gather(v.expand(*shape, 3), -1,
+                        axis.expand(shape)[..., None]).squeeze(-1)
+
+
+def rect_t(data, aux, o, d, t_min, t_max):
+    """Axis-aligned rect hit distance (geometry.rs:210-231) as ``(t,
+    valid)``: the plane solve on the fixed axis ``aux``, then the bounds on
+    the two free axes.  A ray parallel to the plane (|d| < 1e-30 on the
+    axis) misses without an inf or a NaN that would reach the backward."""
+    k = data[..., 0]
+    a0, b0, a1, b1 = data[..., 1], data[..., 2], data[..., 3], data[..., 4]
+    axis = aux.long()
+    free = torch.tensor((_RECT_A, _RECT_B), device=axis.device)
+    fa, fb = free[0][axis], free[1][axis]
+    o_fix, d_fix = _component(o, axis), _component(d, axis)
+    parallel = torch.abs(d_fix) < 1e-30
+    t = torch.where(parallel, torch.full_like(d_fix, T_MISS),
+                    (k - o_fix) / torch.where(parallel, torch.ones_like(d_fix), d_fix))
+    a_val = _component(o, fa) + t * _component(d, fa)
+    b_val = _component(o, fb) + t * _component(d, fb)
+    valid = ((t >= t_min) & (t <= t_max) & (a_val >= a0) & (a_val <= a1)
+             & (b_val >= b0) & (b_val <= b1))
+    return _miss(valid, t), valid
+
+
+def triangle_t(data, o, d, t_min, t_max):
+    """Moller-Trumbore, one-sided (geometry.rs:519-549), as ``(t,
+    valid)``; the reciprocal of det is guarded at |det| <= 1e-30 (such
+    lanes are culled anyway)."""
+    p1, e1, e2 = data[..., 0:3], data[..., 3:6], data[..., 6:9]
+    pvec = vm.cross(d, e2)
+    det = vm.dot(e1, pvec)
+    inv_det = 1.0 / torch.where(torch.abs(det) > 1e-30, det, torch.ones_like(det))
+    tvec = o - p1
+    u = vm.dot(tvec, pvec) * inv_det
+    qvec = vm.cross(tvec, e1)
+    v = vm.dot(d, qvec) * inv_det
+    t = vm.dot(e2, qvec) * inv_det
+    valid = ((det >= TRI_DET_EPS) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
+             & (u + v <= 1.0) & (t >= t_min) & (t <= t_max))
+    return _miss(valid, t), valid
+
+
+def prim_intersect_t(kind, aux, data, o, d, t_min, t_max, prim_types=None):
+    """Distance to one primitive a lane, dispatching on ``kind``: ``(t,
+    valid)`` with t = T_MISS where invalid.  Shapes broadcast;
+    ``prim_types`` (static) skips the kinds a scene lacks.  Every kind's
+    formula runs on every lane and ``where`` picks, so each is guarded
+    against NaN in its backward."""
+    types = prim_types if prim_types is not None else (0, 1, 2)
+    shape = torch.broadcast_shapes(kind.shape, o.shape[:-1])
+    t = torch.full(shape, T_MISS, dtype=o.dtype, device=o.device)
+    valid = torch.zeros(shape, dtype=torch.bool, device=o.device)
+    for ptype in (PRIM_SPHERE, PRIM_RECT, PRIM_TRIANGLE):
+        if ptype not in types:
+            continue
+        if ptype == PRIM_SPHERE:
+            tk, vk = sphere_t(data, o, d, t_min, t_max)
+        elif ptype == PRIM_RECT:
+            tk, vk = rect_t(data, aux, o, d, t_min, t_max)
+        else:
+            tk, vk = triangle_t(data, o, d, t_min, t_max)
+        sel = (kind == ptype) & vk
+        t = torch.where(sel, tk, t)
+        valid = valid | sel
+    return t, valid

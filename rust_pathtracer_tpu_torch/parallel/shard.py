@@ -60,7 +60,11 @@ adds those partials up over every rank, once, which gives every
 replicated leaf of ``DiffParams`` the single-device gradient (the
 counterpart of the JAX package's ``ops/fused_bounce.py:979
 _psum_to_replicated``).  Had every rank's cotangent counted, each
-gradient would come back tiles x samples times too large.
+gradient would come back tiles x samples times too large.  A geometry
+leaf (``scene.prims.data`` under ``diff_t="rederive"``) is summed the
+same way: pass it to ``reduce_replicated_grads`` beside the
+``DiffParams`` leaves.  The plan draws under ``settings.rng_scheme``
+on every rank.
 """
 
 from __future__ import annotations
@@ -203,7 +207,7 @@ class ShardedChunkPlan:
         s = self.settings
         args = dict(width=s.width, height=s.height, spp_chunk=self.chunk,
                     spp_total=s.samples_per_pixel, max_bounces=s.max_bounces,
-                    rr_start=s.russian_roulette_start)
+                    rr_start=s.russian_roulette_start, rng_scheme=s.rng_scheme)
         offset = self.base + c * self.chunk
         if self.cascade_stages:
             part, stats = _render_chunk_cascaded(self.scene, self.cam, self.key, offset,
@@ -213,7 +217,7 @@ class ShardedChunkPlan:
             part, stats = trace_pixel_lanes(self.scene, self.cam, self.key, self.pix,
                                             offset, self.bg,
                                             differentiable=s.differentiable,
-                                            remat=s.remat, **args)
+                                            remat=s.remat, diff_t=s.diff_t, **args)
         return part, stats
 
     def sample_sums(self, parts):
@@ -387,7 +391,9 @@ def render_loss_and_grad_sharded(params, scene, settings: RenderSettings, key, t
     """``grad.render_loss_and_grad`` over the mesh: (loss, gradients as a
     DiffParams), the same on every rank and equal to the single-device
     step's.  Rank 0's loss counts (module note); every rank calls this
-    with the same arguments."""
+    with the same arguments.  A ``scene.prims.data`` that requires grad
+    (``settings.diff_t = "rederive"``), with no ``.grad`` yet, gets the
+    summed gradient in its ``.grad`` on every rank."""
     from rust_pathtracer_tpu_torch.grad import DiffParams, apply_params
 
     dev = mesh.device
@@ -399,4 +405,6 @@ def render_loss_and_grad_sharded(params, scene, settings: RenderSettings, key, t
     target = torch.as_tensor(target, dtype=torch.float32, device=dev)
     loss = 0.5 * torch.mean((img - target) ** 2)
     loss.backward()
-    return loss.detach(), reduce_replicated_grads(p, mesh)
+    data = scene.prims.data
+    grads = reduce_replicated_grads(leaves + ([data] if data.requires_grad else []), mesh)
+    return loss.detach(), DiffParams.from_leaves(grads[:len(leaves)])

@@ -15,8 +15,13 @@ Every entry point takes an explicit ``device``; asking for ``"cuda"``
 where there is no GPU raises.  With ``RenderSettings.differentiable``
 the chunk loop runs with autograd live: the image is differentiable in
 the camera, the texture colours, the image texels and the background
-(see ``grad.py``); ``RenderSettings.remat`` picks the remat mode of the
-generic route (``integrator.resolve_remat_mode``).
+(see ``grad.py``), and with ``RenderSettings.diff_t = "rederive"`` in
+the primitive geometry too (``scene.prims.data``, made a leaf by the
+caller); ``RenderSettings.remat`` picks the remat mode of the generic
+route (``integrator.resolve_remat_mode``).  ``RenderSettings.rng_scheme``
+picks the stream of the scatter draws ("legacy" or "packed") for every
+route of a render: the chunked, cascaded and regen renders, the sharded
+plan and the checkpoint.
 
 The cascade renderer (``cascade`` / ``cascade_schedule``, forward
 only) traces the first bounces at full width, then compacts: a stable
@@ -76,6 +81,12 @@ class RenderSettings:
     # remat mode of the generic differentiable trace: None / "auto",
     # "none", "mid", "names"
     remat: Optional[str] = None
+    # the differentiable hit distance (JAX RPT_DIFF_T): "analytic", or
+    # "rederive", which re-intersects the winner so that a gradient also
+    # reaches scene.prims.data (the generic route: K4 or K5, then autograd)
+    diff_t: str = "analytic"
+    # the scatter draws' stream (JAX RPT_RNG_SCHEME): "legacy" or "packed"
+    rng_scheme: str = "legacy"
     # compact the wavefront once lanes die (forward only; a
     # differentiable render ignores both): ``cascade`` alone is the
     # dynamic cascade (one host sync a boundary); ``cascade_schedule``
@@ -172,7 +183,8 @@ def trace_pixel_lanes(scene, cam: Camera, base_key, pix, sample_offset: int,
                       background, *, width: int, height: int, spp_chunk: int,
                       spp_total: int, max_bounces: int,
                       rr_start: Optional[int], differentiable: bool = False,
-                      remat: Optional[str] = None):
+                      remat: Optional[str] = None, diff_t: str = "analytic",
+                      rng_scheme: str = "legacy"):
     """Trace len(pix)*spp_chunk lanes for the given pixel ids.
     Returns (sum_radiance (len(pix), 3), stats)."""
     npix = pix.shape[0]
@@ -182,7 +194,8 @@ def trace_pixel_lanes(scene, cam: Camera, base_key, pix, sample_offset: int,
     )
     rad, stats = trace(scene, o, d, lkeys, background,
                        max_bounces=max_bounces, russian_roulette_start=rr_start,
-                       differentiable=differentiable, remat=remat)
+                       differentiable=differentiable, remat=remat, diff_t=diff_t,
+                       rng_scheme=rng_scheme)
     # mask samples beyond spp_total (padded final chunk)
     rad = rad * in_range.to(torch.float32)[:, None]
     return rad.reshape(npix, spp_chunk, 3).sum(dim=1), stats
@@ -191,7 +204,8 @@ def trace_pixel_lanes(scene, cam: Camera, base_key, pix, sample_offset: int,
 def _render_chunk(scene, cam: Camera, base_key, sample_offset: int,
                   background, *, width: int, height: int, spp_chunk: int,
                   spp_total: int, max_bounces: int, rr_start: Optional[int],
-                  differentiable: bool = False, remat: Optional[str] = None):
+                  differentiable: bool = False, remat: Optional[str] = None,
+                  diff_t: str = "analytic", rng_scheme: str = "legacy"):
     """Trace width*height*spp_chunk lanes on the scene's device;
     returns (sum_radiance (H*W, 3), stats)."""
     pix = torch.arange(width * height, dtype=torch.int64, device=scene.device)
@@ -199,7 +213,8 @@ def _render_chunk(scene, cam: Camera, base_key, sample_offset: int,
         scene, cam, base_key, pix, sample_offset, background,
         width=width, height=height, spp_chunk=spp_chunk,
         spp_total=spp_total, max_bounces=max_bounces, rr_start=rr_start,
-        differentiable=differentiable, remat=remat,
+        differentiable=differentiable, remat=remat, diff_t=diff_t,
+        rng_scheme=rng_scheme,
     )
 
 
@@ -356,7 +371,8 @@ def derive_cascade_schedule_multi(scene, cams, settings, key, background=None,
         _, stats = trace_pixel_lanes(
             scene, cam.to(dev), key, pix, 0, bg, width=settings.width,
             height=settings.height, spp_chunk=1, spp_total=1,
-            max_bounces=settings.max_bounces, rr_start=settings.russian_roulette_start)
+            max_bounces=settings.max_bounces, rr_start=settings.russian_roulette_start,
+            rng_scheme=settings.rng_scheme)
         o = stats.occupancy.cpu().numpy()
         occ = o if occ is None else np.maximum(occ, o)
     n_lanes = npix * settings.resolve_chunk()
@@ -380,7 +396,8 @@ def _live_first(alive):
 def _render_chunk_cascaded(scene, cam: Camera, base_key, sample_offset: int,
                            background, *, width: int, height: int,
                            spp_chunk: int, spp_total: int, max_bounces: int,
-                           rr_start: Optional[int], schedule=None, pix=None):
+                           rr_start: Optional[int], schedule=None, pix=None,
+                           rng_scheme: str = "legacy"):
     """One sample chunk through the cascade; returns (sum_radiance (len(pix),
     3), stats), as ``_render_chunk``.  ``pix``: the pixel ids to trace
     (a tile of the image, ``parallel/shard.py``), all of them by default.
@@ -418,7 +435,8 @@ def _render_chunk_cascaded(scene, cam: Camera, base_key, sample_offset: int,
     b0 = 0
     for b1, width_s in stages + [(max_bounces, None)]:
         st, n = trace_resume(scene, o, d, thr, rad, alive, lkeys, background, b0, b1,
-                             rr_start, segments=segments, occupancy=occupancy)
+                             rr_start, segments=segments, occupancy=occupancy,
+                             rng_scheme=rng_scheme)
         bounces += n
         segments, occupancy = st["segments"], st["occupancy"]
         alive = st["alive"]
@@ -464,7 +482,8 @@ def _render_frame(scene, cam, settings: RenderSettings, key, bg, spp: int,
     total_occ = torch.zeros(MAX_BOUNCE_STATS, dtype=torch.float32, device=dev)
     args = dict(width=settings.width, height=settings.height, spp_chunk=chunk,
                 spp_total=spp, max_bounces=settings.max_bounces,
-                rr_start=settings.russian_roulette_start)
+                rr_start=settings.russian_roulette_start,
+                rng_scheme=settings.rng_scheme)
     for s0 in range(0, spp, chunk):
         if cascade:
             part, stats = _render_chunk_cascaded(scene, cam, key, s0, bg,
@@ -472,7 +491,7 @@ def _render_frame(scene, cam, settings: RenderSettings, key, bg, spp: int,
         else:
             part, stats = _render_chunk(
                 scene, cam, key, s0, bg, differentiable=settings.differentiable,
-                remat=settings.remat, **args)
+                remat=settings.remat, diff_t=settings.diff_t, **args)
         acc = acc + part
         total_segments = total_segments + stats.segments
         total_bounces += stats.bounces
@@ -498,7 +517,9 @@ def render_radiance(scene, cam: Camera, settings: RenderSettings, key,
     scene, camera and key are moved to ``device``.  With
     ``settings.differentiable`` the image carries gradients to the
     scene's texture colours and image texels, the camera's tensors and
-    ``background``; a differentiable render ignores ``cascade`` and
+    ``background``, and under ``settings.diff_t = "rederive"`` to
+    ``scene.prims.data`` where it requires grad (``integrator.trace``);
+    a differentiable render ignores ``cascade`` and
     ``cascade_schedule``, as the JAX package's does (render.py:830-835).
 
     The cascade's overflow guard is the renderer's: an explicit static

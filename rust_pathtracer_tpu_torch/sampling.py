@@ -1,10 +1,15 @@
 """Counter-based random draws, bit-exact with the JAX package.
 
 Counterpart of ``rust_pathtracer_tpu/sampling.py``; plain tensor code.
-Only the legacy per-purpose stream (the JAX code default,
-``RPT_RNG_SCHEME`` unset) is ported; the opt-in packed scheme waits.
-The sphere and ball transforms of the uniforms run where the draws are
-used, at the wavefront's own shape, as in the JAX package.
+Both of the JAX package's streams of scatter draws: the legacy
+per-purpose stream (its default, ``RPT_RNG_SCHEME`` unset) and the
+packed counter-mode stream (``RPT_RNG_SCHEME=packed``,
+``scatter_uniforms``), chosen by the ``rng_scheme`` argument of
+``bounce_draws``, the one chooser every draw site goes through, so that
+a render never mixes the two.  Camera jitter and lens draws take the
+legacy stream under both.  The sphere and ball transforms of the
+uniforms run where the draws are used, at the wavefront's own shape, as
+in the JAX package.
 
 Every lane owns a threefry-2x32 key ``fold_in(base_key, counter)``
 and every bounce draws under ``fold_in(lane_key, bounce * 8 +
@@ -15,6 +20,12 @@ jax 0.9):
 * ``jax.random.uniform(k, (n,))[i]`` is the f32 whose bits are
   ``((x0 ^ x1) >> 9) | 0x3f800000``, minus 1, where
   ``(x0, x1) = threefry2x32(k, (0, i))``.
+
+The packed stream draws one bounce of a lane from the raw lane key, with
+no fold: block j is ``threefry2x32(lane_key, (bounce, j))``, both output
+words kept, and word w converts as ``(w >> 8) * 2**-24`` (24 bits, not
+the 23-bit mantissa trick above).  Words 0-1 are ``sphere_u``, 2-4
+``ball_u``, 5 the coin and 6 roulette: 4 blocks a lane-bounce.
 
 Keys are ``(..., 2)`` int64 tensors holding uint32 words.  PyTorch has
 no uint32 add on the CPU, so all words live in int64 and are masked to
@@ -37,6 +48,9 @@ P_FUZZ = 3          # 3 uniforms: in-ball dir (material.rs:84)
 P_SCHLICK = 4       # 1 uniform: reflect/refract coin (material.rs:128)
 P_ROULETTE = 5      # 1 uniform: optional russian roulette (not in reference)
 _STRIDE = 8
+
+# the scatter-draw streams (JAX RPT_RNG_SCHEME)
+RNG_SCHEMES = ("legacy", "packed")
 
 _M32 = 0xFFFFFFFF
 _TF_C240 = 0x1BD11BDA
@@ -149,9 +163,49 @@ def in_unit_sphere_from_u(u: torch.Tensor) -> torch.Tensor:
     return d * cbrt(u[..., 2])[..., None]
 
 
-def bounce_draws(lkeys: torch.Tensor, bounce, with_roulette: bool):
-    """One bounce's scatter uniforms (legacy scheme): (sphere_u (..., 2),
-    ball_u (..., 3), coin (...), roulette (...) or None)."""
+def check_rng_scheme(rng_scheme: str) -> str:
+    """``rng_scheme`` if it names a stream, else a ValueError."""
+    if rng_scheme not in RNG_SCHEMES:
+        raise ValueError(f"rng_scheme {rng_scheme!r}, want one of {RNG_SCHEMES}")
+    return rng_scheme
+
+
+def _bits_to_unit(w: torch.Tensor) -> torch.Tensor:
+    """uint32 words -> U[0, 1) at 24-bit resolution, exact in f32."""
+    return (w >> 8).to(torch.float32) * (2.0 ** -24)
+
+
+def scatter_uniforms(lkeys: torch.Tensor, bounce, with_roulette: bool):
+    """All of one bounce's scatter draws from 4 counter-mode threefry
+    blocks under the raw lane keys (the packed scheme).
+
+    ``lkeys`` (R, 2) lane keys; ``bounce`` an int, an (R,) per-lane depth
+    or any tensor that broadcasts against (R,), taken modulo 2**32.
+    Returns (sphere_u (.., R, 2), ball_u (.., R, 3), coin (.., R),
+    roulette (.., R) or None); block j in 0..3 yields words (2j, 2j+1)."""
+    k0, k1 = lkeys[..., 0], lkeys[..., 1]
+    if isinstance(bounce, torch.Tensor):
+        b = bounce.to(torch.int64) & _M32
+    else:
+        b = torch.tensor(int(bounce) & _M32, dtype=torch.int64, device=lkeys.device)
+    b, k0, k1 = torch.broadcast_tensors(b, k0, k1)
+    words = []
+    for j in range(4 if with_roulette else 3):
+        w0, w1 = threefry2x32(k0, k1, b, j)
+        words.extend([w0, w1])
+    u = [_bits_to_unit(w) for w in words]
+    return (torch.stack(u[0:2], dim=-1), torch.stack(u[2:5], dim=-1), u[5],
+            u[6] if with_roulette else None)
+
+
+def bounce_draws(lkeys: torch.Tensor, bounce, with_roulette: bool,
+                 rng_scheme: str = "legacy"):
+    """One bounce's scatter uniforms under ``rng_scheme`` (the JAX
+    package's single chooser): (sphere_u (..., 2), ball_u (..., 3), coin
+    (...), roulette (...) or None).  "packed" is ``scatter_uniforms``;
+    "legacy" the per-purpose fold chains."""
+    if check_rng_scheme(rng_scheme) == "packed":
+        return scatter_uniforms(lkeys, bounce, with_roulette)
     su = uniform2(bounce_keys(lkeys, bounce, P_LAMBERT))
     bu = uniform3(bounce_keys(lkeys, bounce, P_FUZZ))
     cn = uniform(bounce_keys(lkeys, bounce, P_SCHLICK))

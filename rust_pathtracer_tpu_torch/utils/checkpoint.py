@@ -9,7 +9,11 @@ and the base key) is saved between sample chunks.  The RNG is keyed by
 lanes exactly and its image equals the uninterrupted one bit for bit.
 The file is the JAX package's ``.npz`` with the same fields; ``key_data``
 holds the key's two 32-bit words, so a file that either package wrote
-loads in the other.
+loads in the other.  The port adds ``rng_scheme``, the stream of the
+scatter draws: a file resumes only under its own scheme, as only under
+its own key, so a resumed render never mixes two streams (a file
+without the field, as the JAX package writes it, is "legacy", the JAX
+package's default).
 
 A sharded render (``render_radiance_sharded_checkpointed``) keeps the
 same file, with the samples-axis extent and the chunk, so that its
@@ -37,6 +41,8 @@ class RenderCheckpoint(NamedTuple):
     # package's sharded checkpoints); 1 and 0 on a single device
     samples_axis: int = 1
     chunk: int = 0
+    # the scatter draws' stream of the samples done
+    rng_scheme: str = "legacy"
 
 
 def save_checkpoint(path: str, ckpt: RenderCheckpoint) -> None:
@@ -51,7 +57,8 @@ def save_checkpoint(path: str, ckpt: RenderCheckpoint) -> None:
             np.savez(f, acc=ckpt.acc, samples_done=ckpt.samples_done,
                      width=ckpt.width, height=ckpt.height, spp_total=ckpt.spp_total,
                      key_data=ckpt.key_data, segments=ckpt.segments,
-                     samples_axis=ckpt.samples_axis, chunk=ckpt.chunk)
+                     samples_axis=ckpt.samples_axis, chunk=ckpt.chunk,
+                     rng_scheme=ckpt.rng_scheme)
         os.replace(tmp, path)
     except BaseException:
         if os.path.exists(tmp):
@@ -70,6 +77,7 @@ def load_checkpoint(path: str) -> Optional[RenderCheckpoint]:
             key_data=z["key_data"], segments=float(z["segments"]),
             samples_axis=int(z["samples_axis"]) if "samples_axis" in z else 1,
             chunk=int(z["chunk"]) if "chunk" in z else 0,
+            rng_scheme=str(z["rng_scheme"]) if "rng_scheme" in z else "legacy",
         )
 
 
@@ -83,8 +91,8 @@ def render_radiance_checkpointed(scene, cam, settings, key, checkpoint_path: str
     """The chunked render of ``render.render_radiance`` on ``device``,
     saving its progress to ``checkpoint_path`` every ``checkpoint_every``
     sample chunks, and resuming from that file where it matches the job
-    (width, height, samples per pixel, key); a file that does not match
-    is ignored.  Returns (image (H, W, 3), TraceStats with the segments;
+    (width, height, samples per pixel, key, ``settings.rng_scheme``); a
+    file that does not match is ignored.  Returns (image (H, W, 3), TraceStats with the segments;
     bounces and occupancy are not kept across a resume, so they are 0).
 
     The cascade runs as in ``render_radiance``: "auto" derives its
@@ -124,19 +132,21 @@ def render_radiance_checkpointed(scene, cam, settings, key, checkpoint_path: str
     start, segments = 0, 0.0
     acc = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
     ckpt = load_checkpoint(checkpoint_path)
-    if ckpt is not None and (ckpt.width, ckpt.height, ckpt.spp_total) == (
-            settings.width, settings.height, spp) and np.array_equal(ckpt.key_data, words):
+    if ckpt is not None and (ckpt.width, ckpt.height, ckpt.spp_total, ckpt.rng_scheme) == (
+            settings.width, settings.height, spp, settings.rng_scheme) and np.array_equal(
+            ckpt.key_data, words):
         start, segments = ckpt.samples_done, ckpt.segments
         acc = torch.as_tensor(ckpt.acc, dtype=torch.float32, device=dev)
 
     args = dict(width=settings.width, height=settings.height, spp_chunk=chunk,
                 spp_total=spp, max_bounces=settings.max_bounces,
-                rr_start=settings.russian_roulette_start)
+                rr_start=settings.russian_roulette_start,
+                rng_scheme=settings.rng_scheme)
 
     def plain_chunk(s0):
         return _render_chunk(scene, cam, key, s0, bg,
                              differentiable=settings.differentiable,
-                             remat=settings.remat, **args)
+                             remat=settings.remat, diff_t=settings.diff_t, **args)
 
     # segments and the overflow count stay on the device between saves
     zero = torch.zeros((), dtype=torch.float32, device=dev)
@@ -176,7 +186,8 @@ def render_radiance_checkpointed(scene, cam, settings, key, checkpoint_path: str
             save_checkpoint(checkpoint_path, RenderCheckpoint(
                 acc=acc.detach().cpu().numpy(), samples_done=min(s0 + chunk, spp),
                 width=settings.width, height=settings.height, spp_total=spp,
-                key_data=words, segments=segments + float(seg_dev)))
+                key_data=words, segments=segments + float(seg_dev),
+                rng_scheme=settings.rng_scheme))
     acc, seg_dev = guard(acc, seg_dev, overflow_dev)
     segments += float(seg_dev)
 
@@ -201,8 +212,8 @@ def render_radiance_sharded_checkpointed(scene, cam, settings, key, mesh,
     resume with another tile count (the RNG keys off global (pixel,
     sample), so which rank traces a pixel does not matter); the samples
     axis and the chunk must match, since each sample group owns a
-    disjoint sample range: a file that does not match is ignored and the
-    render starts again.  The restored sums are the running accumulator,
+    disjoint sample range, and the scheme of the draws too: a file that
+    does not match is ignored and the render starts again.  The restored sums are the running accumulator,
     so a resumed render equals the uninterrupted one bit for bit.  Returns
     (image (H, W, 3), TraceStats with the segments; bounces and
     occupancy are not kept across a resume, so they are 0).
@@ -248,8 +259,10 @@ def render_radiance_sharded_checkpointed(scene, cam, settings, key, mesh,
     acc = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
     ckpt = load_checkpoint(checkpoint_path)
     if ckpt is not None and (
-            (ckpt.width, ckpt.height, ckpt.spp_total, ckpt.samples_axis, ckpt.chunk)
-            == (settings.width, settings.height, spp, plan.n_samples_axis, plan.chunk)
+            (ckpt.width, ckpt.height, ckpt.spp_total, ckpt.samples_axis, ckpt.chunk,
+             ckpt.rng_scheme)
+            == (settings.width, settings.height, spp, plan.n_samples_axis, plan.chunk,
+                settings.rng_scheme)
             and np.array_equal(ckpt.key_data, words)):
         # samples_done counts a sample group's chunks of plan.chunk
         start, segments = ckpt.samples_done // plan.chunk, ckpt.segments
@@ -273,7 +286,7 @@ def render_radiance_sharded_checkpointed(scene, cam, settings, key, mesh,
                     acc=acc.detach().cpu().numpy(), samples_done=(c + 1) * plan.chunk,
                     width=settings.width, height=settings.height, spp_total=spp,
                     key_data=words, segments=segments, samples_axis=plan.n_samples_axis,
-                    chunk=plan.chunk))
+                    chunk=plan.chunk, rng_scheme=settings.rng_scheme))
     mesh.barrier()  # the last file is whole before any rank returns
 
     img = (acc / torch.tensor(float(spp), dtype=torch.float32, device=dev)

@@ -26,7 +26,8 @@ per-pixel sums differs.  The bounce runs on the scene's route, as
   the projected tables), the draw kernel at per-lane depth
   (``ops/draws.py``), the tensor-op shading and per-lane roulette.
 
-Then the depth cap kills the lanes at ``max_bounces``.  On the fused
+Both draw under ``RenderSettings.rng_scheme``, as the chunked renderer
+does.  Then the depth cap kills the lanes at ``max_bounces``.  On the fused
 route K1 commits the state of a lane the cap kills (roulette included);
 that lane is dead, and nothing reads a dead lane's origin, direction or
 throughput again (the flush reads radiance, a respawn overwrites), so
@@ -57,6 +58,7 @@ from typing import Optional
 
 import torch
 
+from rust_pathtracer_tpu_torch import sampling
 from rust_pathtracer_tpu_torch.camera import Camera
 from rust_pathtracer_tpu_torch.integrator import (
     MAX_BOUNCE_STATS,
@@ -111,6 +113,7 @@ class _Frame:
     max_bounces: int
     rr_start: Optional[int]
     stripe: bool
+    rng_scheme: str = "legacy"
 
     @property
     def npix(self):
@@ -177,7 +180,7 @@ def _bounce_generic(fr: _Frame, state, keys, depth):
     o, d, thr, rad = (state[k:k + 3].T.contiguous() for k in (0, 3, 6, 9))
     alive = state[12] > 0.5
     hit, rec, shade_row = search_and_record(fr.scene, fr.table, o, d, alive)
-    su, bu, coin, rl = bounce_draws(keys, depth, fr.roulette)
+    su, bu, coin, rl = bounce_draws(keys, depth, fr.roulette, fr.rng_scheme)
     o, d, thr, rad, cont = _bounce_tail(
         fr.scene, (o, d, thr, rad, alive), hit, rec,
         dict(sphere_u=su, ball_u=bu, coin=coin), fr.bg, rl, _call, shade_row,
@@ -197,7 +200,7 @@ def _bounce(fr: _Frame, pool: _Pool):
             fr.table, fr.bg, fr.scene.textures.perlin_seed, pool.state, pool.keys,
             pool.depth, with_roulette=fr.roulette, rr_start=fr.rr_start or 0,
             kinds=fr.scene.kinds_static, mat_types=fr.scene.mat_types,
-            tex_types=fr.scene.tex_types, t_min=T_MIN)
+            tex_types=fr.scene.tex_types, t_min=T_MIN, rng_scheme=fr.rng_scheme)
     else:
         state = _bounce_generic(fr, pool.state, pool.keys, pool.depth)
     pool.depth = pool.depth + alive.to(torch.int32)
@@ -302,7 +305,8 @@ def render_radiance_regen(scene, cam: Camera, settings: RenderSettings, key,
                 bg=torch.as_tensor(settings.background, dtype=torch.float32, device=dev),
                 width=width, height=height, spp=spp,
                 max_bounces=settings.max_bounces,
-                rr_start=settings.russian_roulette_start, stripe=stripe)
+                rr_start=settings.russian_roulette_start, stripe=stripe,
+                rng_scheme=sampling.check_rng_scheme(settings.rng_scheme))
 
     init = torch.arange(lanes, dtype=torch.int64, device=dev) * (stripe_k if stripe else 1)
     pixel, keys, state = _spawn(fr, init)

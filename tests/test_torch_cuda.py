@@ -798,3 +798,84 @@ def test_cli_animation_on_gpu_matches_cpu(tmp_path):
         agree = image_agreement(imgs["cuda"], imgs["cpu"])
         assert agree["ok"], (f, agree)
         assert read_png(str(tmp_path / "cuda" / name)).shape == (27, 48, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 257, 70001])
+def test_packed_kernels_match_plain_on_gpu(n):
+    """The packed scheme (``rng_scheme="packed"``): K1 at a scalar bounce
+    (residuals off and on) and at per-lane depths, and the draw kernel,
+    against their packed plain versions on the same CUDA tensors, bit for
+    bit; the draw kernel against the CPU's packed draws too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from rust_pathtracer_tpu_torch.ops import draws
+
+    scene = t_full_scene().to("cuda")
+    cols, _ = _random_lanes(n, seed=38)
+    state, keys = _keyed_inputs(cols, "cuda")
+    depth = torch.as_tensor(np.random.default_rng(n).integers(0, 50, n).astype(np.int32),
+                            device="cuda")
+    table, bg = fb.pack_prims_shaded(scene), torch.tensor((0.2, 0.1, 0.05), device="cuda")
+    kw = dict(with_roulette=True, rr_start=3, kinds=scene.kinds_static,
+              mat_types=scene.mat_types, tex_types=scene.tex_types, t_min=T_MIN,
+              rng_scheme="packed")
+    for bounce, res in ((7, False), (7, True), (depth, False)):
+        runs = []
+        for fn in (fb.fused_bounce_keyed, fb.fused_bounce_keyed_plain):
+            out = fn(table, bg, scene.textures.perlin_seed, state, keys, bounce, **kw,
+                     want_residuals=res)
+            out, r = out if res else (out, {})
+            torch.cuda.synchronize()
+            runs.append([out.cpu().numpy().view(np.int32)]
+                        + [r[k].cpu().numpy().view(np.int32) for k in sorted(r)])
+        for a, b in zip(*runs):
+            np.testing.assert_array_equal(a, b)
+    for bounce in (7, depth):
+        got = draws.bounce_draws(keys, bounce, True, "packed")
+        plain = draws.bounce_draws_plain(keys, bounce, True, "packed")
+        b_cpu = bounce.cpu() if isinstance(bounce, torch.Tensor) else bounce
+        cpu = draws.bounce_draws(keys.cpu(), b_cpu, True, "packed")
+        for g, p, c in zip(got, plain, cpu):
+            g = g.cpu().contiguous().numpy().view(np.int32)
+            np.testing.assert_array_equal(g, p.cpu().contiguous().numpy().view(np.int32))
+            np.testing.assert_array_equal(g, c.contiguous().numpy().view(np.int32))
+
+
+@pytest.mark.cuda
+def test_geometry_step_on_gpu_matches_cpu():
+    """The geometry gradient (``diff_t="rederive"``, ``prims.data`` a
+    leaf) of a small TwoSphereCheckers step on the card (K4 once a
+    bounce) against the CPU: the loss within 2e-3 relative, the
+    prims.data gradient within rtol 0.05 and 2e-3 of its largest, bit for
+    bit the same on a second run on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import dataclasses
+
+    from rust_pathtracer_tpu_torch.grad import CameraParams, DiffParams, render_loss_and_grad
+    from rust_pathtracer_tpu_torch.models import get_scene
+    from rust_pathtracer_tpu_torch.render import RenderSettings
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+
+    settings = RenderSettings(16, 9, 4, 6, (1.0, 1.0, 1.0), diff_t="rederive")
+    out = {}
+    for dev in ("cpu", "cuda", "cuda2"):
+        scene = get_scene("TwoSphereCheckers").build(device=dev[:4])
+        data = scene.prims.data.clone().requires_grad_(True)
+        scene = dataclasses.replace(scene, prims=dataclasses.replace(scene.prims, data=data))
+        cam = CameraParams.create((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0),
+                                  20.0, 854.0 / 480.0, 0.0, 10.0, device=dev[:4])
+        params = DiffParams.from_scene(scene, cam, settings.background)
+        before = ch.hit_launches
+        loss, _ = render_loss_and_grad(params, scene, settings, prng_key(0, device=dev[:4]),
+                                       torch.zeros(9, 16, 3), device=dev[:4])
+        if dev != "cpu":
+            assert ch.hit_launches - before == settings.max_bounces
+        out[dev] = (loss.cpu(), data.grad.cpu())
+    (l0, g0), (l1, g1), (l2, g2) = out["cpu"], out["cuda"], out["cuda2"]
+    np.testing.assert_allclose(float(l1), float(l0), rtol=2e-3)
+    assert np.abs(g0.numpy()).max() > 0 and torch.isfinite(g1).all()
+    np.testing.assert_allclose(g1.numpy(), g0.numpy(), rtol=0.05,
+                               atol=2e-3 * np.abs(g0.numpy()).max())
+    assert torch.equal(l1, l2) and torch.equal(g1, g2)

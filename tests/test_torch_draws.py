@@ -124,7 +124,7 @@ def emu_lib(request, tmp_path_factory):
     return lib
 
 
-def launch_emulated(lib, keys, bounce, with_roulette):
+def launch_emulated(lib, keys, bounce, with_roulette, packed=False):
     """``draws._launch``'s call, on CPU tensors; the output rows start
     filled with NaN, so a lane the launch skips shows."""
     R = keys.shape[1]
@@ -132,7 +132,7 @@ def launch_emulated(lib, keys, bounce, with_roulette):
     per_lane = isinstance(bounce, torch.Tensor)
     err = lib.bounce_draws_launch(keys.data_ptr(), bounce.data_ptr() if per_lane else None,
                                   0 if per_lane else bounce, int(with_roulette),
-                                  out.data_ptr(), R, None)
+                                  int(packed), out.data_ptr(), R, None)
     assert err == 0
     return draws._split(out, with_roulette)
 
@@ -156,11 +156,11 @@ def hoisted_draws(monkeypatch):
     def use(max_bounces, rr_start):
         table = {}
 
-        def hoisted(keys, bounce, with_roulette):
+        def hoisted(keys, bounce, with_roulette, rng_scheme="legacy"):
             if bounce == 0:
                 table.update(_precompute_draws(fb._lane_keys(keys), max_bounces,
                                                max_bounces + 1 if rr_start is None
-                                               else rr_start))
+                                               else rr_start, rng_scheme=rng_scheme))
             return (table["sphere_u"][bounce], table["ball_u"][bounce],
                     table["coin"][bounce],
                     table["roulette"][bounce] if with_roulette else None)

@@ -56,14 +56,16 @@ def _assert_bits_equal(a, b, what):
 
 
 def hoisted_bounce(table, bg, seed, state, keys, bounce, *, with_roulette, kinds,
-                   mat_types, tex_types, t_min, winner_out=None, want_residuals=False):
+                   mat_types, tex_types, t_min, winner_out=None, want_residuals=False,
+                   rng_scheme="legacy"):
     """The fused route's bounce as it was before the keyed K1: the hoisted
     draws of ``_precompute_draws`` into the uniforms-in bounce, then
     ``roulette``, with the roulette's residuals as the keyed bounce
     returns them."""
     lk = fb._lane_keys(keys)
     rr_start = bounce if with_roulette else bounce + 1
-    dr = _precompute_draws(lk, bounce + 1, rr_start, start_bounce=bounce)
+    dr = _precompute_draws(lk, bounce + 1, rr_start, start_bounce=bounce,
+                           rng_scheme=rng_scheme)
     su, bu = dr["sphere_u"][0], dr["ball_u"][0]
     out = fb.fused_bounce_cols_plain(
         table, bg, seed, fb.state_cols(state), su[:, 0], su[:, 1], bu[:, 0],

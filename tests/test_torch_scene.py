@@ -109,8 +109,9 @@ def test_image_scene_carries_jax_scene():
 
 def test_not_ported_yet_raises():
     """SphereField and ModelTest build now, with a BVH past 64 primitives
-    and the projected tables past 128; what the port still lacks on such
-    a scene raises: geometry gradients (ROADMAP queue 1 item 8).  The
+    and the projected tables past 128; a geometry gradient under the
+    default hit distance ("analytic", linearised in the ray) raises on
+    such a scene, naming ``diff_t="rederive"``, which takes it.  The
     cascade renderer, which raised before it was ported, renders the
     chunked image bit for bit."""
     import dataclasses
@@ -137,7 +138,7 @@ def test_not_ported_yet_raises():
     assert torch.equal(img, want) and torch.equal(st2.occupancy, st.occupancy)
     prims = dataclasses.replace(scene.prims,
                                 data=scene.prims.data.clone().requires_grad_(True))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match='diff_t="rederive"'):
         render_radiance(dataclasses.replace(scene, prims=prims), sd.camera_at(0.0),
                         dataclasses.replace(settings, differentiable=True),
                         prng_key(0), device="cpu")

@@ -144,19 +144,28 @@ def case_render(device, jobs):
 
 def case_grad(device, jobs, dryrun=None):
     """Each job: {"mesh", "scene", "settings", "key", "camera" (the seven
-    CameraParams values)}: ``render_loss_and_grad_sharded`` against a
-    zero target.  Records the loss and every DiffParams leaf's
-    gradient; then, given a mesh ``dryrun``, ``dryrun_multichip`` on it."""
+    CameraParams values), optional "geometry" (``scene.prims.data`` a
+    leaf)}: ``render_loss_and_grad_sharded`` against a zero target.
+    Records the loss, every DiffParams leaf's gradient and, with
+    "geometry", ``prims.data``'s; then, given a mesh ``dryrun``,
+    ``dryrun_multichip`` on it."""
     from rust_pathtracer_tpu_torch.grad import CameraParams, DiffParams
     from rust_pathtracer_tpu_torch.parallel import make_mesh, render_loss_and_grad_sharded
     from rust_pathtracer_tpu_torch.sampling import prng_key
 
     import torch
 
+    import dataclasses
+
     out = []
     for job in jobs:
         mesh = make_mesh(*job["mesh"], device=device)
         scene, _ = _scene(job["scene"], device)
+        data = None
+        if job.get("geometry"):  # scene.prims.data a leaf too
+            data = scene.prims.data.clone().requires_grad_(True)
+            scene = dataclasses.replace(
+                scene, prims=dataclasses.replace(scene.prims, data=data))
         s = _settings(job["settings"])
         params = DiffParams.from_scene(scene, CameraParams.create(*job["camera"],
                                                                   device=device),
@@ -165,6 +174,8 @@ def case_grad(device, jobs, dryrun=None):
             params, scene, s, prng_key(job["key"], device=device),
             torch.zeros((s.height, s.width, 3)), mesh)
         out.append({"loss": float(loss), "grads": [x.cpu() for x in g.leaves()]})
+        if data is not None:
+            out[-1]["data"] = data.grad.cpu()
     result = {"jobs": out}
     if dryrun is not None:
         from rust_pathtracer_tpu_torch.parallel.dryrun import dryrun_multichip
@@ -227,7 +238,15 @@ def case_checkpoint(device, jobs):
     return {"jobs": out}
 
 
-CASES = {"render": case_render, "grad": case_grad, "checkpoint": case_checkpoint}
+def case_slice(device, grad=(), render=(), checkpoint=()):
+    """``case_grad``, ``case_render`` and ``case_checkpoint`` on their
+    jobs, in that order, in one group of ranks."""
+    return {"grad": case_grad(device, grad), "render": case_render(device, render),
+            "checkpoint": case_checkpoint(device, checkpoint)}
+
+
+CASES = {"render": case_render, "grad": case_grad, "checkpoint": case_checkpoint,
+         "slice": case_slice}
 
 
 def main(argv):
