@@ -15,14 +15,18 @@ path is SphereField at its own width (phase 25), and the command line: the
 CLI's animation loop, whose main path is SphereField's own orbit at its
 width (phase 35), scene JSON and the inverse-rendering example, and the
 packed RNG scheme and the geometry gradient, whose main path is the
-CornellBox step with ``diff_t="rederive"`` (phase 40).  It checks them:
+CornellBox step with ``diff_t="rederive"`` (phase 40), and the
+between-bounce reorder of big scenes with its pass-set key kernel, whose
+main path is the reorder A/B of phase 43, with remat "bf16" and the
+differentiable cascade (phase 45).  It checks them:
 
 1. device: a CUDA GPU must be present (no CPU fallback); prints the
    card's name and power limit and the torch and nvcc versions;
 2. build: builds K1 (``ops/csrc/fused_bounce.cu``), K2
    (``ops/csrc/fused_bounce_bwd.cu``), K3/K4 (``ops/csrc/closest_hit.cu``),
-   K5/K6/K7 (``ops/csrc/projected.cu``) and the draw kernel
-   (``ops/csrc/draws.cu``) with nvcc for sm_90a, and the native BVH
+   K5/K6/K7 (``ops/csrc/projected.cu``), the draw kernel
+   (``ops/csrc/draws.cu``) and the pass-set key kernel
+   (``ops/csrc/passset.cu``) with nvcc for sm_90a, and the native BVH
    builder (``native.py``) with g++, in parallel;
 3. K1 against its plain PyTorch version on the CPU on 1,000,000 random
    lanes with random keys, at bounce 0, of a scene that covers every
@@ -150,7 +154,9 @@ CornellBox step with ``diff_t="rederive"`` (phase 40).  It checks them:
     image contract;
 24. the chunked SphereField frame of phase 15 with the draw kernel
     against the same frame with the draws hoisted in tensor ops
-    (``integrator._precompute_draws``), bit for bit, timed in turns;
+    (``integrator._precompute_draws``; without the reorder, since the
+    hoisted draws are in the lanes' first order), bit for bit, timed in
+    turns;
 25. the cascade main path: SphereField at 854x480, 20 bounces, 8 spp
     (as phase 22), one key three ways: ``cascade_schedule="auto"``, the
     dynamic cascade and the explicit schedule CASCADE_SF_SCHEDULE, each
@@ -257,10 +263,43 @@ CornellBox step with ``diff_t="rederive"`` (phase 40).  It checks them:
 41. the geometry gradient on SphereField (phase 17's shape) with K5 as
     the search: K5 and the draw kernel once a bounce, a finite prims.data
     gradient, the re-derived t within 1e-6 of K5's and never a miss,
-    time and peak memory.
+    time and peak memory;
+42. the pass-set key kernel (``ops/passset.py``, ``ops/csrc/passset.cu``)
+    against its plain version (``projected.passset_sort_keys_plain``) on
+    1,000,000 lanes of phase 14's three tables (SphereField's 5
+    clusters, the 10k mesh's 80, the 20k mesh's 158 real of 160), every
+    fifth lane dead: every word bit for bit, ``passset_perm`` of the
+    kernel's keys that of the plain ones and live lanes first; timed
+    beside the plain version (events, device time), with its bound and
+    the time of ``passset_perm`` (keys and sorts);
+43. the slice's main path, the between-bounce reorder, A/B in one call
+    (off, on, on, off; median walls of 3): the SphereField frame
+    (854x480, 2 spp, 20 bounces, K6), ModelTest 800x800 at 1 spp on the
+    10k (K6) and 20k meshes (K7, K5 fallbacks), and the SphereField frame
+    of phase 25 (8 spp, four chunks): each frame with the
+    reorder bit for bit the frame without it (image, segments,
+    occupancy), the key kernel launched on each reordered bounce and not
+    without; the search's device time a bounce and the key kernel's by
+    the profiler, K7's fallbacks to K5, the reorder alone (keys, stable
+    sorts, gathers) on the lanes of the first reordered bounce, and the
+    pass-set sizes there;
+44. SphereField regen (phase 22's shape) with and without the reorder:
+    equal segments and occupancy, the image within 2e-7; the 20k mesh
+    through ``cascade_schedule="auto"`` (its derived schedule starts with
+    the "1:1" pass-set regrouping) bit for bit its chunked frame of phase
+    43, its median wall beside the chunked one's;
+45. the TwoSphereCheckers step of phase 12 under remat "bf16" and through
+    a differentiable cascade whose schedule comes from the plain step's
+    occupancy (``render._derive_cascade_schedule``), against remat
+    "none": bf16's loss bit for bit, its gradient's normalised error in
+    (1e-7, 1e-2); the cascade's overflow 0, its loss within 1e-6 and
+    every gradient within rtol 1e-3 / atol 1e-7; K4 and the draw kernel
+    once a bounce; peak memory and step seconds in turns.
 
 Phases 11-13 and 15-17 also check that the generic routes launch the
-draw kernel once a bounce.
+draw kernel once a bounce.  The big-scene frames of phases 14-44 take the
+default routing, which reorders SphereField's and ModelTest's lanes
+between bounces.
 
 Each path runs with every launch count set to 0 just before it and
 read just after.  Any failed check exits non-zero.  On success the last
@@ -314,9 +353,12 @@ SMALL_STEP = dict(width=64, height=64, spp=4, bounces=8, rr_start=4)
 # bench.py's protocol: batches of REPS steps, the median batch, more
 # batches while the spread (max - min) / median exceeds SPREAD_TOL
 STEP = dict(reps=5, batches=5, max_batches=12, spread_tol=0.10)
+# calls a timed block of a plain version (each 1-200 ms on the card)
+PLAIN_REPS = 3
 CORNELL_CAM = ((278.0, 278.0, -800.0), (278.0, 278.0, 0.0), (0.0, 1.0, 0.0),
                40.0, 1.0, 0.0, 10.0)
-KERNELS = ("fused_bounce", "fused_bounce_bwd", "closest_hit", "projected", "draws")
+KERNELS = ("fused_bounce", "fused_bounce_bwd", "closest_hit", "projected", "draws",
+           "passset")
 LEAF_NAMES = ("tex_color", "tex_images", "background", "lookfrom", "lookat", "up",
               "vfov_deg", "aspect", "aperture", "focus_dist")
 
@@ -416,8 +458,8 @@ def phase_device(torch):
 
 
 def phase_build():
-    log("== phase 2: build K1, K2, K3/K4, K5/K6/K7, the draw kernel and the native "
-        "BVH builder")
+    log("== phase 2: build K1, K2, K3/K4, K5/K6/K7, the draw kernel, the pass-set key "
+        "kernel and the native BVH builder")
     from concurrent.futures import ThreadPoolExecutor
 
     from rust_pathtracer_tpu_torch.ops import _build
@@ -695,7 +737,7 @@ def phase_serve(torch, device, card, serve, bench, time_reps):
     def plain():
         return fb.fused_bounce_keyed_plain(*args, **kw)
 
-    res = time_pair(torch, device, k1, plain, time_reps)
+    res = time_pair(torch, device, k1, plain, time_reps, PLAIN_REPS)
     k_ms, p_ms = statistics.mean(res["kernel"]), statistics.mean(res["plain"])
     dev_ms, dev_held = _device_ms(torch, k1, time_reps, ("fused_bounce_kernel",))
     b_ms, b_by = k1_bound(torch, args, kw, scene, residual_planes=0)
@@ -1179,7 +1221,7 @@ def time_hits(torch, device, card, name, kernel, plain, args, kw, record, reps):
     table, o, d = args
     lanes = o.shape[0]
     ms = time_pair(torch, device, lambda: kernel(*args, **kw),
-                   lambda: plain(*args, **kw), reps)
+                   lambda: plain(*args, **kw), reps, PLAIN_REPS)
     out_bytes = (46 if record else 9) * lanes
     b_ms, b_by = bound(nbytes(table, o, d) + out_bytes,
                        sweep_ops(kw["kinds"], lanes, record=record))
@@ -1718,7 +1760,7 @@ def time_sweep(torch, device, card, label, fns, tables, n_lanes, reps):
               for a, b in zip(got, want))
     hits = int((want[1] >= 0).sum())
     swept = sum(stats.get("swept", []))
-    ms = time_pair(torch, device, kernel, plain, reps)
+    ms = time_pair(torch, device, kernel, plain, reps, PLAIN_REPS)
     k_ms, p_ms = statistics.mean(ms["kernel"]), statistics.mean(ms["plain"])
     b_ms, b_by = proj_bound(tables, n_lanes, stats, read_bytes, q_flags)
     per_visit, below = lanes_per_visit(stats)
@@ -2077,7 +2119,7 @@ def phase_k1_per_lane(torch, device, card, n_lanes, reps):
     def k1_scalar():  # the same lanes at one bounce, roulette on all of them
         return fb.fused_bounce_keyed(*args[:5], 7, **kw)
 
-    res = time_pair(torch, device, k1, plain, reps)
+    res = time_pair(torch, device, k1, plain, reps, PLAIN_REPS)
     k_ms, p_ms = statistics.mean(res["kernel"]), statistics.mean(res["plain"])
     dev_ms, held = _device_ms(torch, k1, reps, ("fused_bounce_kernel",))
     scalar = time_pair(torch, device, k1_scalar, k1, reps)
@@ -2166,7 +2208,7 @@ def phase_draws_vs_plain(torch, device, card, n_lanes, reps):
         log(f"{label}: lanes differing from the plain version {int(bad.sum())} "
             f"(sphere_u, ball_u, coin, roulette), max abs difference {err:.3e}")
         check(not bad.any(), f"the draw kernel differs from its plain version ({label})")
-        res = time_pair(torch, device, kernel, plain, reps)
+        res = time_pair(torch, device, kernel, plain, reps, PLAIN_REPS)
         k_ms, p_ms = statistics.mean(res["kernel"]), statistics.mean(res["plain"])
         dev_ms, held = _device_ms(torch, kernel, reps, ("bounce_draws_kernel",))
         b_ms, b_by = draws_bound(torch, keys, bounce, draws.N_ROWS + 1)
@@ -2510,8 +2552,9 @@ def phase_sf_frame_hoisted(torch, device, card, scenes):
     cfg = SF
     W, H, spp, nb = cfg["width"], cfg["height"], cfg["spp"], cfg["bounces"]
     log(f"== phase 24: the chunked SphereField frame {W}x{H}, {spp} spp, {nb} bounces "
-        f"with the draw kernel against the same frame with the draws hoisted in tensor "
-        f"ops (integrator._precompute_draws, the parent's route), bit for bit")
+        f"with the draw kernel (and the reorder) against the same frame with the draws "
+        f"hoisted in tensor ops (integrator._precompute_draws, the parent's route; no "
+        f"reorder), bit for bit")
     from rust_pathtracer_tpu_torch import integrator
     from rust_pathtracer_tpu_torch.ops.fused_bounce import _lane_keys
     from rust_pathtracer_tpu_torch.render import RenderSettings, render_radiance
@@ -2531,12 +2574,18 @@ def phase_sf_frame_hoisted(torch, device, card, scenes):
     walls = {"kernel": [], "hoisted": []}
     imgs = {}
     kernel_draws = integrator.bounce_draws
+    # the hoisted draws are in the lanes' first order: that render runs
+    # without the between-bounce reorder (the JAX package hoists only
+    # without it); the draw kernel's takes the default routing, which
+    # reorders SphereField
+    unordered = dataclasses.replace(settings, reorder=False)
     for route in ("hoisted", "kernel", "kernel", "hoisted"):
         integrator.bounce_draws = hoisted if route == "hoisted" else kernel_draws
         try:
             wall, (img, stats), counts = _timed_render(
-                torch, device, lambda: render_radiance(scene, cam, settings, key,
-                                                       device=device))
+                torch, device, lambda: render_radiance(
+                    scene, cam, unordered if route == "hoisted" else settings, key,
+                    device=device))
         finally:
             integrator.bounce_draws = kernel_draws
         table.clear()
@@ -3853,7 +3902,7 @@ def _packed_time(torch, device, card, label, legacy, packed, plain, reps, kernel
     ``reps`` launches, CUDA events) and its packed plain twin; the packed
     kernel's device time (profiler).  Returns the kernels-line numbers."""
     ab = time_pair(torch, device, packed, legacy, reps)
-    pp = time_pair(torch, device, packed, plain, reps)
+    pp = time_pair(torch, device, packed, plain, reps, PLAIN_REPS)
     ms, leg = statistics.mean(ab["kernel"]), statistics.mean(ab["plain"])
     dev_ms, held = _device_ms(torch, packed, reps, kernels)
     leg_dev, leg_held = _device_ms(torch, legacy, reps, kernels)
@@ -4394,6 +4443,388 @@ def phase_geometry_spherefield(torch, device, card, scenes):
 
 
 # ---------------------------------------------------------------------------
+# the pass-set reorder, remat "bf16" and the differentiable cascade
+# (phases 42-45)
+# ---------------------------------------------------------------------------
+
+REORDER_TABLES = ("SphereField", "ModelTest", "ModelTest 20k")
+# phase 43's frames: (label, scene, shape, background); the last is the
+# cascade phases' SphereField frame, four chunks
+REORDER_FRAMES = (("SphereField", "SphereField", "SF", (1.0, 1.0, 1.0)),
+                  ("ModelTest", "ModelTest", "MT", (1.0, 1.0, 1.0)),
+                  ("ModelTest 20k", "ModelTest 20k", "MT", (1.0, 1.0, 1.0)),
+                  ("SphereField 8 spp", "SphereField", "CASCADE_SF", (1.0, 1.0, 1.0)))
+PASSSET_DEAD_EVERY = 5         # phase 42: every fifth lane dead
+REGEN_REORDER_ATOL = 2e-7      # phase 44: regen with the reorder against without
+DIFF_CASCADE_LOSS_RTOL = 1e-6  # phase 45 (tests/test_grad.py's)
+DIFF_CASCADE_RTOL, DIFF_CASCADE_ATOL = 1e-3, 1e-7
+BF16_ERR = (1e-7, 1e-2)        # the gradient's normalised error under "bf16"
+SEARCH_KERNEL = "sweep_kernel"  # K5, K6 and K7: one kernel of csrc/projected.cu
+
+
+def passset_bound(tables, alive):
+    """The least time for the keys of these lanes: the rays, alive flags
+    and words written over the memory rate, against SLAB_OPS f32
+    operations for each live lane and real cluster (the reciprocals
+    three a live lane), over the f32 peak."""
+    from rust_pathtracer_tpu_torch.ops.projected import passset_words
+
+    n, live = alive.numel(), int(alive.sum())
+    real = sum(k != -1 for k in tables.group_kinds)
+    words = 1 + passset_words(tables.num_groups)
+    return bound(n * (24 + 1 + 4 * words) + nbytes(tables.bounds8),
+                 live * (real * SLAB_OPS + 3))
+
+
+def kernel_device_ms(torch, fn, names):
+    """One call of ``fn`` under the profiler (the device's trace):
+    {name: [device ms, launches]} summed over the CUDA kernels whose name
+    holds ``name``, and "busy": the device's busy ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from profile_port import busy_ms
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for n in names:
+        rows = [a for a in prof.key_averages()
+                if a.device_type.name == "CUDA" and n in a.key]
+        total = sum(getattr(a, "device_time_total", getattr(a, "cuda_time_total", 0.0))
+                    for a in rows)
+        out[n] = [total / 1e3, sum(a.count for a in rows)]
+    out["busy"] = busy_ms(prof.events())
+    return out
+
+
+def phase_passset_kernel(torch, device, card, scenes, reps):
+    log(f"== phase 42: the pass-set key kernel vs its plain version on {BIG_LANES} "
+        f"lanes (every {PASSSET_DEAD_EVERY}th dead) of three tables, bit for bit")
+    from rust_pathtracer_tpu_torch.integrator import T_MIN
+    from rust_pathtracer_tpu_torch.ops import passset
+    from rust_pathtracer_tpu_torch.ops.projected import (
+        passset_perm, passset_sort_keys_plain, passset_words, sort_by_words,
+    )
+
+    out = {}
+    for name, cfg in zip(REORDER_TABLES, (SF, MT, MT)):
+        sd, scene = scenes[name]
+        tables = scene.proj
+        o, d = big_lanes(torch, device, name, sd, cfg, BIG_LANES)
+        alive = torch.ones(o.shape[0], dtype=torch.bool, device=device)
+        alive[::PASSSET_DEAD_EVERY] = False
+        reset_counts()
+        got = passset.passset_keys(tables, o, d, alive, T_MIN)
+        launches = read_counts()["keys"]
+        want = passset_sort_keys_plain(tables, o, d, alive, T_MIN)
+        _sync(torch, device)
+        W = passset_words(tables.num_groups)
+        check(launches == 1, f"{name}: the key kernel launched {launches} times")
+        check(got.shape == want.shape == (1 + W, o.shape[0]),
+              f"{name}: keys of shape {tuple(got.shape)}, want {(1 + W, o.shape[0])}")
+        bad = int((got != want).any(dim=0).sum())
+        err = float((got.long() - want.long()).abs().max())
+        perm_k = passset_perm(tables, o, d, alive, T_MIN)
+        perm_p = sort_by_words(want)
+        same_perm = torch.equal(perm_k, perm_p)
+        live_first = bool(alive[perm_k][:int(alive.sum())].all())
+        check(bad == 0, f"{name}: the keys differ from the plain version on {bad} lanes")
+        check(same_perm and live_first, f"{name}: passset_perm of the kernel's keys and "
+                                        "of the plain ones differ, or a dead lane "
+                                        "sorts before a live one")
+        ms = time_pair(torch, device, lambda: passset.passset_keys(tables, o, d, alive,
+                                                                   T_MIN),
+                       lambda: passset_sort_keys_plain(tables, o, d, alive, T_MIN), reps,
+                       PLAIN_REPS)
+        dev_ms = _device_ms(torch, lambda: passset.passset_keys(tables, o, d, alive, T_MIN),
+                            reps, ("passset_keys_kernel",))
+        perm_ms = statistics.mean(_time_ms(torch, device, lambda: passset_perm(
+            tables, o, d, alive, T_MIN), reps) for _ in range(2))
+        b_ms, b_by = passset_bound(tables, alive)
+        groups = sum(k != -1 for k in tables.group_kinds)
+        sets = int(torch.unique(want[:, alive], dim=1).shape[1])
+        k_ms, p_ms = statistics.mean(ms["kernel"]), statistics.mean(ms["plain"])
+        log(f"{name} ({groups} real clusters, {W} words) on {card}: 0 of {o.shape[0]} "
+            f"lanes differ, permutations equal; {sets} distinct pass-sets among the live "
+            f"lanes; kernel {k_ms:.4f} ms a launch ({[round(x, 4) for x in ms['kernel']]}),"
+            f" device {dev_ms[0]:.4f} ms ({dev_ms[1]} of {reps} launches in the trace); "
+            f"plain {p_ms:.2f} ms ({[round(x, 2) for x in ms['plain']]}); bound "
+            f"{b_ms:.4f} ms ({b_by}); passset_perm (keys and {1 + W} stable sorts) "
+            f"{perm_ms:.4f} ms")
+        out[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                         device_ms=dev_ms, max_abs_err=err, perm_ms=perm_ms)
+    return out
+
+
+def passset_sizes(torch, keys):
+    """Per lane, the clusters its pass-set holds: the popcount of its key
+    words ((1 + W, R) int32; row 0 the dead flag, skipped)."""
+    w = keys[1:].to(torch.int64) & 0xFFFFFFFF
+    n = torch.zeros(keys.shape[1], dtype=torch.int64, device=keys.device)
+    for bit in range(32):
+        n += ((w >> bit) & 1).sum(dim=0)
+    return n
+
+
+def _reorder_cost(torch, device, tables, o, d, alive, reps):
+    """The reorder's own work on one bounce's lanes: passset_perm and the
+    gathers of the (R, 3) state planes, the alive row and the (2, R) key
+    words; (events ms, device busy ms) a call."""
+    from rust_pathtracer_tpu_torch.integrator import T_MIN
+    from rust_pathtracer_tpu_torch.ops.projected import passset_perm
+
+    thr, rad = o.clone(), d.clone()
+    keys = torch.zeros((2, o.shape[0]), dtype=torch.int32, device=device)
+
+    def reorder():
+        perm = passset_perm(tables, o, d, alive, T_MIN)
+        return [x[perm] for x in (o, d, thr, rad, alive)] + [keys[:, perm]]
+
+    ms = statistics.mean(_time_ms(torch, device, reorder, reps) for _ in range(2))
+    busy = kernel_device_ms(torch, reorder, ())["busy"]
+    return ms, busy
+
+
+def phase_reorder_frames(torch, device, card, scenes):
+    log("== phase 43: the between-bounce reorder A/B (off, on, on, off), one call: the "
+        "SphereField frame 854x480/2 spp (K6), ModelTest 800x800/1 spp on the 10k (K6) "
+        "and 20k (K7, K5) meshes, and the SphereField frame at 8 spp (four chunks), 20 "
+        "bounces; bit for bit with and without")
+    from rust_pathtracer_tpu_torch import integrator
+    from rust_pathtracer_tpu_torch.integrator import T_MIN
+    from rust_pathtracer_tpu_torch.ops import worklist as WL
+    from rust_pathtracer_tpu_torch.ops.passset import passset_keys
+    from rust_pathtracer_tpu_torch.render import RenderSettings, render_radiance
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+
+    out = {}
+    for name, table, shape, bg in REORDER_FRAMES:
+        cfg = globals()[shape]
+        sd, scene = scenes[table]
+        W, H, spp, nb = cfg["width"], cfg["height"], cfg["spp"], cfg["bounces"]
+        cam = sd.camera_at(0.0, device=device)
+        key = prng_key(cfg["seed"], device=device)
+        check(integrator.use_wavefront_reorder(scene), f"{name}: the default routing "
+                                                       "does not reorder")
+
+        def render(reorder, settings=RenderSettings(W, H, spp, nb, bg)):
+            return render_radiance(scene, cam, dataclasses.replace(settings,
+                                                                   reorder=reorder),
+                                   key, device=device)
+
+        runs = {}
+        for reorder in (False, True):
+            render(reorder)  # warm
+            captured = []
+            perm_fn = integrator.passset_perm
+
+            def capture(tables, o, d, alive, t_min, _f=perm_fn):
+                if not captured:
+                    captured.append((o.clone(), d.clone(), alive.clone()))
+                return _f(tables, o, d, alive, t_min)
+
+            integrator.passset_perm = capture
+            try:
+                wall, (img, stats), counts = _timed_render(torch, device,
+                                                           lambda: render(reorder))
+            finally:
+                integrator.passset_perm = perm_fn
+            runs[reorder] = dict(img=img, stats=stats, counts=counts, lanes=captured)
+        a, b = runs[False], runs[True]
+        same = (torch.equal(a["img"], b["img"])
+                and torch.equal(a["stats"].segments, b["stats"].segments)
+                and torch.equal(a["stats"].occupancy, b["stats"].occupancy))
+        check(same, f"{name}: the frame with the reorder differs from the one without "
+                    "(image, segments or occupancy)")
+        check(a["counts"]["keys"] == 0 < b["counts"]["keys"],
+              f"{name}: the key kernel launched {a['counts']['keys']} / "
+              f"{b['counts']['keys']} times without / with the reorder")
+        walls = {False: [], True: []}
+        for reorder in (False, True, True, False):
+            walls[reorder].append(median_wall(torch, device, lambda: render(reorder))[0])
+        dev = {r: kernel_device_ms(torch, lambda: render(r),
+                                   (SEARCH_KERNEL, "passset_keys_kernel"))
+               for r in (False, True)}
+        o, d, alive = b["lanes"][0]
+        cost_ms, cost_busy = _reorder_cost(torch, device, scene.proj, o, d, alive, 5)
+        sizes = passset_sizes(torch, passset_keys(scene.proj, o, d, alive, T_MIN))[alive]
+        over = int((sizes > WL.WL_KCAP).sum())
+        n_re = b["counts"]["keys"]
+        log(f"{name} on {card}: bit for bit with and without the reorder; walls (median "
+            f"of 3 each, off on on off) off {[round(x, 4) for x in walls[False]]} s, on "
+            f"{[round(x, 4) for x in walls[True]]} s; reordered bounces {n_re} of "
+            f"{b['stats'].bounces}; launches off {a['counts']}, on {b['counts']}")
+        for r in (False, True):
+            ms, n = dev[r][SEARCH_KERNEL]
+            log(f"  {'on ' if r else 'off'}: the search (K5/K6/K7) {ms:.3f} ms of device "
+                f"time in {n} launches ({ms / max(n, 1):.4f} ms a bounce), the key kernel "
+                f"{dev[r]['passset_keys_kernel'][0]:.3f} ms, device busy "
+                f"{dev[r]['busy']:.2f} ms")
+        log(f"  the reorder alone on the {int(alive.sum())} live of {alive.shape[0]} lanes "
+            f"of its first reordered bounce: {cost_ms:.4f} ms a call by events, device "
+            f"busy {cost_busy:.4f} ms (keys, {o.shape[0]}-lane stable sorts, gathers); "
+            f"its live lanes' pass-sets: mean {float(sizes.double().mean()):.2f} "
+            f"clusters, max {int(sizes.max())}; {over} lanes pass more than K7's "
+            f"{WL.WL_KCAP} slots a block alone")
+        out[name] = dict(walls={str(k): v for k, v in walls.items()},
+                         device={str(k): v for k, v in dev.items()},
+                         counts={str(k): runs[k]["counts"] for k in runs},
+                         reorder_ms=cost_ms, reorder_busy_ms=cost_busy, img=b["img"],
+                         stats=b["stats"])
+    return out
+
+
+def phase_reorder_regen_cascade(torch, device, card, scenes, frames):
+    log(f"== phase 44: SphereField regen ({SF_REGEN['width']}x{SF_REGEN['height']}, "
+        f"{SF_REGEN['spp']} spp) with the reorder against without; the 20k mesh's "
+        "'auto' cascade (its schedule starts '1:1') against its chunked frame")
+    from rust_pathtracer_tpu_torch.render import (
+        RenderSettings, derive_cascade_schedule, render_radiance,
+    )
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+    from rust_pathtracer_tpu_torch.wavefront import render_radiance_regen
+
+    cfg = SF_REGEN
+    sd, scene = scenes["SphereField"]
+    cam = sd.camera_at(0.0, device=device)
+    key = prng_key(cfg["seed"], device=device)
+    base = RenderSettings(cfg["width"], cfg["height"], cfg["spp"], cfg["bounces"], SF_BG)
+    runs = {}
+    for reorder in (False, True):
+        wall, (img, st), counts = _timed_render(torch, device, lambda: render_radiance_regen(
+            scene, cam, dataclasses.replace(base, reorder=reorder), key, device=device))
+        runs[reorder] = (wall, img, st, counts)
+    (w0, i0, s0, c0), (w1, i1, s1, c1) = runs[False], runs[True]
+    diff = float((i0 - i1).abs().max())
+    log(f"SphereField regen on {card}: off {w0:.4f} s, on {w1:.4f} s; max abs image "
+        f"difference {diff:.3e} (bit for bit: {torch.equal(i0, i1)}); segments equal "
+        f"{torch.equal(s0.segments, s1.segments)}; launches off {c0}, on {c1}")
+    check(torch.equal(s0.segments, s1.segments) and torch.equal(s0.occupancy, s1.occupancy),
+          "regen with the reorder: segments or occupancy differ")
+    check(diff <= REGEN_REORDER_ATOL, f"regen with the reorder: the image moved {diff:.3e}")
+    check(c0["keys"] == 0 < c1["keys"], f"regen: key kernel launches {c0['keys']} / "
+                                        f"{c1['keys']}")
+
+    cfg = MT
+    sd, scene = scenes["ModelTest 20k"]
+    cam = sd.camera_at(0.0, device=device)
+    key = prng_key(cfg["seed"], device=device)
+    chunked = RenderSettings(cfg["width"], cfg["height"], cfg["spp"], cfg["bounces"],
+                             (1.0, 1.0, 1.0))
+    auto = dataclasses.replace(chunked, cascade_schedule="auto")
+    sched = derive_cascade_schedule(scene, cam, chunked, key, device=device)
+    check(sched is not None and sched.startswith("1:1,"),
+          f"the 20k mesh's auto schedule {sched!r} does not start with '1:1'")
+    wall, (img, st), counts = _timed_render(torch, device, lambda: render_radiance(
+        scene, cam, auto, key, device=device))
+    want, want_st = frames["ModelTest 20k"]["img"], frames["ModelTest 20k"]["stats"]
+    check(torch.equal(img, want) and torch.equal(st.segments, want_st.segments)
+          and torch.equal(st.occupancy, want_st.occupancy),
+          "the 20k mesh's auto cascade differs from its chunked frame")
+    med, walls = median_wall(torch, device, lambda: render_radiance(scene, cam, auto, key,
+                                                                    device=device))
+    cmed, cwalls = median_wall(torch, device, lambda: render_radiance(
+        scene, cam, chunked, key, device=device))
+    log(f"the 20k mesh through 'auto' ({sched}) on {card}: bit for bit the chunked frame; "
+        f"median {med:.4f} s {[round(x, 4) for x in walls]} against chunked {cmed:.4f} s "
+        f"{[round(x, 4) for x in cwalls]}; launches {counts}")
+    check(counts["keys"] > 0, "the auto cascade launched the key kernel no time")
+    return dict(regen_keys=c1["keys"], cascade_keys=counts["keys"])
+
+
+def _step_once(torch, device, step, leaves):
+    """(loss, stats, grads as numpy, peak GB, seconds) of one step after a
+    warm-up step, peak memory counted from just before it."""
+    step()
+    _sync(torch, device)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, stats = step()
+    _sync(torch, device)
+    secs = time.perf_counter() - t0
+    return (float(loss.detach()), stats, _leaf_grads(leaves),
+            torch.cuda.max_memory_allocated() / 1e9, secs)
+
+
+def phase_bf16_diff_cascade(torch, device, card):
+    cfg = MAIN
+    W, H, spp, nb = cfg["width"], cfg["height"], cfg["spp"], cfg["bounces"]
+    lanes = W * H * spp
+    log(f"== phase 45: the TwoSphereCheckers step {W}x{H}, {spp} spp, {nb} bounces under "
+        "remat 'bf16' and through a differentiable cascade, against remat 'none'")
+    from rust_pathtracer_tpu_torch.models import get_scene
+    from rust_pathtracer_tpu_torch.render import RenderSettings, _derive_cascade_schedule
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+
+    scene = get_scene("TwoSphereCheckers").build(device=device)
+    key = prng_key(cfg["seed"], device=device)
+    leaves = _diff_leaves(torch, scene, TSC_CAM, TSC_BG, device)
+    none = RenderSettings(W, H, spp, nb, TSC_BG, differentiable=True, remat="none")
+
+    def stepper(settings):
+        def step():
+            _zero_grads(leaves)
+            loss, stats = _diff_forward(scene, leaves, settings, key, device)
+            loss.backward()
+            return loss, stats
+        return step
+
+    l0, st0, g0, peak0, t0 = _step_once(torch, device, stepper(none), leaves)
+    occ = st0.occupancy.cpu().numpy()
+    sched = _derive_cascade_schedule(occ, lanes, nb)
+    check(sched is not None, "no differentiable cascade schedule pays on this step")
+    modes = {"bf16": dataclasses.replace(none, remat="bf16"),
+             "cascade": dataclasses.replace(none, diff_cascade=sched)}
+    out = {"none": dict(loss=l0, peak_gb=peak0, secs=[t0])}
+    flat0 = np.concatenate([g.ravel() for g in g0])
+    for label, settings in modes.items():
+        reset_counts()
+        loss, st, g, peak, secs = _step_once(torch, device, stepper(settings), leaves)
+        counts = read_counts()
+        flat = np.concatenate([x.ravel() for x in g])
+        rel = float(np.linalg.norm((flat - flat0).astype(np.float64))
+                    / np.linalg.norm(flat0.astype(np.float64)))
+        overflow = float(st.occupancy[-1])
+        log(f"{label}{' ' + repr(sched) if label == 'cascade' else ''} on {card}: loss "
+            f"{loss!r} against 'none' {l0!r}, gradient normalised "
+            f"error {rel:.3e}, max abs {np.abs(flat - flat0).max():.3e}; peak memory "
+            f"{peak:.3f} GB against {peak0:.3f}; step {secs:.3f} s against {t0:.3f}; "
+            f"occupancy[-1] {overflow:.0f}; launches {counts} (two steps)")
+        check(all(np.isfinite(x).all() for x in g), f"{label}: non-finite gradients")
+        check(counts["K4"] == counts["draws"] == 2 * nb, f"{label}: K4 and the draw "
+              f"kernel launched {counts['K4']} and {counts['draws']} times in two steps")
+        if label == "bf16":
+            check(loss == l0, f"bf16: the loss {loss!r} is not the f32-residual {l0!r}")
+            check(BF16_ERR[0] < rel < BF16_ERR[1], f"bf16: the gradient's normalised "
+                  f"error {rel:.3e} is outside {BF16_ERR}")
+        else:
+            check(overflow == 0.0, f"the differentiable cascade {sched!r} dropped "
+                                   f"{overflow:.0f} live lanes")
+            check(abs(loss - l0) <= DIFF_CASCADE_LOSS_RTOL * abs(l0),
+                  f"the differentiable cascade's loss {loss!r} against {l0!r}")
+            for n, a, b in zip(LEAF_NAMES, g, g0):
+                check(np.allclose(a, b, rtol=DIFF_CASCADE_RTOL, atol=DIFF_CASCADE_ATOL),
+                      f"the differentiable cascade's gradient of {n} differs: max abs "
+                      f"{np.abs(a - b).max():.3e}")
+        out[label] = dict(loss=loss, peak_gb=peak, secs=[secs], rel_err=rel,
+                          schedule=sched if label == "cascade" else None)
+    # the steps' times in turns: none, bf16, cascade, cascade, bf16, none
+    for label in ("none", "bf16", "cascade", "cascade", "bf16", "none"):
+        step = stepper(none if label == "none" else modes[label])
+        _sync(torch, device)
+        t = time.perf_counter()
+        step()
+        _sync(torch, device)
+        out[label]["secs"].append(time.perf_counter() - t)
+    log(f"step seconds on {card} (the first after a warm-up, then in turns none, bf16, "
+        f"cascade, cascade, bf16, none): "
+        + "; ".join(f"{k} {[round(x, 3) for x in v['secs']]}" for k, v in out.items()))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # shared helpers: launch counts, batches, splits, bounds
 # ---------------------------------------------------------------------------
 
@@ -4404,12 +4835,12 @@ def reset_counts():
     from rust_pathtracer_tpu_torch.ops import draws
     from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
     from rust_pathtracer_tpu_torch.ops import fused_bounce_bwd as fbb
-    from rust_pathtracer_tpu_torch.ops import projected, resident, worklist
+    from rust_pathtracer_tpu_torch.ops import passset, projected, resident, worklist
 
     fb.launches = fb.residual_launches = fbb.launches = draws.launches = 0
     ch.hit_launches = ch.record_launches = 0
     projected.launches = resident.launches = 0
-    worklist.launches = 0
+    worklist.launches = passset.launches = 0
 
 
 def read_counts():
@@ -4419,12 +4850,12 @@ def read_counts():
     from rust_pathtracer_tpu_torch.ops import draws
     from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
     from rust_pathtracer_tpu_torch.ops import fused_bounce_bwd as fbb
-    from rust_pathtracer_tpu_torch.ops import projected, resident, worklist
+    from rust_pathtracer_tpu_torch.ops import passset, projected, resident, worklist
 
     return {"K1": fb.launches - fb.residual_launches, "K1-res": fb.residual_launches,
             "K2": fbb.launches, "K3": ch.record_launches, "K4": ch.hit_launches,
             "K5": projected.launches, "K6": resident.launches, "K7": worklist.launches,
-            "draws": draws.launches}
+            "draws": draws.launches, "keys": passset.launches}
 
 
 def _grad_sums(grads):
@@ -4482,14 +4913,17 @@ def _step_split(torch, leaves, forward, lanes_fn):
     return split
 
 
-def time_pair(torch, device, kernel, plain, reps):
+def time_pair(torch, device, kernel, plain, reps, plain_reps=None):
     """A kernel and its plain version on the same inputs, in turns
-    (plain, kernel, kernel, plain), blocks of ``reps`` launches each;
-    CUDA events.  Returns {name: [ms a launch of each block]}."""
+    (plain, kernel, kernel, plain), blocks of ``reps`` launches each
+    (``plain_reps`` calls a block of the plain version where given: the
+    plain versions take 1-200 ms a call); CUDA events.  Returns {name:
+    [ms a launch of each block]}."""
     ms = {"kernel": [], "plain": []}
     for name in ("plain", "kernel", "kernel", "plain"):
         ms[name].append(_time_ms(torch, device, kernel if name == "kernel" else plain,
-                                 reps))
+                                 reps if name == "kernel" or plain_reps is None
+                                 else plain_reps))
     return ms
 
 
@@ -4730,40 +5164,64 @@ def main() -> int:
     import torch
 
     device = "cuda"
+    clock = [time.perf_counter()]
+
+    def took(n):
+        now = time.perf_counter()
+        log(f"phase {n} took {now - clock[-1]:.1f} s")
+        clock.append(now)
+
     card = phase_device(torch)
     phase_build()
+    took(2)
     max_abs = phase_kernel_vs_plain(torch, device, K1_LANES)
+    took(3)
     phase_goldens(torch, device)
+    took(4)
     k1 = phase_serve(torch, device, card, SERVE, BENCH, time_reps=20)
+    took(5)
     res_err, cols_np, res_np = phase_residuals(torch, device, K1_LANES)
+    took(6)
     k2_err = phase_bwd_vs_plain(torch, device, cols_np, res_np)
+    took(7)
     keyed_err = phase_keyed_vs_plain(torch, device, K1_LANES)
+    took(18)
     phase_small_step(torch, device)
+    took(8)
     step = phase_bench_step(torch, device, card, time_reps=20)
+    took(9)
     ch10 = phase_closest_hit_vs_plain(torch, device, card, K1_LANES, time_reps=20)
+    took(10)
     k3 = phase_generic_forward(torch, device, card, time_reps=20)
+    took(11)
     k4 = phase_main_step(torch, device, card, time_reps=20)
+    took(12)
     phase_light_step(torch, device, card)
+    took(13)
     scenes = big_scenes(device)
     ph14 = phase_projected_vs_plain(torch, device, card, scenes, reps=20)
+    took(14)
     k6, k5 = phase_spherefield_forward(torch, device, card, scenes, reps=20)
+    took(15)
     k7, k5_fallback, k6_later = phase_modeltest_forward(torch, device, card, scenes,
                                                         reps=20)
+    took(16)
     k5["later"] += k5_fallback
     k6["later"] += k6_later
     k5["launches"] = phase_spherefield_step(torch, device, card)
+    took(17)
     k1_lane = phase_k1_per_lane(torch, device, card, K1_LANES, reps=20)
+    took(19)
     dr = phase_draws_vs_plain(torch, device, card, K1_LANES, reps=20)
+    took(20)
     regen = phase_regen_light(torch, device, card)
+    took(21)
     sf_regen = phase_regen_spherefield(torch, device, card, scenes)
+    took(22)
     phase_regen_card_vs_cpu(torch, device)
+    took(23)
     phase_sf_frame_hoisted(torch, device, card, scenes)
-    t_casc = [time.perf_counter()]
-
-    def took(n):
-        t_casc.append(time.perf_counter())
-        log(f"phase {n} took {t_casc[-1] - t_casc[-2]:.1f} s")
-
+    took(24)
     casc = phase_cascade_spherefield(torch, device, card, scenes)
     took(25)
     phase_cascade_modeltest(torch, device, card, scenes)
@@ -4776,34 +5234,29 @@ def main() -> int:
     took(29)
     phase_checkpoint_resume(torch, device, card, scenes, casc["chunked"])
     took(30)
-    log(f"phases 25-30 (the cascade and checkpoints) took "
-        f"{t_casc[-1] - t_casc[0]:.1f} s")
-    t_shard = time.perf_counter()
     os.makedirs(OUT_DIR, exist_ok=True)
     phase_sharded(torch, device, card)
-    log(f"phases 31-34 (sharded rendering) took {time.perf_counter() - t_shard:.1f} s")
-    t_drv = [time.perf_counter()]
+    took("31-34")
     for n, phase in ((35, phase_animation), (36, phase_scene_json), (37, phase_inverse)):
         phase(torch, device, card)
-        t_drv.append(time.perf_counter())
-        log(f"phase {n} took {t_drv[-1] - t_drv[-2]:.1f} s")
-    log(f"phases 35-37 (the command-line surface) took {t_drv[-1] - t_drv[0]:.1f} s")
-    t_slice = [time.perf_counter()]
-
-    def took_slice(n):
-        t_slice.append(time.perf_counter())
-        log(f"phase {n} took {t_slice[-1] - t_slice[-2]:.1f} s")
-
+        took(n)
     pk = phase_packed_kernels(torch, device, card, K1_LANES, reps=20)
-    took_slice(38)
+    took(38)
     pp = phase_packed_paths(torch, device, card, scenes, regen["vs_chunked"])
-    took_slice(39)
+    took(39)
     geo = phase_geometry_step(torch, device, card)
-    took_slice(40)
+    took(40)
     geo_sf = phase_geometry_spherefield(torch, device, card, scenes)
-    took_slice(41)
-    log(f"phases 38-41 (the packed scheme and the geometry gradient) took "
-        f"{t_slice[-1] - t_slice[0]:.1f} s")
+    took(41)
+    keys42 = phase_passset_kernel(torch, device, card, scenes, reps=20)
+    took(42)
+    frames = phase_reorder_frames(torch, device, card, scenes)
+    took(43)
+    phase_reorder_regen_cascade(torch, device, card, scenes, frames)
+    took(44)
+    phase_bf16_diff_cascade(torch, device, card)
+    took(45)
+    log(f"phases 2-45 took {clock[-1] - clock[0]:.1f} s")
 
     def sweep_err(kernel, main):
         errs = [main["max_abs_err"]] + [v["max_abs_err"] for (_, k), v in ph14.items()
@@ -4912,6 +5365,23 @@ def main() -> int:
                                             "bound_by")}),
              replaces="rust_pathtracer_tpu/sampling.py:164 (scatter_uniforms, XLA's "
                       "threefry; no Pallas kernel)"),
+        # phase 42's 1M lanes of the 20k mesh's table (its other tables under
+        # "tables"); launches: the SphereField frame's with the reorder, phase
+        # 43 (the other frames' under "launches_a_frame")
+        dict(entry("passset_keys", "passset.cu", "",
+                   frames["SphereField"]["counts"]["True"]["keys"],
+                   max(v["max_abs_err"] for v in keys42.values()),
+                   keys42["ModelTest 20k"]["ms"], keys42["ModelTest 20k"]["plain_ms"],
+                   (keys42["ModelTest 20k"]["bound_ms"],
+                    keys42["ModelTest 20k"]["bound_by"]),
+                   keys42["ModelTest 20k"]["device_ms"]),
+             replaces="rust_pathtracer_tpu/ops/projected.py:793 (passset_sort_keys, "
+                      "XLA; no Pallas kernel)",
+             tables={n: {"ms": v["ms"], "device_ms": v["device_ms"][0],
+                         "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
+                         "bound_by": v["bound_by"], "perm_ms": v["perm_ms"]}
+                     for n, v in keys42.items()},
+             launches_a_frame={n: f["counts"]["True"]["keys"] for n, f in frames.items()}),
     ]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,8 +21,12 @@ the builder makes:
   with the searches K3 and K4 (ops/csrc/closest_hit.cu) and the shading
   in tensor ops (textures, materials, ops.intersect); past 128
   primitives the searches are K5, K6 and K7 over the projected tables
-  (ops/csrc/projected.cu), with the payload shading
-* image gradients for inverse rendering (grad)
+  (ops/csrc/projected.cu), with the payload shading, and the wavefront
+  is sorted between bounces by its lanes' cluster pass-sets, keyed by
+  the kernel of ops/csrc/passset.cu
+* image gradients for inverse rendering (grad), with the residuals
+  optionally in bfloat16 (ops.compressed_vjp) and the differentiable
+  cascade
 
 Every kernel has a plain PyTorch twin, which CPU tensors run.
 Everything takes an explicit ``device``; there is no global device state.

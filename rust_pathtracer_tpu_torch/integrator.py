@@ -60,9 +60,20 @@ the cascade renderer (``render.py``) calls it on each compacted slice.
 The regen wavefront (``wavefront.py``) runs the same two routes on a
 lane pool at per-lane depth.
 
-Not ported: ``remat="bf16"``, the diff cascade, the between-bounce
-wavefront reorder of big scenes (ROADMAP queue 1; the reorder changes
-no per-lane result).
+Three more choices of the JAX package are arguments of ``trace``.
+``reorder`` (``RPT_BIN``): the between-bounce reorder of big scenes
+(JAX ``_reorder_wavefront``).  On the forward generic route over
+projected tables, from bounce 1 on while more than 1/64 of the lanes
+live, the wavefront is sorted by its lanes' exact cluster pass-sets
+(``projected.passset_perm``, keys from the pass-set key kernel), so
+that a warp's lanes visit the same clusters; the radiance goes back to
+caller order at the end.  Each lane carries its key and state, and the
+sweeps' results do not depend on the order, so the reorder changes no
+per-lane result.  None follows JAX's routing (``use_wavefront_reorder``:
+forward, at least 4 real clusters); ``trace_resume`` never reorders.
+``remat="bf16"`` (``ops/compressed_vjp.py``): remat "none" with the
+saved residuals in bfloat16.  ``diff_cascade`` (``RPT_DIFF_CASCADE``):
+a differentiable trace in stages of static width (``_trace_diff_cascade``).
 """
 
 from __future__ import annotations
@@ -80,6 +91,7 @@ from rust_pathtracer_tpu_torch.ops.closest_hit import (
     closest_hit_record,
     pack_prims,
 )
+from rust_pathtracer_tpu_torch.ops.compressed_vjp import compressed_residuals
 from rust_pathtracer_tpu_torch.ops.draws import bounce_draws
 from rust_pathtracer_tpu_torch.ops.fused_bounce import (
     _COL_KEYS,
@@ -94,6 +106,10 @@ from rust_pathtracer_tpu_torch.ops.projected import (
     PAY_IDX,
     closest_hit_projected,
     closest_hit_record_projected,
+    passset_perm,
+)
+from rust_pathtracer_tpu_torch.ops.projected import (
+    use_wavefront_reorder as _tables_want_reorder,
 )
 from rust_pathtracer_tpu_torch.ops.intersect import (
     PRIM_RECT,
@@ -123,7 +139,11 @@ MAX_BOUNCE_STATS = 64
 # 80GB HBM3, 700 W, chip_smoke.py phase 12); a budget of 30 GB, under
 # half the card, is 26.7 M lane-bounces.
 REMAT_AUTO_LANE_BOUNCES = 26_000_000
-REMAT_MODES = ("none", "mid", "names")
+REMAT_MODES = ("none", "mid", "names", "bf16")
+# the between-bounce reorder runs while more than 1/REORDER_ALIVE_SHARE of
+# the lanes live (integrator.py:380-405: below that, re-sorting every lane
+# costs more than the few live lanes' blocks lose)
+REORDER_ALIVE_SHARE = 64
 
 
 class TraceStats(NamedTuple):
@@ -159,15 +179,28 @@ def resolve_remat_mode(remat, lanes: int, max_bounces: int) -> str:
     """The remat mode of a generic differentiable trace: ``remat``, or
     for None / ``"auto"`` "none" up to ``REMAT_AUTO_LANE_BOUNCES``
     lane-bounces and "mid" beyond (``_resolve_remat_mode``; the JAX
-    package's threshold is a TPU memory figure and is not carried)."""
+    package's threshold is a TPU memory figure and is not carried).
+    "auto" never picks the lossy "bf16"."""
     mode = remat or "auto"
     if mode == "auto":
         return "none" if lanes * max_bounces <= REMAT_AUTO_LANE_BOUNCES else "mid"
     if mode not in REMAT_MODES:
-        raise NotImplementedError(
-            f"remat={mode!r}: the port has {REMAT_MODES} and 'auto' "
-            "('bf16' is not ported, ROADMAP queue 1 item 14)")
+        raise ValueError(f"remat={mode!r}, want one of {REMAT_MODES} or 'auto'")
     return mode
+
+
+def use_wavefront_reorder(scene, differentiable: bool = False,
+                          reorder: Optional[bool] = None) -> bool:
+    """Whether ``trace`` reorders the wavefront between bounces (JAX
+    ``use_wavefront_reorder``): never when differentiable, nor on a scene
+    without projected tables; else ``reorder`` where it is a bool
+    (``RPT_BIN=1/0``), and for None at least 4 real clusters
+    (``projected.use_wavefront_reorder``)."""
+    if reorder not in (None, True, False):
+        raise ValueError(f"reorder={reorder!r}, want None, True or False")
+    if differentiable or scene.kinds_static is not None or scene.proj is None:
+        return False
+    return _tables_want_reorder(scene.proj) if reorder is None else reorder
 
 
 # ---------------------------------------------------------------------------
@@ -274,8 +307,9 @@ def _bounce_step(scene, table, state, draws_b, background, rr_u,
     checkpoints the record, the shading inputs and the scatter
     separately, so only the values between them are kept; "names"
     checkpoints the whole bounce after the search, so only its inputs
-    and the search's result are kept.  ``diff_t`` picks the hit distance
-    (``_record_diff``)."""
+    and the search's result are kept; "bf16" keeps what "none" keeps,
+    the large f32 tensors in bfloat16 (``compressed_vjp``).  ``diff_t``
+    picks the hit distance (``_record_diff``)."""
     o, d = state[0], state[1]
     if not differentiable:
         hit, rec, shade_row = search_and_record(scene, table, o, d, state[4])
@@ -285,6 +319,10 @@ def _bounce_step(scene, table, state, draws_b, background, rr_u,
     if mode == "names":
         return _checkpointed(_bounce_diff, scene, state, search, draws_b,
                              background, rr_u, _call, diff_t)
+    if mode == "bf16":
+        with compressed_residuals():
+            return _bounce_diff(scene, state, search, draws_b, background, rr_u,
+                                _call, diff_t)
     return _bounce_diff(scene, state, search, draws_b, background, rr_u,
                         _checkpointed if mode == "mid" else _call, diff_t)
 
@@ -345,22 +383,114 @@ def _stats(alive, bounce, segments, occupancy):
 
 def _trace_generic(scene, state, keys, background, start_bounce, max_bounces,
                    rr_start, segments, occupancy, differentiable=False, mode=None,
-                   diff_t="analytic", rng_scheme="legacy"):
+                   diff_t="analytic", rng_scheme="legacy", reorder=False):
     """Bounces [start_bounce, max_bounces) of the generic route on ``state``
     = (o, d, thr, rad, alive); stops early once no lane is alive unless
     ``differentiable``.  The search tables hold no gradient (``pack_prims``
     packs the detached geometry; the projected tables are the scene's).
-    Returns (state, segments, occupancy, bounces run)."""
+    ``reorder`` (forward, projected tables): from bounce 1 on, while more
+    than 1/REORDER_ALIVE_SHARE of the lanes live, the lanes are sorted by
+    ``passset_perm`` before the bounce (JAX ``_reorder_wavefront``); the
+    live count comes from the loop's one sync a bounce.  Returns (state,
+    segments, occupancy, bounces run, lane): ``lane`` None, or where the
+    reorder left them, each slot's lane in ``state``'s incoming order."""
     table = scene.proj if scene.kinds_static is None else pack_prims(scene.prims)
+    R = state[0].shape[0]
+    lane = None
     bounce = start_bounce
-    while bounce < max_bounces and (differentiable or bool(state[4].any())):
+    while bounce < max_bounces:
+        if reorder:
+            n_alive = int(state[4].sum())  # the loop's sync
+            if n_alive == 0:
+                break
+            if bounce > 0 and n_alive * REORDER_ALIVE_SHARE > R:
+                perm = passset_perm(table, state[0], state[1], state[4], T_MIN)
+                state = tuple(x[perm] for x in state)
+                keys = keys[:, perm]
+                lane = perm if lane is None else lane[perm]
+        elif not (differentiable or bool(state[4].any())):
+            break
         segments = _stats(state[4].to(torch.float32), bounce, segments, occupancy)
         su, bu, coin, rr_u = bounce_draws(keys, bounce, bounce >= rr_start, rng_scheme)
         draws_b = dict(sphere_u=su, ball_u=bu, coin=coin)
         state = _bounce_step(scene, table, state, draws_b, background, rr_u,
                              differentiable, mode, diff_t)
         bounce += 1
-    return state, segments, occupancy, bounce - start_bounce
+    return state, segments, occupancy, bounce - start_bounce, lane
+
+
+def _live_first(alive):
+    """The stable partition of the lanes, live ones first: a permutation
+    (R,) int64 that keeps each side's order.  No host sync."""
+    live = alive.to(torch.int64)
+    n_live = live.sum()
+    pos = torch.where(alive, torch.cumsum(live, 0) - 1,
+                      n_live + torch.cumsum(1 - live, 0) - 1)
+    perm = torch.empty_like(pos)
+    perm[pos] = torch.arange(pos.shape[0], dtype=torch.int64, device=pos.device)
+    return perm
+
+
+def diff_cascade_stages(schedule, max_bounces: int, n_lanes: int):
+    """The differentiable cascade's stages (JAX ``_diff_cascade_stages``):
+    [(boundary, width)] from a "b:s,..." ``schedule`` (``render``'s
+    parser), the width ``n_lanes // s``.  [] (the plain trace) when
+    ``schedule`` is None or empty, when ``max_bounces`` reaches the
+    overflow slot MAX_BOUNCE_STATS - 1, or when a boundary is at or past
+    ``max_bounces`` or a shrink does not divide ``n_lanes``.  A malformed
+    string raises ValueError."""
+    from rust_pathtracer_tpu_torch.render import parse_cascade_schedule
+
+    if not schedule:
+        return []
+    pairs = parse_cascade_schedule(schedule)
+    if max_bounces >= MAX_BOUNCE_STATS - 1:
+        return []  # the overflow slot would alias a bounce's count
+    if not all(b < max_bounces and n_lanes % s == 0 for b, s in pairs):
+        return []
+    return [(b, int(n_lanes // s)) for b, s in pairs]
+
+
+def _trace_diff_cascade(scene, o, d, keys, background, stages, max_bounces,
+                        rr_start, mode, diff_t, rng_scheme):
+    """The differentiable trace in stages of static width (JAX
+    ``_trace_diff_cascade``): the generic route runs bounces [b0, b1) on
+    the current slice, every lane's radiance is added into ``banked`` at
+    its caller index (the indices are unique, so no two adds meet), and
+    at a boundary the live lanes are stably partitioned first
+    (``_live_first``) and the first ``width`` lanes go on with radiance 0.
+    A live lane past the width is dropped; the dropped lanes are counted
+    into occupancy[MAX_BOUNCE_STATS - 1], which the caller must find 0.
+    Each lane traces its path, so the result is the plain trace's up to
+    the order in which a lane's stage sums add.  Returns (radiance (R, 3)
+    in caller order, segments, occupancy)."""
+    R, dev = o.shape[0], o.device
+    f32 = torch.float32
+    state = (o, d, torch.ones((R, 3), dtype=f32, device=dev),
+             torch.zeros((R, 3), dtype=f32, device=dev),
+             torch.ones(R, dtype=torch.bool, device=dev))
+    banked = torch.zeros((R, 3), dtype=f32, device=dev)
+    lane = torch.arange(R, dtype=torch.int64, device=dev)
+    segments = torch.zeros((), dtype=f32, device=dev)
+    occupancy = torch.zeros(MAX_BOUNCE_STATS, dtype=f32, device=dev)
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    b0 = 0
+    for b1, width in stages + [(max_bounces, None)]:
+        state, segments, occupancy, _, _ = _trace_generic(
+            scene, state, keys, background, b0, b1, rr_start, segments, occupancy,
+            True, mode, diff_t, rng_scheme)
+        banked = banked.index_put((lane,), state[3], accumulate=True)
+        if width is None:
+            break
+        alive = state[4]
+        overflow += torch.clamp(alive.sum() - width, min=0)
+        keep = _live_first(alive)[:width]
+        state = (state[0][keep], state[1][keep], state[2][keep],
+                 torch.zeros((width, 3), dtype=f32, device=dev), alive[keep])
+        keys, lane = keys[:, keep], lane[keep]
+        b0 = b1
+    occupancy[MAX_BOUNCE_STATS - 1] += overflow.to(f32)
+    return banked, segments, occupancy
 
 
 def _trace_fused(scene, state, keys, background, start_bounce, max_bounces,
@@ -395,27 +525,7 @@ def _trace_fused(scene, state, keys, background, start_bounce, max_bounces,
     return state, segments, occupancy, bounce - start_bounce
 
 
-def trace_resume(scene, o, d, thr, rad, alive, lane_keys, background,
-                 start_bounce: int, max_bounces: int,
-                 russian_roulette_start: Optional[int] = None, *,
-                 segments=None, occupancy=None, differentiable: bool = False,
-                 mode: Optional[str] = None, diff_t: str = "analytic",
-                 rng_scheme: str = "legacy"):
-    """Continue the bounce loop on an explicit wavefront state over
-    bounces [start_bounce, max_bounces) (JAX ``trace_resume``).
-
-    o, d, thr, rad: (R, 3) f32; alive: (R,) bool; lane_keys: (R, 2).
-    The draws key on (lane key, bounce), so a lane continues exactly as
-    it would have in one uninterrupted trace, wherever it now sits in
-    the wavefront.  The forward stops once no lane is alive.
-    ``segments`` (f32 scalar) and ``occupancy`` (MAX_BOUNCE_STATS,)
-    carry the counts of the bounces before (zeros when None); the
-    forward writes occupancy in place.  The route is ``trace``'s: keyed
-    K1 on the fused scenes, else the generic bounce (K3, or K6 / K7 /
-    K5) with the draw kernel, drawing under ``rng_scheme``.
-    ``differentiable`` / ``mode`` / ``diff_t`` serve ``trace``'s
-    differentiable loops, which start at bounce 0.  Returns (state dict
-    with o, d, thr, rad, alive, segments, occupancy; bounces run)."""
+def _check_trace(scene, dev, differentiable, diff_t, rng_scheme):
     if diff_t not in DIFF_T_MODES:
         raise ValueError(f"diff_t {diff_t!r}, want one of {DIFF_T_MODES}")
     sampling.check_rng_scheme(rng_scheme)
@@ -425,9 +535,18 @@ def trace_resume(scene, o, d, thr, rad, alive, lane_keys, background,
             'differentiable trace with diff_t="rederive": under "analytic" the '
             "hit distance is linearised in the ray only, so it would come back "
             "zero")
-    dev = o.device
     if scene.device != dev:
         raise ValueError(f"scene on {scene.device}, rays on {dev}")
+
+
+def _resume(scene, o, d, thr, rad, alive, lane_keys, background, start_bounce,
+            max_bounces, russian_roulette_start, segments, occupancy,
+            differentiable, mode, diff_t, rng_scheme, reorder):
+    """``trace_resume``'s loop, with the between-bounce ``reorder`` of
+    ``_trace_generic`` where ``trace`` asks for it; every per-lane
+    tensor returned is in the caller's order."""
+    dev = o.device
+    _check_trace(scene, dev, differentiable, diff_t, rng_scheme)
     background = torch.as_tensor(background, dtype=torch.float32, device=dev)
     rr_start = (max_bounces + 1 if russian_roulette_start is None
                 else russian_roulette_start)
@@ -446,12 +565,43 @@ def trace_resume(scene, o, d, thr, rad, alive, lane_keys, background,
         o, d, thr = state[0:3].T, state[3:6].T, state[6:9].T
         rad, alive = state[9:12].T.contiguous(), state[12] > 0.5
     else:
-        (o, d, thr, rad, alive), segments, occupancy, n = _trace_generic(
+        state, segments, occupancy, n, lane = _trace_generic(
             scene, (o, d, thr, rad, alive), keys, background, start_bounce,
             max_bounces, rr_start, segments, occupancy, differentiable, mode,
-            diff_t, rng_scheme)
+            diff_t, rng_scheme, reorder)
+        if lane is not None:  # back to the caller's order
+            state = tuple(torch.empty_like(x).index_put_((lane,), x) for x in state)
+        o, d, thr, rad, alive = state
     return dict(o=o, d=d, thr=thr, rad=rad, alive=alive, segments=segments,
                 occupancy=occupancy), n
+
+
+def trace_resume(scene, o, d, thr, rad, alive, lane_keys, background,
+                 start_bounce: int, max_bounces: int,
+                 russian_roulette_start: Optional[int] = None, *,
+                 segments=None, occupancy=None, differentiable: bool = False,
+                 mode: Optional[str] = None, diff_t: str = "analytic",
+                 rng_scheme: str = "legacy"):
+    """Continue the bounce loop on an explicit wavefront state over
+    bounces [start_bounce, max_bounces) (JAX ``trace_resume``).
+
+    o, d, thr, rad: (R, 3) f32; alive: (R,) bool; lane_keys: (R, 2).
+    The draws key on (lane key, bounce), so a lane continues exactly as
+    it would have in one uninterrupted trace, wherever it now sits in
+    the wavefront.  The forward stops once no lane is alive.
+    ``segments`` (f32 scalar) and ``occupancy`` (MAX_BOUNCE_STATS,)
+    carry the counts of the bounces before (zeros when None); the
+    forward writes occupancy in place.  The route is ``trace``'s: keyed
+    K1 on the fused scenes, else the generic bounce (K3, or K6 / K7 /
+    K5) with the draw kernel, drawing under ``rng_scheme``; it never
+    reorders the wavefront (nor does JAX's: a cascade regroups at its
+    boundaries).  ``differentiable`` / ``mode`` / ``diff_t`` serve
+    ``trace``'s differentiable loops, which start at bounce 0.  Returns
+    (state dict with o, d, thr, rad, alive, segments, occupancy; bounces
+    run)."""
+    return _resume(scene, o, d, thr, rad, alive, lane_keys, background, start_bounce,
+                   max_bounces, russian_roulette_start, segments, occupancy,
+                   differentiable, mode, diff_t, rng_scheme, False)
 
 
 def trace(
@@ -466,6 +616,8 @@ def trace(
     remat: Optional[str] = None,
     diff_t: str = "analytic",
     rng_scheme: str = "legacy",
+    reorder: Optional[bool] = None,
+    diff_cascade: Optional[str] = None,
 ):
     """Estimate radiance for a wavefront of rays.
 
@@ -485,18 +637,42 @@ def trace(
     raises, since the hit distance is linearised in (o, d) only and its
     gradient would come back zero.  ``rng_scheme`` ("legacy", the
     default, or "packed"; JAX ``RPT_RNG_SCHEME``) picks the stream of the
-    scatter draws on every route.  ``remat`` ("none", "mid", "names", or
-    None / "auto") applies to the generic route (see
+    scatter draws on every route.  ``remat`` ("none", "mid", "names",
+    "bf16", or None / "auto") applies to the generic route (see
     ``resolve_remat_mode``); the fused route keeps its residuals, 64-72 B
     a lane-bounce.
+
+    ``reorder`` (JAX ``RPT_BIN``; None, True or False): the forward's
+    between-bounce reorder of big scenes (``use_wavefront_reorder``,
+    ``_trace_generic``); the radiance comes back in caller order, and
+    equals the trace without the reorder bit for bit.  ``diff_cascade``
+    (JAX ``RPT_DIFF_CASCADE``; a "b:s,..." schedule, differentiable
+    only): the trace narrows to R/s lanes at each boundary b
+    (``_trace_diff_cascade``), on the generic route even for a scene the
+    fused route takes; live lanes a width drops are counted into
+    ``occupancy[MAX_BOUNCE_STATS - 1]``, which must come back 0.  An
+    inapplicable schedule (``diff_cascade_stages``) runs the plain trace;
+    a malformed one raises ValueError.
     """
     dev = origins.device
     R = origins.shape[0]
     mode = resolve_remat_mode(remat, R, max_bounces) if differentiable else None
-    st, n = trace_resume(
+    want_reorder = use_wavefront_reorder(scene, differentiable, reorder)
+    stages = diff_cascade_stages(diff_cascade, max_bounces, R)
+    if differentiable and stages:
+        _check_trace(scene, dev, True, diff_t, rng_scheme)
+        rr_start = (max_bounces + 1 if russian_roulette_start is None
+                    else russian_roulette_start)
+        bg = torch.as_tensor(background, dtype=torch.float32, device=dev)
+        rad, segments, occupancy = _trace_diff_cascade(
+            scene, origins, directions, key_words(lane_keys), bg, stages, max_bounces,
+            rr_start, mode, diff_t, rng_scheme)
+        return rad, TraceStats(segments=segments, bounces=max_bounces,
+                               occupancy=occupancy)
+    st, n = _resume(
         scene, origins, directions, torch.ones((R, 3), device=dev),
         torch.zeros((R, 3), device=dev), torch.ones(R, dtype=torch.bool, device=dev),
-        lane_keys, background, 0, max_bounces, russian_roulette_start,
-        differentiable=differentiable, mode=mode, diff_t=diff_t, rng_scheme=rng_scheme)
+        lane_keys, background, 0, max_bounces, russian_roulette_start, None, None,
+        differentiable, mode, diff_t, rng_scheme, want_reorder)
     return st["rad"], TraceStats(segments=st["segments"], bounces=n,
                                  occupancy=st["occupancy"])

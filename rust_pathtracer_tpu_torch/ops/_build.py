@@ -78,6 +78,15 @@ SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
         ),
         "error_string": ([_c_int], ctypes.c_char_p),
     },
+    "passset": {
+        # o, d, alive, bounds8, G, t_min, out (1 + W rows), n_lanes, stream
+        "passset_keys_launch": (
+            [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, ctypes.c_float,
+             _c_void_p, ctypes.c_longlong, _c_void_p],
+            _c_int,
+        ),
+        "error_string": ([_c_int], ctypes.c_char_p),
+    },
     "closest_hit": {
         # table, n_prims, o, d, t_min, record (0: K4, 1: K3), out (one
         # buffer, planes at multiples of 16 bytes), n_lanes, stream

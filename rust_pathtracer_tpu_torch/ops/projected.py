@@ -61,10 +61,20 @@ package's), the plain sweep ``_sweep_plain``, K5
 ``closest_hit_record_projected``.  K6 is in ``resident.py``, K7 in
 ``worklist.py``; the three kernels are ``csrc/projected.cu``.
 
-Not ported: the between-bounce wavefront reorder
-(``closest_hit_projected_binned``, ``cluster_entry_key``,
-``passset_*``), which changes no per-lane result, and the ``RPT_*``
-environment knobs; routes are overridden by arguments only.
+Ray binning (projected.py:713-855): the keys the between-bounce
+reorder of big scenes sorts the wavefront by, so that a warp's lanes
+pass the same clusters.  ``passset_sort_keys_plain`` packs each lane's
+exact cluster pass-set (its slab test against every cluster AABB) into
+32-bit words behind a dead flag; the pass-set key kernel
+(``passset.py``, ``csrc/passset.cu``) computes the same words on the
+card, and ``passset_perm`` sorts by them.  ``cluster_entry_key`` (the
+nearest-entry cluster) keys the dynamic cascade and
+``closest_hit_projected_binned``; ``use_wavefront_reorder`` is the JAX
+routing (at least 4 real clusters).  The sweeps' results do not depend
+on the lanes' order (the cull is conservative), so a reorder changes
+no per-lane result.  The ``RPT_*`` environment knobs are arguments
+here (``RenderSettings.reorder`` for ``RPT_BIN``); the octant key
+(``RPT_REORDER_KEY=octant``) is not ported.
 """
 
 from __future__ import annotations
@@ -98,6 +108,11 @@ PAY_KIND, PAY_AUX, PAY_MAT, PAY_IDX = 12, 13, 14, 15
 PAY_MKIND, PAY_FUZZ, PAY_IR, PAY_TKIND, PAY_TSCALE = 16, 17, 18, 19, 20
 PAY_COLOR, PAY_ODD, PAY_EVEN, PAY_IMG = 21, 24, 27, 30
 PAY_W = 32
+
+# the between-bounce reorder of big scenes: on from this many real
+# clusters (projected.py:841-855)
+REORDER_MIN_REAL_CLUSTERS = 4
+WORD_BITS = 32  # clusters a pass-set key word packs
 
 # routing (projected.py:858-889, resident.py:66): the resident kernel K6
 # for tables of at most RES_MAX_COLS columns, else the pair kernel K7;
@@ -769,3 +784,106 @@ def closest_hit_record_projected(scene, o, d, t_min, route: Optional[str] = None
                            prim_types=scene.prim_types)
     shade_row = pay[:, PAY_MKIND:] if scene.proj.shade_ready else None
     return hit, t_safe, idx, rec, shade_row
+
+
+# ---------------------------------------------------------------------------
+# ray binning: the keys of the between-bounce reorder (projected.py:713-855)
+# ---------------------------------------------------------------------------
+
+
+def use_wavefront_reorder(tables: ProjTables) -> bool:
+    """The JAX routing of the between-bounce reorder: on where the scene
+    has at least REORDER_MIN_REAL_CLUSTERS real clusters, so that blocks
+    of lanes with one pass-set skip work worth the sort."""
+    n_real = sum(1 for k in tables.group_kinds if k != -1)
+    return n_real >= REORDER_MIN_REAL_CLUSTERS
+
+
+def cluster_entry_key(cluster_bounds, o, d, t_min):
+    """Each lane's primary cluster: the index of the cluster AABB with
+    the nearest slab entry (``slab_bounds``), or G (the clusters) where
+    the lane enters none, so that lanes which miss everything (parked
+    dead lanes too) sort last.  int32 (R,) in [0, G]; the lowest index
+    wins a tie, as ``jnp.argmin``."""
+    G = cluster_bounds.shape[1]
+    lo, hi = slab_bounds(cluster_bounds, o, d, t_min)
+    entry = torch.where(hi >= lo, lo, torch.full_like(lo, T_MISS))
+    best = entry.amin(dim=1)
+    # the first column at the minimum (argmin's rule; NaN never wins here:
+    # a NaN entry fails hi >= lo and reads T_MISS)
+    col = torch.arange(G, dtype=torch.int32, device=o.device)
+    big = torch.full((), G, dtype=torch.int32, device=o.device)
+    key = torch.where(entry <= best[:, None], col, big).amin(dim=1)
+    return torch.where(best < T_MISS, key, big)
+
+
+def closest_hit_projected_binned(tables: ProjTables, o, d, t_min):
+    """K5 on the lanes sorted by ``cluster_entry_key`` (stable), results
+    put back in lane order: bit for bit ``closest_hit_projected``, since
+    the sweep's result for a lane does not depend on its neighbours.
+    Returns (hit, t, payload)."""
+    key = cluster_entry_key(tables.cluster_bounds, o, d, t_min)
+    perm = torch.sort(key, stable=True).indices
+    hit_s, t_s, pay_s = closest_hit_projected(tables, o[perm], d[perm], t_min)
+    hit, t, pay = torch.empty_like(hit_s), torch.empty_like(t_s), torch.empty_like(pay_s)
+    hit[perm], t[perm], pay[perm] = hit_s, t_s, pay_s
+    return hit, t, pay
+
+
+def passset_words(num_groups: int) -> int:
+    """Key words a lane's pass-set takes: one a WORD_BITS clusters."""
+    return -(-num_groups // WORD_BITS)
+
+
+def _u32_as_i32(x):
+    """Values in [0, 2**32) (int64) as the int32 of the same bits."""
+    return torch.where(x >= 2 ** 31, x - 2 ** 32, x).to(torch.int32)
+
+
+def passset_sort_keys_plain(tables: ProjTables, o, d, alive, t_min=1e-3):
+    """The pass-set sort keys (projected.py:793-828) in tensor ops: an
+    int32 (1 + W, R) tensor, W = ``passset_words(G)``, holding uint32
+    bits.  Row 0 is the dead flag (1 on a dead lane); row 1 + w packs
+    clusters 32w .. 32w + 31, bit g % 32 set where the lane is alive and
+    its slab test passes cluster g (``slab_bounds``: ``hi >= lo``); a
+    dead lane's words are all ones.  Sorted as uint32 lexicographically
+    (``passset_perm``), live lanes come first, grouped by pass-set.  The
+    dead flag is a key of its own, so a live lane that passes all 32
+    clusters of a word still sorts before every dead one."""
+    lo, hi = slab_bounds(tables.cluster_bounds, o, d, t_min)
+    mask = (hi >= lo) & alive[:, None]
+    G = tables.cluster_bounds.shape[1]
+    rows = [(~alive).to(torch.int64)]
+    all_ones = torch.full((), 0xFFFFFFFF, dtype=torch.int64, device=o.device)
+    for w in range(passset_words(G)):
+        bits = mask[:, w * WORD_BITS:(w + 1) * WORD_BITS].to(torch.int64)
+        weights = torch.bitwise_left_shift(
+            torch.ones((), dtype=torch.int64, device=o.device),
+            torch.arange(bits.shape[1], dtype=torch.int64, device=o.device))
+        rows.append(torch.where(alive, (bits * weights).sum(dim=1), all_ones))
+    return _u32_as_i32(torch.stack(rows))
+
+
+def sort_by_words(words):
+    """The permutation (int64 (R,)) that sorts the lanes by the uint32
+    rows of ``words`` ((K, R) int32) lexicographically, row 0 first,
+    ties in lane order: JAX's ``lax.sort(keys + (iota,), num_keys=K+1)``,
+    as K stable sorts from the last row back.  A row's sign bit is
+    flipped so that its int32 order is the uint32 one."""
+    R = words.shape[1]
+    perm = torch.arange(R, dtype=torch.int64, device=words.device)
+    sign = torch.full((), -2 ** 31, dtype=torch.int32, device=words.device)
+    for row in reversed(range(words.shape[0])):
+        key = torch.bitwise_xor(words[row][perm], sign)
+        perm = perm[torch.sort(key, stable=True).indices]
+    return perm
+
+
+def passset_perm(tables: ProjTables, o, d, alive, t_min=1e-3):
+    """The reorder permutation (projected.py:767-790): lanes sorted by
+    (dead flag, pass-set words, lane index), from the keys of
+    ``passset.passset_keys`` (the kernel on CUDA tensors, the plain
+    version on CPU ones).  int64 (R,)."""
+    from rust_pathtracer_tpu_torch.ops.passset import passset_keys
+
+    return sort_by_words(passset_keys(tables, o, d, alive, t_min))

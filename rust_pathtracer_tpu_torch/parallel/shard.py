@@ -207,7 +207,8 @@ class ShardedChunkPlan:
         s = self.settings
         args = dict(width=s.width, height=s.height, spp_chunk=self.chunk,
                     spp_total=s.samples_per_pixel, max_bounces=s.max_bounces,
-                    rr_start=s.russian_roulette_start, rng_scheme=s.rng_scheme)
+                    rr_start=s.russian_roulette_start, rng_scheme=s.rng_scheme,
+                    reorder=s.reorder)
         offset = self.base + c * self.chunk
         if self.cascade_stages:
             part, stats = _render_chunk_cascaded(self.scene, self.cam, self.key, offset,
@@ -217,7 +218,8 @@ class ShardedChunkPlan:
             part, stats = trace_pixel_lanes(self.scene, self.cam, self.key, self.pix,
                                             offset, self.bg,
                                             differentiable=s.differentiable,
-                                            remat=s.remat, diff_t=s.diff_t, **args)
+                                            remat=s.remat, diff_t=s.diff_t,
+                                            diff_cascade=s.diff_cascade, **args)
         return part, stats
 
     def sample_sums(self, parts):

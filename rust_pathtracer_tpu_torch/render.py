@@ -23,23 +23,32 @@ picks the stream of the scatter draws ("legacy" or "packed") for every
 route of a render: the chunked, cascaded and regen renders, the sharded
 plan and the checkpoint.
 
+``RenderSettings.reorder`` (JAX ``RPT_BIN``) routes the forward's
+between-bounce reorder of big scenes (``integrator.trace``); a chunked,
+cascaded or sharded render with it equals the render without it bit
+for bit.  ``RenderSettings.diff_cascade`` (JAX ``RPT_DIFF_CASCADE``)
+runs a differentiable render in stages of static width
+(``integrator._trace_diff_cascade``).
+
 The cascade renderer (``cascade`` / ``cascade_schedule``, forward
-only) traces the first bounces at full width, then compacts: a stable
-partition puts the live lanes first in their order, the finished
-lanes' radiance is banked at their caller lane index, and
-``integrator.trace_resume`` continues on the live slice.  Every lane
-traces the path it traces in the chunked renderer, and the per-pixel
-sums run over the banked lanes in caller order, so a cascade render
-equals the chunked one bit for bit (image, segments, occupancy).  The
-JAX package sorts instead (XLA has no cheap scatter); the port does not
-copy that.  Schedules, their parser, the occupancy probe behind
-``"auto"`` and the overflow guard are the JAX package's.  Its
-environment knobs (``RPT_CASCADE``, ``RPT_CASCADE_B1``,
+only) traces the first bounces at full width, then compacts: the live
+lanes go first, the finished lanes' radiance is banked at their caller
+lane index, and ``integrator.trace_resume`` continues on the live
+slice.  On a scene with projected tables the boundary regroups the
+live lanes as JAX's does: a static schedule sorts by the pass-set keys
+(``projected.passset_perm``, dead flag first), so its ``"1:1"``
+boundary is a full-width regrouping, and the dynamic cascade sorts the
+live lanes by ``cluster_entry_key``; elsewhere, or with ``reorder``
+False, a stable partition keeps the lanes' order.  Every lane traces
+the path it traces in the chunked renderer, and the per-pixel sums run
+over the banked lanes in caller order, so a cascade render equals the
+chunked one bit for bit (image, segments, occupancy).  The JAX package
+carries the lanes through one sort instead (XLA has no cheap scatter);
+the port does not copy that.  Schedules, their parser, the occupancy
+probe behind ``"auto"`` and the overflow guard are the JAX package's.
+Its environment knobs (``RPT_CASCADE``, ``RPT_CASCADE_B1``,
 ``RPT_CASCADE_STATIC``, ``RPT_CASCADE_PRESORT``, ``RPT_REORDER_KEY``)
-are not ported: settings and arguments select everything.  The
-pass-set reorder a ``"1:1"`` boundary stands for in JAX is not ported
-either (ROADMAP queue 1, item 11's remainder); here that boundary is a full-width
-compaction.
+are not ported: settings and arguments select everything.
 """
 
 from __future__ import annotations
@@ -56,10 +65,13 @@ from rust_pathtracer_tpu_torch import sampling
 from rust_pathtracer_tpu_torch.camera import Camera, camera_rays
 from rust_pathtracer_tpu_torch.integrator import (
     MAX_BOUNCE_STATS,
+    T_MIN,
     TraceStats,
+    _live_first,
     trace,
     trace_resume,
 )
+from rust_pathtracer_tpu_torch.ops.projected import cluster_entry_key, passset_perm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,6 +99,15 @@ class RenderSettings:
     diff_t: str = "analytic"
     # the scatter draws' stream (JAX RPT_RNG_SCHEME): "legacy" or "packed"
     rng_scheme: str = "legacy"
+    # the forward's between-bounce reorder of big scenes (JAX RPT_BIN):
+    # None follows JAX's routing (at least 4 real clusters; a cascade
+    # regroups at its boundaries on any projected scene), True / False
+    # force it on / off; no per-lane result changes
+    reorder: Optional[bool] = None
+    # the differentiable cascade (JAX RPT_DIFF_CASCADE): a "b:s,..."
+    # schedule of static widths R/s, dropped live lanes counted in
+    # occupancy[-1] (integrator.trace); None runs the plain trace
+    diff_cascade: Optional[str] = None
     # compact the wavefront once lanes die (forward only; a
     # differentiable render ignores both): ``cascade`` alone is the
     # dynamic cascade (one host sync a boundary); ``cascade_schedule``
@@ -184,7 +205,8 @@ def trace_pixel_lanes(scene, cam: Camera, base_key, pix, sample_offset: int,
                       spp_total: int, max_bounces: int,
                       rr_start: Optional[int], differentiable: bool = False,
                       remat: Optional[str] = None, diff_t: str = "analytic",
-                      rng_scheme: str = "legacy"):
+                      rng_scheme: str = "legacy", reorder: Optional[bool] = None,
+                      diff_cascade: Optional[str] = None):
     """Trace len(pix)*spp_chunk lanes for the given pixel ids.
     Returns (sum_radiance (len(pix), 3), stats)."""
     npix = pix.shape[0]
@@ -195,7 +217,7 @@ def trace_pixel_lanes(scene, cam: Camera, base_key, pix, sample_offset: int,
     rad, stats = trace(scene, o, d, lkeys, background,
                        max_bounces=max_bounces, russian_roulette_start=rr_start,
                        differentiable=differentiable, remat=remat, diff_t=diff_t,
-                       rng_scheme=rng_scheme)
+                       rng_scheme=rng_scheme, reorder=reorder, diff_cascade=diff_cascade)
     # mask samples beyond spp_total (padded final chunk)
     rad = rad * in_range.to(torch.float32)[:, None]
     return rad.reshape(npix, spp_chunk, 3).sum(dim=1), stats
@@ -205,7 +227,8 @@ def _render_chunk(scene, cam: Camera, base_key, sample_offset: int,
                   background, *, width: int, height: int, spp_chunk: int,
                   spp_total: int, max_bounces: int, rr_start: Optional[int],
                   differentiable: bool = False, remat: Optional[str] = None,
-                  diff_t: str = "analytic", rng_scheme: str = "legacy"):
+                  diff_t: str = "analytic", rng_scheme: str = "legacy",
+                  reorder: Optional[bool] = None, diff_cascade: Optional[str] = None):
     """Trace width*height*spp_chunk lanes on the scene's device;
     returns (sum_radiance (H*W, 3), stats)."""
     pix = torch.arange(width * height, dtype=torch.int64, device=scene.device)
@@ -214,7 +237,7 @@ def _render_chunk(scene, cam: Camera, base_key, sample_offset: int,
         width=width, height=height, spp_chunk=spp_chunk,
         spp_total=spp_total, max_bounces=max_bounces, rr_start=rr_start,
         differentiable=differentiable, remat=remat, diff_t=diff_t,
-        rng_scheme=rng_scheme,
+        rng_scheme=rng_scheme, reorder=reorder, diff_cascade=diff_cascade,
     )
 
 
@@ -229,9 +252,8 @@ _CASCADE_SHRINKS = (32, 16, 8, 4, 2, 1)
 # overflow guard, so the margin may sit near 1
 AUTO_MARGIN = 1.35
 AUTO_PROBE_TARGET = 1 << 16
-# a derived schedule starts with JAX's "1:1" boundary on scenes of this
-# many projected clusters or more, so the string is JAX's (in the port a
-# full-width compaction)
+# a derived schedule starts with JAX's "1:1" boundary (a full-width
+# regrouping by pass-set) on scenes of this many projected clusters or more
 REORDER_CLUSTER_MIN = 32
 
 
@@ -372,7 +394,7 @@ def derive_cascade_schedule_multi(scene, cams, settings, key, background=None,
             scene, cam.to(dev), key, pix, 0, bg, width=settings.width,
             height=settings.height, spp_chunk=1, spp_total=1,
             max_bounces=settings.max_bounces, rr_start=settings.russian_roulette_start,
-            rng_scheme=settings.rng_scheme)
+            rng_scheme=settings.rng_scheme, reorder=settings.reorder)
         o = stats.occupancy.cpu().numpy()
         occ = o if occ is None else np.maximum(occ, o)
     n_lanes = npix * settings.resolve_chunk()
@@ -381,23 +403,27 @@ def derive_cascade_schedule_multi(scene, cams, settings, key, background=None,
     return _maybe_prepend_reorder(sched, scene)
 
 
-def _live_first(alive):
-    """The stable partition of the lanes, live ones first: a permutation
-    (R,) int64 that keeps each side's order.  No host sync."""
-    live = alive.to(torch.int64)
-    n_live = live.sum()
-    pos = torch.where(alive, torch.cumsum(live, 0) - 1,
-                      n_live + torch.cumsum(1 - live, 0) - 1)
-    perm = torch.empty_like(pos)
-    perm[pos] = torch.arange(pos.shape[0], dtype=torch.int64, device=pos.device)
-    return perm
+def _boundary_perm(scene, st, alive, static: bool, reorder: Optional[bool]):
+    """The order of the lanes after a cascade boundary, live lanes first
+    (JAX ``trace_cascaded_static`` / ``_cascade_stage``): on a scene with
+    projected tables and ``reorder`` not False, a static schedule's
+    pass-set order (``passset_perm``; the dead flag is its first key) or
+    the dynamic cascade's live-first sort by ``cluster_entry_key``, ties
+    in lane order; else the stable partition ``_live_first``."""
+    if scene.proj is None or reorder is False:
+        return _live_first(alive)
+    if static:
+        return passset_perm(scene.proj, st["o"], st["d"], alive, T_MIN)
+    key = cluster_entry_key(scene.proj.cluster_bounds, st["o"], st["d"], T_MIN)
+    key = torch.where(alive, key, torch.full_like(key, 2 ** 30))
+    return torch.sort(key, stable=True).indices
 
 
 def _render_chunk_cascaded(scene, cam: Camera, base_key, sample_offset: int,
                            background, *, width: int, height: int,
                            spp_chunk: int, spp_total: int, max_bounces: int,
                            rr_start: Optional[int], schedule=None, pix=None,
-                           rng_scheme: str = "legacy"):
+                           rng_scheme: str = "legacy", reorder: Optional[bool] = None):
     """One sample chunk through the cascade; returns (sum_radiance (len(pix),
     3), stats), as ``_render_chunk``.  ``pix``: the pixel ids to trace
     (a tile of the image, ``parallel/shard.py``), all of them by default.
@@ -409,7 +435,7 @@ def _render_chunk_cascaded(scene, cam: Camera, base_key, sample_offset: int,
     static schedule): one boundary at CASCADE_B1, where one host sync
     reads the live count and the slice takes JAX's shrink rule: the
     largest exact divisor in ``_CASCADE_SHRINKS`` that keeps max(live,
-    128) lanes.
+    128) lanes.  The lanes' order after a boundary is ``_boundary_perm``'s.
 
     Padded lanes of a final chunk (sample >= spp_total) start dead, as
     in the JAX package, so they add no segments there."""
@@ -446,7 +472,7 @@ def _render_chunk_cascaded(scene, cam: Camera, base_key, sample_offset: int,
         # bank the finished lanes at their caller index; a live lane's
         # slot stays zero until it finishes (and stays zero if dropped)
         banked[lane] = torch.where(alive[:, None], 0.0, st["rad"])
-        perm = _live_first(alive)
+        perm = _boundary_perm(scene, st, alive, static, reorder)
         if static:
             overflow += torch.clamp(alive.sum() - width_s, min=0)
         else:
@@ -483,7 +509,7 @@ def _render_frame(scene, cam, settings: RenderSettings, key, bg, spp: int,
     args = dict(width=settings.width, height=settings.height, spp_chunk=chunk,
                 spp_total=spp, max_bounces=settings.max_bounces,
                 rr_start=settings.russian_roulette_start,
-                rng_scheme=settings.rng_scheme)
+                rng_scheme=settings.rng_scheme, reorder=settings.reorder)
     for s0 in range(0, spp, chunk):
         if cascade:
             part, stats = _render_chunk_cascaded(scene, cam, key, s0, bg,
@@ -491,7 +517,8 @@ def _render_frame(scene, cam, settings: RenderSettings, key, bg, spp: int,
         else:
             part, stats = _render_chunk(
                 scene, cam, key, s0, bg, differentiable=settings.differentiable,
-                remat=settings.remat, diff_t=settings.diff_t, **args)
+                remat=settings.remat, diff_t=settings.diff_t,
+                diff_cascade=settings.diff_cascade, **args)
         acc = acc + part
         total_segments = total_segments + stats.segments
         total_bounces += stats.bounces

@@ -141,12 +141,13 @@ def render_radiance_checkpointed(scene, cam, settings, key, checkpoint_path: str
     args = dict(width=settings.width, height=settings.height, spp_chunk=chunk,
                 spp_total=spp, max_bounces=settings.max_bounces,
                 rr_start=settings.russian_roulette_start,
-                rng_scheme=settings.rng_scheme)
+                rng_scheme=settings.rng_scheme, reorder=settings.reorder)
 
     def plain_chunk(s0):
         return _render_chunk(scene, cam, key, s0, bg,
                              differentiable=settings.differentiable,
-                             remat=settings.remat, diff_t=settings.diff_t, **args)
+                             remat=settings.remat, diff_t=settings.diff_t,
+                             diff_cascade=settings.diff_cascade, **args)
 
     # segments and the overflow count stay on the device between saves
     zero = torch.zeros((), dtype=torch.float32, device=dev)

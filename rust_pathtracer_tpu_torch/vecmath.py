@@ -103,13 +103,31 @@ def refract(v: torch.Tensor, n: torch.Tensor, eta: torch.Tensor) -> torch.Tensor
 _POLE_EPS = 1e-6
 
 
+class _Acos(torch.autograd.Function):
+    """acos whose backward multiplies by the slope -1 / sqrt(1 - x^2)
+    taken in the forward, as JAX's linearisation keeps it, where
+    ``AcosBackward`` takes it from the saved x: an x saved in bfloat16
+    (remat "bf16", ``ops/compressed_vjp.py``) may round onto a pole, a
+    slope stays finite.  In f32 the two give the same bits."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(-torch.rsqrt(1.0 - x * x))
+        return torch.acos(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (slope,) = ctx.saved_tensors
+        return grad * slope
+
+
 def safe_acos(x: torch.Tensor) -> torch.Tensor:
     xc = torch.clamp(x, -1.0, 1.0)
     is_pole = torch.abs(xc) >= 1.0 - _POLE_EPS
     xs = torch.where(is_pole, torch.zeros_like(xc), xc)
     pole_val = torch.where(xc > 0.0, torch.zeros_like(xc),
                            torch.full_like(xc, math.pi))
-    return torch.where(is_pole, pole_val, torch.acos(xs))
+    return torch.where(is_pole, pole_val, _Acos.apply(xs))
 
 
 def safe_atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -44,11 +44,21 @@ the card as on the CPU (a sort by pixel, then each pixel's values in
 turn), so one key gives the same image bit for bit; never
 ``index_add_``, whose CUDA adds are atomics.
 
-Not ported: the between-bounce reorder of big scenes (it changes no
-per-lane result), the "none" flush (a biased probe) and the JAX
-package's environment knobs: ``RPT_REGEN_MODE`` is the ``mode``
-argument, ``RPT_FLUSH_EVERY`` the constant ``FLUSH_EVERY`` (JAX's
-default) and ``RPT_REGEN_FLUSH`` goes with the "none" flush.
+The between-bounce reorder of big scenes (JAX ``reorder_lanes``; routed
+by ``RenderSettings.reorder`` as in ``integrator.use_wavefront_reorder``):
+before each bounce after the first, while more than 1/64 of the pool
+lives, every per-lane tensor of the pool is permuted by
+``projected.passset_perm``, so that a warp's lanes visit the same
+clusters.  A lane keeps its path, so segments and occupancy do not
+change; the lanes that finish in a window take work ids in their new
+order, so the per-pixel sums add in another order.  The live count
+costs one sync a bounce; only projected scenes reorder, and they never
+take K1.
+
+Not ported: the "none" flush (a biased probe) and the JAX package's
+environment knobs: ``RPT_REGEN_MODE`` is the ``mode`` argument,
+``RPT_FLUSH_EVERY`` the constant ``FLUSH_EVERY`` (JAX's default) and
+``RPT_REGEN_FLUSH`` goes with the "none" flush.
 """
 
 from __future__ import annotations
@@ -62,11 +72,13 @@ from rust_pathtracer_tpu_torch import sampling
 from rust_pathtracer_tpu_torch.camera import Camera
 from rust_pathtracer_tpu_torch.integrator import (
     MAX_BOUNCE_STATS,
+    REORDER_ALIVE_SHARE,
     T_MIN,
     TraceStats,
     _bounce_tail,
     _call,
     search_and_record,
+    use_wavefront_reorder,
 )
 from rust_pathtracer_tpu_torch.ops.closest_hit import pack_prims
 from rust_pathtracer_tpu_torch.ops.draws import bounce_draws
@@ -76,6 +88,7 @@ from rust_pathtracer_tpu_torch.ops.fused_bounce import (
     key_words,
     pack_prims_shaded,
 )
+from rust_pathtracer_tpu_torch.ops.projected import passset_perm
 from rust_pathtracer_tpu_torch.render import RenderSettings, camera_lanes, resolve_device
 
 MODES = ("queue", "stripe")
@@ -114,6 +127,7 @@ class _Frame:
     rr_start: Optional[int]
     stripe: bool
     rng_scheme: str = "legacy"
+    reorder: bool = False
 
     @property
     def npix(self):
@@ -207,6 +221,22 @@ def _bounce(fr: _Frame, pool: _Pool):
     state[12].masked_fill_(pool.depth >= fr.max_bounces, 0.0)
     pool.state = state
     return n_alive
+
+
+def _reorder_pool(fr: _Frame, pool: _Pool):
+    """JAX ``reorder_lanes``: where more than 1/REORDER_ALIVE_SHARE of the
+    lanes live (one sync), every per-lane tensor of the pool is permuted
+    by ``passset_perm`` of the lanes' rays."""
+    alive = pool.state[12] > 0.5
+    if int(alive.sum()) * REORDER_ALIVE_SHARE <= alive.shape[0]:
+        return
+    o, d = pool.state[0:3].T, pool.state[3:6].T
+    perm = passset_perm(fr.scene.proj, o, d, alive, T_MIN)
+    pool.state, pool.keys = pool.state[:, perm], pool.keys[:, perm]
+    for name in ("depth", "work", "pixel", "nxt", "send", "acc_lane"):
+        x = getattr(pool, name)
+        if x is not None:
+            setattr(pool, name, x[perm])
 
 
 def _depth_hist(depth):
@@ -306,7 +336,9 @@ def render_radiance_regen(scene, cam: Camera, settings: RenderSettings, key,
                 width=width, height=height, spp=spp,
                 max_bounces=settings.max_bounces,
                 rr_start=settings.russian_roulette_start, stripe=stripe,
-                rng_scheme=sampling.check_rng_scheme(settings.rng_scheme))
+                rng_scheme=sampling.check_rng_scheme(settings.rng_scheme),
+                reorder=not fused and use_wavefront_reorder(scene, False,
+                                                            settings.reorder))
 
     init = torch.arange(lanes, dtype=torch.int64, device=dev) * (stripe_k if stripe else 1)
     pixel, keys, state = _spawn(fr, init)
@@ -323,6 +355,8 @@ def render_radiance_regen(scene, cam: Camera, settings: RenderSettings, key,
     issued, iters = lanes, 0
     while True:  # every lane is alive entering the first window
         for _ in range(FLUSH_EVERY):
+            if fr.reorder and iters > 0:
+                _reorder_pool(fr, pool)
             segments = segments + _bounce(fr, pool)
             iters += 1
         if stripe:

@@ -879,3 +879,128 @@ def test_geometry_step_on_gpu_matches_cpu():
     np.testing.assert_allclose(g1.numpy(), g0.numpy(), rtol=0.05,
                                atol=2e-3 * np.abs(g0.numpy()).max())
     assert torch.equal(l1, l2) and torch.equal(g1, g2)
+
+
+def _sphere_cloud(n, seed):
+    """n random spheres, no BVH: projected tables of ceil(n / 128) clusters."""
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder()
+    m = b.lambertian((0.5, 0.5, 0.5))
+    for _ in range(n):
+        b.add_sphere(rng.uniform(-12, 12, 3), rng.uniform(0.3, 0.9), m)
+    return b.build(use_bvh=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 255, 257, 70001])
+def test_passset_kernel_matches_plain_on_gpu(n):
+    """The pass-set key kernel against ``passset_sort_keys_plain`` on the
+    same CUDA tensors and on the CPU, on tables of 5 and 40 clusters,
+    with dead lanes, parked origins, zero and NaN direction components:
+    bit for bit, and ``passset_perm`` the permutation of the plain keys."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from rust_pathtracer_tpu_torch.ops import passset
+    from rust_pathtracer_tpu_torch.ops import projected as P
+
+    rng = np.random.default_rng(n)
+    o = rng.uniform(-14, 14, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d[::11, 1] = 0.0
+    d[7::97, 0] = np.nan
+    o[3::13] = 3.0e33
+    alive = rng.random(n) > 1.0 / 3.0
+    for scene in (_sphere_cloud(600, 44), _sphere_cloud(40 * 128, 3)):
+        cpu = [torch.from_numpy(x) for x in (o, d, alive)]
+        gpu = [x.to("cuda") for x in cpu]
+        tables = scene.proj.to("cuda")
+        before = passset.launches
+        got = passset.passset_keys(tables, *gpu, T_MIN)
+        torch.cuda.synchronize()
+        assert passset.launches == before + 1
+        plain = P.passset_sort_keys_plain(tables, *gpu, T_MIN)
+        assert torch.equal(got, plain)
+        assert torch.equal(got.cpu(), P.passset_sort_keys_plain(scene.proj, *cpu, T_MIN))
+        assert torch.equal(P.passset_perm(tables, *gpu, T_MIN), P.sort_by_words(plain))
+
+
+@pytest.mark.cuda
+def test_reorder_on_gpu_bit_identical():
+    """SphereField on the card, 48x32, 4 spp, 10 bounces: the chunked
+    render and a static cascade whose "1:1" boundary regroups by pass-set
+    with the reorder equal them without it bit for bit (image, segments,
+    occupancy), the key kernel launched; regen with and without within
+    2e-7 (SphereField's pixels stay at most 1), equal segments."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import dataclasses
+
+    from rust_pathtracer_tpu_torch.models import get_scene
+    from rust_pathtracer_tpu_torch.ops import passset
+    from rust_pathtracer_tpu_torch.render import RenderSettings, render_radiance
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+    from rust_pathtracer_tpu_torch.wavefront import render_radiance_regen
+
+    sd = get_scene("SphereField")
+    scene, cam = sd.build(device="cuda"), sd.camera_at(0.0, device="cuda")
+    key = prng_key(2, device="cuda")
+    s = RenderSettings(48, 32, 4, 10, (1.0, 1.0, 1.0))
+    for kw in ({}, {"cascade_schedule": "1:1,3:2"}):
+        runs = []
+        for reorder in (False, None):
+            before = passset.launches
+            img, st = render_radiance(scene, cam, dataclasses.replace(s, reorder=reorder,
+                                                                      **kw),
+                                      key, device="cuda")
+            runs.append((img, st, passset.launches - before))
+        (a, sa, na), (b, sb, nb) = runs
+        assert na == 0 < nb, kw
+        assert torch.equal(a, b) and torch.equal(sa.segments, sb.segments), kw
+        assert torch.equal(sa.occupancy, sb.occupancy), kw
+    regen = [render_radiance_regen(scene, cam, dataclasses.replace(s, reorder=r), key,
+                                   lanes=1024, device="cuda") for r in (False, True)]
+    (a, sa), (b, sb) = regen
+    assert float((a - b).abs().max()) <= 2e-7 and float(b.max()) <= 1.0
+    assert torch.equal(sa.segments, sb.segments) and torch.equal(sa.occupancy, sb.occupancy)
+
+
+@pytest.mark.cuda
+def test_bf16_and_diff_cascade_on_gpu():
+    """The image-textured scene's step on the card, 64x64, 8 spp, 4
+    bounces: under remat "bf16" the loss is remat "none"'s bit for bit and
+    the gradient within (1e-7, 1e-2) normalised; through the
+    differentiable cascade "2:2,3:4" no lane is dropped, the loss within
+    1e-6 and every gradient within rtol 1e-3 / atol 1e-7."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from rust_pathtracer_tpu_torch.grad import CameraParams, DiffParams, render_loss_and_grad
+    from rust_pathtracer_tpu_torch.render import RenderSettings
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+
+    b = SceneBuilder()
+    b.add_sphere((0.0, 0.5, -3.0), 0.5, b.lambertian((0.4, 0.5, 0.6)))
+    ramp = np.linspace(0.1, 0.9, 8 * 8 * 3).reshape(8, 8, 3).astype(np.float32)
+    b.add_sphere((0.0, -100.0, -3.0), 100.0, b.lambertian(b.image_texture(ramp)))
+    b.add_rect("xz", (-2.0, 4.0, -5.0), (2.0, 4.0, -1.0), -1.0,
+               b.diffuse_light((5.0, 5.0, 5.0)))
+    scene = b.build(use_bvh=False, device="cuda")
+    bg = (0.1, 0.1, 0.1)
+    params = DiffParams.from_scene(scene, CameraParams.create(
+        (0.0, 1.0, 2.0), (0.0, 0.5, -3.0), (0.0, 1.0, 0.0), 50.0, 1.0, device="cuda"), bg)
+    out = {}
+    for label, kw in (("none", {}), ("bf16", {"remat": "bf16"}),
+                      ("cascade", {"diff_cascade": "2:2,3:4"})):
+        loss, g = render_loss_and_grad(params, scene, RenderSettings(64, 64, 8, 4, bg, **kw),
+                                       prng_key(0, device="cuda"),
+                                       torch.zeros(64, 64, 3, device="cuda"), device="cuda")
+        out[label] = (float(loss), [x.cpu().numpy() for x in g.leaves()])
+    l0, g0 = out["none"]
+    f0 = np.concatenate([x.ravel() for x in g0]).astype(np.float64)
+    l1, g1 = out["bf16"]
+    f1 = np.concatenate([x.ravel() for x in g1]).astype(np.float64)
+    assert l1 == l0
+    assert 1e-7 < np.linalg.norm(f1 - f0) / np.linalg.norm(f0) < 1e-2
+    l2, g2 = out["cascade"]
+    np.testing.assert_allclose(l2, l0, rtol=1e-6)
+    for a, b_ in zip(g2, g0):
+        np.testing.assert_allclose(a, b_, rtol=1e-3, atol=1e-7)

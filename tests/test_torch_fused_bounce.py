@@ -173,18 +173,28 @@ def test_trace_matches_jax_trace(rr):
 
 
 def test_trace_refuses_what_is_not_ported():
-    """What the port still refuses: a remat mode it lacks ("bf16") and a
-    gradient of the primitive geometry, which the detached estimator
-    would return as zero.  Scenes the fused kernel refuses render on the
-    generic route (tests/test_torch_generic_grad.py)."""
+    """remat acts on the generic route only: under "bf16" the fused
+    route keeps K1's residuals and K2, so the radiance and the origins'
+    gradient are bit for bit those of the default remat.  What the port
+    refuses: a gradient of the primitive geometry under "analytic",
+    which the detached estimator would return as zero.  Scenes the fused
+    kernel refuses render on the generic route
+    (tests/test_torch_generic_grad.py)."""
     import dataclasses
 
     scene = t_full_scene()
     o, d = _rays(8)
     keys = ts.lane_keys(ts.prng_key(0), torch.arange(8))
     args = (torch.from_numpy(o), torch.from_numpy(d), keys, (0.0, 0.0, 0.0), 4)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        t_trace(scene, *args, differentiable=True, remat="bf16")
+
+    def step(remat):
+        org = torch.from_numpy(o).requires_grad_(True)
+        rad, _ = t_trace(scene, org, *args[1:], differentiable=True, remat=remat)
+        rad.sum().backward()
+        return rad.detach(), org.grad
+
+    for a, b in zip(step(None), step("bf16")):
+        assert torch.equal(a, b)
     prims = dataclasses.replace(scene.prims,
                                 data=scene.prims.data.clone().requires_grad_(True))
     with pytest.raises(NotImplementedError, match="geometry"):

@@ -132,15 +132,17 @@ def test_geometry_gradient_raises(name):
 
 def test_remat_auto_threshold():
     """auto keeps everything for TwoSphereCheckers at full width
-    (854x480, 2 spp, 20 bounces) and checkpoints LightTest (50 bounces);
-    the named modes pass through."""
+    (854x480, 2 spp, 20 bounces) and checkpoints LightTest (50 bounces),
+    never picking the lossy "bf16"; the named modes, "bf16" among them,
+    pass through; an unknown one raises."""
     lanes = 854 * 480 * 2
     assert integrator.resolve_remat_mode(None, lanes, 20) == "none"
     assert integrator.resolve_remat_mode("auto", lanes, 50) == "mid"
+    assert "bf16" in integrator.REMAT_MODES
     for mode in integrator.REMAT_MODES:
         assert integrator.resolve_remat_mode(mode, lanes, 50) == mode
-    with pytest.raises(NotImplementedError, match="bf16"):
-        integrator.resolve_remat_mode("bf16", 8, 2)
+    with pytest.raises(ValueError, match="bf17"):
+        integrator.resolve_remat_mode("bf17", 8, 2)
 
 
 def test_generic_step_deterministic():

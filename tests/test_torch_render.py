@@ -154,11 +154,13 @@ def test_no_fallback_without_gpu(tmp_path):
 
 
 def test_not_ported_settings_raise():
-    """The remat mode the port lacks ("bf16") raises; the cascade, which
-    raised before it was ported, renders the chunked image bit for bit
+    """Settings that raised before they were ported now run.  The
+    cascade renders the chunked image bit for bit
     (``tests/test_torch_cascade.py`` holds it at length); differentiable
     renders of CornellBox (fused route) and of a perlin scene
-    (TwoSphereCheckers, generic route) run."""
+    (TwoSphereCheckers, generic route) run, and remat "bf16" rounds only
+    what it saves, so its image is the default remat's bit for bit
+    (``tests/test_torch_remat_bf16.py`` holds its gradients)."""
     sd = get_scene("CornellBox")
     base = RenderSettings(4, 4, 1, 2, (0.0, 0.0, 0.0))
     want, st = render_radiance(sd.build(), sd.camera_at(0.0), base, prng_key(0),
@@ -177,10 +179,10 @@ def test_not_ported_settings_raise():
     img, st = render_radiance(perlin.build(), perlin.camera_at(0.0), diff,
                               prng_key(0), device="cpu")
     assert torch.isfinite(img).all() and st.bounces == 2
-    with pytest.raises(NotImplementedError, match="bf16"):
-        render_radiance(perlin.build(), perlin.camera_at(0.0),
-                        dataclasses.replace(diff, remat="bf16"), prng_key(0),
-                        device="cpu")
+    img16, st16 = render_radiance(perlin.build(), perlin.camera_at(0.0),
+                                  dataclasses.replace(diff, remat="bf16"), prng_key(0),
+                                  device="cpu")
+    assert torch.equal(img16, img) and torch.equal(st16.occupancy, st.occupancy)
 
 
 @pytest.mark.parametrize("name", ["CornellBox", "TwoSphereCheckers"])
@@ -223,8 +225,9 @@ def test_port_imports_no_jax():
     sharded_timing.py),
     imports jax or the JAX package, not even its numpy-only modules (bvh,
     obj_loader), nor Pillow: the machine with the card has none of them.
-    The big-scene and the sharding modules, the scene JSON, the metrics
-    and the inverse-rendering example are among those checked."""
+    The big-scene and the sharding modules, the scene JSON, the metrics,
+    the inverse-rendering example, the pass-set key kernel's wrapper and
+    the bf16 residuals are among those checked."""
     files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "profile_port.py",
                                             "k2_variants.py", "k34_variants.py",
                                             "sharded_timing.py")]
@@ -235,7 +238,8 @@ def test_port_imports_no_jax():
     for mod in ("bvh.py", "scene/obj_loader.py", "ops/projected.py",
                 "ops/resident.py", "ops/worklist.py", "parallel/mesh.py",
                 "parallel/shard.py", "parallel/dryrun.py", "scene/json_io.py",
-                "utils/metrics.py", "examples/inverse_rendering.py"):
+                "utils/metrics.py", "examples/inverse_rendering.py",
+                "ops/passset.py", "ops/compressed_vjp.py"):
         assert f"rust_pathtracer_tpu_torch/{mod}" in rel, mod
     for path in files:
         for mod in _imported_modules(path):
