@@ -271,7 +271,10 @@ differentiable cascade (phase 45).  It checks them:
     fifth lane dead: every word bit for bit, ``passset_perm`` of the
     kernel's keys that of the plain ones and live lanes first; timed
     beside the plain version (events, device time), with its bound and
-    the time of ``passset_perm`` (keys and sorts);
+    the time of ``passset_perm`` (keys and sorts); then the 20k table's
+    lanes with an infinite or NaN o or d in about one of 100, on that
+    table and on a copy with an inverted box and +inf and NaN bounds
+    (the kernel's exact path), bit for bit and timed;
 43. the slice's main path, the between-bounce reorder, A/B in one call
     (off, on, on, off; median walls of 3): the SphereField frame
     (854x480, 2 spp, 20 bounces, K6), ModelTest 800x800 at 1 spp on the
@@ -4555,6 +4558,28 @@ def phase_passset_kernel(torch, device, card, scenes, reps):
             f"{perm_ms:.4f} ms")
         out[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                          device_ms=dev_ms, max_abs_err=err, perm_ms=perm_ms)
+    # the kernel's exact path at full size: the 20k table (the last above)
+    # with an inverted box, +inf and NaN bounds, and lanes with an infinite
+    # or NaN o or d among the finite ones
+    cb = tables.cluster_bounds.clone()
+    cb[[0, 3], 3] = cb[[3, 0], 3]
+    cb[4, 5], cb[2, 7] = float("inf"), float("nan")
+    flawed = dataclasses.replace(tables, cluster_bounds=cb)
+    o, d = o.clone(), d.clone()
+    d[9::97, 2], o[4::101, 1], o[6::103, 0] = float("inf"), float("-inf"), float("nan")
+    for label, tab in (("the 20k table", tables), ("its flawed copy", flawed)):
+        reset_counts()
+        got = passset.passset_keys(tab, o, d, alive, T_MIN)
+        launches = read_counts()["keys"]
+        want = passset_sort_keys_plain(tab, o, d, alive, T_MIN)
+        _sync(torch, device)
+        bad = int((got != want).any(dim=0).sum())
+        check(launches == 1 and bad == 0, f"{label} with non-finite lanes: "
+                                          f"{launches} launches, {bad} lanes differ")
+        ms = statistics.mean(_time_ms(torch, device, lambda: passset.passset_keys(
+            tab, o, d, alive, T_MIN), reps) for _ in range(2))
+        log(f"{label}, a lane in ~100 with an infinite or NaN o or d, on {card}: 0 of "
+            f"{o.shape[0]} lanes differ; kernel {ms:.4f} ms a launch")
     return out
 
 

@@ -2,12 +2,18 @@
 
 No Pallas counterpart: in the JAX package XLA computes the keys in
 ``ops/projected.py:793`` (``passset_sort_keys``).  This module wraps a
-CUDA kernel (``csrc/passset.cu``) that computes the same words, one lane
-a thread, where the plain version (``projected.passset_sort_keys_plain``)
-materialises (R, G) planes of slab bounds.  ``passset_keys`` dispatches
-on where its tensors lie: CUDA tensors launch the kernel (and count in
-``launches``); CPU tensors run the plain version.  ``projected.passset_perm``
-sorts by its words.
+CUDA kernel (``csrc/passset.cu``) that computes the same words bit for
+bit, where the plain version (``projected.passset_sort_keys_plain``)
+materialises (R, G) planes of slab bounds.  The kernel stages the
+cluster boxes in shared memory once a block, gives a thread two lanes
+that share each read of a box, and runs the slab test with plain f32
+min / max where the lane's o and d and the staged bounds are finite
+(tested once a lane and once a block): there no operand can be NaN, so
+those give the NaN-propagating test's bit.  Other live lanes take the
+NaN-propagating test itself; dead lanes test nothing.  ``passset_keys``
+dispatches on where its tensors lie: CUDA tensors launch the kernel (and
+count in ``launches``); CPU tensors run the plain version.
+``projected.passset_perm`` sorts by its words.
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
-// The CUDA features that ops/csrc/projected.cu, ops/csrc/fused_bounce_bwd.cu
-// and ops/csrc/closest_hit.cu use, emulated on the host so that g++ can build
-// a kernel source and run it on the CPU: one std::thread a CUDA thread, blocks
-// of up to 256 threads run one after another, warp collectives
-// (__ballot_sync, __match_any_sync, __shfl_sync, __shfl_xor_sync, __syncwarp)
-// and __syncthreads through std::barrier.  The tests rewrite a source's
+// The CUDA features that the kernel sources of ops/csrc/ use, emulated on
+// the host so that g++ can build a kernel source and run it on the CPU: one
+// std::thread a CUDA thread, blocks of up to 256 threads run one after
+// another, warp collectives (__ballot_sync, __match_any_sync, __shfl_sync,
+// __shfl_xor_sync, __syncwarp), __syncthreads and __syncthreads_and through
+// std::barrier.  The tests rewrite a source's
 // launches to EMU_LAUNCH and its cp.async to a copy
 // (tests/test_torch_projected_rows.py, tests/test_torch_fused_bounce_bwd.py,
 // tests/test_torch_closest_hit_emu.py).  The card's attributes are those of a
@@ -15,6 +15,7 @@
 #include <cstring>
 #include <functional>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 #define __global__
@@ -87,6 +88,19 @@ inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return __builtin_ffs(x); }
 inline void __syncwarp() { g_warps[threadIdx.x / 32].bar->arrive_and_wait(); }
 inline void __syncthreads() { g_block_bar->arrive_and_wait(); }
+// Nonzero where p is nonzero on every thread of the block; the third wait
+// keeps a fast thread's next call from voting before the reset.
+inline int g_vote_and = 1;
+inline int __syncthreads_and(int p) {
+  static std::mutex m;
+  if (!p) { std::lock_guard<std::mutex> g(m); g_vote_and = 0; }
+  g_block_bar->arrive_and_wait();
+  const int r = g_vote_and;
+  g_block_bar->arrive_and_wait();
+  if (threadIdx.x == 0) g_vote_and = 1;
+  g_block_bar->arrive_and_wait();
+  return r;
+}
 // Runs `blocks` blocks of `threads` threads (a multiple of 32), one block at
 // a time.  A barrier waits for every thread of its warp or block, so a
 // kernel may return a thread early only where no later collective waits for

@@ -895,11 +895,16 @@ def _sphere_cloud(n, seed):
 @pytest.mark.parametrize("n", [1, 255, 257, 70001])
 def test_passset_kernel_matches_plain_on_gpu(n):
     """The pass-set key kernel against ``passset_sort_keys_plain`` on the
-    same CUDA tensors and on the CPU, on tables of 5 and 40 clusters,
-    with dead lanes, parked origins, zero and NaN direction components:
-    bit for bit, and ``passset_perm`` the permutation of the plain keys."""
+    same CUDA tensors and on the CPU, on tables of 5 and 40 clusters and
+    on two flawed copies of the 40 (cluster 3's x faces swapped, an
+    inverted box; +inf, NaN and -inf bounds), with dead lanes, parked
+    origins, zero, NaN and infinite direction components and infinite
+    and NaN origins: bit for bit, and ``passset_perm`` the permutation of
+    the plain keys."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
+    import dataclasses
+
     from rust_pathtracer_tpu_torch.ops import passset
     from rust_pathtracer_tpu_torch.ops import projected as P
 
@@ -908,19 +913,28 @@ def test_passset_kernel_matches_plain_on_gpu(n):
     d = rng.normal(size=(n, 3)).astype(np.float32)
     d[::11, 1] = 0.0
     d[7::97, 0] = np.nan
+    d[9::41, 2] = np.inf
     o[3::13] = 3.0e33
+    o[4::43, 1] = -np.inf
+    o[6::47, 0] = np.nan
     alive = rng.random(n) > 1.0 / 3.0
-    for scene in (_sphere_cloud(600, 44), _sphere_cloud(40 * 128, 3)):
+    words2 = _sphere_cloud(40 * 128, 3).proj
+    unordered, nonfinite = words2.cluster_bounds.clone(), words2.cluster_bounds.clone()
+    unordered[[0, 3], 3] = unordered[[3, 0], 3]
+    nonfinite[4, 5], nonfinite[2, 7], nonfinite[0, 9] = np.inf, np.nan, -np.inf
+    for proj in (_sphere_cloud(600, 44).proj, words2,
+                 dataclasses.replace(words2, cluster_bounds=unordered),
+                 dataclasses.replace(words2, cluster_bounds=nonfinite)):
         cpu = [torch.from_numpy(x) for x in (o, d, alive)]
         gpu = [x.to("cuda") for x in cpu]
-        tables = scene.proj.to("cuda")
+        tables = proj.to("cuda")
         before = passset.launches
         got = passset.passset_keys(tables, *gpu, T_MIN)
         torch.cuda.synchronize()
         assert passset.launches == before + 1
         plain = P.passset_sort_keys_plain(tables, *gpu, T_MIN)
         assert torch.equal(got, plain)
-        assert torch.equal(got.cpu(), P.passset_sort_keys_plain(scene.proj, *cpu, T_MIN))
+        assert torch.equal(got.cpu(), P.passset_sort_keys_plain(proj, *cpu, T_MIN))
         assert torch.equal(P.passset_perm(tables, *gpu, T_MIN), P.sort_by_words(plain))
 
 

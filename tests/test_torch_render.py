@@ -222,7 +222,7 @@ def _imported_modules(path):
 def test_port_imports_no_jax():
     """No module of the port, nor the root scripts that run on the card
     (chip_smoke.py, profile_port.py, k2_variants.py, k34_variants.py,
-    sharded_timing.py),
+    sharded_timing.py, passset_ab.py),
     imports jax or the JAX package, not even its numpy-only modules (bvh,
     obj_loader), nor Pillow: the machine with the card has none of them.
     The big-scene and the sharding modules, the scene JSON, the metrics,
@@ -230,7 +230,7 @@ def test_port_imports_no_jax():
     the bf16 residuals are among those checked."""
     files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "profile_port.py",
                                             "k2_variants.py", "k34_variants.py",
-                                            "sharded_timing.py")]
+                                            "sharded_timing.py", "passset_ab.py")]
     for root, _, names in os.walk(os.path.join(REPO, "rust_pathtracer_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20

@@ -30,6 +30,7 @@ The kernel on the card: ``chip_smoke.py`` phases 42-44.
 import dataclasses
 import re
 import shutil
+import types
 
 import jax
 import jax.numpy as jnp
@@ -89,19 +90,58 @@ def _packed_scene(builder, n):
 TABLES = {"cluster600": lambda B: _cluster_scene(B),
           "full32": lambda B: _packed_scene(B, 32 * 128),
           "words2": lambda B: _cluster_scene(B, 40 * 128, seed=3)}
+# hand-made cluster bounds: name -> (G, flaw); G past the 512 clusters the
+# kernel stages at once at 600
+HAND = {"G1": (1, None), "G31": (31, None), "G32": (32, None), "G33": (33, None),
+        "G160": (160, None), "G600": (600, None), "unordered": (40, "unordered"),
+        "nonfinite": (40, "nonfinite")}
 
 
-@pytest.fixture(scope="module", params=sorted(TABLES))
+def _hand_bounds(G, flaw):
+    """(6, G) f32 cluster AABBs laid out as ``build_projected``'s (min
+    xyz, max xyz): random boxes over the lanes' origins, the last of more
+    than one a padding cluster at 1e30.  ``flaw`` "unordered" swaps
+    cluster 3's x faces (an inverted box: the plain test, which takes the
+    min and max of both faces, passes it where a test that picks the
+    faces by the sign of 1/d fails it); "nonfinite" puts +inf at cluster
+    5's max y, NaN at cluster 7's min z and -inf at cluster 9's min x."""
+    rng = np.random.default_rng(G)
+    c = rng.uniform(-14, 14, (3, G))
+    h = rng.uniform(0.5, 6.0, (3, G))
+    cb = np.concatenate([c - h, c + h]).astype(np.float32)
+    if G > 1:
+        cb[:, -1] = 1.0e30
+    if flaw == "unordered":
+        cb[[0, 3], 3] = cb[[3, 0], 3]
+    elif flaw == "nonfinite":
+        cb[4, 5], cb[2, 7], cb[0, 9] = np.inf, np.nan, -np.inf
+    return cb
+
+
+def _hand_tables(cb):
+    """What the key functions read of ``ProjTables`` (``bounds8`` as the
+    property builds it), for the bounds ``cb``: (JAX's, the port's)."""
+    tt = types.SimpleNamespace(cluster_bounds=torch.from_numpy(cb),
+                               device=torch.device("cpu"), num_groups=cb.shape[1])
+    tt.bounds8 = P.ProjTables.bounds8.func(tt)
+    return types.SimpleNamespace(cluster_bounds=jnp.asarray(cb)), tt
+
+
+@pytest.fixture(scope="module", params=sorted(TABLES) + sorted(HAND))
 def tables(request):
     """(name, JAX tables, port tables)."""
+    if request.param in HAND:
+        return (request.param, *_hand_tables(_hand_bounds(*HAND[request.param])))
     make = TABLES[request.param]
     return request.param, make(JSceneBuilder).proj, make(SceneBuilder).proj
 
 
-def _lanes(n, seed, full=False):
+def _lanes(n, seed, full=False, nonfinite=False):
     """o, d (n, 3) f32 and alive (n,) bool as numpy: random rays (from
     the origin where ``full``), a third dead, every 13th origin parked,
-    zero and NaN direction components."""
+    zero and NaN direction components; where ``nonfinite``, infinite
+    direction components and infinite and NaN origins too, so that a
+    warp mixes them with finite lanes."""
     rng = np.random.default_rng(seed)
     o = rng.uniform(-14, 14, (n, 3)).astype(np.float32)
     if full:
@@ -111,6 +151,10 @@ def _lanes(n, seed, full=False):
     d[5::17, 2] = -0.0
     d[7::97, 0] = np.nan
     o[3::13] = 3.0e33
+    if nonfinite:
+        d[9::41, 2] = np.inf
+        o[4::43, 1] = -np.inf
+        o[6::47, 0] = np.nan
     alive = rng.random(n) > 1.0 / 3.0
     return o, d, alive
 
@@ -185,13 +229,52 @@ def emu_lib(request, tmp_path_factory):
     return lib
 
 
-@pytest.mark.parametrize("n", [1, 255, 257, 1000])
+def _nan_free_keys(tables, o, d, alive, pick):
+    """The pass-set words by the slab test with NaN-dropping min / max
+    (``torch.fmin`` / ``fmax``), and where ``pick`` with the near and far
+    faces picked by the sign of 1/d: what the kernel's fast test would
+    give if it ran on every lane and table."""
+    cb = tables.cluster_bounds
+    tiny = torch.tensor(1e-30)
+    inv = torch.reciprocal(torch.where(d.abs() < tiny, torch.where(d < 0, -tiny, tiny), d))
+    lo = torch.full((o.shape[0], cb.shape[1]), 1e-3)
+    hi = torch.full_like(lo, 1e30)
+    for ax in range(3):
+        b0 = (cb[ax][None] - o[:, ax:ax + 1]) * inv[:, ax:ax + 1]
+        b1 = (cb[3 + ax][None] - o[:, ax:ax + 1]) * inv[:, ax:ax + 1]
+        if pick:
+            pos = inv[:, ax:ax + 1] >= 0
+            near, far = torch.where(pos, b0, b1), torch.where(pos, b1, b0)
+        else:
+            near, far = torch.fmin(b0, b1), torch.fmax(b0, b1)
+        lo, hi = torch.fmax(lo, near), torch.fmin(hi, far)
+    keys = P.passset_sort_keys_plain(tables, o, d, alive)
+    mask = (hi >= lo) & alive[:, None]
+    for w in range(keys.shape[0] - 1):
+        bits = mask[:, 32 * w:32 * (w + 1)].to(torch.int64)
+        word = (bits << torch.arange(bits.shape[1])).sum(dim=1)
+        keys[1 + w] = torch.where(alive, P._u32_as_i32(word), keys[1 + w])
+    return keys
+
+
+@pytest.mark.parametrize("n", [1, 255, 257, 1000, 3149])
 def test_emulated_kernel_matches_plain(n, emu_lib, tables):
     """``passset._launch``'s call on CPU tensors, the output filled with a
-    sentinel first, against ``passset_sort_keys_plain``."""
+    sentinel first, against ``passset_sort_keys_plain``: on the scene
+    tables and the hand-made ones (G of 1, 31-33, 160 and 600, past the
+    512 clusters the kernel stages at once; an inverted box; infinite and
+    NaN bounds), with lanes whose o or d is infinite or NaN among finite
+    ones, at lane counts below one tile of 512 lanes (256 threads of 2
+    lanes) and past six (3,149: two blocks walk them where the card
+    holds one an SM).  On the flawed tables a test that drops NaNs, or
+    picks the faces by the sign of 1/d, gives other words: the case
+    needs the kernel's exact path."""
     name, _, tt = tables
-    o, d, alive = (torch.from_numpy(x) for x in _lanes(n, n, full=name == "full32"))
+    o, d, alive = (torch.from_numpy(x) for x in _lanes(n, n, full=name == "full32",
+                                                       nonfinite=True))
     want = P.passset_sort_keys_plain(tt, o, d, alive)
+    if n >= 1000 and name in ("unordered", "nonfinite"):
+        assert not torch.equal(_nan_free_keys(tt, o, d, alive, name == "unordered"), want)
     out = torch.full_like(want, 12345)
     err = emu_lib.passset_keys_launch(o.data_ptr(), d.data_ptr(), alive.data_ptr(),
                                       tt.bounds8.data_ptr(), tt.num_groups, 1e-3,
