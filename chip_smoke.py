@@ -25,9 +25,10 @@ differentiable cascade (phase 45).  It checks them:
 2. build: builds K1 (``ops/csrc/fused_bounce.cu``), K2
    (``ops/csrc/fused_bounce_bwd.cu``), K3/K4 (``ops/csrc/closest_hit.cu``),
    K5/K6/K7 (``ops/csrc/projected.cu``), the draw kernel
-   (``ops/csrc/draws.cu``) and the pass-set key kernel
-   (``ops/csrc/passset.cu``) with nvcc for sm_90a, and the native BVH
-   builder (``native.py``) with g++, in parallel;
+   (``ops/csrc/draws.cu``), the pass-set key kernel
+   (``ops/csrc/passset.cu``) and the lanes kernel (``ops/csrc/lanes.cu``)
+   with nvcc for sm_90a, and the native BVH builder (``native.py``) with
+   g++, in parallel;
 3. K1 against its plain PyTorch version on the CPU on 1,000,000 random
    lanes with random keys, at bounce 0, of a scene that covers every
    branch: alive mask, hit mask and winning
@@ -39,8 +40,9 @@ differentiable cascade (phase 45).  It checks them:
    contract of ``utils/image.py``;
 5. the serving render at full size: CornellBox 400x400, 20 bounces,
    960,000 lanes a chunk, 60 spp; finite, >= 0, deterministic, every
-   bounce launched the keyed K1, and the bounce loops called the
-   tensor-op threefry (``sampling.threefry2x32``) no time; then the
+   bounce launched the keyed K1, every chunk the lanes kernel, and
+   neither the lanes nor the bounce loops called the tensor-op threefry
+   (``sampling.threefry2x32``); then the
    bench-shaped forward (512^2, 4 spp, 20 bounces) and the keyed K1's
    time (CUDA events around the wrapper, and the kernel's own device time
    from ``torch.profiler``) beside the plain version's at 960,000 lanes;
@@ -59,7 +61,8 @@ differentiable cascade (phase 45).  It checks them:
    bounces, one chunk of 1,048,576 lanes, loss = mean(img), backward):
    median time over batches as bench.py takes it, segments/s, finite
    gradients, the keyed K1 with residuals and K2 launched 20 times a
-   step, no tensor-op threefry in the bounce loop; the step's split by
+   step, the lanes kernel once, no tensor-op threefry in the lanes or the
+   bounce loop; the step's split by
    CUDA events; K1-with-residuals and K2 per launch (events, and profiler
    device time: K2's two kernels summed) beside K1 and the plain versions
    at 1,048,576 lanes;
@@ -297,10 +300,22 @@ differentiable cascade (phase 45).  It checks them:
     "none": bf16's loss bit for bit, its gradient's normalised error in
     (1e-7, 1e-2); the cascade's overflow 0, its loss within 1e-6 and
     every gradient within rtol 1e-3 / atol 1e-7; K4 and the draw kernel
-    once a bounce; peak memory and step seconds in turns.
+    once a bounce; peak memory and step seconds in turns;
+46. the lanes kernel (``ops/lanes.py``, ``ops/csrc/lanes.cu``: every
+    lane's threefry key, pixel jitter and lens-disk point, which
+    ``render.camera_lanes`` draws for every chunk and regen spawn)
+    against its plain twin (``camera_lane_draws_plain``, the tensor-op
+    threefry) on the same CUDA tensors, bit for bit in the key words,
+    s_vp, t_vp and the disk: on 1,000,000 random (pixel, sample) lanes,
+    the bench step's 1,048,576, a serving chunk's 960,000 and the
+    LightTest regen's spawns (``capture_lane_draws``: the first fill and
+    two refills); each timed beside the plain twin (events, device
+    time), with its bound; the kernel's launches on each path (phases 5,
+    9, 21, 22 and this phase's regen).
 
 Phases 11-13 and 15-17 also check that the generic routes launch the
-draw kernel once a bounce.  The big-scene frames of phases 14-44 take the
+draw kernel once a bounce; phases 5, 9, 21 and 22 that the lanes
+kernel made their lanes.  The big-scene frames of phases 14-44 take the
 default routing, which reorders SphereField's and ModelTest's lanes
 between bounces.
 
@@ -361,7 +376,7 @@ PLAIN_REPS = 3
 CORNELL_CAM = ((278.0, 278.0, -800.0), (278.0, 278.0, 0.0), (0.0, 1.0, 0.0),
                40.0, 1.0, 0.0, 10.0)
 KERNELS = ("fused_bounce", "fused_bounce_bwd", "closest_hit", "projected", "draws",
-           "passset")
+           "passset", "lanes")
 LEAF_NAMES = ("tex_color", "tex_images", "background", "lookfrom", "lookat", "up",
               "vfov_deg", "aspect", "aperture", "focus_dist")
 
@@ -462,7 +477,7 @@ def phase_device(torch):
 
 def phase_build():
     log("== phase 2: build K1, K2, K3/K4, K5/K6/K7, the draw kernel, the pass-set key "
-        "kernel and the native BVH builder")
+        "kernel, the lanes kernel and the native BVH builder")
     from concurrent.futures import ThreadPoolExecutor
 
     from rust_pathtracer_tpu_torch.ops import _build
@@ -679,8 +694,8 @@ def phase_serve(torch, device, card, serve, bench, time_reps):
         f"({n_chunks} chunks of {lanes} lanes) on {card}: wall {wall:.3f} s, "
         f"segments {segments:.0f}, segments/s {segments / wall:.4e}, mean depth "
         f"{segments / (W * H * serve['spp']):.4f}, bounces {stats.bounces}, "
-        f"K1 launches {k1_launches}, image mean "
-        f"{img_np.mean():.6f}; threefry2x32 in tensor ops: {tf['all']} calls "
+        f"K1 launches {k1_launches}, lanes kernel launches {counts['lanes']}, image mean "
+        f"{img_np.mean():.6f}; threefry2x32 in tensor ops: {tf['all'] - tf['loop']} calls "
         f"making lanes, {tf['loop']} in the bounce loops")
     check(np.isfinite(img_np).all(), "serving render has non-finite pixels")
     check((img_np >= 0).all(), "serving render has negative pixels")
@@ -688,6 +703,10 @@ def phase_serve(torch, device, card, serve, bench, time_reps):
         check(k1_launches > 0, "the serving render launched K1 no time")
         check(k1_launches == stats.bounces,
               f"K1 launches {k1_launches} != bounces run {stats.bounces}")
+        check(counts["lanes"] == n_chunks,
+              f"the lanes kernel launched {counts['lanes']} times in {n_chunks} chunks")
+        check(tf["all"] == 0, f"the serving render's lanes called threefry2x32 "
+              f"{tf['all'] - tf['loop']} times in tensor ops")
     os.makedirs(OUT_DIR, exist_ok=True)
     png = os.path.join(OUT_DIR, f"CornellBox_{W}x{H}_{serve['spp']}spp.png")
     write_png(png, to_rgb8(img_np))
@@ -714,7 +733,7 @@ def phase_serve(torch, device, card, serve, bench, time_reps):
             bimg, bstats = render_radiance(scene, cam, bs, key, device=device)
             bimg.sum().item()
             times.append(time.perf_counter() - t0)
-        check(tf["loop"] == 0, "the bench-shaped forward's loop called threefry2x32")
+        check(tf["all"] == 0, "the bench-shaped forward called threefry2x32 in tensor ops")
     med = statistics.median(times[1:])
     bseg = float(bstats.segments)
     log(f"bench-shaped forward {bench['width']}^2 spp={bench['spp']} "
@@ -751,7 +770,8 @@ def phase_serve(torch, device, card, serve, bench, time_reps):
         f"same CUDA tensors {p_ms:.4f} ms ({[round(x, 4) for x in res['plain']]}); "
         f"bound {b_ms:.4f} ms ({b_by})")
     return dict(launches=k1_launches, ms=k_ms, device_ms=(dev_ms, dev_held, time_reps),
-                plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+                plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, lanes_launches=counts["lanes"],
+                wall=wall)
 
 
 def _checker_near_zero(np_flags, t, cols_np, table, fb):
@@ -1074,15 +1094,19 @@ def phase_bench_step(torch, device, card, time_reps):
         loss, stats = step()
         _sync(torch, device)
     counts = (fb.launches, fb.residual_launches, fbb.launches)
+    lanes_launches = read_counts()["lanes"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     grads = _leaf_grads(leaves)
     segments = float(stats.segments)
     log(f"one step: loss {float(loss.detach()):.7f}, segments {segments:.0f} (mean depth "
         f"{segments / lanes:.4f}), launches K1 {counts[0]}, "
-        f"K1-res {counts[1]}, K2 {counts[2]}, peak memory {peak_gb:.3f} GB; "
-        f"threefry2x32 in tensor ops: {tf['all']} calls making lanes, {tf['loop']} "
-        "in the bounce loop")
+        f"K1-res {counts[1]}, K2 {counts[2]}, lanes {lanes_launches}, peak memory "
+        f"{peak_gb:.3f} GB; threefry2x32 in tensor ops: {tf['all'] - tf['loop']} calls "
+        f"making lanes, {tf['loop']} in the bounce loop")
     check(tf["loop"] == 0, "the step's bounce loop called threefry2x32 in tensor ops")
+    check(tf["all"] == 0, "the step's lanes called threefry2x32 in tensor ops")
+    check(lanes_launches == 1, f"a step launched the lanes kernel {lanes_launches} times, "
+          "want 1")
     log("gradients: " + _grad_sums(grads))
     check(counts[1] == nb and counts[2] == nb and counts[0] == nb,
           f"a step launched K1 {counts[0]}, K1-res {counts[1]}, K2 {counts[2]} "
@@ -1155,7 +1179,8 @@ def phase_bench_step(torch, device, card, time_reps):
         f"K2 {k2_bound[0]:.4f} ms ({k2_bound[1]})")
     return dict(k1res_launches=counts[1], k2_launches=counts[2],
                 ms={k: statistics.mean(v) for k, v in ms.items()}, device_ms=dev_ms,
-                bounds={"K1-res": k1res_bound, "K2": k2_bound})
+                bounds={"K1-res": k1res_bound, "K2": k2_bound},
+                lanes_launches=lanes_launches, median_ms=med * 1e3, split=split)
 
 
 # ---------------------------------------------------------------------------
@@ -2380,6 +2405,7 @@ def phase_regen_light(torch, device, card):
           "the LightTest regen image has non-finite or negative pixels")
     check(counts["K1"] == stats.bounces > 0,
           f"K1 launched {counts['K1']} times in {stats.bounces} bounce iterations")
+    check(counts["lanes"] > 0, "the LightTest regen spawned without the lanes kernel")
     check(all(counts[k] == 0 for k in ("K1-res", "K2", "K3", "K4", "K5", "K6", "K7",
                                        "draws")),
           "the LightTest regen left the fused route")
@@ -2436,7 +2462,8 @@ def phase_regen_light(torch, device, card):
     png = os.path.join(OUT_DIR, f"LightTest_regen_{W}x{H}_{spp}spp.png")
     write_png(png, to_rgb8(img_np))
     log(f"wrote {png}")
-    return dict(k1_launches=counts["K1"], max_abs_err=err, vs_chunked=max_diff)
+    return dict(k1_launches=counts["K1"], max_abs_err=err, vs_chunked=max_diff,
+                lanes_launches=counts["lanes"], split=split, wall=wall)
 
 
 def phase_regen_spherefield(torch, device, card, scenes):
@@ -2472,6 +2499,7 @@ def phase_regen_spherefield(torch, device, card, scenes):
     check(counts["K6"] == counts["draws"] == stats.bounces > 0,
           f"K6 {counts['K6']} and draw kernel {counts['draws']} launches in "
           f"{stats.bounces} bounce iterations")
+    check(counts["lanes"] > 0, "the SphereField regen spawned without the lanes kernel")
     check(all(counts[k] == 0 for k in ("K1", "K1-res", "K2", "K3", "K4", "K5", "K7")),
           "the SphereField regen left the resident route")
     from rust_pathtracer_tpu_torch.ops import draws
@@ -2515,7 +2543,8 @@ def phase_regen_spherefield(torch, device, card, scenes):
         f"{a['frac_close']:.4f}")
     check(a["ok"], "the SphereField regen breaks the image contract against chunked")
     check_regen_vs_chunked(torch, "SphereField", img, stats, cimg, cstats)
-    return dict(draws_launches=counts["draws"], max_abs_err=err)
+    return dict(draws_launches=counts["draws"], max_abs_err=err,
+                lanes_launches=counts["lanes"], split=split, wall=wall)
 
 
 def phase_regen_card_vs_cpu(torch, device):
@@ -4850,6 +4879,145 @@ def phase_bf16_diff_cascade(torch, device, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 46: the camera lanes' kernel
+# ---------------------------------------------------------------------------
+
+LANES_RANDOM = 1_000_000
+LANES_REGEN_AT = (0, 1, 4)  # the regen spawns held: the first fill, two refills
+
+
+def lanes_bound(torch, pixel, sample):
+    """The lanes kernel's bound at its inputs: bytes, the base key, pixel
+    and sample read once and the six 32-bit rows written once; operations,
+    LANES_INT32_OPS and LANES_F32_OPS a lane (seven threefry blocks, ops/
+    csrc/lanes.cu's header)."""
+    R = pixel.shape[0]
+    return bound(16 + nbytes(pixel, sample) + 6 * 4 * R, LANES_F32_OPS * R,
+                 LANES_INT32_OPS * R)
+
+
+def _lanes_mismatches(torch, device, got, want):
+    """(lanes where any row of the lanes kernel's ``got`` differs in a bit
+    from the plain twin's ``want``, the largest absolute difference of the
+    f32 rows)."""
+    _sync(torch, device)
+    n = want[1].shape[0]
+    bad, err = np.zeros(n, dtype=bool), 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        g = (g.T if i == 0 else g).contiguous().cpu().numpy().reshape(n, -1)
+        w = (w.T if i == 0 else w).contiguous().cpu().numpy().reshape(n, -1)
+        bad |= (g.view(np.int32) != w.view(np.int32)).any(axis=1)
+        if i:
+            err = max(err, float(np.abs(g.astype(np.float64) - w).max(initial=0.0)))
+    return bad, err
+
+
+@contextlib.contextmanager
+def capture_lane_draws(torch, at):
+    """Wraps ``render.camera_lane_draws`` (the lanes kernel's wrapper as
+    every chunk and regen spawn calls it) so that its calls numbered ``at``
+    keep clones of their arguments: yields ({call: (args, kwargs)}, [calls
+    made])."""
+    from rust_pathtracer_tpu_torch import render
+
+    fn, calls, seen = render.camera_lane_draws, {}, [0]
+
+    def wrapped(*a, **k):
+        if seen[0] in at:
+            calls[seen[0]] = (tuple(x.clone() for x in a), dict(k))
+        seen[0] += 1
+        return fn(*a, **k)
+
+    render.camera_lane_draws = wrapped
+    try:
+        yield calls, seen
+    finally:
+        render.camera_lane_draws = fn
+
+
+def phase_lanes(torch, device, card, reps, paths):
+    log(f"== phase 46: the lanes kernel (ops/lanes.py, ops/csrc/lanes.cu) vs its plain "
+        f"twin on {LANES_RANDOM} random lanes and on the bench, serving and regen "
+        f"lanes, bit for bit")
+    from rust_pathtracer_tpu_torch.models import get_scene
+    from rust_pathtracer_tpu_torch.ops import lanes
+    from rust_pathtracer_tpu_torch.render import RenderSettings
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+    from rust_pathtracer_tpu_torch.wavefront import render_radiance_regen
+
+    def on(x):
+        return torch.as_tensor(x, dtype=torch.int64, device=device)
+
+    rng = np.random.default_rng(46)
+    key = prng_key(0, device=device)
+    bw, bh, bspp = BENCH["width"], BENCH["height"], BENCH["spp"]
+    sw, sh, schunk = SERVE["width"], SERVE["height"], SERVE["spp_chunk"]
+    bpix, spix = torch.arange(bw * bh, device=device), torch.arange(sw * sh, device=device)
+    sets = {
+        "random": ((on(rng.integers(0, 854 * 480, LANES_RANDOM)),
+                    on(rng.integers(0, 2000, LANES_RANDOM))),
+                   dict(width=854, height=480, spp_total=2000)),
+        "bench": ((torch.repeat_interleave(bpix, bspp), torch.arange(bspp, device=device)
+                   .repeat(bw * bh)), dict(width=bw, height=bh, spp_total=bspp)),
+        "serving": ((torch.repeat_interleave(spix, schunk), torch.arange(schunk, device=device)
+                     .repeat(sw * sh)), dict(width=sw, height=sh, spp_total=SERVE["spp"])),
+    }
+    # the regen spawns of phase 21's LightTest render, as the render hands them
+    sd = get_scene("LightTest")
+    scene, cam = sd.build(device=device), sd.camera_at(0.0, device=device)
+    settings = RenderSettings(REGEN["width"], REGEN["height"], REGEN["spp"],
+                              REGEN["bounces"], sd.output.image.background)
+    _sync(torch, device)
+    reset_counts()
+    with capture_lane_draws(torch, LANES_REGEN_AT) as (calls, seen):
+        render_radiance_regen(scene, cam, settings, prng_key(REGEN["seed"], device=device),
+                              device=device)
+        _sync(torch, device)
+    regen_launches = read_counts()["lanes"]
+    log(f"LightTest regen: {seen[0]} spawns, {regen_launches} lanes kernel launches")
+    check(0 in calls and 1 in calls, f"the regen spawns {LANES_REGEN_AT} were not captured")
+    for i, ((base, pixel, sample), kw) in sorted(calls.items()):
+        check(torch.equal(base, key), "the regen spawn drew under another key")
+        sets[f"regen spawn {i}"] = ((pixel, sample), kw)
+
+    out = {}
+    for label, ((pixel, sample), kw) in sets.items():
+        def kernel(p=pixel, s=sample, kw=kw):
+            return lanes.camera_lane_draws(key, p, s, **kw)
+
+        def plain(p=pixel, s=sample, kw=kw):
+            return lanes.camera_lane_draws_plain(key, p, s, **kw)
+
+        bad, err = _lanes_mismatches(torch, device, kernel(), plain())
+        R = pixel.shape[0]
+        log(f"{label}: {R} lanes; lanes differing from the plain twin {int(bad.sum())} "
+            f"(key words, s_vp, t_vp, disk), max abs difference {err:.3e}")
+        for i in np.nonzero(bad)[0][:5]:
+            def row(t, i=i):  # a lane's key words, s_vp, t_vp, disk
+                return [t[0][:, i].tolist()] + [x[i].tolist() for x in t[1:]]
+
+            log(f"  lane {i}: pixel {int(pixel[i])} sample {int(sample[i])}: kernel "
+                f"{row(kernel())}; plain {row(plain())}")
+        check(not bad.any(), f"the lanes kernel differs from its plain twin ({label})")
+        res = time_pair(torch, device, kernel, plain, reps, PLAIN_REPS)
+        k_ms, p_ms = statistics.mean(res["kernel"]), statistics.mean(res["plain"])
+        dev_ms, held = _device_ms(torch, kernel, reps, ("camera_lanes_kernel",))
+        b_ms, b_by = lanes_bound(torch, pixel, sample)
+        log(f"lanes kernel, {label}, {R} lanes on {card}: {k_ms:.4f} ms per launch "
+            f"(blocks {[round(x, 4) for x in res['kernel']]}; events around the wrapper), "
+            f"{dev_ms:.4f} ms device time ({held} of {reps} launches); plain twin on the "
+            f"same CUDA tensors {p_ms:.4f} ms ({[round(x, 4) for x in res['plain']]}); "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        out[label] = dict(lanes=R, max_abs_err=err, ms=k_ms, device_ms=(dev_ms, held, reps),
+                          plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+    paths = {**paths, "LightTest regen (phase 46)": regen_launches}
+    log(f"lanes kernel launches a path: {paths}")
+    check(all(v > 0 for v in paths.values()), f"a path launched the lanes kernel no time: "
+          f"{paths}")
+    return out, paths
+
+
+# ---------------------------------------------------------------------------
 # shared helpers: launch counts, batches, splits, bounds
 # ---------------------------------------------------------------------------
 
@@ -4860,12 +5028,12 @@ def reset_counts():
     from rust_pathtracer_tpu_torch.ops import draws
     from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
     from rust_pathtracer_tpu_torch.ops import fused_bounce_bwd as fbb
-    from rust_pathtracer_tpu_torch.ops import passset, projected, resident, worklist
+    from rust_pathtracer_tpu_torch.ops import lanes, passset, projected, resident, worklist
 
     fb.launches = fb.residual_launches = fbb.launches = draws.launches = 0
     ch.hit_launches = ch.record_launches = 0
     projected.launches = resident.launches = 0
-    worklist.launches = passset.launches = 0
+    worklist.launches = passset.launches = lanes.launches = 0
 
 
 def read_counts():
@@ -4875,12 +5043,12 @@ def read_counts():
     from rust_pathtracer_tpu_torch.ops import draws
     from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
     from rust_pathtracer_tpu_torch.ops import fused_bounce_bwd as fbb
-    from rust_pathtracer_tpu_torch.ops import passset, projected, resident, worklist
+    from rust_pathtracer_tpu_torch.ops import lanes, passset, projected, resident, worklist
 
     return {"K1": fb.launches - fb.residual_launches, "K1-res": fb.residual_launches,
             "K2": fbb.launches, "K3": ch.record_launches, "K4": ch.hit_launches,
             "K5": projected.launches, "K6": resident.launches, "K7": worklist.launches,
-            "draws": draws.launches, "keys": passset.launches}
+            "draws": draws.launches, "keys": passset.launches, "lanes": lanes.launches}
 
 
 def _grad_sums(grads):
@@ -5109,6 +5277,12 @@ PEAK_INT32_PER_S = 128 * 132 * 1.98e9
 # shift, or)
 THREEFRY_BLOCK_OPS, THREEFRY_UNIFORM_OPS = 79, 3
 PACKED_UNIFORM_OPS = 3
+# the lanes kernel a lane (ops/csrc/lanes.cu's header): seven threefry blocks,
+# the four uniforms' bits, and the counter, column and row; f32: two
+# conversions, two adds, two divisions, four subtractions, a square root, a
+# product, a cosine, a sine and two products
+LANES_INT32_OPS = 7 * THREEFRY_BLOCK_OPS + 4 * THREEFRY_UNIFORM_OPS + 6
+LANES_F32_OPS = 16
 # f32 operations a lane spends on one primitive in the sweep of K1, K3
 # and K4, counted from the kernel sources (divisions and square roots
 # count one; compares and selects none): a lower bound of the work
@@ -5281,7 +5455,13 @@ def main() -> int:
     took(44)
     phase_bf16_diff_cascade(torch, device, card)
     took(45)
-    log(f"phases 2-45 took {clock[-1] - clock[0]:.1f} s")
+    lanes46, lane_paths = phase_lanes(torch, device, card, reps=20, paths={
+        "serving (phase 5)": k1["lanes_launches"],
+        "bench step (phase 9)": step["lanes_launches"],
+        "LightTest regen (phase 21)": regen["lanes_launches"],
+        "SphereField regen (phase 22)": sf_regen["lanes_launches"]})
+    took(46)
+    log(f"phases 2-46 took {clock[-1] - clock[0]:.1f} s")
 
     def sweep_err(kernel, main):
         errs = [main["max_abs_err"]] + [v["max_abs_err"] for (_, k), v in ph14.items()
@@ -5407,6 +5587,21 @@ def main() -> int:
                          "bound_by": v["bound_by"], "perm_ms": v["perm_ms"]}
                      for n, v in keys42.items()},
              launches_a_frame={n: f["counts"]["True"]["keys"] for n, f in frames.items()}),
+        # phase 46's 1M random lanes (its other lane sets under "sets");
+        # launches: the serving frame's, a launch a chunk (phase 5; every
+        # path's under "launches_a_path")
+        dict(entry("camera_lanes", "lanes.cu", "", lane_paths["serving (phase 5)"],
+                   max(v["max_abs_err"] for v in lanes46.values()),
+                   lanes46["random"]["ms"], lanes46["random"]["plain_ms"],
+                   (lanes46["random"]["bound_ms"], lanes46["random"]["bound_by"]),
+                   lanes46["random"]["device_ms"]),
+             replaces="rust_pathtracer_tpu/render.py:162 (_make_lanes, and wavefront.py:148 "
+                      "spawn: XLA's threefry; no Pallas kernel)",
+             sets={n: {"lanes": v["lanes"], "ms": v["ms"], "device_ms": v["device_ms"][0],
+                       "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
+                       "bound_by": v["bound_by"]}
+                   for n, v in lanes46.items() if n != "random"},
+             launches_a_path=lane_paths),
     ]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,9 @@
 Counterpart of ``rust_pathtracer_tpu/camera.py``; plain tensor code.
 ``make_camera`` precomputes the frame of ``Camera::new``
 (camera.rs:14-44); ``camera_rays`` is the batched ``ray_at``
-(camera.rs:46-56).  Ray directions are **not** normalized: the shadow
-epsilon t_min = 0.001 (ray.rs:25) is in units of |direction|, as in
-the reference.
+(camera.rs:46-56): the lens-disk draw, then ``camera_rays_from_disk``.
+Ray directions are **not** normalized: the shadow epsilon t_min = 0.001
+(ray.rs:25) is in units of |direction|, as in the reference.
 """
 
 from __future__ import annotations
@@ -88,7 +88,18 @@ def camera_rays(camera: Camera, s, t, lens_keys):
     keys for the aperture-disk sample.  Returns (origins (R, 3),
     directions (R, 3)); directions are unnormalized.
     """
-    rng = camera.lens_radius * sampling.in_unit_disk_xy(lens_keys)
+    disk = sampling.in_unit_disk_xy(lens_keys)
+    return camera_rays_from_disk(camera, s, t, disk[..., :2])
+
+
+def camera_rays_from_disk(camera: Camera, s, t, disk_xy):
+    """``camera_rays``' affine part, from the aperture-disk points
+    ``disk_xy`` (R, 2) (z = 0) already drawn: the lens offset, origins and
+    directions (R, 3) in ``camera_rays``' op order, so that gradients of
+    the camera's tensors flow through autograd."""
+    disk = torch.stack([disk_xy[..., 0], disk_xy[..., 1],
+                        torch.zeros_like(disk_xy[..., 0])], dim=-1)
+    rng = camera.lens_radius * disk
     blur = camera.u * rng[..., 0:1] + camera.v * rng[..., 1:2]
     origin = camera.origin + blur
     direction = (

@@ -4,8 +4,9 @@
 K2, ``closest_hit`` K3 and K4 (``csrc/closest_hit.cu``), and
 ``projected``, ``resident`` and ``worklist`` K5, K6 and K7
 (``csrc/projected.cu``) with the big-scene tables and worklist,
-``draws`` the draw kernel (``csrc/draws.cu``) and ``passset`` the
-pass-set key kernel of the between-bounce reorder (``csrc/passset.cu``);
+``draws`` the draw kernel (``csrc/draws.cu``), ``lanes`` the camera
+lanes' kernel (``csrc/lanes.cu``) and ``passset`` the pass-set key
+kernel of the between-bounce reorder (``csrc/passset.cu``);
 ``intersect`` builds hit records in plain tensor ops, ``compressed_vjp``
 stores the residuals of remat "bf16"; ``_build`` builds the CUDA
 sources at first use.  Neither imports a GPU toolchain when

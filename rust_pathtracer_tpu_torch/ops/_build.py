@@ -78,6 +78,16 @@ SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
         ),
         "error_string": ([_c_int], ctypes.c_char_p),
     },
+    "lanes": {
+        # base key (2 int64), pixel, sample, width, height, spp_total, out
+        # (6 rows), n_lanes, stream
+        "camera_lanes_launch": (
+            [_c_void_p, _c_void_p, _c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+             ctypes.c_longlong, _c_void_p, ctypes.c_longlong, _c_void_p],
+            _c_int,
+        ),
+        "error_string": ([_c_int], ctypes.c_char_p),
+    },
     "passset": {
         # o, d, alive, bounds8, G, t_min, out (1 + W rows), n_lanes, stream
         "passset_keys_launch": (

@@ -31,6 +31,7 @@
 namespace rpt {
 
 // purpose tags (sampling.py P_*)
+constexpr uint32_t P_PIXEL_JITTER = 0, P_LENS = 1;  // camera draws, at bounce 0
 constexpr uint32_t P_LAMBERT = 2, P_FUZZ = 3, P_SCHLICK = 4, P_ROULETTE = 5;
 constexpr uint32_t PURPOSE_STRIDE = 8;
 

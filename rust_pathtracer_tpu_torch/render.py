@@ -61,8 +61,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from rust_pathtracer_tpu_torch import sampling
-from rust_pathtracer_tpu_torch.camera import Camera, camera_rays
+from rust_pathtracer_tpu_torch.camera import Camera, camera_rays_from_disk
 from rust_pathtracer_tpu_torch.integrator import (
     MAX_BOUNCE_STATS,
     T_MIN,
@@ -71,6 +70,8 @@ from rust_pathtracer_tpu_torch.integrator import (
     trace,
     trace_resume,
 )
+from rust_pathtracer_tpu_torch.ops.fused_bounce import _lane_keys
+from rust_pathtracer_tpu_torch.ops.lanes import camera_lane_draws
 from rust_pathtracer_tpu_torch.ops.projected import cluster_entry_key, passset_perm
 
 
@@ -159,27 +160,18 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def camera_lanes(cam: Camera, base_key, pixel, sample, *, width, height, spp_total):
+def camera_lanes(cam: Camera, base_key, pixel, sample, *, width, height, spp_total,
+                 words: bool = False):
     """Camera lanes for flat (pixel, sample) items, (R,) int64 each: the
-    lane keys (R, 2) of counter pixel * spp_total + sample (uint32
-    arithmetic), origins and directions (R, 3)."""
-    dev = pixel.device
-    lkeys = sampling.lane_keys(base_key, (pixel * spp_total + sample) & 0xFFFFFFFF)
-    jit_u = sampling.uniform2(
-        sampling.bounce_keys(lkeys, 0, sampling.P_PIXEL_JITTER)
-    )
-    col = (pixel % width).to(torch.float32)
-    y = (height - 1 - pixel // width).to(torch.float32)  # renderer.rs:16: reversed rows
-
-    def f32(v):  # divide by a tensor: true division on every device
-        return torch.tensor(v, dtype=torch.float32, device=dev)
-
-    u = (col + jit_u[:, 0]) / f32(width - 1.0)   # renderer.rs:23
-    v = (y + jit_u[:, 1]) / f32(height - 1.0)    # renderer.rs:24
-
-    lens_keys = sampling.bounce_keys(lkeys, 0, sampling.P_LENS)
-    o, d = camera_rays(cam, u, v, lens_keys)
-    return lkeys, o, d
+    lane keys of counter pixel * spp_total + sample (uint32 arithmetic),
+    origins and directions (R, 3).  The keys are (R, 2) int64, or with
+    ``words`` the (2, R) int32 rows of ``fused_bounce.key_words``.  The
+    draws come from the lanes kernel (``ops/lanes.py``; its plain twin on
+    the CPU), the rays from ``camera_rays_from_disk``."""
+    keys, s, t, disk = camera_lane_draws(base_key, pixel, sample, width=width,
+                                         height=height, spp_total=spp_total)
+    o, d = camera_rays_from_disk(cam, s, t, disk)
+    return (keys if words else _lane_keys(keys)), o, d
 
 
 def _make_lanes(cam: Camera, base_key, pix, sample_offset: int, *, width,

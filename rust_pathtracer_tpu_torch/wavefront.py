@@ -85,7 +85,6 @@ from rust_pathtracer_tpu_torch.ops.draws import bounce_draws
 from rust_pathtracer_tpu_torch.ops.fused_bounce import (
     fused_bounce_keyed,
     fused_bounce_ok,
-    key_words,
     pack_prims_shaded,
 )
 from rust_pathtracer_tpu_torch.ops.projected import passset_perm
@@ -166,13 +165,13 @@ def _spawn(fr: _Frame, wid: torch.Tensor):
         pixel, sample = wid // fr.spp, wid % fr.spp
     else:
         pixel, sample = wid % fr.npix, wid // fr.npix
-    lkeys, o, d = camera_lanes(fr.cam, fr.key, pixel, sample, width=fr.width,
-                               height=fr.height, spp_total=fr.spp)
+    keys, o, d = camera_lanes(fr.cam, fr.key, pixel, sample, width=fr.width,
+                              height=fr.height, spp_total=fr.spp, words=True)
     ones = torch.ones_like(o[:, 0])
     zeros = torch.zeros_like(ones)
     state = torch.stack([o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2],
                          ones, ones, ones, zeros, zeros, zeros, ones])
-    return pixel, key_words(lkeys), state
+    return pixel, keys, state
 
 
 def _respawn(fr: _Frame, pool: _Pool, take: torch.Tensor, wid: torch.Tensor):

@@ -1,4 +1,5 @@
-"""K1-K7 on the card against their plain PyTorch versions.
+"""K1-K7, the draw, lanes and pass-set key kernels on the card against
+their plain PyTorch versions.
 
 Imports no jax, so that it runs on the machine with the card, which has
 none; there, skip this directory's conftest.py (it sets up JAX):
@@ -624,6 +625,41 @@ def test_draw_kernel_matches_plain_on_gpu(n):
                 g = g.cpu().contiguous().numpy().view(np.int32)
                 np.testing.assert_array_equal(g, p.cpu().numpy().view(np.int32))
                 np.testing.assert_array_equal(g, c.numpy().view(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 33, 3149, 1_000_000])
+def test_lanes_kernel_matches_plain_on_gpu(n):
+    """The lanes kernel against its plain twin on the same CUDA tensors,
+    bit for bit in the key words, s_vp, t_vp and the disk (CUDA's sinf /
+    cosf are what PyTorch's CUDA sin / cos run), at a 854x480 frame's
+    pixels, at pixel ids past 2**32 and at counters that wrap past 2**32;
+    the key words, s_vp and t_vp also equal the CPU's plain twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from rust_pathtracer_tpu_torch.ops import lanes
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+
+    rng = np.random.default_rng(n)
+    pixel = rng.integers(0, 854 * 480, n)
+    sample = rng.integers(0, 2000, n)
+    cases = ((pixel, 854, 480), (pixel + 2**33 + 5, 854, 2**28),
+             (2**32 // 2000 + rng.integers(-n, n + 1, n), 4096, 2**20))
+    for pix, w, h in cases:
+        kw = dict(width=w, height=h, spp_total=2000)
+        p_gpu, s_gpu = (torch.as_tensor(x, device="cuda") for x in (pix, sample))
+        before = lanes.launches
+        got = lanes.camera_lane_draws(prng_key(9, device="cuda"), p_gpu, s_gpu, **kw)
+        torch.cuda.synchronize()
+        assert lanes.launches == before + 1
+        plain = lanes.camera_lane_draws_plain(prng_key(9, device="cuda"), p_gpu, s_gpu, **kw)
+        cpu = lanes.camera_lane_draws(prng_key(9), torch.as_tensor(pix),
+                                      torch.as_tensor(sample), **kw)
+        for i, (g, p, c) in enumerate(zip(got, plain, cpu)):
+            g = g.cpu().contiguous().numpy().view(np.int32)
+            np.testing.assert_array_equal(g, p.cpu().contiguous().numpy().view(np.int32))
+            if i < 3:  # the disk's sin / cos are the card's
+                np.testing.assert_array_equal(g, c.contiguous().numpy().view(np.int32))
 
 
 @pytest.mark.cuda

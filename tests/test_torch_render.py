@@ -222,15 +222,17 @@ def _imported_modules(path):
 def test_port_imports_no_jax():
     """No module of the port, nor the root scripts that run on the card
     (chip_smoke.py, profile_port.py, k2_variants.py, k34_variants.py,
-    sharded_timing.py, passset_ab.py),
+    sharded_timing.py, passset_ab.py, lanes_ab.py),
     imports jax or the JAX package, not even its numpy-only modules (bvh,
     obj_loader), nor Pillow: the machine with the card has none of them.
     The big-scene and the sharding modules, the scene JSON, the metrics,
-    the inverse-rendering example, the pass-set key kernel's wrapper and
-    the bf16 residuals are among those checked."""
+    the inverse-rendering example, the pass-set key kernel's wrapper, the
+    bf16 residuals and the lanes kernel's wrapper are among those
+    checked."""
     files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "profile_port.py",
                                             "k2_variants.py", "k34_variants.py",
-                                            "sharded_timing.py", "passset_ab.py")]
+                                            "sharded_timing.py", "passset_ab.py",
+                                            "lanes_ab.py")]
     for root, _, names in os.walk(os.path.join(REPO, "rust_pathtracer_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
@@ -239,7 +241,7 @@ def test_port_imports_no_jax():
                 "ops/resident.py", "ops/worklist.py", "parallel/mesh.py",
                 "parallel/shard.py", "parallel/dryrun.py", "scene/json_io.py",
                 "utils/metrics.py", "examples/inverse_rendering.py",
-                "ops/passset.py", "ops/compressed_vjp.py"):
+                "ops/passset.py", "ops/compressed_vjp.py", "ops/lanes.py"):
         assert f"rust_pathtracer_tpu_torch/{mod}" in rel, mod
     for path in files:
         for mod in _imported_modules(path):
