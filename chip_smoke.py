@@ -546,7 +546,9 @@ def random_lanes(n: int, seed: int = 20261016):
     alive = (rng.random(n) < 0.9).astype(np.float64)
     cols = np.concatenate([o, d, thr, rad, alive[:, None]], 1).T  # (13, n)
     lane_keys = rng.integers(0, 2**32, (n, 2), dtype=np.int64)  # uint32 words
-    return cols.astype(np.float32), lane_keys
+    # C order, as the paths hand K1 its state: a transposed (13, n) array
+    # would make the wrapper copy it into rows at every call
+    return np.ascontiguousarray(cols, dtype=np.float32), lane_keys
 
 
 def _keyed_on(torch, cols_np, keys_np, device):
@@ -762,7 +764,7 @@ def phase_serve(torch, device, card, serve, bench, time_reps):
     res = time_pair(torch, device, k1, plain, time_reps, PLAIN_REPS)
     k_ms, p_ms = statistics.mean(res["kernel"]), statistics.mean(res["plain"])
     dev_ms, dev_held = _device_ms(torch, k1, time_reps, ("fused_bounce_kernel",))
-    b_ms, b_by = k1_bound(torch, args, kw, scene, residual_planes=0)
+    b_ms, b_by = k1_bound(torch, args, kw, residual_planes=0)
     log(f"K1 (keyed) at {lanes} lanes on {card}: {k_ms:.4f} ms per launch "
         f"(blocks {[round(x, 4) for x in res['kernel']]}; events around the "
         f"wrapper), {dev_ms:.4f} ms device time (profiler, {dev_held} of "
@@ -1172,7 +1174,7 @@ def phase_bench_step(torch, device, card, time_reps):
             f"launch (blocks {[round(x, 4) for x in v]}; events){dev}")
     # K1-res: 13 columns and 2 key words in, 13 columns and 10 residual
     # planes out; K2: 28 columns in, 9 columns and the (9P + 3) reductions out
-    k1res_bound = k1_bound(torch, args, kw, scene, residual_planes=10)
+    k1res_bound = k1_bound(torch, args, kw, residual_planes=10)
     k2_bound = bound((28 + 9) * 4 * lanes + (9 * scene.num_prims + 3) * 4 + nbytes(bg),
                      K2_LANE_OPS * lanes)
     log(f"bounds at {lanes} lanes: K1-res {k1res_bound[0]:.4f} ms ({k1res_bound[1]}), "
@@ -2159,7 +2161,7 @@ def phase_k1_per_lane(torch, device, card, n_lanes, reps):
         k1()
         host.append((time.perf_counter() - t0) * 1e3)
     _sync(torch, device)
-    b_ms, b_by = k1_bound(torch, args, kw, scene, residual_planes=0)
+    b_ms, b_by = k1_bound(torch, args, kw, residual_planes=0)
     log(f"K1 at per-lane depth, {n_lanes} lanes on {card}: {k_ms:.4f} ms per launch "
         f"(blocks {[round(x, 4) for x in res['kernel']]}; events around the wrapper), "
         f"{dev_ms:.4f} ms device time (profiler, {held} of {reps} launches); plain "
@@ -4013,8 +4015,7 @@ def phase_packed_kernels(torch, device, card, n_lanes, reps):
             lambda a=args, k=kw: fb.fused_bounce_keyed(*a, **dict(k, rng_scheme="legacy")),
             lambda a=args, k=kw: fb.fused_bounce_keyed(*a, **k),
             lambda a=args, k=kw: fb.fused_bounce_keyed_plain(*a, **k), reps, kernels,
-            k1_bound(torch, args, {k: v for k, v in kw.items() if k != "want_residuals"},
-                     scene, residual_planes=10 if res else 0))
+            k1_bound(torch, args, kw, residual_planes=10 if res else 0))
         out[name]["max_abs_err"] = err["K1-res" if res else "K1"]
     for name, bounce in (("draws " + DRAWS_SCALAR, 7), ("draws " + DRAWS_PER_LANE, depth)):
         out[name] = _packed_time(
@@ -5216,49 +5217,111 @@ def count_threefry():
         sampling.threefry2x32, integrator._trace_fused = threefry, trace_fused
 
 
-def k1_bound(torch, args, kw, scene, residual_planes):
-    """The keyed K1's bound at one launch's inputs (``args``, ``kw`` of
-    ``fused_bounce_keyed``): bytes, each input read once (table, 13
-    columns, 2 key words) and each output written once (13 columns,
-    ``residual_planes``, roulette's p with residuals); operations, the
-    sweep's f32 ones and the threefry int32 ones these lanes need, from
-    their winners' materials (one check launch with ``winner_out``): a
-    lambertian lane draws 2 uniforms, a metal 3, a dielectric 1 (with
-    residuals every lane draws the coin in a scene with a dielectric),
-    a continuing lane 1 more under roulette (at a per-lane depth, only
-    from ``rr_start`` on); a per-lane depth is read once too.  Under the
-    packed scheme a lane runs only the blocks that hold its words: a
-    lambertian 1, a metal 2, a dielectric coin 1, roulette 1."""
+def k1_sweep_work(torch, args, kw, every):
+    """(f32, f64) operations of K1's sweep on these lanes (``every`` lane,
+    as with residuals, else the live ones), as these inputs need them: |d|^2 in
+    f32 and f64 a lane, a rect's and a triangle's SWEEP_OPS, a sphere's
+    K1_SPHERE_F64_OPS, and where its discriminant allows a root
+    K1_ROOT1_F64_OPS more, and K1_ROOT2_F64_OPS where the first root fails
+    (the plain version's sweep, in order, tells which)."""
+    from rust_pathtracer_tpu_torch.ops.closest_hit import prim_candidate, sphere_roots
+    from rust_pathtracer_tpu_torch.ops.intersect import T_MISS
+
+    table, state = args[0], args[3]
+    swept = torch.ones_like(state[12], dtype=torch.bool) if every else state[12] > 0.5
+    o_c = tuple(state[k][swept] for k in range(3))
+    d_c = tuple(state[k][swept] for k in range(3, 6))
+    n = int(swept.sum())
+    a = d_c[0] * d_c[0] + d_c[1] * d_c[1] + d_c[2] * d_c[2]
+    best_t = torch.full_like(a, T_MISS)
+    f32, f64 = 5 * n, 5 * n
+    for p, (kind, aux) in enumerate(kw["kinds"]):
+        if kind == 0:
+            root1, _, dis = sphere_roots(o_c, d_c, tuple(table[r, p] for r in range(3)),
+                                         table[3, p])
+            real = dis >= 0.0
+            first = real & (root1 >= kw["t_min"]) & (root1 <= best_t)
+            f64 += (K1_SPHERE_F64_OPS * n + K1_ROOT1_F64_OPS * int(real.sum())
+                    + K1_ROOT2_F64_OPS * int((real & ~first).sum()))
+        else:
+            f32 += SWEEP_OPS[kind] * n
+        c = prim_candidate(table, p, kind, aux, o_c, d_c, a, kw["t_min"], best_t)
+        best_t = torch.where(c["valid"] & (c["t"] < best_t), c["t"], best_t)
+    return f32, f64
+
+
+def k1_bound(torch, args, kw, residual_planes):
+    """The keyed K1's bound at one launch's inputs: ``bound`` of ``k1_work``."""
+    return bound(*k1_work(torch, args, kw, residual_planes))
+
+
+def k1_work(torch, args, kw, residual_planes):
+    """The keyed K1's work at one launch's inputs (``args``, ``kw`` of
+    ``fused_bounce_keyed``), as (bytes, f32, int32, f64 operations): bytes, each input read once (table, 13
+    columns, 2 key words, a per-lane depth) and each output written once
+    (13 columns, ``residual_planes``, roulette's p with residuals); against
+    the operations these lanes need, on their pipes: the sweep's
+    (``k1_sweep_work``: f32, and a sphere's quadratic in f64), then by the
+    winner's material and texture, from one check launch with
+    ``winner_out``: the winner's normal, the shading (K1_LANE_OPS, the
+    background on a miss, K1_MAT_OPS: the scatter's sine and cosine, the
+    dielectric's terms, the metal's cube root as one f64 power;
+    K1_TEX_OPS: the checker's three sines, the marble's seven octaves and
+    their hashes in int32), with residuals their planes on every lane
+    (K1_RES_LANE_OPS, the dielectric terms, the texture of every found
+    lane), and the draws in int32: under the legacy scheme a lambertian
+    lane 2 uniforms, a metal 3, a dielectric 1 (with residuals every lane
+    draws the coin in a scene with a dielectric), a continuing lane 1 more
+    under roulette (at a per-lane depth, only from ``rr_start`` on), each
+    purpose behind a fold; under the packed scheme only the blocks that
+    hold its words: a lambertian 1, a metal 2, a dielectric coin 1,
+    roulette 1."""
     from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
     from rust_pathtracer_tpu_torch.scene.types import (
-        MAT_DIELECTRIC, MAT_LAMBERTIAN, MAT_METAL,
+        MAT_DIELECTRIC, MAT_LAMBERTIAN, MAT_METAL, TEX_PERLIN,
     )
 
     table, bg, _, state, keys, bounce = args
     R = state.shape[1]
     win = torch.empty(R, dtype=torch.int32, device=state.device)
-    out = fb.fused_bounce_keyed(*args, **dict(kw, with_roulette=False), winner_out=win)
-    mk = table[fb.PAY_MKIND][win.clamp(min=0).long()]
+    out = fb.fused_bounce_keyed(*args, **dict(kw, with_roulette=False, want_residuals=False),
+                                winner_out=win)
+    row = table[:, win.clamp(min=0).long()]
+    mk, tk = row[fb.PAY_MKIND], row[fb.PAY_TKIND]
     hit = win >= 0  # -1 on a miss or a dead lane
+    alive = state[12] > 0.5
 
-    def lanes_of(m):
-        return int((hit & (mk == float(m))).sum())
+    def lanes_of(m, where=hit):
+        return int((where & (mk == float(m))).sum())
 
-    coins = (R if residual_planes and MAT_DIELECTRIC in scene.mat_types
+    def tex_of(t, where=hit):
+        return int((where & (tk == float(t))).sum())
+
+    f32, f64 = k1_sweep_work(torch, args, kw, every=bool(residual_planes))
+    f32 += (K1_LANE_OPS * int(alive.sum()) + K1_MISS_OPS * int((alive & ~hit).sum())
+            + sum(K1_MAT_OPS[m] * lanes_of(m) for m in K1_MAT_OPS)
+            + sum(K1_TEX_OPS[t] * tex_of(t) for t in K1_TEX_OPS)
+            + K1_NORMAL_OPS * int((hit & (row[12] == 0.0)).sum()))  # row 12: the kind
+    f64 += lanes_of(MAT_METAL)
+    int_ops = K1_MARBLE_INT_OPS * tex_of(TEX_PERLIN)
+    if residual_planes:  # the planes of every lane (a texture once, on the hits)
+        f32 += R * (K1_RES_LANE_OPS + (K1_RES_DIELECTRIC_OPS
+                                       if MAT_DIELECTRIC in kw["mat_types"] else 0))
+    coins = (R if residual_planes and MAT_DIELECTRIC in kw["mat_types"]
              else lanes_of(MAT_DIELECTRIC))
     rr = kw["with_roulette"]
     per_lane = isinstance(bounce, torch.Tensor)
     rr_lanes = (out[12] > 0.5) & (bounce >= kw.get("rr_start", 0) if per_lane else True)
     singles = coins + (int(rr_lanes.sum()) if rr else 0)
     if kw.get("rng_scheme", "legacy") == "packed":
-        int_ops = (lanes_of(MAT_LAMBERTIAN) * packed_ops(1, 2)
-                   + lanes_of(MAT_METAL) * packed_ops(2, 3) + singles * packed_ops(1, 1))
+        int_ops += (lanes_of(MAT_LAMBERTIAN) * packed_ops(1, 2)
+                    + lanes_of(MAT_METAL) * packed_ops(2, 3) + singles * packed_ops(1, 1))
     else:
-        int_ops = (lanes_of(MAT_LAMBERTIAN) * draw_ops(2)
-                   + lanes_of(MAT_METAL) * draw_ops(3) + singles * draw_ops(1))
+        int_ops += (lanes_of(MAT_LAMBERTIAN) * draw_ops(2)
+                    + lanes_of(MAT_METAL) * draw_ops(3) + singles * draw_ops(1))
     planes_out = 13 + residual_planes + (1 if residual_planes and rr else 0)
     in_bytes = nbytes(table, bg, state, keys) + (nbytes(bounce) if per_lane else 0)
-    return bound(in_bytes + planes_out * 4 * R, sweep_ops(scene.kinds_static, R), int_ops)
+    return in_bytes + planes_out * 4 * R, f32, int_ops, f64
 
 
 # The card's peaks (NVIDIA H100 SXM data sheet; f64 outside the tensor cores)
@@ -5287,6 +5350,36 @@ LANES_F32_OPS = 16
 # and K4, counted from the kernel sources (divisions and square roots
 # count one; compares and selects none): a lower bound of the work
 SWEEP_OPS = {0: 24, 1: 6, 2: 46}
+# K1's work a lane past the sweep's rects and triangles (counted from
+# ops/csrc/fused_bounce.cu as SWEEP_OPS are; a sine, a cosine, a square root
+# or a division counts one, a compare, a select or a conversion none).
+# A sphere's quadratic in f64: o - c 3, half_b 5, |o - c|^2 - r^2 7, the
+# discriminant 3; where it is >= 0 its square root, the first root's
+# subtraction and division; where that root fails the second's add and
+# division.  |d|^2 (5) in f32 and in f64 a lane (k1_sweep_work)
+K1_SPHERE_F64_OPS, K1_ROOT1_F64_OPS, K1_ROOT2_F64_OPS = 18, 3, 2
+# a live lane: the hit point 6, the front test 5 and flip 3, the commit's
+# throughput 3, roulette's p 3; a miss: the background 6; a winning
+# sphere's normal (o + t d - c) / r 9
+K1_LANE_OPS, K1_MISS_OPS, K1_NORMAL_OPS = 20, 6, 9
+# the scatter by the winner's material (MAT_*): the lambertian's sphere
+# sample (z, the angle, the ring's radius, a cosine and a sine: 9) and
+# n + s; the metal's sphere sample, its ball (the cube root, an f64 power,
+# counted on the f64 pipe), the unit direction, the reflection, the
+# grazing test and the fuzz; the dielectric's terms with the reflected
+# direction (the cheaper branch); a light's emission
+K1_MAT_OPS = {0: 12, 1: 42, 2: 41, 3: 6}
+# the texture by its kind (TEX_*): the checker's three products, three
+# sines and two products; the marble's seven octaves (floor, fraction,
+# fade, eight gradients and seven lerps, the sum: 65) and its sine and
+# five terms, and in int32 each octave's eight corner hashes (14 each),
+# gradient picks (3 each) and three corner indices
+K1_TEX_OPS = {1: 8, 2: 7 * 65 + 6}
+K1_MARBLE_INT_OPS = 7 * (8 * (14 + 3) + 3)
+# with residuals, each lane's planes: the point, the flip and normal, the
+# flags' tests, flip / r (16); in a scene with a dielectric its terms on
+# every lane (35)
+K1_RES_LANE_OPS, K1_RES_DIELECTRIC_OPS = 16, 35
 # K3's record on top: a sphere's normal, a rect's uv, and per lane the
 # front test, the point, the flip and the sphere uv
 RECORD_OPS = {0: 12, 1: 6, 2: 0}

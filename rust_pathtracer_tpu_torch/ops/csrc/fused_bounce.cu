@@ -20,7 +20,8 @@
 // purposes from counter-mode blocks of the raw lane key: a lambertian lane
 // block 0, a metal lane blocks 1-2, a dielectric lane block 2, roulette
 // block 3.  A lane draws only what its
-// material consumes; the integer arithmetic is exact, so the uniforms
+// material consumes (roulette's for every hit lane that may continue);
+// the integer arithmetic is exact, so the uniforms
 // are the bits integrator._precompute_draws hoists in tensor ops (the
 // JAX package hoists them because XLA makes threefry cheap on the TPU;
 // on the H100 that int64 tensor-op threefry took 86% of the bench step).
@@ -28,24 +29,49 @@
 // draws at its own path depth, and roulette acts where that depth is at
 // least rr_start (JAX wavefront.py:274-331).
 //
-// What bounds it on the card: a lane reads 13 f32 state columns
-// and 2 key words and writes 13 columns, 112 B per lane-bounce, so about
-// 0.11 GB per 960k-lane bounce.  The arithmetic is about 20 primitive
-// tests per lane on CornellBox plus 2-4 threefry blocks (~80 int32
-// operations each; 1-2 under the packed scheme, with roulette's); the
-// perlin marble (7 octaves x 8 hashed corners) is
-// the heaviest branch.
+// What bounds it on the card.  A lane reads 13 f32 state columns and 2
+// key words and writes 13 columns, 112 B a lane-bounce: ~0.035 ms for 1M
+// lanes at 3.35 TB/s, more than the operations these lanes need at the
+// card's peak rates (chip_smoke.k1_bound: ~0.008 ms on random lanes).
+// The kernel runs several times longer: it is bound by the instructions
+// its warps issue, and a warp issues every branch that any of its lanes
+// takes.  The lanes of a warp hit different materials and textures, so
+// their branches run one after another; the step-1 split of PERF.md (the
+// parent kernel with one piece of work taken out, on 1M random lanes)
+// put the marble at ~40% of its device time, the draws at 28-44%, a
+// sphere's f64 work at ~19%.
 //
-// Design, simple and right first:
-// * one thread per lane, a grid-stride loop, the ragged edge masked;
-// * the (32, P) table, P <= 128, is copied into shared memory at block
-//   start (at most 16 KB);
-// * the loop over primitives is the same for every thread, so the switch
-//   on the primitive kind does not diverge within a warp;
-// * material and texture branches run per lane, behind the scene's
-//   material and texture flags, as the Pallas kernel's static ifs do;
-// * dead lanes copy their state through; columns are SoA, out of place.
-// Later work: in-place columns, fewer bytes, persistent blocks.
+// The design, around that:
+// * one converged draw section (draw_uniforms): once the winner and its
+//   material are known, each lane plans its purpose and the warp runs one
+//   copy of each threefry block, a lane taking part in the blocks its plan
+//   names: at most 6 blocks a warp under the legacy scheme (was 11: every
+//   material branch had its own), 3 packed (was 5);
+// * the texture once a lane (texture_value), with the whole warp: a
+//   warp's lanes stride over the lanes together, so where at most
+//   COOP_MARBLE of them need the marble (a few on random lanes, the
+//   partly dead pools of the regen) the warp sums their turbulence
+//   together, 4 lanes an octave (turbulence_coop), else each lane its own
+//   seven octaves; the residuals take the same texel (they took a second);
+// * one unit-sphere sample (z, the angle, sqrtf, cosf, sinf) for the
+//   lambertian and the metal, from the lane's own (u0, u1);
+// * a sphere's f64 square root and divisions only where its discriminant
+//   allows a root, the far root only where the near one fails; the
+//   winner's normal once after the sweep (a sphere's from 1/r, computed
+//   once a block into a pad row of the shared table);
+// * the (32, P) table in dynamic shared memory sized to P (at most 16 KB);
+//   MIN_BLOCKS blocks of THREADS an SM, a grid of the blocks the card
+//   holds at once, striding over the lanes;
+// * the rest as before: one thread a lane, the sweep the same for every
+//   thread (no divergence on the primitive kind), dead lanes copy their
+//   state through, columns SoA and out of place.
+// Every f32 and f64 operation keeps its operands and order, so the bits
+// are the parent's and the plain version's.  Resources (ptxas, sm_90a):
+// 64 registers, a 56-byte stack and 28 bytes of spills without
+// residuals, a 72-byte stack and 68 bytes of spills with them, no local
+// arrays (PERF.md has the times of the choices: MIN_BLOCKS 3 kept 76-80
+// registers and no spill, and ran 2-6% slower on the random lanes and a
+// LightTest pool, 2-3% faster on the bench step's first bounce).
 //
 // Residual outputs (want_residuals=True in the Pallas kernel, :464-485),
 // for the backward kernel K2 (fused_bounce_bwd.cu): the RES
@@ -92,6 +118,10 @@ constexpr int PAY_MKIND = 16, PAY_FUZZ = 17, PAY_IR = 18, PAY_TKIND = 19, PAY_TS
 constexpr int PAY_COLOR = 21, PAY_ODD = 24, PAY_EVEN = 27;
 constexpr int PAY_W = 32;
 constexpr int MAX_PRIMS = 128;
+// a pad row of the table (pack_prims_shaded leaves rows 30-31 zero): the
+// block's shared copy holds each primitive's 1/r there (a sphere's; the
+// other kinds' is never read)
+constexpr int ROW_INVR = 31;
 
 constexpr float T_MISS = 3.0e38f;
 constexpr float TRI_DET_EPS = 1e-4f;
@@ -104,6 +134,15 @@ constexpr int N_IN = 13;   // 13 state columns
 constexpr int N_OUT = 13;  // 13 state columns
 constexpr int N_RES = 9;   // residual f32 planes
 constexpr int THREADS = 256;
+// blocks an SM must hold (__launch_bounds__): at most 65,536 / (256 x 4)
+// = 64 registers a thread
+constexpr int MIN_BLOCKS = 4;
+constexpr int WARP = 32;
+constexpr unsigned FULL_MASK = 0xffffffffu;
+// a warp sums the marble's turbulence together for at most this many of
+// its lanes (turbulence_coop), each lane its own above (PERF.md times the
+// choice)
+constexpr int COOP_MARBLE = 8;
 
 // residual flags bits (ops/fused_bounce.py FLG_*)
 constexpr int FLG_HIT = 1, FLG_FRONT = 2, FLG_CONT = 4, FLG_REFLECT = 8;
@@ -130,58 +169,78 @@ struct Columns {
   float* rr_p;
 };
 
-// The uniforms of one bounce of one lane, drawn from the lane key,
-// purpose by purpose, when asked, under the legacy or the packed scheme.
+// The dielectric coin of one bounce of one lane under either scheme: what
+// the residuals' dielectric terms take on every lane.
 template <bool PACKED>
-struct Draws {
-  uint32_t k0, k1, bounce;
+__device__ float coin_of(uint32_t k0, uint32_t k1, uint32_t bounce) {
+  uint32_t p0, p1;
+  if (PACKED) {  // word 5
+    rpt::packed_block(k0, k1, bounce, 2u, p0, p1);
+    return rpt::packed_unit(p1);
+  }
+  rpt::bounce_key(k0, k1, bounce, rpt::P_SCHLICK, p0, p1);
+  return rpt::uniform_at(p0, p1, 0u);
+}
 
-  __device__ void lambert(float& u0, float& u1) const {
-    uint32_t p0, p1;
-    if (PACKED) {
-      rpt::packed_block(k0, k1, bounce, 0u, p0, p1);
-      u0 = rpt::packed_unit(p0);
-      u1 = rpt::packed_unit(p1);
-      return;
-    }
-    rpt::bounce_key(k0, k1, bounce, rpt::P_LAMBERT, p0, p1);
-    u0 = rpt::uniform_at(p0, p1, 0u);
-    u1 = rpt::uniform_at(p0, p1, 1u);
-  }
-  __device__ void fuzz(float& u0, float& u1, float& u2) const {
-    uint32_t p0, p1;
-    if (PACKED) {  // words 2, 3, 4
-      rpt::packed_block(k0, k1, bounce, 1u, p0, p1);
-      u0 = rpt::packed_unit(p0);
-      u1 = rpt::packed_unit(p1);
-      rpt::packed_block(k0, k1, bounce, 2u, p0, p1);
-      u2 = rpt::packed_unit(p0);
-      return;
-    }
-    rpt::bounce_key(k0, k1, bounce, rpt::P_FUZZ, p0, p1);
-    u0 = rpt::uniform_at(p0, p1, 0u);
-    u1 = rpt::uniform_at(p0, p1, 1u);
-    u2 = rpt::uniform_at(p0, p1, 2u);
-  }
-  __device__ float coin() const {
-    uint32_t p0, p1;
-    if (PACKED) {  // word 5
-      rpt::packed_block(k0, k1, bounce, 2u, p0, p1);
-      return rpt::packed_unit(p1);
-    }
-    rpt::bounce_key(k0, k1, bounce, rpt::P_SCHLICK, p0, p1);
-    return rpt::uniform_at(p0, p1, 0u);
-  }
-  __device__ float roulette() const {
-    uint32_t p0, p1;
-    if (PACKED) {  // word 6
-      rpt::packed_block(k0, k1, bounce, 3u, p0, p1);
-      return rpt::packed_unit(p0);
-    }
-    rpt::bounce_key(k0, k1, bounce, rpt::P_ROULETTE, p0, p1);
-    return rpt::uniform_at(p0, p1, 0u);
-  }
+// The uniforms one hit lane consumes at one bounce, drawn in one section
+// that every hit lane of a warp runs together: each threefry block below
+// is one copy of the code, and a lane takes part in the blocks its plan
+// names (the others idle for that block only).  `mat_draw` is the lane's
+// material purpose: 1 lambertian, 2 metal, 3 dielectric (its coin), 0
+// none; `rr` whether it draws roulette's uniform.  A lane draws what it
+// drew before, purpose by purpose, so the bits are the same; roulette's
+// uniform is drawn for every lane that may continue (a stream of counters:
+// drawing it for a lane that then stops changes nothing).
+//   legacy: the purpose's key (one fold), then its 2 / 3 / 1 uniforms;
+//           roulette's key, then its uniform: at most 6 blocks a warp;
+//   packed: block 0 (lambertian) or 1 (metal), then block 2 (the metal's
+//           third word, the dielectric coin), then block 3 (roulette): at
+//           most 3 blocks a warp.
+struct Uniforms {
+  float u0 = 0.0f, u1 = 0.0f, u2 = 0.0f;  // the sphere draw (u0, u1) and the metal's radius
+  float coin = 0.0f, roulette = 0.0f;
 };
+
+constexpr int DRAW_NONE = 0, DRAW_LAMBERT = 1, DRAW_METAL = 2, DRAW_COIN = 3;
+
+template <bool PACKED>
+__device__ Uniforms draw_uniforms(uint32_t k0, uint32_t k1, uint32_t bounce, int mat_draw,
+                                  bool rr) {
+  Uniforms u;
+  uint32_t p0, p1;
+  if (PACKED) {
+    if (mat_draw == DRAW_LAMBERT || mat_draw == DRAW_METAL) {  // words 0-1 or 2-3
+      rpt::packed_block(k0, k1, bounce, mat_draw == DRAW_METAL ? 1u : 0u, p0, p1);
+      u.u0 = rpt::packed_unit(p0);
+      u.u1 = rpt::packed_unit(p1);
+    }
+    if (mat_draw == DRAW_METAL || mat_draw == DRAW_COIN) {  // words 4 and 5
+      rpt::packed_block(k0, k1, bounce, 2u, p0, p1);
+      u.u2 = rpt::packed_unit(p0);
+      u.coin = rpt::packed_unit(p1);
+    }
+    if (rr) {  // word 6
+      rpt::packed_block(k0, k1, bounce, 3u, p0, p1);
+      u.roulette = rpt::packed_unit(p0);
+    }
+    return u;
+  }
+  if (mat_draw != DRAW_NONE) {
+    const uint32_t purpose = mat_draw == DRAW_LAMBERT ? rpt::P_LAMBERT
+                             : mat_draw == DRAW_METAL ? rpt::P_FUZZ
+                                                      : rpt::P_SCHLICK;
+    rpt::bounce_key(k0, k1, bounce, purpose, p0, p1);
+    u.u0 = rpt::uniform_at(p0, p1, 0u);  // the coin, for a dielectric
+    if (mat_draw != DRAW_COIN) u.u1 = rpt::uniform_at(p0, p1, 1u);
+    if (mat_draw == DRAW_METAL) u.u2 = rpt::uniform_at(p0, p1, 2u);
+    u.coin = u.u0;
+  }
+  if (rr) {
+    rpt::bounce_key(k0, k1, bounce, rpt::P_ROULETTE, p0, p1);
+    u.roulette = rpt::uniform_at(p0, p1, 0u);
+  }
+  return u;
+}
 
 // NaN-propagating max / min against a constant, as jnp.maximum / minimum
 __device__ __forceinline__ float max_nan(float x, float c) {
@@ -241,8 +300,9 @@ __device__ float noise3(float px, float py, float pz, uint32_t seed) {
               lerp(v, lerp(u, n001, n101), lerp(u, n011, n111)));
 }
 
-__device__ float marble(float px, float py, float pz, uint32_t seed, float scale) {
-  const float z0 = pz;
+// The turbulence sum of one lane: seven octaves of noise, the point
+// doubled an octave, summed in order
+__device__ float turbulence(float px, float py, float pz, uint32_t seed) {
   float acc = 0.0f;
   float weight = 1.0f;
   for (int k = 0; k < TURBULENCE_DEPTH; ++k) {
@@ -252,23 +312,114 @@ __device__ float marble(float px, float py, float pz, uint32_t seed, float scale
     py = py * 2.0f;
     pz = pz * 2.0f;
   }
+  return acc;
+}
+
+// The same sums for the lanes in `mask`, one lane at a time, by the whole
+// warp (every lane calls it): lane t takes octave t / 4 and the corners
+// 2 (t % 4) and 2 (t % 4) + 1 of its noise (x - 1 for the second, y - 1
+// and z - 1 by bits 0 and 1 of t % 4); the octave's four lanes swap their
+// corners and each runs noise3's lerp tree; every lane then adds the seven
+// octaves in order.  An octave's point is the lane's point times 2^k, the
+// value the per-lane loop's k doublings give (each is exact, and both
+// overflow to inf at the same k).  Returns the sum at each lane of `mask`.
+__device__ float turbulence_coop(unsigned mask, float px, float py, float pz, uint32_t seed) {
+  const int lane = threadIdx.x & (WARP - 1);
+  const int octave = lane >> 2, pair = lane & 3;
+  const float scale = (float)(1 << octave);  // lanes 28-31 (octave 7) idle along
+  float mine = 0.0f;
+  while (mask) {
+    const int j = __ffs(mask) - 1;
+    mask &= mask - 1;
+    const float qx = __shfl_sync(FULL_MASK, px, j) * scale;
+    const float qy = __shfl_sync(FULL_MASK, py, j) * scale;
+    const float qz = __shfl_sync(FULL_MASK, pz, j) * scale;
+    const float xf = floorf(qx), yf = floorf(qy), zf = floorf(qz);
+    const int ix = (int)xf, iy = (int)yf + (pair & 1), iz = (int)zf + (pair >> 1);
+    const float x = qx - xf, y = qy - yf, z = qz - zf;
+    const float y1 = (pair & 1) ? y - 1.0f : y, z1 = (pair >> 1) ? z - 1.0f : z;
+    const float g0 = grad(hash3(ix, iy, iz, seed), x, y1, z1);
+    const float g1 = grad(hash3(ix + 1, iy, iz, seed), x - 1.0f, y1, z1);
+    float n[8];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      n[2 * q] = __shfl_sync(FULL_MASK, g0, (lane & ~3) | q);
+      n[2 * q + 1] = __shfl_sync(FULL_MASK, g1, (lane & ~3) | q);
+    }
+    const float u = fade(x), v = fade(y), w = fade(z);
+    const float noise = lerp(w, lerp(v, lerp(u, n[0], n[1]), lerp(u, n[2], n[3])),
+                             lerp(v, lerp(u, n[4], n[5]), lerp(u, n[6], n[7])));
+    float acc = 0.0f;
+    float weight = 1.0f;
+#pragma unroll
+    for (int k = 0; k < TURBULENCE_DEPTH; ++k) {
+      acc = acc + weight * __shfl_sync(FULL_MASK, noise, 4 * k);
+      weight *= 0.5f;
+    }
+    if (lane == j) mine = acc;
+  }
+  return mine;
+}
+
+// the marble's grey from the turbulence sum at the lane's point
+__device__ __forceinline__ float marble_grey(float acc, float pz, float scale) {
   const float turb = fabsf(acc);
-  return 0.5f * (1.0f - sinf(scale * z0 + 10.0f * turb));
+  return 0.5f * (1.0f - sinf(scale * pz + 10.0f * turb));
+}
+
+// The texture value of a lane that found primitive b at (px, py, pz)
+// (`shade`; zeros elsewhere, as a miss's all-zero shading row): the solid
+// colour, the checker's odd or even child, or the marble's grey; `ck`
+// holds FLG_IS_CK and FLG_SINES_NEG for a checker.  Every lane of the warp
+// calls it together: where at most COOP_MARBLE lanes of the warp need the
+// marble, the warp sums their turbulence together, else each lane its own.
+struct Texel {
+  float v0 = 0.0f, v1 = 0.0f, v2 = 0.0f;
+  int ck = 0;
+};
+
+__device__ Texel texture_value(const float* tab, int P, uint32_t seed, int tex_flags,
+                               bool shade, int b, float px, float py, float pz) {
+  Texel tx;
+  float tk = 0.0f, ts = 0.0f;
+  if (shade) {
+    tx.v0 = tab[(PAY_COLOR + 0) * P + b];
+    tx.v1 = tab[(PAY_COLOR + 1) * P + b];
+    tx.v2 = tab[(PAY_COLOR + 2) * P + b];
+    tk = tab[PAY_TKIND * P + b];
+    ts = tab[PAY_TSCALE * P + b];
+  }
+  if (shade && (tex_flags & TEXF_CHECKER) && tk == (float)TEX_CHECKER) {
+    const bool pick = sinf(ts * px) * sinf(ts * py) * sinf(ts * pz) < 0.0f;
+    tx.ck = FLG_IS_CK | (pick ? FLG_SINES_NEG : 0);
+    const int row = pick ? PAY_ODD : PAY_EVEN;
+    tx.v0 = tab[(row + 0) * P + b];
+    tx.v1 = tab[(row + 1) * P + b];
+    tx.v2 = tab[(row + 2) * P + b];
+  }
+  if (tex_flags & TEXF_PERLIN) {  // the same for every lane of the launch
+    const bool want = shade && tk == (float)TEX_PERLIN;
+    const unsigned mask = __ballot_sync(FULL_MASK, want);
+    const float acc = __popc(mask) <= COOP_MARBLE ? turbulence_coop(mask, px, py, pz, seed)
+                      : want                      ? turbulence(px, py, pz, seed)
+                                                  : 0.0f;
+    if (want) tx.v0 = tx.v1 = tx.v2 = marble_grey(acc, pz, ts);
+  }
+  return tx;
 }
 
 // ---- residual outputs ----------------------------------------------------
 
 // The Pallas kernel's residual planes for one lane, op for op from the
 // sweep's result (best_t, best_i, the outward normal wn, the winning
-// sphere's 1/r): the hit record, texture value, flags and dielectric
-// terms as the Pallas kernel computes them on every lane.  A miss reads
-// an all-zero shading row (material 0, ir 0, texture 0).
-__device__ void write_residuals(const float* tab, int P, uint32_t seed,
-                                int mat_flags, int tex_flags, float ox, float oy,
-                                float oz, float dx, float dy, float dz, float a,
-                                bool alive, float best_t, int best_i, float wnx,
-                                float wny, float wnz, float w_invr, float coin,
-                                bool cont, int rr_flag, const Columns& cols,
+// sphere's 1/r) and the texel of the winner: the hit record, texture
+// value, flags and dielectric terms as the Pallas kernel computes them on
+// every lane.  A miss reads an all-zero shading row (material 0, ir 0,
+// texture 0).
+__device__ void write_residuals(const float* tab, int P, int mat_flags, float dx, float dy,
+                                float dz, float a, bool alive, float best_t, int best_i,
+                                float wnx, float wny, float wnz, float w_invr, const Texel& tx,
+                                float coin, bool cont, int rr_flag, const Columns& cols,
                                 long long i) {
   const bool found = best_i >= 0;
   const bool hit = found & alive;
@@ -276,24 +427,12 @@ __device__ void write_residuals(const float* tab, int P, uint32_t seed,
   const bool front = dx * wnx + dy * wny + dz * wnz < 0.0f;
   const float flip = front ? 1.0f : -1.0f;
   const float nx = wnx * flip, ny = wny * flip, nz = wnz * flip;
-  const float px = ox + t * dx, py = oy + t * dy, pz = oz + t * dz;
 
   const int b = found ? best_i : 0;
   const auto row = [&](int r) { return found ? tab[r * P + b] : 0.0f; };
-  const float mk = row(PAY_MKIND), tk = row(PAY_TKIND), ts = row(PAY_TSCALE);
-  int flags = (hit ? FLG_HIT : 0) | (front ? FLG_FRONT : 0);
-
-  float v0 = row(PAY_COLOR), v1 = row(PAY_COLOR + 1), v2 = row(PAY_COLOR + 2);
-  if ((tex_flags & TEXF_CHECKER) && tk == (float)TEX_CHECKER) {
-    const bool pick = sinf(ts * px) * sinf(ts * py) * sinf(ts * pz) < 0.0f;
-    flags |= FLG_IS_CK | (pick ? FLG_SINES_NEG : 0);
-    const int r0 = pick ? PAY_ODD : PAY_EVEN;
-    v0 = row(r0);
-    v1 = row(r0 + 1);
-    v2 = row(r0 + 2);
-  } else if ((tex_flags & TEXF_PERLIN) && tk == (float)TEX_PERLIN) {
-    v0 = v1 = v2 = marble(px, py, pz, seed, ts);
-  }
+  const float mk = row(PAY_MKIND);
+  int flags = (hit ? FLG_HIT : 0) | (front ? FLG_FRONT : 0) | tx.ck;
+  const float v0 = tx.v0, v1 = tx.v1, v2 = tx.v2;
 
   if ((mat_flags & MATF_LIGHT) && hit && mk == (float)MAT_LIGHT && front) {
     flags |= FLG_LIGHT_ON;
@@ -346,91 +485,112 @@ __device__ void write_residuals(const float* tab, int P, uint32_t seed,
 
 // ---- the bounce --------------------------------------------------------
 
+// Dynamic shared memory of a block for P primitives: the (32, P) table,
+// with 1/r in its row ROW_INVR.
+inline size_t table_bytes(int P) { return sizeof(float) * PAY_W * P; }
+
 template <bool RES, bool PACKED>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 fused_bounce_kernel(const float* __restrict__ table, int n_prims,
                     const float* __restrict__ bg, uint32_t seed, float t_min,
                     int mat_flags, int tex_flags, uint32_t bounce, bool roulette,
                     const int* __restrict__ depth, int rr_start, Columns cols,
                     int* __restrict__ winner, long long n) {
-  __shared__ float tab[PAY_W * MAX_PRIMS];
-  for (int i = threadIdx.x; i < PAY_W * n_prims; i += blockDim.x) tab[i] = table[i];
-  __syncthreads();
+  extern __shared__ float tab[];
   const int P = n_prims;
+  // the table, and each primitive's 1/r in the pad row ROW_INVR: the same
+  // IEEE division the sweep took a lane and sphere before
+  for (int i = threadIdx.x; i < PAY_W * P; i += blockDim.x) {
+    tab[i] = i / P == ROW_INVR ? 1.0f / table[3 * P + i % P] : table[i];
+  }
+  __syncthreads();
   const float bg0 = bg[0], bg1 = bg[1], bg2 = bg[2];
 
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    const float ox = cols.in[0][i], oy = cols.in[1][i], oz = cols.in[2][i];
-    const float dx = cols.in[3][i], dy = cols.in[4][i], dz = cols.in[5][i];
-    const float thx = cols.in[6][i], thy = cols.in[7][i], thz = cols.in[8][i];
-    float rdx = cols.in[9][i], rdy = cols.in[10][i], rdz = cols.in[11][i];
-    const bool alive = cols.in[12][i] > 0.5f;
+  // a warp's lanes stride over the lanes together (the loop is the same for
+  // the warp), so the texture stage below runs with the whole warp
+  const int lane = threadIdx.x & (WARP - 1);
+  for (long long base = (long long)blockIdx.x * blockDim.x + (threadIdx.x - lane); base < n;
+       base += (long long)gridDim.x * blockDim.x) {
+    const long long i = base + lane;
+    const bool in_range = i < n;
+    const long long li = in_range ? i : n - 1;  // past the end: loads unused
+    const float ox = cols.in[0][li], oy = cols.in[1][li], oz = cols.in[2][li];
+    const float dx = cols.in[3][li], dy = cols.in[4][li], dz = cols.in[5][li];
+    const float thx = cols.in[6][li], thy = cols.in[7][li], thz = cols.in[8][li];
+    float rdx = cols.in[9][li], rdy = cols.in[10][li], rdz = cols.in[11][li];
+    const bool alive = in_range && cols.in[12][li] > 0.5f;
+    // the lanes that run the bounce: the live ones, and with residuals
+    // every lane (the Pallas kernel's residuals cover dead lanes too)
+    const bool active = in_range && (RES || alive);
 
-    // a dead lane keeps its state; alive-out is 0.  With residuals it
-    // runs the sweep too: the Pallas kernel's residuals cover every lane.
-    if (!RES && !alive) {
+    // a dead lane keeps its state; alive-out is 0
+    if (in_range && !active) {
       cols.out[0][i] = ox; cols.out[1][i] = oy; cols.out[2][i] = oz;
       cols.out[3][i] = dx; cols.out[4][i] = dy; cols.out[5][i] = dz;
       cols.out[6][i] = thx; cols.out[7][i] = thy; cols.out[8][i] = thz;
       cols.out[9][i] = rdx; cols.out[10][i] = rdy; cols.out[11][i] = rdz;
       cols.out[12][i] = 0.0f;
       if (winner) winner[i] = -1;
-      continue;
     }
 
     // the launch's bounce, or the lane's own path depth (the regen pool,
     // whose lanes are at different depths); roulette acts on the lane from
     // rr_start on
-    const uint32_t lane_bounce = depth ? (uint32_t)depth[i] : bounce;
-    const bool lane_roulette = roulette && (!depth || depth[i] >= rr_start);
-    const Draws<PACKED> draws{cols.key[0][i], cols.key[1][i], lane_bounce};
-    // the residuals' dielectric terms take the coin on every lane
-    const float res_coin = RES && (mat_flags & MATF_DIELECTRIC) ? draws.coin() : 0.0f;
+    uint32_t lane_bounce = bounce, k0 = 0u, k1 = 0u;
+    bool lane_roulette = false;
+    float res_coin = 0.0f;  // the residuals' dielectric terms take it on every lane
+    if (active) {
+      lane_bounce = depth ? (uint32_t)depth[i] : bounce;
+      lane_roulette = roulette && (!depth || depth[i] >= rr_start);
+      k0 = cols.key[0][i];
+      k1 = cols.key[1][i];
+      if (RES && (mat_flags & MATF_DIELECTRIC)) res_coin = coin_of<PACKED>(k0, k1, lane_bounce);
+    }
 
-    // ---- closest-hit sweep --------------------------------------------
+    // ---- closest-hit sweep: the winner and its t; its normal after --------
     const float a = dx * dx + dy * dy + dz * dz;
+    // a sphere's quadratic in f64, as closest_hit.sphere_roots (the plain
+    // version) has it: in f32 half_b^2 - a c cancels on rays that meet a
+    // sphere near its rim, and the root can land inside the surface
+    const double ox64 = ox, oy64 = oy, oz64 = oz;
+    const double dx64 = dx, dy64 = dy, dz64 = dz;
+    const double a64 = dx64 * dx64 + dy64 * dy64 + dz64 * dz64;
     float best_t = T_MISS;
     int best_i = -1;
-    float wnx = 0.0f, wny = 0.0f, wnz = 0.0f;
-    float w_invr = 0.0f;  // the winning sphere's 1/r (RES only)
 
-    for (int p = 0; p < P; ++p) {
+    const int n_swept = active ? P : 0;  // a dead lane sweeps nothing
+    for (int p = 0; p < n_swept; ++p) {
       const int kind = (int)tab[PAY_KIND * P + p];
-      float t, nx, ny, nz;
-      float cand_invr = 0.0f;
+      float t;
       bool valid;
       if (kind == PRIM_SPHERE) {
         const float cx = tab[0 * P + p], cy = tab[1 * P + p], cz = tab[2 * P + p];
         const float r = tab[3 * P + p];
-        // the quadratic in f64, as closest_hit.sphere_roots (the plain
-        // version) has it: in f32 half_b^2 - a c cancels on rays that meet
-        // a sphere near its rim, and the root can land inside the surface
-        const double ocx = (double)ox - (double)cx, ocy = (double)oy - (double)cy,
-                     ocz = (double)oz - (double)cz;
-        const double dx64 = dx, dy64 = dy, dz64 = dz;
+        const double ocx = ox64 - (double)cx, ocy = oy64 - (double)cy, ocz = oz64 - (double)cz;
         const double half_b = dx64 * ocx + dy64 * ocy + dz64 * ocz;
         const double c = ocx * ocx + ocy * ocy + ocz * ocz - (double)r * (double)r;
-        const double a64 = dx64 * dx64 + dy64 * dy64 + dz64 * dz64;
         const double dis = half_b * half_b - a64 * c;
-        const double sqrtd = sqrt((dis != dis || dis > 0.0) ? dis : 0.0);  // NaN-propagating max
-        const float root1 = (float)((-half_b - sqrtd) / a64);
-        const float root2 = (float)((-half_b + sqrtd) / a64);
-        const bool ok1 = (root1 >= t_min) & (root1 <= best_t);
-        const bool ok2 = (root2 >= t_min) & (root2 <= best_t);
-        t = ok1 ? root1 : root2;
-        valid = (dis >= 0.0) & (ok1 | ok2);
-        const float inv_r = 1.0f / r;
-        cand_invr = inv_r;
-        nx = (ox + t * dx - cx) * inv_r;
-        ny = (oy + t * dy - cy) * inv_r;
-        nz = (oz + t * dz - cz) * inv_r;
+        // a root only where the discriminant allows one (NaN fails too);
+        // the far root only where the near one fails
+        valid = false;
+        t = 0.0f;
+        if (dis >= 0.0) {
+          const double sqrtd = sqrt((dis != dis || dis > 0.0) ? dis : 0.0);  // NaN-propagating max
+          const float root1 = (float)((-half_b - sqrtd) / a64);
+          if ((root1 >= t_min) & (root1 <= best_t)) {
+            t = root1;
+            valid = true;
+          } else {
+            const float root2 = (float)((-half_b + sqrtd) / a64);
+            t = root2;
+            valid = (root2 >= t_min) & (root2 <= best_t);
+          }
+        }
       } else if (kind == PRIM_RECT) {
         const int aux = (int)tab[PAY_AUX * P + p];
         const float k = tab[0 * P + p];
         const float a0 = tab[1 * P + p], b0 = tab[2 * P + p];
         const float a1 = tab[3 * P + p], b1 = tab[4 * P + p];
-        const float sgn = tab[5 * P + p];
         // fixed axis aux; free axes (fa, fb) in ascending order
         float of, df, oa, da, ob, db;
         if (aux == 0) {
@@ -445,9 +605,6 @@ fused_bounce_kernel(const float* __restrict__ table, int n_prims,
         const float bv = ob + t * db;
         valid = (t >= t_min) & (t <= best_t) & (av >= a0) & (av <= a1) &
                 (bv >= b0) & (bv <= b1);
-        nx = aux == 0 ? 1.0f * sgn : 0.0f;
-        ny = aux == 1 ? 1.0f * sgn : 0.0f;
-        nz = aux == 2 ? 1.0f * sgn : 0.0f;
       } else {  // PRIM_TRIANGLE
         const float p1x = tab[0 * P + p], p1y = tab[1 * P + p], p1z = tab[2 * P + p];
         const float e1x = tab[3 * P + p], e1y = tab[4 * P + p], e1z = tab[5 * P + p];
@@ -466,19 +623,44 @@ fused_bounce_kernel(const float* __restrict__ table, int n_prims,
         t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
         valid = (det >= TRI_DET_EPS) & (uu >= 0.0f) & (uu <= 1.0f) & (vv >= 0.0f) &
                 (uu + vv <= 1.0f) & (t >= t_min) & (t <= best_t);
-        nx = 1.0f * tab[9 * P + p];
-        ny = 1.0f * tab[10 * P + p];
-        nz = 1.0f * tab[11 * P + p];
       }
       if (valid & (t < best_t)) {
         best_t = t;
         best_i = p;
-        wnx = nx;
-        wny = ny;
-        wnz = nz;
-        if (RES) w_invr = cand_invr;
       }
     }
+
+    // the winner's outward normal, as the sweep took it at the winner's t;
+    // the winning sphere's 1/r (RES only)
+    float wnx = 0.0f, wny = 0.0f, wnz = 0.0f;
+    float w_invr = 0.0f;
+    if (best_i >= 0) {
+      const int b = best_i;
+      const int kind = (int)tab[PAY_KIND * P + b];
+      if (kind == PRIM_SPHERE) {
+        const float inv_r = tab[ROW_INVR * P + b];
+        wnx = (ox + best_t * dx - tab[0 * P + b]) * inv_r;
+        wny = (oy + best_t * dy - tab[1 * P + b]) * inv_r;
+        wnz = (oz + best_t * dz - tab[2 * P + b]) * inv_r;
+        w_invr = inv_r;
+      } else if (kind == PRIM_RECT) {
+        const int aux = (int)tab[PAY_AUX * P + b];
+        const float sgn = tab[5 * P + b];
+        wnx = aux == 0 ? 1.0f * sgn : 0.0f;
+        wny = aux == 1 ? 1.0f * sgn : 0.0f;
+        wnz = aux == 2 ? 1.0f * sgn : 0.0f;
+      } else {
+        wnx = 1.0f * tab[9 * P + b];
+        wny = 1.0f * tab[10 * P + b];
+        wnz = 1.0f * tab[11 * P + b];
+      }
+    }
+
+    // ---- texture value of every lane that found a primitive, the warp
+    // together -------------------------------------------------------------
+    const Texel tx = texture_value(tab, P, seed, tex_flags, best_i >= 0, best_i,
+                                   ox + best_t * dx, oy + best_t * dy, oz + best_t * dz);
+    if (!active) continue;
 
     if (winner) winner[i] = alive ? best_i : -1;
 
@@ -486,6 +668,7 @@ fused_bounce_kernel(const float* __restrict__ table, int n_prims,
     float d_out0 = dx, d_out1 = dy, d_out2 = dz;
     float t_out0 = thx, t_out1 = thy, t_out2 = thz;
     bool cont = false;
+    float u_roulette = 0.0f;
 
     if (RES && !alive) {
       // dead lane with residuals: the state passes through
@@ -503,25 +686,18 @@ fused_bounce_kernel(const float* __restrict__ table, int n_prims,
 
       const int b = best_i;
       const int mk = (int)tab[PAY_MKIND * P + b];
-      const int tk = (int)tab[PAY_TKIND * P + b];
-      const float ts = tab[PAY_TSCALE * P + b];
+      const bool is_l = (mat_flags & MATF_LAMBERTIAN) && mk == MAT_LAMBERTIAN;
+      const bool is_m = !is_l && (mat_flags & MATF_METAL) && mk == MAT_METAL;
+      const bool is_d = !is_l && !is_m && (mat_flags & MATF_DIELECTRIC) && mk == MAT_DIELECTRIC;
 
-      // ---- texture value --------------------------------------------
-      float v0 = tab[(PAY_COLOR + 0) * P + b];
-      float v1 = tab[(PAY_COLOR + 1) * P + b];
-      float v2 = tab[(PAY_COLOR + 2) * P + b];
-      if ((tex_flags & TEXF_CHECKER) && tk == TEX_CHECKER) {
-        const float sines = sinf(ts * px) * sinf(ts * py) * sinf(ts * pz);
-        const int row = sines < 0.0f ? PAY_ODD : PAY_EVEN;
-        v0 = tab[(row + 0) * P + b];
-        v1 = tab[(row + 1) * P + b];
-        v2 = tab[(row + 2) * P + b];
-      } else if ((tex_flags & TEXF_PERLIN) && tk == TEX_PERLIN) {
-        const float gray = marble(px, py, pz, seed, ts);
-        v0 = gray;
-        v1 = gray;
-        v2 = gray;
-      }
+      // ---- the bounce's uniforms, one section for every hit lane --------
+      const Uniforms u = draw_uniforms<PACKED>(
+          k0, k1, lane_bounce,
+          is_l ? DRAW_LAMBERT : is_m ? DRAW_METAL : (is_d && !RES) ? DRAW_COIN : DRAW_NONE,
+          lane_roulette && (is_l | is_m | is_d));
+      u_roulette = u.roulette;
+
+      const float v0 = tx.v0, v1 = tx.v1, v2 = tx.v2;
 
       // ---- emission banking (ray.rs:26) -----------------------------
       if ((mat_flags & MATF_LIGHT) && mk == MAT_LIGHT && front) {
@@ -531,17 +707,29 @@ fused_bounce_kernel(const float* __restrict__ table, int n_prims,
       }
 
       // ---- scatter (materials.py op for op) --------------------------
+      // one unit-sphere sample for the lambertian and the metal: z, the
+      // angle and the ring's radius from the lane's own (u0, u1)
+      float sph_x = 0.0f, sph_y = 0.0f, sph_z = 0.0f;
+      if (is_l | is_m) {
+        sph_z = 2.0f * u.u0 - 1.0f;
+        const float phi = TWO_PI * u.u1;
+        const float rho = sqrtf(max_nan(1.0f - sph_z * sph_z, 0.0f));
+        sph_x = rho * cosf(phi);
+        sph_y = rho * sinf(phi);
+      }
+      float ux = 0.0f, uy = 0.0f, uz = 0.0f;
+      if (is_m | is_d) {
+        const float inv_len = 1.0f / sqrtf(max_nan(a, SAFE_EPS));
+        ux = dx * inv_len;
+        uy = dy * inv_len;
+        uz = dz * inv_len;
+      }
       float sdx = 0.0f, sdy = 0.0f, sdz = 0.0f;
       float at0 = 0.0f, at1 = 0.0f, at2 = 0.0f;
-      if ((mat_flags & MATF_LAMBERTIAN) && mk == MAT_LAMBERTIAN) {
-        float su0, su1;
-        draws.lambert(su0, su1);
-        const float s_z = 2.0f * su0 - 1.0f;
-        const float s_phi = TWO_PI * su1;
-        const float s_r = sqrtf(max_nan(1.0f - s_z * s_z, 0.0f));
-        float dlx = nx + s_r * cosf(s_phi);
-        float dly = ny + s_r * sinf(s_phi);
-        float dlz = nz + s_z;
+      if (is_l) {
+        float dlx = nx + sph_x;
+        float dly = ny + sph_y;
+        float dlz = nz + sph_z;
         if ((fabsf(dlx) < NEAR_ZERO) & (fabsf(dly) < NEAR_ZERO) & (fabsf(dlz) < NEAR_ZERO)) {
           dlx = nx;
           dly = ny;
@@ -550,20 +738,13 @@ fused_bounce_kernel(const float* __restrict__ table, int n_prims,
         cont = true;
         sdx = dlx; sdy = dly; sdz = dlz;
         at0 = v0; at1 = v1; at2 = v2;
-      } else if ((mat_flags & MATF_METAL) && mk == MAT_METAL) {
-        const float inv_len = 1.0f / sqrtf(max_nan(a, SAFE_EPS));
-        const float ux = dx * inv_len, uy = dy * inv_len, uz = dz * inv_len;
-        float bu0, bu1, bu2;
-        draws.fuzz(bu0, bu1, bu2);
-        const float b_z = 2.0f * bu0 - 1.0f;
-        const float b_phi = TWO_PI * bu1;
-        const float b_rho = sqrtf(max_nan(1.0f - b_z * b_z, 0.0f));
+      } else if (is_m) {
         // the cube root as the plain version takes it (vecmath.cbrt: the
         // f64 power rounded to f32), where cbrtf may differ by an ulp
-        const float b_s = (float)pow((double)bu2, 1.0 / 3.0);
-        const float ball_x = b_rho * cosf(b_phi) * b_s;
-        const float ball_y = b_rho * sinf(b_phi) * b_s;
-        const float ball_z = b_z * b_s;
+        const float b_s = (float)pow((double)u.u2, 1.0 / 3.0);
+        const float ball_x = sph_x * b_s;
+        const float ball_y = sph_y * b_s;
+        const float ball_z = sph_z * b_s;
         const float dn = ux * nx + uy * ny + uz * nz;
         const float rfx = ux - 2.0f * dn * nx;
         const float rfy = uy - 2.0f * dn * ny;
@@ -574,9 +755,7 @@ fused_bounce_kernel(const float* __restrict__ table, int n_prims,
         sdy = rfy + fz * ball_y;
         sdz = rfz + fz * ball_z;
         at0 = v0; at1 = v1; at2 = v2;
-      } else if ((mat_flags & MATF_DIELECTRIC) && mk == MAT_DIELECTRIC) {
-        const float inv_len = 1.0f / sqrtf(max_nan(a, SAFE_EPS));
-        const float ux = dx * inv_len, uy = dy * inv_len, uz = dz * inv_len;
+      } else if (is_d) {
         const float ir = tab[PAY_IR * P + b];
         const float ratio = front ? 1.0f / ir : ir;
         const float raw_cos = -(ux * nx + uy * ny + uz * nz);
@@ -589,7 +768,7 @@ fused_bounce_kernel(const float* __restrict__ table, int n_prims,
         const float one_c2 = one_c * one_c;
         const float one_c5 = one_c * (one_c2 * one_c2);  // XLA integer_pow(5)
         const float refl_p = r0 + (1.0f - r0) * one_c5;
-        const bool choose_reflect = cannot | (refl_p > (RES ? res_coin : draws.coin()));
+        const bool choose_reflect = cannot | (refl_p > (RES ? res_coin : u.coin));
         if (choose_reflect) {
           const float dnu = ux * nx + uy * ny + uz * nz;
           sdx = ux - 2.0f * dnu * nx;
@@ -626,7 +805,7 @@ fused_bounce_kernel(const float* __restrict__ table, int n_prims,
     if (lane_roulette) {
       const float m = max2_nan(max2_nan(t_out0, t_out1), t_out2);
       const float p = m != m ? m : fminf(fmaxf(m, RR_P_MIN), RR_P_MAX);
-      const bool act = cont && draws.roulette() < p;
+      const bool act = cont && u_roulette < p;
       if (act) {
         t_out0 = t_out0 / p;
         t_out1 = t_out1 / p;
@@ -646,11 +825,36 @@ fused_bounce_kernel(const float* __restrict__ table, int n_prims,
     cols.out[12][i] = alive_out ? 1.0f : 0.0f;
 
     if (RES) {
-      write_residuals(tab, P, seed, mat_flags, tex_flags, ox, oy, oz, dx, dy, dz, a,
-                      alive, best_t, best_i, wnx, wny, wnz, w_invr, res_coin, cont,
-                      rr_flag, cols, i);
+      write_residuals(tab, P, mat_flags, dx, dy, dz, a, alive, best_t, best_i, wnx, wny, wnz,
+                      w_invr, tx, res_coin, cont, rr_flag, cols, i);
     }
   }
+}
+
+// Launch one instantiation: a grid of the blocks the card holds at once
+// (the occupancy of this instantiation at this table's shared memory),
+// at most one a tile of THREADS lanes; the blocks stride over the lanes.
+template <bool RES, bool PACKED>
+cudaError_t launch(const float* table, int n_prims, const float* bg, uint32_t seed,
+                   float t_min, int mat_flags, int tex_flags, uint32_t bounce, bool rr,
+                   const int* depth, int rr_start, const Columns& cols, int* winner,
+                   long long n_lanes, cudaStream_t s) {
+  const size_t smem = table_bytes(n_prims);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fused_bounce_kernel<RES, PACKED>, THREADS, smem);
+  }
+  if (err != cudaSuccess) return err;
+  const long long tiles = (n_lanes + THREADS - 1) / THREADS;
+  const long long cap = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const unsigned grid = (unsigned)(tiles < cap ? tiles : cap);
+  fused_bounce_kernel<RES, PACKED><<<grid, THREADS, smem, s>>>(
+      table, n_prims, bg, seed, t_min, mat_flags, tex_flags, bounce, rr, depth, rr_start,
+      cols, winner, n_lanes);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -690,26 +894,14 @@ int fused_bounce_launch(const float* table, int n_prims, const float* bg,
   for (int k = 0; k < N_RES; ++k) cols.res[k] = res ? res + k * n_lanes : nullptr;
   cols.flags = res ? flags : nullptr;
   cols.rr_p = res && roulette ? res + N_RES * n_lanes : nullptr;
-  long long blocks = (n_lanes + THREADS - 1) / THREADS;
-  if (blocks > 132 * 16) blocks = 132 * 16;  // grid-stride past 16 blocks per SM
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((unsigned)blocks);
   const bool rr = roulette != 0;
-#define RPT_K1(RES_, PACKED_)                                                     \
-  fused_bounce_kernel<RES_, PACKED_><<<grid, THREADS, 0, s>>>(                    \
-      table, n_prims, bg, (uint32_t)seed, t_min, mat_flags, tex_flags,            \
-      (uint32_t)bounce, rr, depth, rr_start, cols, winner, n_lanes)
-  if (res && packed) {
-    RPT_K1(true, true);
-  } else if (res) {
-    RPT_K1(true, false);
-  } else if (packed) {
-    RPT_K1(false, true);
-  } else {
-    RPT_K1(false, false);
-  }
-#undef RPT_K1
-  return (int)cudaGetLastError();
+  const auto go = res && packed ? launch<true, true>
+                  : res         ? launch<true, false>
+                  : packed      ? launch<false, true>
+                                : launch<false, false>;
+  return (int)go(table, n_prims, bg, (uint32_t)seed, t_min, mat_flags, tex_flags,
+                 (uint32_t)bounce, rr, depth, rr_start, cols, winner, n_lanes, s);
 }
 
 const char* error_string(int err) {

@@ -6,7 +6,9 @@
 // std::barrier.  The tests rewrite a source's
 // launches to EMU_LAUNCH and its cp.async to a copy
 // (tests/test_torch_projected_rows.py, tests/test_torch_fused_bounce_bwd.py,
-// tests/test_torch_closest_hit_emu.py).  The card's attributes are those of a
+// tests/test_torch_closest_hit_emu.py; tests/test_torch_fused_bounce_emu.py
+// calls emu_launch itself and makes K1's dynamic shared table a static
+// array).  The card's attributes are those of a
 // small one: EMU_SMS multiprocessors, one resident block each.
 #pragma once
 #include <barrier>
