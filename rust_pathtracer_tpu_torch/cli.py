@@ -46,7 +46,10 @@ matches the job (``utils/checkpoint.py``); an animation keeps one file
 a frame, ``FILE.frame{f:04d}``, as the JAX CLI names them.
 ``--debug-nans`` raises FloatingPointError after the first frame whose
 image holds a NaN.  ``--profile-dir DIR`` writes a ``torch.profiler``
-Chrome trace of the frames to ``DIR/trace.json``.
+Chrome trace to ``DIR/trace.json``, from the scene build on: the kernel
+loads, every frame and the GIF, with the program's spans
+(``utils.metrics.span``: ``rpt.stage.<stage>`` for each stage the
+timers report, ``rpt.frame``, ``rpt.chunk``, ``rpt.bounce``, ``rpt.sync``).
 
 ``--mesh TILESxSAMPLES`` renders every frame over a grid of
 ``torch.distributed`` ranks (``parallel/shard.py``), one process a
@@ -314,70 +317,70 @@ def main(argv=None) -> int:
         parser.error(f"--frame-start {args.frame_start} is past the last frame "
                      f"({sd.name} has {frames})")
 
-    with timer.stage("scene build"):
-        scene = sd.build(device=device)
-    key = prng_key(args.seed, device=device)
-    if args.device == "cuda":
-        from rust_pathtracer_tpu_torch.ops._build import load_library
-
-        # first-use builds of the kernels the scene's routes launch:
-        # set-up, not render time.  On a mesh the first rank of each host
-        # builds them, and its other ranks load them after a barrier
-        libs = (("fused_bounce", "closest_hit", "draws") if scene.kinds_static is not None
-                else ("projected", "draws"))
-        first = mesh is None or int(os.environ.get("LOCAL_RANK", 0)) == 0
-        if not first:
-            mesh.barrier()
-        for name in libs:
-            load_library(name)
-        if mesh is not None and first:
-            mesh.barrier()
-
-    # an animation under "auto": one schedule for every frame, from probes
-    # across the frames to render; kept unless a frame overflows it.  On
-    # a mesh the sharded renderer derives it frame by frame
-    sticky_auto = (settings.cascade_schedule == "auto"
-                   and frames - args.frame_start > 1 and mesh is None)
-    auto_margin = None
-    if sticky_auto:
-        auto_margin = render_mod.AUTO_MARGIN * AUTO_STICKY_SLACK
-        with timer.stage("schedule probe"):
-            sched = derive_cascade_schedule_multi(
-                scene, [sd.camera_at(f / frames, device=device)
-                        for f in probe_frames(args.frame_start, frames)],
-                settings, key, margin=auto_margin, device=device)
-        settings = dataclasses.replace(settings, cascade_schedule=sched,
-                                       cascade=sched is not None)
-        if report:
-            print(f"auto cascade schedule: {sched}", file=sys.stderr)
-
-    def render_one(settings, cam, ckpt_path):
-        if mesh is not None and ckpt_path:
-            from rust_pathtracer_tpu_torch.utils.checkpoint import (
-                render_radiance_sharded_checkpointed,
-            )
-
-            return render_radiance_sharded_checkpointed(
-                scene, cam, settings, key, mesh, ckpt_path,
-                checkpoint_every=args.checkpoint_every)
-        if mesh is not None:
-            from rust_pathtracer_tpu_torch.parallel import render_radiance_sharded
-
-            return render_radiance_sharded(scene, cam, settings, key, mesh)
-        if args.regen:
-            return render_radiance_regen(scene, cam, settings, key, lanes=args.lanes,
-                                         device=device)
-        if ckpt_path:
-            return render_radiance_checkpointed(
-                scene, cam, settings, key, ckpt_path,
-                checkpoint_every=args.checkpoint_every, device=device)
-        return render_radiance(scene, cam, settings, key, device=device)
-
-    metrics = RenderMetrics(width=settings.width, height=settings.height,
-                            spp=settings.samples_per_pixel)
-    bar = ProgressBar(frames - args.frame_start, prefix="frames") if report else None
-    rendered = []
     with profiler_trace(args.profile_dir, device, None if mesh is None else mesh.rank):
+        with timer.stage("scene build"):
+            scene = sd.build(device=device)
+        key = prng_key(args.seed, device=device)
+        if args.device == "cuda":
+            from rust_pathtracer_tpu_torch.ops._build import load_library
+
+            # first-use builds of the kernels the scene's routes launch:
+            # set-up, not render time.  On a mesh the first rank of each host
+            # builds them, and its other ranks load them after a barrier
+            libs = (("fused_bounce", "closest_hit", "draws") if scene.kinds_static is not None
+                    else ("projected", "draws"))
+            first = mesh is None or int(os.environ.get("LOCAL_RANK", 0)) == 0
+            if not first:
+                mesh.barrier()
+            for name in libs:
+                load_library(name)
+            if mesh is not None and first:
+                mesh.barrier()
+
+        # an animation under "auto": one schedule for every frame, from probes
+        # across the frames to render; kept unless a frame overflows it.  On
+        # a mesh the sharded renderer derives it frame by frame
+        sticky_auto = (settings.cascade_schedule == "auto"
+                       and frames - args.frame_start > 1 and mesh is None)
+        auto_margin = None
+        if sticky_auto:
+            auto_margin = render_mod.AUTO_MARGIN * AUTO_STICKY_SLACK
+            with timer.stage("schedule probe"):
+                sched = derive_cascade_schedule_multi(
+                    scene, [sd.camera_at(f / frames, device=device)
+                            for f in probe_frames(args.frame_start, frames)],
+                    settings, key, margin=auto_margin, device=device)
+            settings = dataclasses.replace(settings, cascade_schedule=sched,
+                                           cascade=sched is not None)
+            if report:
+                print(f"auto cascade schedule: {sched}", file=sys.stderr)
+
+        def render_one(settings, cam, ckpt_path):
+            if mesh is not None and ckpt_path:
+                from rust_pathtracer_tpu_torch.utils.checkpoint import (
+                    render_radiance_sharded_checkpointed,
+                )
+
+                return render_radiance_sharded_checkpointed(
+                    scene, cam, settings, key, mesh, ckpt_path,
+                    checkpoint_every=args.checkpoint_every)
+            if mesh is not None:
+                from rust_pathtracer_tpu_torch.parallel import render_radiance_sharded
+
+                return render_radiance_sharded(scene, cam, settings, key, mesh)
+            if args.regen:
+                return render_radiance_regen(scene, cam, settings, key, lanes=args.lanes,
+                                             device=device)
+            if ckpt_path:
+                return render_radiance_checkpointed(
+                    scene, cam, settings, key, ckpt_path,
+                    checkpoint_every=args.checkpoint_every, device=device)
+            return render_radiance(scene, cam, settings, key, device=device)
+
+        metrics = RenderMetrics(width=settings.width, height=settings.height,
+                                spp=settings.samples_per_pixel)
+        bar = ProgressBar(frames - args.frame_start, prefix="frames") if report else None
+        rendered = []
         for frame in range(args.frame_start, frames):
             cam = sd.camera_at(frame / frames, device=device)  # main.rs:52: not frames-1
             if args.rebuild_bvh and frame > args.frame_start:
@@ -438,17 +441,17 @@ def main(argv=None) -> int:
                 rendered.append(rgb)
             if bar:
                 bar.tick()
+        if bar:
+            bar.finish()
+        if lead and args.gif:
+            gif_path = os.path.join(args.output_dir, "animation.gif")
+            with timer.stage("gif"):
+                write_gif(gif_path, rendered, fps=sd.output.fps or 30.0)
+            print(f"wrote {gif_path}")
     if mesh is not None:
         torch.distributed.destroy_process_group()
     if not lead:
         return 0
-    if bar:
-        bar.finish()
-    if args.gif:
-        gif_path = os.path.join(args.output_dir, "animation.gif")
-        with timer.stage("gif"):
-            write_gif(gif_path, rendered, fps=sd.output.fps or 30.0)
-        print(f"wrote {gif_path}")
 
     device_name = (torch.cuda.get_device_name(0) if args.device == "cuda"
                    else "cpu")

@@ -52,6 +52,7 @@ import torch
 
 from rust_pathtracer_tpu_torch.camera import Camera, make_camera
 from rust_pathtracer_tpu_torch.render import RenderSettings, render_radiance
+from rust_pathtracer_tpu_torch.utils.metrics import span
 
 _CAMERA_FIELDS = ("lookfrom", "lookat", "up", "vfov_deg", "aspect",
                   "aperture", "focus_dist")
@@ -173,11 +174,13 @@ def render_loss_and_grad(params: DiffParams, scene, settings, key, target, *,
     "rederive"``) gets its gradient added into its ``.grad``, as by
     ``loss.backward()``."""
     leaves = [x.detach().requires_grad_(True) for x in params.leaves()]
-    loss = l2_loss(DiffParams.from_leaves(leaves), scene, settings, key,
-                   target, device=device)
+    with span("rpt.forward"):
+        loss = l2_loss(DiffParams.from_leaves(leaves), scene, settings, key,
+                       target, device=device)
     data = scene.prims.data
     extra = [data] if data.requires_grad else []
-    grads = torch.autograd.grad(loss, leaves + extra, allow_unused=True)
+    with span("rpt.backward"):
+        grads = torch.autograd.grad(loss, leaves + extra, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g
              for x, g in zip(leaves + extra, grads)]
     if extra:

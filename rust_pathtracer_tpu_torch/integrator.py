@@ -120,6 +120,7 @@ from rust_pathtracer_tpu_torch.ops.intersect import (
     prim_intersect_t,
     record_from_rows,
 )
+from rust_pathtracer_tpu_torch.utils.metrics import span
 
 T_MIN = 1e-3  # ray.rs:25
 T_MAX = 1.0e30  # the re-derived hit distance's upper bound (JAX T_MAX)
@@ -400,21 +401,26 @@ def _trace_generic(scene, state, keys, background, start_bounce, max_bounces,
     bounce = start_bounce
     while bounce < max_bounces:
         if reorder:
-            n_alive = int(state[4].sum())  # the loop's sync
+            with span("rpt.sync"):
+                n_alive = int(state[4].sum())  # the loop's sync
             if n_alive == 0:
                 break
-            if bounce > 0 and n_alive * REORDER_ALIVE_SHARE > R:
+        elif not differentiable:
+            with span("rpt.sync"):
+                live = bool(state[4].any())
+            if not live:
+                break
+        with span("rpt.bounce", bounce):
+            if reorder and bounce > 0 and n_alive * REORDER_ALIVE_SHARE > R:
                 perm = passset_perm(table, state[0], state[1], state[4], T_MIN)
                 state = tuple(x[perm] for x in state)
                 keys = keys[:, perm]
                 lane = perm if lane is None else lane[perm]
-        elif not (differentiable or bool(state[4].any())):
-            break
-        segments = _stats(state[4].to(torch.float32), bounce, segments, occupancy)
-        su, bu, coin, rr_u = bounce_draws(keys, bounce, bounce >= rr_start, rng_scheme)
-        draws_b = dict(sphere_u=su, ball_u=bu, coin=coin)
-        state = _bounce_step(scene, table, state, draws_b, background, rr_u,
-                             differentiable, mode, diff_t)
+            segments = _stats(state[4].to(torch.float32), bounce, segments, occupancy)
+            su, bu, coin, rr_u = bounce_draws(keys, bounce, bounce >= rr_start, rng_scheme)
+            draws_b = dict(sphere_u=su, ball_u=bu, coin=coin)
+            state = _bounce_step(scene, table, state, draws_b, background, rr_u,
+                                 differentiable, mode, diff_t)
         bounce += 1
     return state, segments, occupancy, bounce - start_bounce, lane
 
@@ -513,14 +519,19 @@ def _trace_fused(scene, state, keys, background, start_bounce, max_bounces,
     table = pack_prims_shaded(scene)
     seed = scene.textures.perlin_seed
     bounce = start_bounce
-    while bounce < max_bounces and bool((state[12] > 0.5).any()):
-        segments = _stats(state[12], bounce, segments, occupancy)
-        state = fused_bounce_keyed(
-            table, background, seed, state, keys, bounce,
-            with_roulette=bounce >= rr_start, kinds=scene.kinds_static,
-            mat_types=scene.mat_types, tex_types=scene.tex_types, t_min=T_MIN,
-            rng_scheme=rng_scheme,
-        )
+    while bounce < max_bounces:
+        with span("rpt.sync"):
+            live = bool((state[12] > 0.5).any())
+        if not live:
+            break
+        with span("rpt.bounce", bounce):
+            segments = _stats(state[12], bounce, segments, occupancy)
+            state = fused_bounce_keyed(
+                table, background, seed, state, keys, bounce,
+                with_roulette=bounce >= rr_start, kinds=scene.kinds_static,
+                mat_types=scene.mat_types, tex_types=scene.tex_types, t_min=T_MIN,
+                rng_scheme=rng_scheme,
+            )
         bounce += 1
     return state, segments, occupancy, bounce - start_bounce
 

@@ -55,6 +55,7 @@ from rust_pathtracer_tpu_torch.scene.types import (
     TEX_SOLID,
     SceneData,
 )
+from rust_pathtracer_tpu_torch.utils.metrics import span
 from rust_pathtracer_tpu_torch.vecmath import _SAFE_EPS, NEAR_ZERO, cbrt, sqrt
 
 # shading-table rows (rust_pathtracer_tpu/ops/projected.py PAY_*)
@@ -682,16 +683,17 @@ class FusedScanTrace(torch.autograd.Function):
         occupancy = torch.zeros(spec.stats_slots, dtype=torch.float32, device=dev)
         saved = []
         for b in range(spec.max_bounces):
-            n_alive = state[12].sum()
-            segments = segments + n_alive
-            occupancy[min(b, spec.stats_slots - 1)] = n_alive
-            d_thr = state[3:9].clone()  # d0 d1 d2 t0 t1 t2 coming in
-            state, res = fused_bounce_keyed(
-                table, bg, 0, state, keys, b, with_roulette=b >= spec.rr_start,
-                kinds=spec.kinds, mat_types=spec.mat_types,
-                tex_types=spec.tex_types, t_min=spec.t_min, want_residuals=True,
-                rng_scheme=spec.rng_scheme)
-            saved.append((res, d_thr))
+            with span("rpt.bounce", b):
+                n_alive = state[12].sum()
+                segments = segments + n_alive
+                occupancy[min(b, spec.stats_slots - 1)] = n_alive
+                d_thr = state[3:9].clone()  # d0 d1 d2 t0 t1 t2 coming in
+                state, res = fused_bounce_keyed(
+                    table, bg, 0, state, keys, b, with_roulette=b >= spec.rr_start,
+                    kinds=spec.kinds, mat_types=spec.mat_types,
+                    tex_types=spec.tex_types, t_min=spec.t_min, want_residuals=True,
+                    rng_scheme=spec.rng_scheme)
+                saved.append((res, d_thr))
         ctx.spec = spec
         ctx.bounces = saved
         ctx.save_for_backward(table, bg)

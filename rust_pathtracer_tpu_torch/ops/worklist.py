@@ -41,6 +41,7 @@ from rust_pathtracer_tpu_torch.ops.projected import (
     slab_bounds,
 )
 from rust_pathtracer_tpu_torch.scene.types import PRIM_SPHERE
+from rust_pathtracer_tpu_torch.utils.metrics import span
 
 WL_KCAP = 64  # cluster slots a block (the TPU's worklist.py:82 had 12)
 WL_RB = 32    # lanes a block on the card: one warp
@@ -145,6 +146,8 @@ def closest_hit_pairs(tables: ProjTables, o, d, t_min, kcap=WL_KCAP):
     meta, overflow = build_pair_worklist(
         tables.cluster_bounds, tables.group_kinds, torch.cat([o, pad]),
         torch.cat([d, pad]), t_min, rb, kcap)
-    if not bool(overflow):
+    with span("rpt.sync"):
+        overflowed = bool(overflow)
+    if not overflowed:
         return pair_sweep(tables, o, d, t_min, meta, rb)
     return projected_sweep(tables, o, d, t_min)

@@ -91,6 +91,7 @@ from rust_pathtracer_tpu_torch.render import (
     trace_pixel_lanes,
     uses_cascade,
 )
+from rust_pathtracer_tpu_torch.utils.metrics import span
 
 
 # a rank sums the samples of at most this many chunks at once (a chunk's
@@ -145,8 +146,9 @@ def _reduce_stats(stats, group):
                       occ.reshape(-1)])
     dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
     dist.all_reduce(peak, op=dist.ReduceOp.MAX, group=group)
-    return (total[:n], [int(b) for b in peak[:n].tolist()], total[n:].view(n, -1),
-            peak[n:].view(n, -1))
+    with span("rpt.sync"):
+        bounces = [int(b) for b in peak[:n].tolist()]
+    return total[:n], bounces, total[n:].view(n, -1), peak[n:].view(n, -1)
 
 
 class ShardedChunkPlan:
@@ -318,50 +320,56 @@ def render_radiance_sharded(scene, cam: Camera, settings: RenderSettings, key,
     rank), renders the other chunks cascaded, and on overflow derives the
     schedule again at double the margin, three attempts, then renders
     them on the plain path."""
-    auto = settings.cascade_schedule == "auto" and uses_cascade(settings)
-    if not auto:
-        plan = ShardedChunkPlan(scene, cam, settings, key, mesh, background)
-        totals = _run_chunks(plan, 0)
-        if plan.cascade_stages and float(totals[3][-1]) > 0.0:
-            raise CascadeOverflowError(
-                f"sharded static cascade schedule {settings.cascade_schedule!r} "
-                f"dropped {float(totals[3][-1]):.0f} live lanes across ranks "
-                "(occupancy[-1] > 0): the image is biased.  Widen the schedule or "
-                "use cascade_schedule='auto'.")
-        return plan.finalize(*totals)
+    with span("rpt.frame"):
+        auto = settings.cascade_schedule == "auto" and uses_cascade(settings)
+        if not auto:
+            plan = ShardedChunkPlan(scene, cam, settings, key, mesh, background)
+            totals = _run_chunks(plan, 0)
+            if plan.cascade_stages:
+                with span("rpt.sync"):
+                    dropped = float(totals[3][-1])
+                if dropped > 0.0:
+                    raise CascadeOverflowError(
+                        f"sharded static cascade schedule {settings.cascade_schedule!r} "
+                        f"dropped {dropped:.0f} live lanes across ranks "
+                        "(occupancy[-1] > 0): the image is biased.  Widen the schedule "
+                        "or use cascade_schedule='auto'.")
+            return plan.finalize(*totals)
 
-    # auto: chunk 0 on the plain path is the calibration run
-    plain = dataclasses.replace(settings, cascade=False, cascade_schedule=None)
-    plan0 = ShardedChunkPlan(scene, cam, plain, key, mesh, background)
-    a0, s0, b0, o0, om0 = plan0.run_chunk(0)
-    first = (a0, s0, b0, o0)
-    if plan0.n_chunks == 1:
-        return plan0.finalize(*first)
-    om0_host = om0.cpu().numpy()
-    margin = AUTO_MARGIN
-    for _ in range(3):
-        sched = _derive_cascade_schedule(om0_host, plan0.lanes_per_shard,
-                                         settings.max_bounces, margin=margin)
-        sched = _maybe_prepend_reorder(sched, plan0.scene)
-        if sched is None:
-            break  # no boundary pays: the plain path for the rest
-        plan1 = ShardedChunkPlan(
-            scene, cam, dataclasses.replace(settings, cascade=True, cascade_schedule=sched),
-            key, mesh, background)
-        if not plan1.cascade_stages:
-            break
-        totals = _run_chunks(plan1, 1, first)
-        # the cascaded chunks' guard slot only: chunk 0 ran the plain path,
-        # whose occupancy[-1] is a real alive count at deep bounces
-        dropped = float(totals[3][-1] - o0[-1])
-        if dropped == 0.0:
-            return plan1.finalize(*totals)
-        warnings.warn(
-            f"sharded auto cascade schedule {sched!r} dropped {dropped:.0f} live "
-            f"lanes: deriving again at margin {margin * 2:g} and rendering again",
-            stacklevel=2)
-        margin *= 2.0
-    return plan0.finalize(*_run_chunks(plan0, 1, first))
+        # auto: chunk 0 on the plain path is the calibration run
+        plain = dataclasses.replace(settings, cascade=False, cascade_schedule=None)
+        plan0 = ShardedChunkPlan(scene, cam, plain, key, mesh, background)
+        a0, s0, b0, o0, om0 = plan0.run_chunk(0)
+        first = (a0, s0, b0, o0)
+        if plan0.n_chunks == 1:
+            return plan0.finalize(*first)
+        with span("rpt.sync"):
+            om0_host = om0.cpu().numpy()
+        margin = AUTO_MARGIN
+        for _ in range(3):
+            sched = _derive_cascade_schedule(om0_host, plan0.lanes_per_shard,
+                                             settings.max_bounces, margin=margin)
+            sched = _maybe_prepend_reorder(sched, plan0.scene)
+            if sched is None:
+                break  # no boundary pays: the plain path for the rest
+            plan1 = ShardedChunkPlan(
+                scene, cam, dataclasses.replace(settings, cascade=True, cascade_schedule=sched),
+                key, mesh, background)
+            if not plan1.cascade_stages:
+                break
+            totals = _run_chunks(plan1, 1, first)
+            # the cascaded chunks' guard slot only: chunk 0 ran the plain path,
+            # whose occupancy[-1] is a real alive count at deep bounces
+            with span("rpt.sync"):
+                dropped = float(totals[3][-1] - o0[-1])
+            if dropped == 0.0:
+                return plan1.finalize(*totals)
+            warnings.warn(
+                f"sharded auto cascade schedule {sched!r} dropped {dropped:.0f} live "
+                f"lanes: deriving again at margin {margin * 2:g} and rendering again",
+                stacklevel=2)
+            margin *= 2.0
+        return plan0.finalize(*_run_chunks(plan0, 1, first))
 
 
 def reduce_replicated_grads(params, mesh: Optional[Mesh] = None):

@@ -73,6 +73,7 @@ from rust_pathtracer_tpu_torch.integrator import (
 from rust_pathtracer_tpu_torch.ops.fused_bounce import _lane_keys
 from rust_pathtracer_tpu_torch.ops.lanes import camera_lane_draws
 from rust_pathtracer_tpu_torch.ops.projected import cluster_entry_key, passset_perm
+from rust_pathtracer_tpu_torch.utils.metrics import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,18 +202,19 @@ def trace_pixel_lanes(scene, cam: Camera, base_key, pix, sample_offset: int,
                       diff_cascade: Optional[str] = None):
     """Trace len(pix)*spp_chunk lanes for the given pixel ids.
     Returns (sum_radiance (len(pix), 3), stats)."""
-    npix = pix.shape[0]
-    lkeys, o, d, in_range = _make_lanes(
-        cam, base_key, pix, sample_offset, width=width, height=height,
-        spp_chunk=spp_chunk, spp_total=spp_total,
-    )
-    rad, stats = trace(scene, o, d, lkeys, background,
-                       max_bounces=max_bounces, russian_roulette_start=rr_start,
-                       differentiable=differentiable, remat=remat, diff_t=diff_t,
-                       rng_scheme=rng_scheme, reorder=reorder, diff_cascade=diff_cascade)
-    # mask samples beyond spp_total (padded final chunk)
-    rad = rad * in_range.to(torch.float32)[:, None]
-    return rad.reshape(npix, spp_chunk, 3).sum(dim=1), stats
+    with span("rpt.chunk", sample_offset):
+        npix = pix.shape[0]
+        lkeys, o, d, in_range = _make_lanes(
+            cam, base_key, pix, sample_offset, width=width, height=height,
+            spp_chunk=spp_chunk, spp_total=spp_total,
+        )
+        rad, stats = trace(scene, o, d, lkeys, background,
+                           max_bounces=max_bounces, russian_roulette_start=rr_start,
+                           differentiable=differentiable, remat=remat, diff_t=diff_t,
+                           rng_scheme=rng_scheme, reorder=reorder, diff_cascade=diff_cascade)
+        # mask samples beyond spp_total (padded final chunk)
+        rad = rad * in_range.to(torch.float32)[:, None]
+        return rad.reshape(npix, spp_chunk, 3).sum(dim=1), stats
 
 
 def _render_chunk(scene, cam: Camera, base_key, sample_offset: int,
@@ -387,7 +389,8 @@ def derive_cascade_schedule_multi(scene, cams, settings, key, background=None,
             height=settings.height, spp_chunk=1, spp_total=1,
             max_bounces=settings.max_bounces, rr_start=settings.russian_roulette_start,
             rng_scheme=settings.rng_scheme, reorder=settings.reorder)
-        o = stats.occupancy.cpu().numpy()
+        with span("rpt.sync"):
+            o = stats.occupancy.cpu().numpy()
         occ = o if occ is None else np.maximum(occ, o)
     n_lanes = npix * settings.resolve_chunk()
     sched = _derive_cascade_schedule(occ * (n_lanes / float(pix.shape[0])), n_lanes,
@@ -431,57 +434,59 @@ def _render_chunk_cascaded(scene, cam: Camera, base_key, sample_offset: int,
 
     Padded lanes of a final chunk (sample >= spp_total) start dead, as
     in the JAX package, so they add no segments there."""
-    if pix is None:
-        pix = torch.arange(width * height, dtype=torch.int64, device=scene.device)
-    R = pix.shape[0] * spp_chunk
-    stages = _cascade_static_schedule(max_bounces, R, schedule)
-    static = bool(stages)
-    if not static:
-        stages = [(CASCADE_B1, None)] if 0 < CASCADE_B1 < max_bounces else []
-    lkeys, o, d, alive = _make_lanes(cam, base_key, pix, sample_offset, width=width,
-                                     height=height, spp_chunk=spp_chunk,
-                                     spp_total=spp_total)
-    dev = o.device
-    thr = torch.ones((R, 3), dtype=torch.float32, device=dev)
-    rad = torch.zeros((R, 3), dtype=torch.float32, device=dev)
-    lane = torch.arange(R, dtype=torch.int64, device=dev)
-    banked = torch.zeros((R, 3), dtype=torch.float32, device=dev)
-    segments = torch.zeros((), dtype=torch.float32, device=dev)
-    occupancy = torch.zeros(MAX_BOUNCE_STATS, dtype=torch.float32, device=dev)
-    overflow = torch.zeros((), dtype=torch.int64, device=dev)
-    bounces = 0
-    b0 = 0
-    for b1, width_s in stages + [(max_bounces, None)]:
-        st, n = trace_resume(scene, o, d, thr, rad, alive, lkeys, background, b0, b1,
-                             rr_start, segments=segments, occupancy=occupancy,
-                             rng_scheme=rng_scheme)
-        bounces += n
-        segments, occupancy = st["segments"], st["occupancy"]
-        alive = st["alive"]
-        if b1 == max_bounces:
-            banked[lane] = st["rad"]
-            break
-        # bank the finished lanes at their caller index; a live lane's
-        # slot stays zero until it finishes (and stays zero if dropped)
-        banked[lane] = torch.where(alive[:, None], 0.0, st["rad"])
-        perm = _boundary_perm(scene, st, alive, static, reorder)
+    with span("rpt.chunk", sample_offset):
+        if pix is None:
+            pix = torch.arange(width * height, dtype=torch.int64, device=scene.device)
+        R = pix.shape[0] * spp_chunk
+        stages = _cascade_static_schedule(max_bounces, R, schedule)
+        static = bool(stages)
+        if not static:
+            stages = [(CASCADE_B1, None)] if 0 < CASCADE_B1 < max_bounces else []
+        lkeys, o, d, alive = _make_lanes(cam, base_key, pix, sample_offset, width=width,
+                                         height=height, spp_chunk=spp_chunk,
+                                         spp_total=spp_total)
+        dev = o.device
+        thr = torch.ones((R, 3), dtype=torch.float32, device=dev)
+        rad = torch.zeros((R, 3), dtype=torch.float32, device=dev)
+        lane = torch.arange(R, dtype=torch.int64, device=dev)
+        banked = torch.zeros((R, 3), dtype=torch.float32, device=dev)
+        segments = torch.zeros((), dtype=torch.float32, device=dev)
+        occupancy = torch.zeros(MAX_BOUNCE_STATS, dtype=torch.float32, device=dev)
+        overflow = torch.zeros((), dtype=torch.int64, device=dev)
+        bounces = 0
+        b0 = 0
+        for b1, width_s in stages + [(max_bounces, None)]:
+            st, n = trace_resume(scene, o, d, thr, rad, alive, lkeys, background, b0, b1,
+                                 rr_start, segments=segments, occupancy=occupancy,
+                                 rng_scheme=rng_scheme)
+            bounces += n
+            segments, occupancy = st["segments"], st["occupancy"]
+            alive = st["alive"]
+            if b1 == max_bounces:
+                banked[lane] = st["rad"]
+                break
+            # bank the finished lanes at their caller index; a live lane's
+            # slot stays zero until it finishes (and stays zero if dropped)
+            banked[lane] = torch.where(alive[:, None], 0.0, st["rad"])
+            perm = _boundary_perm(scene, st, alive, static, reorder)
+            if static:
+                overflow += torch.clamp(alive.sum() - width_s, min=0)
+            else:
+                with span("rpt.sync"):
+                    n_live, W = int(alive.sum()), alive.shape[0]  # host sync
+                width_s = W
+                for f in _CASCADE_SHRINKS:
+                    if W // f >= max(n_live, 128) and (W // f) * f == W:
+                        width_s = W // f
+                        break
+            keep = perm[:width_s]
+            o, d, thr, rad = st["o"][keep], st["d"][keep], st["thr"][keep], st["rad"][keep]
+            alive, lkeys, lane = alive[keep], lkeys[keep], lane[keep]
+            b0 = b1
         if static:
-            overflow += torch.clamp(alive.sum() - width_s, min=0)
-        else:
-            n_live, W = int(alive.sum()), alive.shape[0]  # host sync
-            width_s = W
-            for f in _CASCADE_SHRINKS:
-                if W // f >= max(n_live, 128) and (W // f) * f == W:
-                    width_s = W // f
-                    break
-        keep = perm[:width_s]
-        o, d, thr, rad = st["o"][keep], st["d"][keep], st["thr"][keep], st["rad"][keep]
-        alive, lkeys, lane = alive[keep], lkeys[keep], lane[keep]
-        b0 = b1
-    if static:
-        occupancy[-1] += overflow.to(torch.float32)
-    acc = banked.reshape(pix.shape[0], spp_chunk, 3).sum(dim=1)
-    return acc, TraceStats(segments=segments, bounces=bounces, occupancy=occupancy)
+            occupancy[-1] += overflow.to(torch.float32)
+        acc = banked.reshape(pix.shape[0], spp_chunk, 3).sum(dim=1)
+        return acc, TraceStats(segments=segments, bounces=bounces, occupancy=occupancy)
 
 
 def _render_frame(scene, cam, settings: RenderSettings, key, bg, spp: int,
@@ -548,44 +553,48 @@ def render_radiance(scene, cam: Camera, settings: RenderSettings, key,
     and, on overflow, derived again at double the margin and rendered
     again, three attempts in all, then the frame renders on the plain
     chunked path.  One occupancy read a frame."""
-    dev = resolve_device(device)
-    scene, cam = scene.to(dev), cam.to(dev)
-    key = torch.as_tensor(key, dtype=torch.int64, device=dev)
-    bg = torch.as_tensor(
-        settings.background if background is None else background,
-        dtype=torch.float32, device=dev,
-    )
-    spp, chunk = settings.samples_per_pixel, settings.resolve_chunk()
-    cascade = uses_cascade(settings)
-    auto = cascade and settings.cascade_schedule == "auto"
-    margin = AUTO_MARGIN
-    for _ in range(3 if auto else 1):
-        if auto:
-            sched = derive_cascade_schedule(scene, cam, settings, key, background,
-                                            margin=margin, device=dev)
-            use_cascade = sched is not None
-        else:
-            sched, use_cascade = settings.cascade_schedule, cascade
-        img, stats, used_static = _render_frame(scene, cam, settings, key, bg, spp,
-                                                chunk, cascade=use_cascade,
-                                                schedule=sched)
-        overflow = float(stats.occupancy[-1]) if used_static else 0.0
-        if overflow == 0.0:
-            return img, stats
-        if not auto:
-            raise CascadeOverflowError(
-                f"static cascade schedule {sched!r} dropped {overflow:.0f} live "
-                "lanes (occupancy[-1] > 0): the image is biased.  Widen the "
-                "schedule or use cascade_schedule='auto'.")
-        warnings.warn(
-            f"auto cascade schedule {sched!r} dropped {overflow:.0f} live lanes: "
-            f"deriving again at margin {margin * 2:g} and rendering again",
-            stacklevel=2)
-        margin *= 2.0
-    warnings.warn("auto cascade schedule still overflowed after widening: "
-                  "rendering the plain chunked path", stacklevel=2)
-    img, stats, _ = _render_frame(scene, cam, settings, key, bg, spp, chunk)
-    return img, stats
+    with span("rpt.frame"):
+        dev = resolve_device(device)
+        scene, cam = scene.to(dev), cam.to(dev)
+        key = torch.as_tensor(key, dtype=torch.int64, device=dev)
+        bg = torch.as_tensor(
+            settings.background if background is None else background,
+            dtype=torch.float32, device=dev,
+        )
+        spp, chunk = settings.samples_per_pixel, settings.resolve_chunk()
+        cascade = uses_cascade(settings)
+        auto = cascade and settings.cascade_schedule == "auto"
+        margin = AUTO_MARGIN
+        for _ in range(3 if auto else 1):
+            if auto:
+                sched = derive_cascade_schedule(scene, cam, settings, key, background,
+                                                margin=margin, device=dev)
+                use_cascade = sched is not None
+            else:
+                sched, use_cascade = settings.cascade_schedule, cascade
+            img, stats, used_static = _render_frame(scene, cam, settings, key, bg, spp,
+                                                    chunk, cascade=use_cascade,
+                                                    schedule=sched)
+            overflow = 0.0
+            if used_static:
+                with span("rpt.sync"):
+                    overflow = float(stats.occupancy[-1])
+            if overflow == 0.0:
+                return img, stats
+            if not auto:
+                raise CascadeOverflowError(
+                    f"static cascade schedule {sched!r} dropped {overflow:.0f} live "
+                    "lanes (occupancy[-1] > 0): the image is biased.  Widen the "
+                    "schedule or use cascade_schedule='auto'.")
+            warnings.warn(
+                f"auto cascade schedule {sched!r} dropped {overflow:.0f} live lanes: "
+                f"deriving again at margin {margin * 2:g} and rendering again",
+                stacklevel=2)
+            margin *= 2.0
+        warnings.warn("auto cascade schedule still overflowed after widening: "
+                      "rendering the plain chunked path", stacklevel=2)
+        img, stats, _ = _render_frame(scene, cam, settings, key, bg, spp, chunk)
+        return img, stats
 
 
 def render_image(scene, cam: Camera, settings: RenderSettings, key, *, device):

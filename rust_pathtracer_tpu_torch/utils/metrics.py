@@ -1,12 +1,17 @@
-"""Render metrics, stage timers, a frame progress bar and the profiler.
+"""Render metrics, stage timers, a frame progress bar, the profiler and
+the program's spans.
 
 Counterpart of ``rust_pathtracer_tpu/utils/metrics.py``; plain host
 code.  The CLI reports ray segments per second, the occupancy curve by
 bounce and wall-clock seconds by stage, and ``--profile-dir`` writes a
-``torch.profiler`` Chrome trace.  The JAX package's roofline model
-(``CHIP_PEAKS``, ``StageRoofline``, ``bounce_roofline``,
-``roofline_report``) is not ported: its peaks and its cost model are
-the TPU's; the kernels' bounds on the card live in ``chip_smoke.py``.
+``torch.profiler`` Chrome trace.  ``span`` names a stretch of the
+program's host work in such a trace (``rpt.frame``, ``rpt.chunk``,
+``rpt.bounce``, ``rpt.sync``, ``rpt.forward``, ``rpt.backward``,
+``rpt.stage.<name>``), and costs one flag read where no profiler runs.
+The JAX package's roofline model (``CHIP_PEAKS``, ``StageRoofline``,
+``bounce_roofline``, ``roofline_report``) is not ported: its peaks and
+its cost model are the TPU's; the kernels' bounds on the card live in
+``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -17,6 +22,23 @@ import sys
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
+
+import torch
+
+# the context ``span`` returns while no profiler runs: stateless, so one
+# instance serves every call and every nesting
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str, args=None):
+    """A ``torch.profiler.record_function`` range named ``name`` (every
+    name starts with ``rpt.``), ``args`` shown as its input, while a
+    profiler runs; else one shared no-op context, which allocates
+    nothing.  A range costs 10-30 us of host time even where no profiler
+    runs (torch 2.11-2.13), the flag read under 1 us."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name, None if args is None else str(args))
+    return _NO_SPAN
 
 
 @dataclass
@@ -63,7 +85,8 @@ class RenderMetrics:
 
 @dataclass
 class StageTimer:
-    """Named wall-clock stages (scene build, schedule probe, render, io)."""
+    """Named wall-clock stages (scene build, schedule probe, render, io),
+    each also a span ``rpt.stage.<name>`` in a profiler's trace."""
 
     stages: Dict[str, float] = field(default_factory=dict)
 
@@ -71,7 +94,8 @@ class StageTimer:
     def stage(self, name: str):
         t0 = time.perf_counter()
         try:
-            yield
+            with span("rpt.stage." + name):
+                yield
         finally:
             self.stages[name] = self.stages.get(name, 0.0) + time.perf_counter() - t0
 
@@ -89,7 +113,6 @@ def profiler_trace(log_dir: Optional[str], device, rank: Optional[int] = None):
     if not log_dir:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]

@@ -89,6 +89,7 @@ from rust_pathtracer_tpu_torch.ops.fused_bounce import (
 )
 from rust_pathtracer_tpu_torch.ops.projected import passset_perm
 from rust_pathtracer_tpu_torch.render import RenderSettings, camera_lanes, resolve_device
+from rust_pathtracer_tpu_torch.utils.metrics import span
 
 MODES = ("queue", "stripe")
 # bounces a window: a flush and refill after every second bounce
@@ -227,7 +228,9 @@ def _reorder_pool(fr: _Frame, pool: _Pool):
     lanes live (one sync), every per-lane tensor of the pool is permuted
     by ``passset_perm`` of the lanes' rays."""
     alive = pool.state[12] > 0.5
-    if int(alive.sum()) * REORDER_ALIVE_SHARE <= alive.shape[0]:
+    with span("rpt.sync"):
+        n_alive = int(alive.sum())
+    if n_alive * REORDER_ALIVE_SHARE <= alive.shape[0]:
         return
     o, d = pool.state[0:3].T, pool.state[3:6].T
     perm = passset_perm(fr.scene.proj, o, d, alive, T_MIN)
@@ -241,7 +244,8 @@ def _reorder_pool(fr: _Frame, pool: _Pool):
 def _depth_hist(depth):
     """Counts of finished lanes by (clamped) path length, f32."""
     d = depth.clamp(max=MAX_BOUNCE_STATS - 1).to(torch.int64)
-    return torch.bincount(d, minlength=MAX_BOUNCE_STATS).to(torch.float32)
+    with span("rpt.sync"):  # bincount reads the largest count on the host
+        return torch.bincount(d, minlength=MAX_BOUNCE_STATS).to(torch.float32)
 
 
 def _flush_refill(fr: _Frame, pool: _Pool, acc, hist, issued: int, total: int):
@@ -250,7 +254,8 @@ def _flush_refill(fr: _Frame, pool: _Pool, acc, hist, issued: int, total: int):
     ``hist``; each takes the next work id, in lane order, while the queue
     lasts.  Returns (hist, issued, lanes that took work)."""
     finished = (pool.state[12] <= 0.5) & (pool.work >= 0)
-    fin = torch.nonzero(finished).squeeze(1)  # ascending: each lane's queue slot
+    with span("rpt.sync"):
+        fin = torch.nonzero(finished).squeeze(1)  # ascending: each lane's queue slot
     hist = hist + _depth_hist(pool.depth[fin])
     acc.index_put_((pool.pixel[fin],), pool.state[9:12, fin].T, accumulate=True)
     n_take = min(fin.shape[0], total - issued)
@@ -267,11 +272,13 @@ def _advance_stripe(fr: _Frame, pool: _Pool, hist):
     finished lanes bank their radiance lane-locally and start the next
     sample of their stripe.  Returns (hist, lanes that took work)."""
     finished = (pool.state[12] <= 0.5) & (pool.work >= 0)
-    fin = torch.nonzero(finished).squeeze(1)
+    with span("rpt.sync"):
+        fin = torch.nonzero(finished).squeeze(1)
     hist = hist + _depth_hist(pool.depth[fin])
     pool.acc_lane[fin] = pool.acc_lane[fin] + pool.state[9:12, fin].T
     pool.work[fin] = -1
-    take = fin[pool.nxt[fin] < pool.send[fin]]
+    with span("rpt.sync"):
+        take = fin[pool.nxt[fin] < pool.send[fin]]
     if take.shape[0]:
         wid = pool.nxt[take].to(torch.int64)
         pool.nxt[take] += 1
@@ -322,56 +329,61 @@ def render_radiance_regen(scene, cam: Camera, settings: RenderSettings, key,
     if stripe:
         lanes = total // stripe_k  # one lane a stripe
 
-    dev = resolve_device(device)
-    scene, cam = scene.to(dev), cam.to(dev)
-    fused = fused_bounce_ok(scene)
-    if fused:
-        table = pack_prims_shaded(scene)
-    else:
-        table = scene.proj if scene.kinds_static is None else pack_prims(scene.prims)
-    fr = _Frame(scene=scene, table=table, fused=fused, cam=cam,
-                key=torch.as_tensor(key, dtype=torch.int64, device=dev),
-                bg=torch.as_tensor(settings.background, dtype=torch.float32, device=dev),
-                width=width, height=height, spp=spp,
-                max_bounces=settings.max_bounces,
-                rr_start=settings.russian_roulette_start, stripe=stripe,
-                rng_scheme=sampling.check_rng_scheme(settings.rng_scheme),
-                reorder=not fused and use_wavefront_reorder(scene, False,
-                                                            settings.reorder))
-
-    init = torch.arange(lanes, dtype=torch.int64, device=dev) * (stripe_k if stripe else 1)
-    pixel, keys, state = _spawn(fr, init)
-    pool = _Pool(state=state, keys=keys, depth=torch.zeros(lanes, dtype=torch.int32,
-                                                           device=dev),
-                 work=init.to(torch.int32), pixel=pixel)
-    if stripe:
-        pool.nxt = (init + 1).to(torch.int32)
-        pool.send = (init + stripe_k).to(torch.int32)
-        pool.acc_lane = torch.zeros((lanes, 3), dtype=torch.float32, device=dev)
-    acc = torch.zeros((fr.npix, 3), dtype=torch.float32, device=dev)
-    hist = torch.zeros(MAX_BOUNCE_STATS, dtype=torch.float32, device=dev)
-    segments = torch.zeros((), dtype=torch.float32, device=dev)
-    issued, iters = lanes, 0
-    while True:  # every lane is alive entering the first window
-        for _ in range(FLUSH_EVERY):
-            if fr.reorder and iters > 0:
-                _reorder_pool(fr, pool)
-            segments = segments + _bounce(fr, pool)
-            iters += 1
-        if stripe:
-            hist, n_take = _advance_stripe(fr, pool, hist)
+    with span("rpt.frame"):
+        dev = resolve_device(device)
+        scene, cam = scene.to(dev), cam.to(dev)
+        fused = fused_bounce_ok(scene)
+        if fused:
+            table = pack_prims_shaded(scene)
         else:
-            hist, issued, n_take = _flush_refill(fr, pool, acc, hist, issued, total)
-        # no lane is pending after a flush: the loop ends once none is alive
-        if n_take == 0 and not bool((pool.state[12] > 0.5).any()):
-            break
-    if stripe:
-        acc.index_put_((pool.pixel,), pool.acc_lane, accumulate=True)
+            table = scene.proj if scene.kinds_static is None else pack_prims(scene.prims)
+        fr = _Frame(scene=scene, table=table, fused=fused, cam=cam,
+                    key=torch.as_tensor(key, dtype=torch.int64, device=dev),
+                    bg=torch.as_tensor(settings.background, dtype=torch.float32, device=dev),
+                    width=width, height=height, spp=spp,
+                    max_bounces=settings.max_bounces,
+                    rr_start=settings.russian_roulette_start, stripe=stripe,
+                    rng_scheme=sampling.check_rng_scheme(settings.rng_scheme),
+                    reorder=not fused and use_wavefront_reorder(scene, False,
+                                                                settings.reorder))
 
-    img = (acc / torch.tensor(float(spp), dtype=torch.float32, device=dev)
-           ).reshape(height, width, 3)
-    # path lengths -> per-bounce occupancy: a path of length L traced a
-    # segment at bounces 0 .. L-1, so occupancy[b] = paths longer than b
-    suffix = torch.flip(torch.cumsum(torch.flip(hist, (0,)), 0), (0,))
-    occupancy = torch.cat([suffix[1:], torch.zeros(1, dtype=torch.float32, device=dev)])
-    return img, TraceStats(segments=segments, bounces=iters, occupancy=occupancy)
+        init = torch.arange(lanes, dtype=torch.int64, device=dev) * (stripe_k if stripe else 1)
+        pixel, keys, state = _spawn(fr, init)
+        pool = _Pool(state=state, keys=keys, depth=torch.zeros(lanes, dtype=torch.int32,
+                                                               device=dev),
+                     work=init.to(torch.int32), pixel=pixel)
+        if stripe:
+            pool.nxt = (init + 1).to(torch.int32)
+            pool.send = (init + stripe_k).to(torch.int32)
+            pool.acc_lane = torch.zeros((lanes, 3), dtype=torch.float32, device=dev)
+        acc = torch.zeros((fr.npix, 3), dtype=torch.float32, device=dev)
+        hist = torch.zeros(MAX_BOUNCE_STATS, dtype=torch.float32, device=dev)
+        segments = torch.zeros((), dtype=torch.float32, device=dev)
+        issued, iters = lanes, 0
+        while True:  # every lane is alive entering the first window
+            for _ in range(FLUSH_EVERY):
+                with span("rpt.bounce", iters):
+                    if fr.reorder and iters > 0:
+                        _reorder_pool(fr, pool)
+                    segments = segments + _bounce(fr, pool)
+                iters += 1
+            if stripe:
+                hist, n_take = _advance_stripe(fr, pool, hist)
+            else:
+                hist, issued, n_take = _flush_refill(fr, pool, acc, hist, issued, total)
+            # no lane is pending after a flush: the loop ends once none is alive
+            if n_take == 0:
+                with span("rpt.sync"):
+                    live = bool((pool.state[12] > 0.5).any())
+                if not live:
+                    break
+        if stripe:
+            acc.index_put_((pool.pixel,), pool.acc_lane, accumulate=True)
+
+        img = (acc / torch.tensor(float(spp), dtype=torch.float32, device=dev)
+               ).reshape(height, width, 3)
+        # path lengths -> per-bounce occupancy: a path of length L traced a
+        # segment at bounces 0 .. L-1, so occupancy[b] = paths longer than b
+        suffix = torch.flip(torch.cumsum(torch.flip(hist, (0,)), 0), (0,))
+        occupancy = torch.cat([suffix[1:], torch.zeros(1, dtype=torch.float32, device=dev)])
+        return img, TraceStats(segments=segments, bounces=iters, occupancy=occupancy)

@@ -647,6 +647,11 @@ def test_cli_profile_dir(tmp_path):
                      "--output-dir", str(tmp_path / "o"), "--quiet"]) == 0
     doc = json.load(open(os.path.join(trace, "trace.json")))
     assert len(doc["traceEvents"]) > 0
+    # the trace opens before the scene build: set-up and the frame, by the
+    # program's own spans
+    names = {e.get("name") for e in doc["traceEvents"]}
+    assert {"rpt.stage.scene build", "rpt.stage.render", "rpt.stage.io", "rpt.frame",
+            "rpt.chunk", "rpt.bounce", "rpt.sync"} <= names
 
 
 def test_cli_frames_match_jax_cli(tmp_path):
