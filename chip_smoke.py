@@ -311,11 +311,22 @@ differentiable cascade (phase 45).  It checks them:
     LightTest regen's spawns (``capture_lane_draws``: the first fill and
     two refills); each timed beside the plain twin (events, device
     time), with its bound; the kernel's launches on each path (phases 5,
-    9, 21, 22 and this phase's regen).
+    9, 21, 22 and this phase's regen);
+47. the shade kernel (``ops/shade.py``, ``ops/csrc/shade.cu``: the
+    big-scene forward bounce after the search, in one launch) against its
+    plain twin (``integrator.shade_bounce_plain``, the tensor ops) on the
+    same CUDA tensors, bit for bit in (o, d, thr, rad, alive): the
+    arguments a SphereField frame of 854x480 at 16 spp (one chunk of
+    6,558,720 lanes, the benchmark's) hands it at its first and second
+    bounce (``shade_args``); each timed beside the plain twin (events,
+    device time), with its byte bound.
 
 Phases 11-13 and 15-17 also check that the generic routes launch the
 draw kernel once a bounce; phases 5, 9, 21 and 22 that the lanes
-kernel made their lanes.  The big-scene frames of phases 14-44 take the
+kernel made their lanes; phases 15, 16, 22, 25 and 26 that the
+big-scene forward bounces launch the shade kernel once a bounce (25 and
+26 also hold it bit for bit on the cascade's pools), phase 17 that the
+differentiable step never does.  The big-scene frames of phases 14-44 take the
 default routing, which reorders SphereField's and ModelTest's lanes
 between bounces.
 
@@ -376,7 +387,7 @@ PLAIN_REPS = 3
 CORNELL_CAM = ((278.0, 278.0, -800.0), (278.0, 278.0, 0.0), (0.0, 1.0, 0.0),
                40.0, 1.0, 0.0, 10.0)
 KERNELS = ("fused_bounce", "fused_bounce_bwd", "closest_hit", "projected", "draws",
-           "passset", "lanes")
+           "passset", "lanes", "shade")
 LEAF_NAMES = ("tex_color", "tex_images", "background", "lookfrom", "lookat", "up",
               "vfov_deg", "aspect", "aperture", "focus_dist")
 
@@ -477,7 +488,7 @@ def phase_device(torch):
 
 def phase_build():
     log("== phase 2: build K1, K2, K3/K4, K5/K6/K7, the draw kernel, the pass-set key "
-        "kernel, the lanes kernel and the native BVH builder")
+        "kernel, the lanes kernel, the shade kernel and the native BVH builder")
     from concurrent.futures import ThreadPoolExecutor
 
     from rust_pathtracer_tpu_torch.ops import _build
@@ -1640,6 +1651,7 @@ def path_lanes(torch, device, scene, sd, cfg, bg, want):
     holds, ``kernel`` the one the search launched there ("K5", "K6" or
     "K7"), as the path gives them (dead lanes parked): (b, kernel, o, d).
     The frame stops there."""
+    from rust_pathtracer_tpu_torch import integrator
     from rust_pathtracer_tpu_torch.ops import projected as P
     from rust_pathtracer_tpu_torch.render import RenderSettings, render_radiance
     from rust_pathtracer_tpu_torch.sampling import prng_key
@@ -1658,14 +1670,15 @@ def path_lanes(torch, device, scene, sd, cfg, bg, want):
         return out
 
     settings = RenderSettings(cfg["width"], cfg["height"], cfg["spp"], cfg["bounces"], bg)
-    P.closest_hit_routed = capture
+    # the forward route calls integrator's name for it, the others projected's
+    P.closest_hit_routed = integrator.closest_hit_routed = capture
     try:
         render_radiance(scene, sd.camera_at(0.0, device=device), settings,
                         prng_key(cfg["seed"], device=device), device=device)
     except _Captured as c:
         return c.args
     finally:
-        P.closest_hit_routed = routed
+        P.closest_hit_routed = integrator.closest_hit_routed = routed
     fail(f"no bounce of the frame gives what is wanted (kernels by bounce: {seen})")
 
 
@@ -1882,9 +1895,9 @@ def phase_spherefield_forward(torch, device, card, scenes, reps):
         f"mean {img_np.mean():.6f}")
     check(np.isfinite(img_np).all() and (img_np >= 0).all(),
           "the SphereField frame has non-finite or negative pixels")
-    check(counts["K6"] == counts["draws"] == stats.bounces > 0,
-          f"K6 and the draw kernel launched {counts['K6']} and {counts['draws']} times "
-          f"in {stats.bounces} bounces")
+    check(counts["K6"] == counts["draws"] == counts["shade"] == stats.bounces > 0,
+          f"K6, the draw kernel and the shade kernel launched {counts['K6']}, "
+          f"{counts['draws']} and {counts['shade']} times in {stats.bounces} bounces")
     check(all(counts[k] == 0 for k in ("K1", "K1-res", "K2", "K3", "K4", "K5", "K7")),
           "the SphereField forward left the resident route")
     img2, _ = render_radiance(scene, cam, settings, key, device=device)
@@ -1923,7 +1936,7 @@ def phase_spherefield_forward(torch, device, card, scenes, reps):
     for name, out in (("K6", k6), ("K5", k5)):
         out["later"] = [dict(time_sweep(torch, device, card, f"{name} {label}", fns[name],
                                         scene.proj, lanes, reps), lanes=label)]
-    return dict(k6, launches=counts["K6"]), k5
+    return dict(k6, launches=counts["K6"]), k5, counts["shade"]
 
 
 def phase_modeltest_forward(torch, device, card, scenes, reps):
@@ -1967,9 +1980,9 @@ def phase_modeltest_forward(torch, device, card, scenes, reps):
             check(counts["K7"] + counts["K5"] == stats.bounces and counts["K6"] == 0,
                   f"{name}: K7 {counts['K7']} + K5 fallback {counts['K5']} "
                   f"launches in {stats.bounces} bounces")
-        check(counts["draws"] == stats.bounces,
-              f"{name}: the draw kernel launched {counts['draws']} times in "
-              f"{stats.bounces} bounces")
+        check(counts["draws"] == counts["shade"] == stats.bounces,
+              f"{name}: the draw kernel and the shade kernel launched {counts['draws']} "
+              f"and {counts['shade']} times in {stats.bounces} bounces")
         write_png(os.path.join(OUT_DIR, f"{name.replace(' ', '_')}_{W}x{H}.png"),
                   to_rgb8(img_np))
         out[name] = counts
@@ -2062,7 +2075,8 @@ def phase_spherefield_step(torch, device, card):
     check(counts["K5"] == counts["draws"] == nb,
           f"K5 and the draw kernel launched {counts['K5']} and {counts['draws']} times, "
           f"want {nb}")
-    check(all(counts[k] == 0 for k in ("K1", "K1-res", "K2", "K3", "K4", "K6", "K7")),
+    check(all(counts[k] == 0 for k in ("K1", "K1-res", "K2", "K3", "K4", "K6", "K7",
+                                       "shade")),
           "the SphereField step left its route")
     check(all(np.isfinite(g).all() for g in grads), "non-finite gradients")
     check(np.abs(grads[0]).sum() > 0, "tex_color's gradient is zero")
@@ -2498,9 +2512,9 @@ def phase_regen_spherefield(torch, device, card, scenes):
         f"image mean {img_np.mean():.6f}")
     check(np.isfinite(img_np).all() and (img_np >= 0).all(),
           "the SphereField regen image has non-finite or negative pixels")
-    check(counts["K6"] == counts["draws"] == stats.bounces > 0,
-          f"K6 {counts['K6']} and draw kernel {counts['draws']} launches in "
-          f"{stats.bounces} bounce iterations")
+    check(counts["K6"] == counts["draws"] == counts["shade"] == stats.bounces > 0,
+          f"K6 {counts['K6']}, draw kernel {counts['draws']} and shade kernel "
+          f"{counts['shade']} launches in {stats.bounces} bounce iterations")
     check(counts["lanes"] > 0, "the SphereField regen spawned without the lanes kernel")
     check(all(counts[k] == 0 for k in ("K1", "K1-res", "K2", "K3", "K4", "K5", "K7")),
           "the SphereField regen left the resident route")
@@ -2646,7 +2660,7 @@ CASCADE_SF_SCHEDULE = "3:2,5:4,7:16"
 CASCADE_MT_SCHEDULE = "1:1,2:4,3:8,5:32"
 CASCADE_TIGHT = "1:16"
 CASCADE_KERNEL_FNS = ("fused_bounce_keyed", "bounce_draws", "closest_hit_record",
-                      "closest_hit_record_projected")
+                      "closest_hit_routed", "shade_bounce")
 
 
 def held_bounces(schedule):
@@ -2659,14 +2673,25 @@ def held_bounces(schedule):
     return sorted({bs[len(bs) // 2], bs[-1]})
 
 
+def _clones(torch, x):
+    """``x`` with every tensor in it (in tuples, lists and dicts) cloned."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, (tuple, list)):
+        return type(x)(_clones(torch, v) for v in x)
+    if isinstance(x, dict):
+        return {k: _clones(torch, v) for k, v in x.items()}
+    return x
+
+
 @contextlib.contextmanager
 def capture_bounces(torch, at):
     """Wraps the integrator's kernel entry points (K1's wrapper, the draw
-    kernel's, K3's and the projected search's) so that the first call at
-    each bounce in ``at`` keeps clones of its tensor arguments: yields
-    {(name, bounce): (args, kwargs)}, filled as a render runs.  The
-    generic loop draws before it searches, so a search takes the bounce
-    of the draw before it."""
+    kernel's, K3's, the projected search's and the shade kernel's) so
+    that the first call at each bounce in ``at`` keeps clones of its
+    tensor arguments: yields {(name, bounce): (args, kwargs)}, filled as a
+    render runs.  The generic loop draws before it searches and shades,
+    so those take the bounce of the draw before them."""
     from rust_pathtracer_tpu_torch import integrator
 
     saved = {n: getattr(integrator, n) for n in CASCADE_KERNEL_FNS}
@@ -2679,8 +2704,7 @@ def capture_bounces(torch, at):
             elif name == "bounce_draws":
                 bounce[0] = a[1]
             if bounce[0] in at and (name, bounce[0]) not in calls:
-                calls[(name, bounce[0])] = (tuple(
-                    x.clone() if isinstance(x, torch.Tensor) else x for x in a), dict(k))
+                calls[(name, bounce[0])] = (_clones(torch, a), dict(k))
             return saved[name](*a, **k)
         return run
 
@@ -2696,12 +2720,13 @@ def capture_bounces(torch, at):
 def hold_pools(torch, device, label, calls, want):
     """Each kernel the cascade launched at the captured bounces against its
     plain version on the same compacted pool, bit for bit (K3's sphere
-    u, v: ``compare_hits``' tolerance): K1, the draw kernel, K3, and the
+    u, v: ``compare_hits``' tolerance): K1, the draw kernel, K3, the
     projected route's sweep (K6; K7 and K5, its fallback, on the pair
-    route).  ``want``: the kernels that must have been held.  Returns
-    (max abs error, {kernel: pools held})."""
+    route) and the shade kernel.  ``want``: the kernels that must have
+    been held.  Returns (max abs error, {kernel: pools held})."""
+    from rust_pathtracer_tpu_torch.integrator import shade_bounce_plain
     from rust_pathtracer_tpu_torch.ops import closest_hit as ch
-    from rust_pathtracer_tpu_torch.ops import draws
+    from rust_pathtracer_tpu_torch.ops import draws, shade
     from rust_pathtracer_tpu_torch.ops.projected import default_route
 
     err, held = 0.0, {}
@@ -2722,11 +2747,15 @@ def hold_pools(torch, device, label, calls, want):
                                         ch.closest_hit_record_plain(*args, **kw),
                                         np.array([k for k, _ in kw["kinds"]])))
             bad, kernels, lanes = np.zeros(1, bool), ["K3"], args[1].shape[0]
-        else:
-            scene, o, d = args[0], args[1], args[2]
+        elif name == "shade_bounce":
+            bad, e = _shade_mismatches(torch, device, shade.shade_bounce(*args, **kw),
+                                       shade_bounce_plain(*args, **kw))
+            err, kernels, lanes = max(err, e), ["shade"], args[2][0].shape[0]
+        else:  # the projected search, on (scene, o, d) or (tables, o, d)
+            tables, o, d = getattr(args[0], "proj", args[0]), args[1], args[2]
             kernels = {"resident": ["K6"], "pairs": ["K7", "K5"],
-                       "dense": ["K5"]}[default_route(scene.proj)]
-            fns = _sweep_fns(torch, scene.proj, o, d)
+                       "dense": ["K5"]}[default_route(tables)]
+            fns = _sweep_fns(torch, tables, o, d)
             bad, lanes = np.zeros(o.shape[0], bool), o.shape[0]
             for k in kernels:
                 got, ref = fns[k][0](), fns[k][1]()
@@ -2808,6 +2837,10 @@ def cascade_runs(torch, device, card, name, scene, cam, settings, key, modes, ke
             if kernel != "K1":
                 check(counts["draws"] == counts[kernel],
                       f"{name} {label}: the draw kernel launched {counts['draws']} times")
+            if kernel in ("K6", "K7"):  # the big scenes shade in the shade kernel
+                check(counts["shade"] == counts["draws"],
+                      f"{name} {label}: the shade kernel launched {counts['shade']} "
+                      f"times, the draw kernel {counts['draws']}")
         out[label] = (wall, img, stats)
     return out
 
@@ -2860,7 +2893,7 @@ def phase_cascade_spherefield(torch, device, card, scenes):
                                       key, device=device)
         check(torch.equal(img2, out[label][1]), f"SphereField {label} twice differs")
         err = max(err, hold_pools(torch, device, f"SphereField {label}", calls,
-                                  ("K6", "draws"))[0])
+                                  ("K6", "draws", "shade"))[0])
     c = out["chunked"][0]
     log("SphereField walls (s): " + ", ".join(f"{k} {v[0]:.4f} ({c / v[0]:.3f}x chunked)"
                                                for k, v in out.items()))
@@ -2879,8 +2912,8 @@ def phase_cascade_modeltest(torch, device, card, scenes):
     settings = RenderSettings(W, H, spp, nb, (1.0, 1.0, 1.0))
     modes = {"explicit": dict(cascade_schedule=CASCADE_MT_SCHEDULE)}
     err = 0.0
-    for name, kernel, want in (("ModelTest", "K6", ("K6", "draws")),
-                               ("ModelTest 20k", "K7", ("K7", "K5", "draws"))):
+    for name, kernel, want in (("ModelTest", "K6", ("K6", "draws", "shade")),
+                               ("ModelTest 20k", "K7", ("K7", "K5", "draws", "shade"))):
         sd, scene = scenes[name]
         cam = sd.camera_at(0.0, device=device)
         key = prng_key(cfg["seed"], device=device)
@@ -2895,8 +2928,9 @@ def phase_cascade_modeltest(torch, device, card, scenes):
             check_cascade_vs_chunked(torch, f"{name} explicit", img, stats,
                                      *out["chunked"][1:])
             check(counts["K7"] >= 1 and counts["K7"] + counts["K5"] == stats.bounces
-                  == counts["draws"], f"{name} explicit: K7 {counts['K7']} + K5 "
-                                      f"{counts['K5']} in {stats.bounces} bounces")
+                  == counts["draws"] == counts["shade"],
+                  f"{name} explicit: K7 {counts['K7']} + K5 {counts['K5']}, shade "
+                  f"{counts['shade']} in {stats.bounces} bounces")
             wall, walls = median_wall(torch, device, explicit)
             seg = float(stats.segments)
             log(f"{name} explicit on {card}: wall {wall:.4f} s (median of "
@@ -5018,6 +5052,125 @@ def phase_lanes(torch, device, card, reps, paths):
     return out, paths
 
 
+# a chunk of the benchmark's spherefield-render: 854x480 at 16 spp,
+# 6,558,720 lanes, 20 bounces, no roulette
+SF_SHADE = dict(width=854, height=480, spp=16, bounces=20, seed=0)
+SHADE_BOUNCES = (0, 1)  # the frame's first and second bounce
+# f32 operations of a lane in the shade kernel: the upper end of
+# csrc/shade.cu's count (100-200), under the bytes' time either way
+SHADE_LANE_OPS = 200
+
+
+def shade_args(torch, device, scene, sd, cfg, bg, at):
+    """Clones of the arguments that the forward frame of ``cfg`` hands the
+    shade kernel at each bounce in ``at`` (one call a bounce, in order):
+    {bounce: args}.  The frame stops after the last."""
+    from rust_pathtracer_tpu_torch import integrator
+    from rust_pathtracer_tpu_torch.render import RenderSettings, render_radiance
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+
+    kernel, calls, seen = integrator.shade_bounce, {}, [0]
+
+    def capture(*a):
+        b = seen[0]
+        seen[0] += 1
+        if b in at:
+            calls[b] = _clones(torch, a)
+        if b >= max(at):
+            raise _Captured(b)
+        return kernel(*a)
+
+    settings = RenderSettings(cfg["width"], cfg["height"], cfg["spp"], cfg["bounces"], bg,
+                              spp_chunk=cfg["spp"])
+    integrator.shade_bounce = capture
+    try:
+        render_radiance(scene, sd.camera_at(0.0, device=device), settings,
+                        prng_key(cfg["seed"], device=device), device=device)
+    except _Captured:
+        pass
+    finally:
+        integrator.shade_bounce = kernel
+    check(sorted(calls) == sorted(at), f"the shade kernel's calls {sorted(calls)} were "
+                                       f"captured, want {sorted(at)}")
+    return calls
+
+
+def _shade_mismatches(torch, device, got, want):
+    """(bool a lane: an output of (o, d, thr, rad, alive) differs in its
+    bits, max abs difference where one does) of the shade kernel against
+    its plain twin."""
+    _sync(torch, device)
+    bad = torch.zeros(got[0].shape[0], dtype=torch.bool, device=got[0].device)
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.is_floating_point():
+            diff = (g.view(torch.int32) != w.view(torch.int32)).any(dim=1)
+            gap = (g.double() - w.double()).abs()[diff]
+            err = max(err, float(gap.max()) if gap.numel() else 0.0)
+        else:
+            diff = g != w
+        bad |= diff
+    return bad.cpu().numpy(), err
+
+
+def shade_bytes(args):
+    """The bytes one shade launch moves at least: a lane's t and column,
+    state, alive byte and uniforms in (and roulette's uniform and mask
+    byte where given), its new state and alive byte out; the tables'
+    payload once."""
+    scene, search, state, draws_b, background, rr_u, rr_sel = args
+    per_lane = (4 + 4 + 4 * 12 + 1 + 4 * 6 + (0 if rr_u is None else 4)
+                + (0 if rr_sel is None else 1) + 4 * 12 + 1)
+    return state[0].shape[0] * per_lane + 4 * scene.proj.payload.numel()
+
+
+def phase_shade(torch, device, card, scenes, reps):
+    cfg = SF_SHADE
+    W, H, spp, nb = cfg["width"], cfg["height"], cfg["spp"], cfg["bounces"]
+    log(f"== phase 47: the shade kernel (ops/shade.py, ops/csrc/shade.cu) vs its plain "
+        f"twin (integrator.shade_bounce_plain) on the {W * H * spp} lanes of a SphereField "
+        f"frame's first and second bounce ({W}x{H}, {spp} spp, one chunk, {nb} bounces), "
+        f"bit for bit")
+    from rust_pathtracer_tpu_torch.integrator import shade_bounce_plain
+    from rust_pathtracer_tpu_torch.ops import shade
+
+    sd, scene = scenes["SphereField"]
+    calls = shade_args(torch, device, scene, sd, cfg, SF_BG, SHADE_BOUNCES)
+    out = {}
+    for b, args in sorted(calls.items()):
+        def kernel(a=args):
+            return shade.shade_bounce(*a)
+
+        def plain(a=args):
+            return shade_bounce_plain(*a)
+
+        bad, err = _shade_mismatches(torch, device, kernel(), plain())
+        search, state = args[1], args[2]
+        R = state[0].shape[0]
+        alive = int(state[4].sum())
+        hits = int(((search[1] >= 0) & state[4]).sum())
+        label = f"bounce {b + 1}"
+        log(f"SphereField {label}: {R} lanes, {alive} alive, {hits} hits; lanes differing "
+            f"from the plain twin {int(bad.sum())} (o, d, thr, rad, alive), max abs "
+            f"difference {err:.3e}")
+        check(not bad.any(), f"the shade kernel differs from its plain twin on SphereField "
+                             f"{label}")
+        res = time_pair(torch, device, kernel, plain, reps, PLAIN_REPS)
+        k_ms, p_ms = statistics.mean(res["kernel"]), statistics.mean(res["plain"])
+        dev_ms, held = _device_ms(torch, kernel, reps, ("shade_bounce_kernel",))
+        n_bytes = shade_bytes(args)
+        b_ms, b_by = bound(n_bytes, R * SHADE_LANE_OPS)
+        log(f"shade kernel, SphereField {label}, {R} lanes on {card}: {k_ms:.4f} ms per "
+            f"launch (blocks {[round(x, 4) for x in res['kernel']]}; events around the "
+            f"wrapper), {dev_ms:.4f} ms device time ({held} of {reps} launches); plain "
+            f"twin on the same CUDA tensors {p_ms:.4f} ms "
+            f"({[round(x, 4) for x in res['plain']]}); bound {b_ms:.4f} ms ({b_by}: "
+            f"{n_bytes / R:.1f} B a lane)")
+        out[label] = dict(lanes=R, max_abs_err=err, ms=k_ms, device_ms=(dev_ms, held, reps),
+                          plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # shared helpers: launch counts, batches, splits, bounds
 # ---------------------------------------------------------------------------
@@ -5029,12 +5182,14 @@ def reset_counts():
     from rust_pathtracer_tpu_torch.ops import draws
     from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
     from rust_pathtracer_tpu_torch.ops import fused_bounce_bwd as fbb
-    from rust_pathtracer_tpu_torch.ops import lanes, passset, projected, resident, worklist
+    from rust_pathtracer_tpu_torch.ops import (
+        lanes, passset, projected, resident, shade, worklist,
+    )
 
     fb.launches = fb.residual_launches = fbb.launches = draws.launches = 0
     ch.hit_launches = ch.record_launches = 0
     projected.launches = resident.launches = 0
-    worklist.launches = passset.launches = lanes.launches = 0
+    worklist.launches = passset.launches = lanes.launches = shade.launches = 0
 
 
 def read_counts():
@@ -5044,12 +5199,15 @@ def read_counts():
     from rust_pathtracer_tpu_torch.ops import draws
     from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
     from rust_pathtracer_tpu_torch.ops import fused_bounce_bwd as fbb
-    from rust_pathtracer_tpu_torch.ops import lanes, passset, projected, resident, worklist
+    from rust_pathtracer_tpu_torch.ops import (
+        lanes, passset, projected, resident, shade, worklist,
+    )
 
     return {"K1": fb.launches - fb.residual_launches, "K1-res": fb.residual_launches,
             "K2": fbb.launches, "K3": ch.record_launches, "K4": ch.hit_launches,
             "K5": projected.launches, "K6": resident.launches, "K7": worklist.launches,
-            "draws": draws.launches, "keys": passset.launches, "lanes": lanes.launches}
+            "draws": draws.launches, "keys": passset.launches, "lanes": lanes.launches,
+            "shade": shade.launches}
 
 
 def _grad_sums(grads):
@@ -5493,7 +5651,7 @@ def main() -> int:
     scenes = big_scenes(device)
     ph14 = phase_projected_vs_plain(torch, device, card, scenes, reps=20)
     took(14)
-    k6, k5 = phase_spherefield_forward(torch, device, card, scenes, reps=20)
+    k6, k5, shade_launches = phase_spherefield_forward(torch, device, card, scenes, reps=20)
     took(15)
     k7, k5_fallback, k6_later = phase_modeltest_forward(torch, device, card, scenes,
                                                         reps=20)
@@ -5554,7 +5712,9 @@ def main() -> int:
         "LightTest regen (phase 21)": regen["lanes_launches"],
         "SphereField regen (phase 22)": sf_regen["lanes_launches"]})
     took(46)
-    log(f"phases 2-46 took {clock[-1] - clock[0]:.1f} s")
+    shade47 = phase_shade(torch, device, card, scenes, reps=20)
+    took(47)
+    log(f"phases 2-47 took {clock[-1] - clock[0]:.1f} s")
 
     def sweep_err(kernel, main):
         errs = [main["max_abs_err"]] + [v["max_abs_err"] for (_, k), v in ph14.items()
@@ -5695,6 +5855,20 @@ def main() -> int:
                        "bound_by": v["bound_by"]}
                    for n, v in lanes46.items() if n != "random"},
              launches_a_path=lane_paths),
+        # phase 47's first bounce of a 6,558,720-lane SphereField chunk (its
+        # second under "second_bounce"); launches: the SphereField frame's,
+        # one a bounce (phase 15)
+        dict(entry("shade_bounce", "shade.cu", "", shade_launches,
+                   max(v["max_abs_err"] for v in shade47.values()),
+                   shade47["bounce 1"]["ms"], shade47["bounce 1"]["plain_ms"],
+                   (shade47["bounce 1"]["bound_ms"], shade47["bounce 1"]["bound_by"]),
+                   shade47["bounce 1"]["device_ms"]),
+             replaces="rust_pathtracer_tpu/integrator.py:562-631 (the tail of "
+                      "_bounce_step after the projected search, XLA; no Pallas kernel)",
+             lanes=shade47["bounce 1"]["lanes"],
+             second_bounce={"device_ms": shade47["bounce 2"]["device_ms"][0],
+                            **{k: shade47["bounce 2"][k]
+                               for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}),
     ]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,10 +29,13 @@ Two routes, chosen per scene as in the JAX package:
   Beyond, over the scene's projected tables (``ops/projected.py``): the
   forward takes K6, K7 or K5 by the tables' size, with dead lanes
   parked at an unhittable origin, and shades from the winner's payload
-  row; the differentiable search is K5.  The differentiable record is
-  ``record_from_rows`` on the gathered primitive rows; shading and
-  scatter are plain tensor ops (``materials.py``, ``textures.py``) and
-  autograd differentiates them.  It draws each bounce's uniforms with
+  row: in one launch of the shade kernel (``ops/shade.py``) where the
+  tables' rows are complete and the textures solid or checkers
+  (``forward_bounce``), else in tensor ops; the differentiable search is
+  K5.  The differentiable record is ``record_from_rows`` on the gathered
+  primitive rows; shading and scatter are plain tensor ops
+  (``materials.py``, ``textures.py``) and autograd differentiates them.
+  It draws each bounce's uniforms with
   the draw kernel (``ops/draws.py``), where the JAX package hoists them
   for every bounce (``_precompute_draws``, kept as the reference).
 
@@ -105,8 +108,9 @@ from rust_pathtracer_tpu_torch.ops.fused_bounce import (
 from rust_pathtracer_tpu_torch.ops.projected import (
     PAY_IDX,
     closest_hit_projected,
-    closest_hit_record_projected,
+    closest_hit_routed,
     passset_perm,
+    record_from_payload,
 )
 from rust_pathtracer_tpu_torch.ops.projected import (
     use_wavefront_reorder as _tables_want_reorder,
@@ -120,6 +124,7 @@ from rust_pathtracer_tpu_torch.ops.intersect import (
     prim_intersect_t,
     record_from_rows,
 )
+from rust_pathtracer_tpu_torch.ops.shade import shade_bounce, shade_kernel_ok
 from rust_pathtracer_tpu_torch.utils.metrics import span
 
 T_MIN = 1e-3  # ray.rs:25
@@ -235,23 +240,41 @@ def _analytic_t(kind, aux, data, o, d, t_det, prim_types):
     return t_det - (vm.dot(n, o - od) + t_det * vm.dot(n, d - dd)) / den
 
 
-def search_and_record(scene, table, o, d, alive):
-    """The non-differentiable route's closest hit and hit record: K3 on
-    the packed table up to 128 primitives; beyond, the projected route
-    (K6, K7 or K5) with dead lanes parked at PARKED_ORIGIN and the
-    record from the winner's payload.  Returns (hit & alive, HitRecord
-    with valid = that mask, shade_row or None).  The differentiable
-    route searches in ``_bounce_step`` and builds its record in
-    ``_record_diff``."""
-    if scene.kinds_static is None:
-        o_live = vm.where(alive, o, torch.full_like(o, PARKED_ORIGIN))
-        hit, _, _, rec, shade_row = closest_hit_record_projected(scene, o_live, d, T_MIN)
-    else:
+def shade_bounce_plain(scene, search, state, draws_b, background, rr_u, rr_sel=None):
+    """The tensor-op shading of a projected search's (t, column, payload):
+    the hit record from the payload rows (``record_from_payload``), masked
+    to the live lanes, then ``_bounce_tail``.  The forward route of every
+    projected bounce the shade kernel does not take, and that kernel's
+    plain twin (``ops/shade.py``).  Returns the new state."""
+    o, d, _, _, alive = state
+    hit, rec, shade_row = record_from_payload(scene, o, d, *search)
+    hit = hit & alive
+    return _bounce_tail(scene, state, hit, rec._replace(valid=hit), draws_b, background,
+                        rr_u, _call, shade_row, rr_sel)
+
+
+def forward_bounce(scene, table, state, draws_b, background, rr_u, rr_sel=None):
+    """One forward generic bounce on ``state`` = (o, d, thr, rad, alive).
+    Up to 128 primitives: K3 on the packed ``table``, then ``_bounce_tail``.
+    Beyond: the projected search (K6, K7 or K5) with dead lanes parked at
+    PARKED_ORIGIN, then the shade kernel (``shade.shade_bounce``) where
+    ``shade.shade_kernel_ok`` admits the scene on the state's device (a
+    CUDA one), else ``shade_bounce_plain``.  ``rr_u`` and ``rr_sel`` as
+    ``_bounce_tail`` takes them.  Returns the new state.  The
+    differentiable route searches in ``_bounce_step`` and builds its record
+    in ``_record_diff``."""
+    o, d, alive = state[0], state[1], state[4]
+    if scene.kinds_static is not None:
         hit, _, _, rec = closest_hit_record(table, o, d, kinds=scene.kinds_static,
                                             t_min=T_MIN)
-        shade_row = None
-    hit = hit & alive
-    return hit, rec._replace(valid=hit), shade_row
+        hit = hit & alive
+        return _bounce_tail(scene, state, hit, rec._replace(valid=hit), draws_b,
+                            background, rr_u, _call, None, rr_sel)
+    o_live = vm.where(alive, o, torch.full_like(o, PARKED_ORIGIN))
+    search = closest_hit_routed(scene.proj, o_live, d, T_MIN)
+    if shade_kernel_ok(scene, o.device):
+        return shade_bounce(scene, search, state, draws_b, background, rr_u, rr_sel)
+    return shade_bounce_plain(scene, search, state, draws_b, background, rr_u, rr_sel)
 
 
 def detached_search(scene, table, o, d):
@@ -311,11 +334,9 @@ def _bounce_step(scene, table, state, draws_b, background, rr_u,
     and the search's result are kept; "bf16" keeps what "none" keeps,
     the large f32 tensors in bfloat16 (``compressed_vjp``).  ``diff_t``
     picks the hit distance (``_record_diff``)."""
-    o, d = state[0], state[1]
     if not differentiable:
-        hit, rec, shade_row = search_and_record(scene, table, o, d, state[4])
-        return _bounce_tail(scene, state, hit, rec, draws_b, background, rr_u, _call,
-                            shade_row)
+        return forward_bounce(scene, table, state, draws_b, background, rr_u)
+    o, d = state[0], state[1]
     search = detached_search(scene, table, o.detach(), d.detach())
     if mode == "names":
         return _checkpointed(_bounce_diff, scene, state, search, draws_b,

@@ -6,7 +6,8 @@ K2, ``closest_hit`` K3 and K4 (``csrc/closest_hit.cu``), and
 (``csrc/projected.cu``) with the big-scene tables and worklist,
 ``draws`` the draw kernel (``csrc/draws.cu``), ``lanes`` the camera
 lanes' kernel (``csrc/lanes.cu``) and ``passset`` the pass-set key
-kernel of the between-bounce reorder (``csrc/passset.cu``);
+kernel of the between-bounce reorder (``csrc/passset.cu``) and ``shade``
+the big-scene forward bounce after the search (``csrc/shade.cu``);
 ``intersect`` builds hit records in plain tensor ops, ``compressed_vjp``
 stores the residuals of remat "bf16"; ``_build`` builds the CUDA
 sources at first use.  Neither imports a GPU toolchain when

@@ -97,6 +97,15 @@ SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
         ),
         "error_string": ([_c_int], ctypes.c_char_p),
     },
+    "shade": {
+        # ptrs[22] (csrc/shade.cu enum Ptr), mat_flags, tex_flags, n_lanes,
+        # stream
+        "shade_bounce_launch": (
+            [_c_void_p, _c_int, _c_int, ctypes.c_longlong, _c_void_p],
+            _c_int,
+        ),
+        "error_string": ([_c_int], ctypes.c_char_p),
+    },
     "closest_hit": {
         # table, n_prims, o, d, t_min, record (0: K4, 1: K3), out (one
         # buffer, planes at multiples of 16 bytes), n_lanes, stream

@@ -58,8 +58,10 @@ Here: ``ProjTables``, ``build_projected`` (host numpy, the JAX
 package's), the plain sweep ``_sweep_plain``, K5
 (``projected_sweep``; the Pallas ``_kernel`` at projected.py:455),
 ``closest_hit_projected`` and the forward route
-``closest_hit_record_projected``.  K6 is in ``resident.py``, K7 in
-``worklist.py``; the three kernels are ``csrc/projected.cu``.
+``closest_hit_record_projected`` (the search, then ``record_from_payload``,
+which the shade kernel's plain twin shares, ``shade.py``).  K6 is in
+``resident.py``, K7 in ``worklist.py``; the three kernels are
+``csrc/projected.cu``.
 
 Ray binning (projected.py:713-855): the keys the between-bounce
 reorder of big scenes sorts the wavefront by, so that a warp's lanes
@@ -774,6 +776,14 @@ def closest_hit_record_projected(scene, o, d, t_min, route: Optional[str] = None
     shade_row).  ``shade_row`` is payload columns 16-31 when the tables
     are ``shade_ready``, else None.  Not differentiable."""
     t, col, pay = closest_hit_routed(scene.proj, o, d, t_min, route)
+    hit, rec, shade_row = record_from_payload(scene, o, d, t, col, pay)
+    return hit, rec.t, rec.prim, rec, shade_row
+
+
+def record_from_payload(scene, o, d, t, col, pay):
+    """The hit record from a search's (t, column, payload): (hit, HitRecord
+    with t 1 on a miss, shade_row).  ``shade_row`` is payload columns
+    16-31 when the tables are ``shade_ready``, else None."""
     hit = col >= 0
     kind = torch.round(pay[:, PAY_KIND]).to(torch.int32)
     aux = torch.round(pay[:, PAY_AUX]).to(torch.int32)
@@ -783,7 +793,7 @@ def closest_hit_record_projected(scene, o, d, t_min, route: Optional[str] = None
     rec = record_from_rows(kind, aux, pay[:, :12], mat, idx, o, d, t_safe, hit,
                            prim_types=scene.prim_types)
     shade_row = pay[:, PAY_MKIND:] if scene.proj.shade_ready else None
-    return hit, t_safe, idx, rec, shade_row
+    return hit, rec, shade_row
 
 
 # ---------------------------------------------------------------------------

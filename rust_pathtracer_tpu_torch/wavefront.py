@@ -22,9 +22,11 @@ per-pixel sums differs.  The bounce runs on the scene's route, as
   per-lane depth (``ops/fused_bounce.py``), which draws at each lane's
   depth and applies roulette where that depth is ``rr_start`` or more;
 * **generic** (image textures, nested checkers, more than 128
-  primitives): ``integrator.search_and_record`` (K3, or K6 / K7 / K5 on
-  the projected tables), the draw kernel at per-lane depth
-  (``ops/draws.py``), the tensor-op shading and per-lane roulette.
+  primitives): the draw kernel at per-lane depth (``ops/draws.py``),
+  then ``integrator.forward_bounce``: the search (K3, or K6 / K7 / K5
+  on the projected tables) and the shading with per-lane roulette, in
+  the shade kernel (``ops/shade.py``) where it takes the scene, else in
+  tensor ops.
 
 Both draw under ``RenderSettings.rng_scheme``, as the chunked renderer
 does.  Then the depth cap kills the lanes at ``max_bounces``.  On the fused
@@ -75,9 +77,7 @@ from rust_pathtracer_tpu_torch.integrator import (
     REORDER_ALIVE_SHARE,
     T_MIN,
     TraceStats,
-    _bounce_tail,
-    _call,
-    search_and_record,
+    forward_bounce,
     use_wavefront_reorder,
 )
 from rust_pathtracer_tpu_torch.ops.closest_hit import pack_prims
@@ -193,11 +193,10 @@ def _bounce_generic(fr: _Frame, state, keys, depth):
     the lanes at depth ``rr_start`` or more.  Returns the (13, R) state."""
     o, d, thr, rad = (state[k:k + 3].T.contiguous() for k in (0, 3, 6, 9))
     alive = state[12] > 0.5
-    hit, rec, shade_row = search_and_record(fr.scene, fr.table, o, d, alive)
     su, bu, coin, rl = bounce_draws(keys, depth, fr.roulette, fr.rng_scheme)
-    o, d, thr, rad, cont = _bounce_tail(
-        fr.scene, (o, d, thr, rad, alive), hit, rec,
-        dict(sphere_u=su, ball_u=bu, coin=coin), fr.bg, rl, _call, shade_row,
+    o, d, thr, rad, cont = forward_bounce(
+        fr.scene, fr.table, (o, d, thr, rad, alive),
+        dict(sphere_u=su, ball_u=bu, coin=coin), fr.bg, rl,
         rr_sel=depth >= fr.rr_start if fr.roulette else None)
     return torch.cat([o.T, d.T, thr.T, rad.T, cont.to(torch.float32)[None]])
 

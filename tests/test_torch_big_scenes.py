@@ -320,13 +320,15 @@ def test_spherefield_step_finite_differences():
 
 @pytest.mark.parametrize("name", ["SphereField", "ModelTest"])
 def test_big_scene_routes(name, monkeypatch, obj_path):
-    """Forward: the projected record route with the payload shading;
-    differentiable: K5 and the table shading; neither takes K3, K4 or
-    the fused route."""
-    from rust_pathtracer_tpu_torch.ops import closest_hit
+    """Forward: the projected search and the payload shading (on the CPU
+    the tensor ops, ``shade_bounce_plain``; the shade kernel only on the
+    card); differentiable: K5 and the table shading; neither takes K3, K4
+    or the fused route."""
+    from rust_pathtracer_tpu_torch.ops import closest_hit, shade
 
     calls = []
-    for mod, fn in ((projected, "closest_hit_record_projected"),
+    for mod, fn in ((integrator, "shade_bounce_plain"), (shade, "shade_bounce"),
+                    (projected, "closest_hit_record_projected"),
                     (projected, "closest_hit_projected"),
                     (closest_hit, "closest_hit"), (closest_hit, "closest_hit_record"),
                     (integrator, "_trace_fused")):
@@ -341,7 +343,7 @@ def test_big_scene_routes(name, monkeypatch, obj_path):
             monkeypatch.setattr(integrator, fn, spy)
     sd = get_scene(name, **_scene_kwargs(name, obj_path))
     scene = sd.build()
-    for diff, want in ((False, "closest_hit_record_projected"),
+    for diff, want in ((False, "shade_bounce_plain"),
                        (True, "closest_hit_projected")):
         calls.clear()
         settings = RenderSettings(6, 4, 1, 3, (1.0, 1.0, 1.0), differentiable=diff)

@@ -1,4 +1,4 @@
-"""K1-K7, the draw, lanes and pass-set key kernels on the card against
+"""K1-K7, the draw, lanes, pass-set key and shade kernels on the card against
 their plain PyTorch versions.
 
 Imports no jax, so that it runs on the machine with the card, which has
@@ -1054,3 +1054,83 @@ def test_bf16_and_diff_cascade_on_gpu():
     np.testing.assert_allclose(l2, l0, rtol=1e-6)
     for a, b_ in zip(g2, g0):
         np.testing.assert_allclose(a, b_, rtol=1e-3, atol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["spherefield", "mixed"])
+def test_shade_kernel_matches_plain_on_gpu(name):
+    """The shade kernel against its plain twin (the tensor ops) on the same
+    CUDA tensors, bit for bit on every lane: ``test_torch_shade_emu.py``'s
+    lanes (SphereField's table, and the mixed table with a light), the
+    search K6 on the card; roulette off, on, and on a lane mask."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from test_torch_shade_emu import BG, _inputs, _scene
+
+    from rust_pathtracer_tpu_torch import integrator
+    from rust_pathtracer_tpu_torch.integrator import PARKED_ORIGIN
+    from rust_pathtracer_tpu_torch.ops import projected as P
+    from rust_pathtracer_tpu_torch.ops import shade
+
+    scene = _scene(name).to("cuda")
+    state, _, draws, rr_u, rr_sel = _inputs(scene.to("cpu"), name, seed=7)
+    state = tuple(x.cuda() for x in state)
+    draws = {k: v.cuda() for k, v in draws.items()}
+    o_live = torch.where(state[4][:, None], state[0], torch.full_like(state[0], PARKED_ORIGIN))
+    search = P.closest_hit_routed(scene.proj, o_live, state[1], T_MIN)
+    bg = torch.tensor(BG, device="cuda")
+    for rr, sel in ((None, None), (rr_u.cuda(), None), (rr_u.cuda(), rr_sel.cuda())):
+        before = shade.launches
+        got = shade.shade_bounce(scene, search, state, draws, bg, rr, sel)
+        assert shade.launches - before == 1
+        want = integrator.shade_bounce_plain(scene, search, state, draws, bg, rr, sel)
+        for what, g, w in zip(("o", "d", "thr", "rad", "alive"), got, want):
+            assert torch.equal(g.view(torch.int32) if g.is_floating_point() else g,
+                               w.view(torch.int32) if w.is_floating_point() else w), what
+
+
+@pytest.mark.cuda
+def test_shade_kernel_frames_on_gpu_match_tensor_ops(monkeypatch):
+    """SphereField frames on the card through the shade kernel (one launch
+    a bounce) against the same frames on the tensor ops (the predicate
+    turned off), bit for bit: image, segments and occupancy of the chunked
+    render with the reorder, with roulette from bounce 3, and the regen
+    wavefront."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import dataclasses
+
+    from rust_pathtracer_tpu_torch import integrator
+    from rust_pathtracer_tpu_torch.models import get_scene
+    from rust_pathtracer_tpu_torch.ops import shade
+    from rust_pathtracer_tpu_torch.render import RenderSettings, render_radiance
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+    from rust_pathtracer_tpu_torch.wavefront import render_radiance_regen
+
+    sd = get_scene("SphereField")
+    scene, cam = sd.build(device="cuda"), sd.camera_at(0.0, device="cuda")
+    key = prng_key(3, device="cuda")
+    s = RenderSettings(96, 54, 4, 12, (0.8, 0.9, 1.0))
+    for label, kw in (("chunked", {}), ("roulette", {"russian_roulette_start": 3}),
+                      ("regen", {"russian_roulette_start": 3})):
+        st = dataclasses.replace(s, **kw)
+        runs = []
+        for ok in (True, False):
+            if not ok:
+                monkeypatch.setattr(integrator, "shade_kernel_ok", lambda *a, **k: False)
+            before = shade.launches
+            if label == "regen":
+                img, stats = render_radiance_regen(scene, cam, st, key, lanes=4096,
+                                                   device="cuda")
+            else:
+                img, stats = render_radiance(scene, cam, st, key, device="cuda")
+            n = shade.launches - before
+            if ok and label != "regen":
+                assert n == stats.bounces > 0, (label, n, stats.bounces)
+            assert (n > 0) == ok, label
+            runs.append((img, stats))
+        monkeypatch.undo()
+        (a, sa), (b, sb) = runs
+        assert torch.equal(a, b), label
+        assert torch.equal(sa.segments, sb.segments), label
+        assert torch.equal(sa.occupancy, sb.occupancy), label

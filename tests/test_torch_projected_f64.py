@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from rust_pathtracer_tpu_torch import integrator
 from rust_pathtracer_tpu_torch.integrator import PARKED_ORIGIN, T_MIN
 from rust_pathtracer_tpu_torch.models import get_scene
 from rust_pathtracer_tpu_torch.ops import projected as P
@@ -55,13 +56,15 @@ def capture_searches(scene, cam, seed):
             o, d, t, col, torch.round(pay[:, P.PAY_IDX]).to(torch.int32))))
         return t, col, pay
 
-    P.closest_hit_routed = spy
+    # the search's callers: the tensor-op record, and the shade kernel's
+    # route (integrator.forward_bounce)
+    P.closest_hit_routed = integrator.closest_hit_routed = spy
     try:
         render_radiance(scene, cam, RenderSettings(WIDTH, HEIGHT, SPP, BOUNCES,
                                                    (0.7, 0.8, 1.0)),
                         prng_key(seed), device="cpu")
     finally:
-        P.closest_hit_routed = routed
+        P.closest_hit_routed = integrator.closest_hit_routed = routed
     return calls
 
 

@@ -241,7 +241,8 @@ def test_port_imports_no_jax():
                 "ops/resident.py", "ops/worklist.py", "parallel/mesh.py",
                 "parallel/shard.py", "parallel/dryrun.py", "scene/json_io.py",
                 "utils/metrics.py", "examples/inverse_rendering.py",
-                "ops/passset.py", "ops/compressed_vjp.py", "ops/lanes.py"):
+                "ops/passset.py", "ops/compressed_vjp.py", "ops/lanes.py",
+                "ops/shade.py"):
         assert f"rust_pathtracer_tpu_torch/{mod}" in rel, mod
     for path in files:
         for mod in _imported_modules(path):
