@@ -112,14 +112,20 @@ def frame_result(loop, win, tr, setup_s, peak, ranks, rank_busy_s=None) -> dict:
     """``attempted`` and ``metrics`` of a frames window: the end-to-end
     metrics, or traced the per-layer metrics its readers find
     (``rank_busy_s``: a grid's device busy seconds a rank outside the
-    collectives)."""
+    collectives).  The readers' ``segments`` (the window's ray segments,
+    read from the frames' device counts once the window has closed) and
+    ``renderer`` are the frames' alone; ``lanes`` is a chunk's lanes on
+    a rank, or the regen renderer's pool."""
     cell = loop.cell
     result = {"attempted": len(loop.answers)}
     if tr is not None:
+        lanes = (loop.lanes if loop.renderer == "regen"
+                 else loop.pixels_per_rank * loop.img["spp_chunk"])
         ctx = dict(cell=cell, img=loop.img, trace=tr, answers=len(loop.answers),
                    bounces=loop.bounces, scene_build_s=loop.scene_build_s,
                    counts=scene_counts(cell), ranks=ranks, rank_busy_s=rank_busy_s,
-                   lanes=loop.pixels_per_rank * loop.img["spp_chunk"])
+                   lanes=lanes, renderer=loop.renderer,
+                   segments=float(torch.stack(loop.segments).double().sum()))
         result["metrics"] = read_per_layer(cell, ctx)
     else:
         rate = len(loop.answers) * loop.samples_per_frame / win.seconds_to_last

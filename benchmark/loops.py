@@ -2,7 +2,9 @@
 
 * ``frames``: whole frames through ``render.render_radiance`` (or, with a
   ``mesh`` in the traffic, ``parallel.shard.render_radiance_sharded`` on
-  every rank), back to back, a new key a frame, the camera at each
+  every rank; with ``renderer`` "regen", the regeneration wavefront
+  ``wavefront.render_radiance_regen`` over a pool of the traffic's
+  ``lanes``), back to back, a new key a frame, the camera at each
   frame's orbit time where the configuration orbits;
 * ``steps``: inverse-rendering steps through ``grad.render_loss_and_grad``
   and Adam on the colours the traffic names, a new key a step.
@@ -14,7 +16,11 @@ compares.  The window then runs for ``seconds`` (the last answer may end
 after it), or, traced, for the traffic's ``trace_frames`` /
 ``trace_steps`` under the profiler.  Each frame is closed by a device
 sync; each step too, after its parameter update.  The pixels the check
-samples are gathered from each frame as it completes.
+samples are gathered from each frame as it completes, and each frame's
+ray-segment count is kept on the device, unread, for the readers.
+
+A traffic file's ``settings`` set ``RenderSettings`` fields beyond the
+sizes, the background, the stream and the roulette start (``spec.SETTINGS``).
 """
 
 from __future__ import annotations
@@ -45,7 +51,23 @@ def image(cell, toy: bool) -> dict:
                                    "spp_chunk") if k in tr})
     if toy:
         out.update({k: v for k, v in tr["toy"].items() if k in out or k == "spp_chunk"})
+    if tr.get("renderer") == "regen":
+        # no chunks: the reference sums a pixel's samples in one
+        out.setdefault("spp_chunk", out["samples_per_pixel"])
     return out
+
+
+def regen_lanes(cell, img: dict, toy: bool) -> int:
+    """The regen renderer's pool: the traffic's ``lanes`` (on a toy run
+    the toy's, where it sets them), which the port's queue runs as given;
+    a pool over the frame's lanes raises, since the port would cut it."""
+    tr = cell.traffic
+    lanes = int(tr["toy"].get("lanes", tr["lanes"]) if toy else tr["lanes"])
+    total = img["width"] * img["height"] * img["samples_per_pixel"]
+    if not 0 < lanes <= total:
+        raise ValueError(f"traffic of {cell.name!r}: a pool of {lanes} lanes, want 1 to the "
+                         f"frame's {total}")
+    return lanes
 
 
 def orbit_time(cell, seed: int, i: int) -> float:
@@ -140,7 +162,7 @@ def port_scene(cell, device, img: dict, differentiable: bool = False):
         samples_per_pixel=img["samples_per_pixel"], max_bounces=img["max_bounces"],
         spp_chunk=img["spp_chunk"], rng_scheme=cell.config["rng_scheme"],
         russian_roulette_start=cell.config["russian_roulette_start"],
-        differentiable=differentiable)
+        differentiable=differentiable, **cell.traffic.get("settings", {}))
     return sd, scene, settings, build_s
 
 
@@ -156,8 +178,16 @@ class FrameLoop:
             cell, device, self.img)
         self.pixels = check_pixels(cell, seed, self.img, toy).to(device)
         self.answers = []  # (index, orbit time, the sampled pixels (P, 3))
+        self.segments = []  # each frame's ray segments, a device scalar
         self.bounces = 0
-        if mesh is None:
+        self.renderer = cell.traffic.get("renderer", "chunked")
+        if self.renderer == "regen":
+            from rust_pathtracer_tpu_torch.wavefront import render_radiance_regen
+
+            self.lanes = regen_lanes(cell, self.img, toy)
+            self._render = lambda cam, key: render_radiance_regen(
+                self.scene, cam, self.settings, key, lanes=self.lanes, device=device)
+        elif mesh is None:
             self._render = lambda cam, key: render_radiance(
                 self.scene, cam, self.settings, key, device=device)
         else:
@@ -184,6 +214,7 @@ class FrameLoop:
         self.bounces += int(stats.bounces)
         if keep:
             self.answers.append((i, t, img.reshape(-1, 3)[self.pixels]))
+            self.segments.append(stats.segments)
 
     def warm(self) -> None:
         self.frame(WARM_INDEX, keep=False)

@@ -4,7 +4,8 @@ Ray.color of ray.rs:20-41 over a batch of lanes, in plain tensor ops:
 camera lanes (renderer.rs:16-25, camera.rs:46-56), the closest hit over
 every primitive (geometry.rs: spheres with their quadratic in float64
 as the configuration states, axis rectangles, one-sided triangles),
-the texture (solid, the sine checker of texture.rs:25-45), emission on
+the texture (solid, the sine checker of texture.rs:25-45, the perlin
+marble of ``perlin.py`` in all three channels), emission on
 a light's front face, the background on a miss, and the lambertian,
 metal and dielectric scatter of material.rs, each lane drawing the
 stream of ``threefry.py``.  Lanes that stop are dropped, so each bounce
@@ -25,7 +26,8 @@ from typing import Optional
 import torch
 
 from benchmark.reference import threefry as tf
-from benchmark.reference.scene import sqrt
+from benchmark.reference.perlin import marble
+from benchmark.reference.scene import TEX_PERLIN, sqrt
 
 T_MIN = 1e-3     # ray.rs:25
 T_MISS = 3.0e38  # no hit
@@ -231,6 +233,11 @@ def trace(sc, cam, key, pixel, sample, *, width, height, spp, max_bounces, backg
             tex = torch.where(ck, torch.where(neg, sc["tex_odd"][tex], sc["tex_even"][tex]),
                               tex)
         value = colors[tex]
+        pl = sc["tex_kind"][tex] == TEX_PERLIN
+        if bool(pl.any()):
+            gray = marble(point[pl], sc["perlin_seed"], sc["tex_scale"][tex[pl]])
+            value = value.clone()
+            value[pl] = gray[:, None].expand(-1, 3)
         em = (mkind == MAT_E) & front
         if bool(em.any()):
             rad = rad.index_add(0, lane[em], thr[em] * value[em])

@@ -1,10 +1,13 @@
 """A scene as plain tensors, built from a configuration file's own data.
 
 The configuration (``benchmark/configs/<config>.json``) lists the scene
-as scene.rs writes it: textures, materials, primitives (spheres, axis
-rectangles, boxes, triangles), the camera and, for SphereField, the rule
-of its random ball field (``field``: numpy's ``default_rng(seed)`` draws
-in scene.rs's order).  Nothing here reads the program's tables.
+as scene.rs writes it: textures (solid, checker of two non-checker
+children, perlin marble with its ``scale``; the marble's hash seed is
+the top-level ``perlin_seed``, default 0), materials, primitives
+(spheres, axis rectangles, boxes, triangles), the camera and, for
+SphereField, the rule of its random ball field (``field``: numpy's
+``default_rng(seed)`` draws in scene.rs's order).  A kind the reference
+cannot render raises.  Nothing here reads the program's tables.
 """
 
 from __future__ import annotations
@@ -23,7 +26,9 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
 
 
 MAT_KINDS = {"lambertian": 0, "metal": 1, "dielectric": 2, "light": 3}
-TEX_SOLID, TEX_CHECKER = 0, 1
+TEX_SOLID, TEX_CHECKER, TEX_PERLIN = 0, 1, 2
+TEX_KINDS = {"solid": TEX_SOLID, "checker": TEX_CHECKER, "perlin": TEX_PERLIN}
+PRIM_KINDS = ("sphere", "rect", "box", "triangle", "field")
 _AXIS = {"yz": 0, "xz": 1, "xy": 2}
 
 
@@ -112,6 +117,9 @@ def scene_lists(config: dict) -> _Lists:
     out.textures = [dict(t) for t in config["textures"]]
     out.materials = [dict(m) for m in config["materials"]]
     for p in config["primitives"]:
+        if p["kind"] not in PRIM_KINDS:
+            raise ValueError(f"{config['name']}: the reference renders no {p['kind']!r} "
+                             f"primitive; it knows {list(PRIM_KINDS)}")
         if p["kind"] == "box":
             out.prims.extend(_box_rects(p))
         elif p["kind"] == "rect":
@@ -120,7 +128,27 @@ def scene_lists(config: dict) -> _Lists:
             _sphere_field(config["field"], out)
         else:
             out.prims.append(dict(p))
+    _known_kinds(config["name"], out)
     return out
+
+
+def _known_kinds(name: str, lists: _Lists) -> None:
+    """Raise on a texture or material the reference cannot render."""
+    for t in lists.textures:
+        if t["kind"] not in TEX_KINDS:
+            raise ValueError(f"{name}: the reference renders no {t['kind']!r} texture; "
+                             f"it knows {list(TEX_KINDS)}")
+        if t["kind"] == "perlin" and "scale" not in t:
+            raise ValueError(f"{name}: a perlin texture needs its scale")
+        if t["kind"] == "checker":
+            for child in (t["odd"], t["even"]):
+                if lists.textures[child]["kind"] == "checker":
+                    raise ValueError(f"{name}: the reference renders no checker whose "
+                                     "child is a checker")
+    for m in lists.materials:
+        if m["kind"] not in MAT_KINDS:
+            raise ValueError(f"{name}: the reference renders no {m['kind']!r} material; "
+                             f"it knows {list(MAT_KINDS)}")
 
 
 def scene_tensors(config: dict, device, dtype=torch.float32) -> Dict[str, torch.Tensor]:
@@ -157,12 +185,12 @@ def scene_tensors(config: dict, device, dtype=torch.float32) -> Dict[str, torch.
     out["mat_fuzz"] = torch.tensor([m.get("fuzz", 0.0) for m in mats], **f)
     out["mat_ir"] = torch.tensor([m.get("ir", 1.0) for m in mats], **f)
     texs = lists.textures
-    out["tex_kind"] = torch.tensor([TEX_CHECKER if t["kind"] == "checker" else TEX_SOLID
-                                    for t in texs], **i64)
+    out["tex_kind"] = torch.tensor([TEX_KINDS[t["kind"]] for t in texs], **i64)
     out["tex_color"] = torch.tensor([t.get("color", [0.0, 0.0, 0.0]) for t in texs], **f)
     out["tex_odd"] = torch.tensor([t.get("odd", 0) for t in texs], **i64)
     out["tex_even"] = torch.tensor([t.get("even", 0) for t in texs], **i64)
     out["tex_scale"] = torch.tensor([t.get("scale", 0.0) for t in texs], **f)
+    out["perlin_seed"] = int(config.get("perlin_seed", 0))
     out["n_prims"] = len(lists.prims)
     out["mat_types"] = {MAT_KINDS[m["kind"]] for m in mats}
     return out

@@ -8,6 +8,7 @@ import torch
 FRAME_FAULTS = ("half", "altered")
 MESH_FAULTS = ("half", "altered", "no_exchange")
 STEP_FAULTS = ("frozen", "half_loss", "altered_step")
+PERLIN_FAULTS = ("perlin_seed", "perlin_solid")
 
 
 def plant(name: str) -> None:
@@ -55,5 +56,19 @@ def plant(name: str) -> None:
             loss, g = real(*a, **kw)
             return loss * 1.01, type(g).from_leaves([x * 1.01 for x in g.leaves()])
         grad.render_loss_and_grad = loss_and_grad
+    elif name == "perlin_seed":  # the marble hashed with the seed + 1
+        from rust_pathtracer_tpu_torch.scene import builder
+
+        real_init = builder.SceneBuilder.__init__
+
+        def init(self, perlin_seed=0):
+            real_init(self, perlin_seed + 1)
+        builder.SceneBuilder.__init__ = init
+    elif name == "perlin_solid":  # a perlin texture read as a solid one
+        from rust_pathtracer_tpu_torch.scene import builder
+        from rust_pathtracer_tpu_torch.scene.types import TEX_SOLID
+
+        builder.SceneBuilder.perlin_texture = (
+            lambda self, scale: self._push_tex(TEX_SOLID, scale=scale))
     else:
         raise ValueError(f"unknown fault {name!r}")
