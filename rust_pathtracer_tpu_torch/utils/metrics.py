@@ -6,8 +6,9 @@ code.  The CLI reports ray segments per second, the occupancy curve by
 bounce and wall-clock seconds by stage, and ``--profile-dir`` writes a
 ``torch.profiler`` Chrome trace.  ``span`` names a stretch of the
 program's host work in such a trace (``rpt.frame``, ``rpt.chunk``,
-``rpt.bounce``, ``rpt.sync``, ``rpt.forward``, ``rpt.backward``,
-``rpt.stage.<name>``), and costs one flag read where no profiler runs.
+``rpt.bounce``, ``rpt.sync``, ``rpt.flush``, ``rpt.forward``,
+``rpt.backward``, ``rpt.stage.<name>``), and costs one flag read where
+no profiler runs.
 The JAX package's roofline model (``CHIP_PEAKS``, ``StageRoofline``,
 ``bounce_roofline``, ``roofline_report``) is not ported: its peaks and
 its cost model are the TPU's; the kernels' bounds on the card live in

@@ -10,7 +10,10 @@ bounces and the rest hold the chunk open.  Here a fixed pool of lanes
 stays occupied: a lane whose path ended takes the next (pixel, sample)
 work item.  Every ``FLUSH_EVERY`` bounces a window ends: the finished
 lanes' radiance goes into the image, and each of them takes a work item
-and spawns its camera ray.
+and spawns its camera ray.  Under a profiler each window end is one
+``rpt.flush`` span (its argument the bounces done), from the finished
+mask to the respawn and, once the queue is spent, the read of whether a
+lane still lives: every host read between two windows lies inside it.
 
 Each lane carries its own path depth, and its draws are those of the
 chunked renderer for the same (pixel, sample) at that depth, so a path
@@ -366,16 +369,17 @@ def render_radiance_regen(scene, cam: Camera, settings: RenderSettings, key,
                         _reorder_pool(fr, pool)
                     segments = segments + _bounce(fr, pool)
                 iters += 1
-            if stripe:
-                hist, n_take = _advance_stripe(fr, pool, hist)
-            else:
-                hist, issued, n_take = _flush_refill(fr, pool, acc, hist, issued, total)
-            # no lane is pending after a flush: the loop ends once none is alive
-            if n_take == 0:
-                with span("rpt.sync"):
-                    live = bool((pool.state[12] > 0.5).any())
-                if not live:
-                    break
+            with span("rpt.flush", iters):
+                if stripe:
+                    hist, n_take = _advance_stripe(fr, pool, hist)
+                else:
+                    hist, issued, n_take = _flush_refill(fr, pool, acc, hist, issued, total)
+                # no lane is pending after a flush: the loop ends once none is alive
+                if n_take == 0:
+                    with span("rpt.sync"):
+                        live = bool((pool.state[12] > 0.5).any())
+                    if not live:
+                        break
         if stripe:
             acc.index_put_((pool.pixel,), pool.acc_lane, accumulate=True)
 

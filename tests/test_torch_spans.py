@@ -6,9 +6,11 @@ counts (``TraceStats.bounces``), each bounce inside its chunk and each
 chunk inside the frame, and every host read of a device value inside a
 chunk (``aten::_local_scalar_dense``) lies inside an ``rpt.sync``: on
 the fused route (CornellBox), the generic route with the between-bounce
-reorder and the dynamic cascade (SphereField), and the regen wavefront.
-A step opens one ``rpt.forward`` and then one ``rpt.backward``.  With no
-profiler running no span is built: every path renders with
+reorder and the dynamic cascade (SphereField), and the regen wavefront,
+in both its modes, whose window ends open one ``rpt.flush`` each,
+between bounces, around every read outside the bounces.  A step opens
+one ``rpt.forward`` and then one ``rpt.backward``.  With no profiler
+running no span is built: every path renders with
 ``torch.profiler.record_function`` made to raise.  The benchmark's
 readers of these spans are tested in ``benchmark/tests/test_bench_spans.py``.
 """
@@ -26,7 +28,7 @@ from rust_pathtracer_tpu_torch.models import get_scene
 from rust_pathtracer_tpu_torch.ops.fused_bounce import fused_bounce_diff_ok, fused_bounce_ok
 from rust_pathtracer_tpu_torch.render import render_radiance
 from rust_pathtracer_tpu_torch.utils.metrics import span
-from rust_pathtracer_tpu_torch.wavefront import render_radiance_regen
+from rust_pathtracer_tpu_torch.wavefront import FLUSH_EVERY, render_radiance_regen
 
 torch.set_num_threads(2)
 
@@ -40,6 +42,7 @@ ROUTES = {
     "generic-reorder": ("SphereField", dict(max_bounces=4, reorder=True)),
     "cascade": ("SphereField", dict(max_bounces=6, cascade=True)),
     "regen": ("CornellBox", dict(max_bounces=5)),
+    "regen-stripe": ("CornellBox", dict(max_bounces=5)),
 }
 
 
@@ -68,8 +71,10 @@ def _frame(route):
     name, kw = ROUTES[route]
     sd, scene, settings = _scene(name, **kw)
     cam = sd.camera_at(0.0, device="cpu")
-    if route == "regen":
-        return lambda: render_radiance_regen(scene, cam, settings, KEY, lanes=64, device="cpu")
+    if route.startswith("regen"):
+        mode = "stripe" if route == "regen-stripe" else "queue"
+        return lambda: render_radiance_regen(scene, cam, settings, KEY, lanes=64, mode=mode,
+                                             device="cpu")
     return lambda: render_radiance(scene, cam, settings, KEY, device="cpu")
 
 
@@ -105,15 +110,34 @@ def test_chunked_frame_spans(route):
     assert torch.isfinite(img).all()
 
 
-def test_regen_frame_spans():
-    (img, stats), events = _profiled(_frame("regen"))
+def _regen_spans(route):
+    """The regen frame's spans: its bounces, and one ``rpt.flush`` a
+    window end (every ``FLUSH_EVERY`` bounces) inside the frame, which
+    holds every sync outside the bounces."""
+    (img, stats), events = _profiled(_frame(route))
     frames, bounces = _ranges(events, "rpt.frame"), _ranges(events, "rpt.bounce")
-    syncs = _ranges(events, "rpt.sync")
+    syncs, flushes = _ranges(events, "rpt.sync"), _ranges(events, "rpt.flush")
     assert len(frames) == 1 and _ranges(events, "rpt.chunk") == []
     assert stats.bounces > 0 and len(bounces) == stats.bounces
     assert all(_inside(b, frames) for b in bounces)
     reads = [r for r in _ranges(events, "aten::_local_scalar_dense") if _inside(r, frames)]
     assert reads and all(_inside(r, syncs) for r in reads)
+    assert stats.bounces % FLUSH_EVERY == 0
+    assert len(flushes) == stats.bounces // FLUSH_EVERY
+    assert all(_inside(f, frames) for f in flushes)
+    assert not any(_inside(b, flushes) or _inside(f, bounces) for b in bounces for f in flushes)
+    window_end = [s for s in syncs if not _inside(s, bounces)]
+    assert window_end and all(_inside(s, flushes) for s in window_end)
+    assert all(any(_inside(s, [f]) for s in syncs) for f in flushes)  # a read in each
+    assert torch.isfinite(img).all()
+
+
+def test_regen_frame_spans():
+    _regen_spans("regen")
+
+
+def test_regen_stripe_frame_spans():
+    _regen_spans("regen-stripe")
 
 
 def test_step_spans_forward_then_backward():
@@ -130,7 +154,8 @@ def test_step_spans_forward_then_backward():
     assert torch.isfinite(loss) and grads.tex_color.abs().sum() > 0
 
 
-@pytest.mark.parametrize("route", ["fused", "generic-reorder", "cascade", "regen", "step"])
+@pytest.mark.parametrize("route", ["fused", "generic-reorder", "cascade", "regen", "step",
+                                   "regen-stripe"])
 def test_no_span_is_built_without_a_profiler(route, monkeypatch):
     def no_range(*args, **kwargs):
         raise AssertionError("a span was built with no profiler running")
