@@ -138,7 +138,10 @@ differentiable cascade (phase 45).  It checks them:
     int32 operations);
 21. the regen main path: LightTest regen at 854x480, 50 bounces, 16 spp
     (cut from 2000: 6,558,720 paths through the pool of 2**20 lanes), K1
-    at per-lane depth once a bounce iteration: finite, >= 0, the
+    at per-lane depth once a bounce iteration, and on the card the
+    window-end kernels three times a window end (the frame runs one
+    window past the deciding one, so K1 launches FLUSH_EVERY more times
+    than the bounces it reports): finite, >= 0, the
     occupancy every path at bounce 0, two renders bit for bit; K1
     against its plain version, bit for bit, on the pools (state, keys,
     depths) the second render hands it at its sixth, middle and last
@@ -308,9 +311,9 @@ differentiable cascade (phase 45).  It checks them:
     threefry) on the same CUDA tensors, bit for bit in the key words,
     s_vp, t_vp and the disk: on 1,000,000 random (pixel, sample) lanes,
     the bench step's 1,048,576, a serving chunk's 960,000 and the
-    LightTest regen's spawns (``capture_lane_draws``: the first fill and
-    two refills); each timed beside the plain twin (events, device
-    time), with its bound; the kernel's launches on each path (phases 5,
+    LightTest regen's first fill (``capture_lane_draws``; its refills are
+    the window end's respawn, held in phase 48); each timed beside the
+    plain twin (events, device time), with its bound; the kernel's launches on each path (phases 5,
     9, 21, 22 and this phase's regen);
 47. the shade kernel (``ops/shade.py``, ``ops/csrc/shade.cu``: the
     big-scene forward bounce after the search, in one launch) against its
@@ -319,11 +322,23 @@ differentiable cascade (phase 45).  It checks them:
     arguments a SphereField frame of 854x480 at 16 spp (one chunk of
     6,558,720 lanes, the benchmark's) hands it at its first and second
     bounce (``shade_args``); each timed beside the plain twin (events,
-    device time), with its byte bound.
+    device time), with its byte bound;
+48. the regen window end (``ops/window_end.py``: ``csrc/window_end.cu``'s
+    finish, add and respawn kernels around CUB's sort, ``csrc/pool_sort.cu``)
+    against its plain twin (``wavefront._flush_refill``, the tensor ops,
+    its radiance added in lane order on the CPU with one thread) on
+    copies of the pools that the benchmark's ``lighttest-regen`` frame
+    (854x480, 2000 spp, 50 bounces, 8,388,608 lanes) hands it at its
+    sixth window and at the window where the queue runs out: the image
+    sums, the length histogram, the state rows, key words, depth, work,
+    pixel and the device block bit for bit; timed (events, device time
+    by kernel) beside the twin as the card runs it, with its byte bound,
+    and CUB's sort beside ``torch.sort(stable=True)`` on the same keys.
 
 Phases 11-13 and 15-17 also check that the generic routes launch the
 draw kernel once a bounce; phases 5, 9, 21 and 22 that the lanes
-kernel made their lanes; phases 15, 16, 22, 25 and 26 that the
+kernel made their lanes, and 21, 22 and 39 that the regen's window ends
+ran on the card; phases 15, 16, 22, 25 and 26 that the
 big-scene forward bounces launch the shade kernel once a bounce (25 and
 26 also hold it bit for bit on the cascade's pools), phase 17 that the
 differentiable step never does.  The big-scene frames of phases 14-44 take the
@@ -387,7 +402,7 @@ PLAIN_REPS = 3
 CORNELL_CAM = ((278.0, 278.0, -800.0), (278.0, 278.0, 0.0), (0.0, 1.0, 0.0),
                40.0, 1.0, 0.0, 10.0)
 KERNELS = ("fused_bounce", "fused_bounce_bwd", "closest_hit", "projected", "draws",
-           "passset", "lanes", "shade")
+           "passset", "lanes", "shade", "window_end", "pool_sort")
 LEAF_NAMES = ("tex_color", "tex_images", "background", "lookfrom", "lookat", "up",
               "vfov_deg", "aspect", "aperture", "focus_dist")
 
@@ -488,7 +503,8 @@ def phase_device(torch):
 
 def phase_build():
     log("== phase 2: build K1, K2, K3/K4, K5/K6/K7, the draw kernel, the pass-set key "
-        "kernel, the lanes kernel, the shade kernel and the native BVH builder")
+        "kernel, the lanes kernel, the shade kernel, the window-end kernels, CUB's pool "
+        "sort and the native BVH builder")
     from concurrent.futures import ThreadPoolExecutor
 
     from rust_pathtracer_tpu_torch.ops import _build
@@ -2119,6 +2135,18 @@ SF_REGEN = dict(width=854, height=480, spp=8, bounces=20, seed=0)
 # phases 19-20: random depths 0-49 (LightTest's 50 bounces), roulette from 3
 REGEN_DEPTHS, REGEN_RR_START = 50, 3
 DRAWS_SCALAR, DRAWS_PER_LANE = "bounce 7", f"per-lane depths 0-{REGEN_DEPTHS - 1}"
+# wavefront.FLUSH_EVERY: bounces a window.  On the card in queue mode the
+# host reads a window's counts one window late, so the frame runs one
+# window over the all-dead pool after the deciding one, which its
+# TraceStats.bounces leaves out
+FLUSH_EVERY = 2
+
+
+def regen_window_end_launches(stats):
+    """The window-end kernels' launches in a regen frame on the card in
+    queue mode: three a window end, the window after the deciding one
+    included."""
+    return 3 * (stats.bounces // FLUSH_EVERY + 1)
 
 
 def phase_k1_per_lane(torch, device, card, n_lanes, reps):
@@ -2319,11 +2347,13 @@ def check_regen_vs_chunked(torch, name, img, stats, cimg, cstats):
 @contextlib.contextmanager
 def regen_events(torch):
     """CUDA events around the regen renderer's bounce, camera-lane spawn
-    and window end (``wavefront._bounce``, ``_spawn``, ``_flush_refill``):
-    yields {part: [(start, end), ...]}."""
+    and window end (``wavefront._bounce``, ``_spawn``, and
+    ``_window_end_device`` on the card in queue mode, ``_flush_refill``
+    elsewhere): yields {part: [(start, end), ...]}."""
     from rust_pathtracer_tpu_torch import wavefront
 
-    names = {"bounce": "_bounce", "spawn": "_spawn", "flush": "_flush_refill"}
+    names = {"bounce": "_bounce", "spawn": "_spawn", "flush": "_flush_refill",
+             "flush_device": "_window_end_device"}
     saved = {k: getattr(wavefront, v) for k, v in names.items()}
     spans = {k: [] for k in names}
 
@@ -2347,13 +2377,15 @@ def regen_events(torch):
 
 
 def regen_split(torch, spans):
-    """ms by part: the bounces, the spawns (the first fill and the
-    refills), and the window ends less the refills' spawns."""
+    """ms by part: the bounces, the spawns (the first fill and, where the
+    tensor ops end a window, the refills), and the window ends less the
+    refills' spawns (on the card in queue mode the kernels, which
+    respawn in place, and the read of the window before)."""
     torch.cuda.synchronize()
     ms = {k: [s.elapsed_time(e) for s, e in v] for k, v in spans.items()}
+    flush = ms["flush"] + ms["flush_device"]
     return {"bounce": sum(ms["bounce"]), "spawn": sum(ms["spawn"]),
-            "flush": sum(ms["flush"]) - sum(ms["spawn"][1:]),
-            "windows": len(ms["flush"])}
+            "flush": sum(flush) - sum(ms["spawn"][1:]), "windows": len(flush)}
 
 
 def idle_share(torch, fn, cuda_only=False):
@@ -2397,8 +2429,11 @@ def phase_regen_light(torch, device, card):
     from rust_pathtracer_tpu_torch.render import RenderSettings, render_radiance
     from rust_pathtracer_tpu_torch.sampling import prng_key
     from rust_pathtracer_tpu_torch.utils.image import image_agreement, to_rgb8, write_png
+    from rust_pathtracer_tpu_torch import wavefront
     from rust_pathtracer_tpu_torch.wavefront import render_radiance_regen
 
+    check(wavefront.FLUSH_EVERY == FLUSH_EVERY,
+          f"wavefront.FLUSH_EVERY is {wavefront.FLUSH_EVERY}, the smoke's {FLUSH_EVERY}")
     sd = get_scene("LightTest")
     scene = sd.build(device=device)
     cam = sd.camera_at(0.0, device=device)
@@ -2419,8 +2454,12 @@ def phase_regen_light(torch, device, card):
         f"launches {counts}, image mean {img_np.mean():.6f}")
     check(np.isfinite(img_np).all() and (img_np >= 0).all(),
           "the LightTest regen image has non-finite or negative pixels")
-    check(counts["K1"] == stats.bounces > 0,
-          f"K1 launched {counts['K1']} times in {stats.bounces} bounce iterations")
+    check(counts["K1"] == stats.bounces + FLUSH_EVERY and stats.bounces > 0,
+          f"K1 launched {counts['K1']} times in {stats.bounces} bounce iterations and "
+          f"the window after")
+    check(counts["window_end"] == regen_window_end_launches(stats),
+          f"the window-end kernels launched {counts['window_end']} times in "
+          f"{stats.bounces // FLUSH_EVERY} windows and the one after")
     check(counts["lanes"] > 0, "the LightTest regen spawned without the lanes kernel")
     check(all(counts[k] == 0 for k in ("K1-res", "K2", "K3", "K4", "K5", "K6", "K7",
                                        "draws")),
@@ -2479,7 +2518,8 @@ def phase_regen_light(torch, device, card):
     write_png(png, to_rgb8(img_np))
     log(f"wrote {png}")
     return dict(k1_launches=counts["K1"], max_abs_err=err, vs_chunked=max_diff,
-                lanes_launches=counts["lanes"], split=split, wall=wall)
+                lanes_launches=counts["lanes"], split=split, wall=wall,
+                window_end_launches=counts["window_end"])
 
 
 def phase_regen_spherefield(torch, device, card, scenes):
@@ -2512,9 +2552,14 @@ def phase_regen_spherefield(torch, device, card, scenes):
         f"image mean {img_np.mean():.6f}")
     check(np.isfinite(img_np).all() and (img_np >= 0).all(),
           "the SphereField regen image has non-finite or negative pixels")
-    check(counts["K6"] == counts["draws"] == counts["shade"] == stats.bounces > 0,
+    check(counts["K6"] == counts["draws"] == counts["shade"] == stats.bounces + FLUSH_EVERY
+          and stats.bounces > 0,
           f"K6 {counts['K6']}, draw kernel {counts['draws']} and shade kernel "
-          f"{counts['shade']} launches in {stats.bounces} bounce iterations")
+          f"{counts['shade']} launches in {stats.bounces} bounce iterations and the window "
+          f"after")
+    check(counts["window_end"] == regen_window_end_launches(stats),
+          f"the window-end kernels launched {counts['window_end']} times in "
+          f"{stats.bounces // FLUSH_EVERY} windows and the one after")
     check(counts["lanes"] > 0, "the SphereField regen spawned without the lanes kernel")
     check(all(counts[k] == 0 for k in ("K1", "K1-res", "K2", "K3", "K4", "K5", "K7")),
           "the SphereField regen left the resident route")
@@ -4164,7 +4209,9 @@ def phase_packed_paths(torch, device, card, scenes, legacy_regen_diff):
     wall, (img, stats), counts = _timed_render(
         torch, device, lambda: render_radiance_regen(lt, cam, s, key, device=device))
     out["regen_k1"] = counts["K1"]
-    check(counts["K1"] == stats.bounces > 0, f"the packed regen launched {counts}")
+    check(counts["K1"] == stats.bounces + FLUSH_EVERY and stats.bounces > 0
+          and counts["window_end"] == regen_window_end_launches(stats),
+          f"the packed regen launched {counts} in {stats.bounces} bounce iterations")
     cwall, (cimg, cstats), _ = _timed_render(
         torch, device, lambda: render_radiance(lt, cam, s, key, device=device))
     diff = check_regen_vs_chunked(torch, "LightTest packed", img, stats, cimg, cstats)
@@ -4918,7 +4965,9 @@ def phase_bf16_diff_cascade(torch, device, card):
 # ---------------------------------------------------------------------------
 
 LANES_RANDOM = 1_000_000
-LANES_REGEN_AT = (0, 1, 4)  # the regen spawns held: the first fill, two refills
+# the regen spawn held: the first fill (on the card the refills are the window
+# end's respawn, ops/window_end.py, on the same per-lane code, csrc/camera_lane.cuh)
+LANES_REGEN_AT = (0,)
 
 
 def lanes_bound(torch, pixel, sample):
@@ -5010,7 +5059,7 @@ def phase_lanes(torch, device, card, reps, paths):
         _sync(torch, device)
     regen_launches = read_counts()["lanes"]
     log(f"LightTest regen: {seen[0]} spawns, {regen_launches} lanes kernel launches")
-    check(0 in calls and 1 in calls, f"the regen spawns {LANES_REGEN_AT} were not captured")
+    check(0 in calls, f"the regen spawn {LANES_REGEN_AT} was not captured")
     for i, ((base, pixel, sample), kw) in sorted(calls.items()):
         check(torch.equal(base, key), "the regen spawn drew under another key")
         sets[f"regen spawn {i}"] = ((pixel, sample), kw)
@@ -5172,6 +5221,250 @@ def phase_shade(torch, device, card, scenes, reps):
 
 
 # ---------------------------------------------------------------------------
+# phase 48: the regen window end
+# ---------------------------------------------------------------------------
+
+# the benchmark's lighttest-regen frame (benchmark/configs/lighttest.json,
+# benchmark/traffic/regen-frames.json): LightTest at its published 854x480,
+# 2000 spp and 50 bounces, a pool of 2**23 lanes
+WE_FRAME = dict(width=854, height=480, spp=2000, bounces=50, lanes=1 << 23, seed=0)
+WE_FULL = 5  # the sixth window end: the queue full, ~3/4 of the pool finished
+WE_POOL_ROWS = ("state", "keys", "depth", "work", "pixel")
+WE_SORT_KERNELS = ("DeviceRadixSort",)  # CUB's kernels
+
+
+def capture_window_ends(torch, scene, cam, settings, key, lanes, device):
+    """Clones of what the regen frame hands its window end at window
+    WE_FULL and at the first window whose finished lanes outnumber the
+    work left (the queue runs out inside it), and the frame's
+    ``wavefront._Frame``: ({label: (pool rows, acc, hist, issued)}, fr).
+    The frame stops there.  Reads the counts a window (a sync each)."""
+    from rust_pathtracer_tpu_torch import wavefront
+    from rust_pathtracer_tpu_torch.ops import window_end as W
+
+    end, bounce = wavefront._window_end_device, wavefront._bounce
+    total = settings.width * settings.height * settings.samples_per_pixel
+    calls, frames, seen = {}, [], [0]
+
+    def first_bounce(fr, pool):
+        if not frames:
+            frames.append(fr)
+        return bounce(fr, pool)
+
+    def capture(we, pool, acc, hist):
+        k = seen[0]
+        seen[0] += 1
+        issued = int(we.ctl[W.CTL_HANDED])
+        n_fin = int(((pool.state[12] <= 0.5) & (pool.work >= 0)).sum())
+        label = ("full queue" if k == WE_FULL else "queue runs out"
+                 if "queue runs out" not in calls and 0 < total - issued < n_fin else None)
+        if label is not None:
+            calls[label] = ({r: getattr(pool, r).clone() for r in WE_POOL_ROWS},
+                            acc.clone(), hist.clone(), issued)
+            log(f"window end {k} ({label}): {n_fin} of {lanes} lanes finished, "
+                f"{total - issued} work items left")
+        if len(calls) == 2:
+            raise _Captured(k)
+        return end(we, pool, acc, hist)
+
+    wavefront._window_end_device, wavefront._bounce = capture, first_bounce
+    try:
+        wavefront.render_radiance_regen(scene, cam, settings, key, lanes=lanes, device=device)
+    except _Captured:
+        pass
+    finally:
+        wavefront._window_end_device, wavefront._bounce = end, bounce
+    check(sorted(calls) == ["full queue", "queue runs out"],
+          f"the window ends captured: {sorted(calls)}")
+    return calls, frames[0]
+
+
+def twin_window_end(torch, fr, pool, acc, hist, issued, total):
+    """``wavefront._flush_refill`` (the tensor ops) with its radiance added
+    in lane order, one f32 add at a time, as the window-end kernels add
+    (CUDA's ``index_put_`` sums a pixel's values first): the finished
+    lanes' pixels and radiance gathered before the twin runs on a scratch
+    image, then added on the CPU with one thread.  Returns the twin's
+    (hist, issued, lanes that took work, lanes finished)."""
+    from rust_pathtracer_tpu_torch import wavefront
+
+    fin = torch.nonzero((pool.state[12] <= 0.5) & (pool.work >= 0)).squeeze(1)
+    pixel, rad = pool.pixel[fin].cpu(), pool.state[9:12, fin].T.cpu()
+    hist, issued, n_take = wavefront._flush_refill(fr, pool, torch.zeros_like(acc), hist,
+                                                   issued, total)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        acc.copy_(acc.cpu().index_put_((pixel,), rad, accumulate=True))
+    finally:
+        torch.set_num_threads(threads)
+    return hist, issued, n_take, fin.shape[0]
+
+
+def window_end_bytes(torch, rows, n_take, end_bit):
+    """The bytes one window end on the pool ``rows`` moves at least, in
+    which ``n_take`` lanes take work: the finish reads each lane's alive
+    row, work, pixel and depth and writes its sort key and lane (28 B);
+    the add reads a finished lane's sorted key, lane and radiance (20 B)
+    and reads and writes each pixel it adds to once (24 B); the respawn
+    reads each lane's alive row and work (8 B) and writes a taken lane's
+    state rows, key words, depth, work and pixel (76 B), an untaken
+    finished lane's work (4 B).  The sort apart: one pass that counts
+    the digits (4 B a lane), then a pass a byte of the key's ``end_bit``
+    bits that reads and writes every key and lane (16 B a lane).
+    Returns (finished lanes, pixels added to, bytes, the sort's bytes)."""
+    n = rows["work"].shape[0]
+    fin = (rows["state"][12] <= 0.5) & (rows["work"] >= 0)
+    n_fin = int(fin.sum())
+    n_pix = int(torch.unique(rows["pixel"][fin]).numel())
+    n_bytes = 36 * n + 20 * n_fin + 24 * n_pix + 76 * n_take + 4 * (n_fin - n_take)
+    return n_fin, n_pix, n_bytes, 4 * n + 16 * n * -(-end_bit // 8)
+
+
+def phase_window_end(torch, device, card, reps):
+    cfg = WE_FRAME
+    W_, H, spp, nb, n = cfg["width"], cfg["height"], cfg["spp"], cfg["bounces"], cfg["lanes"]
+    log(f"== phase 48: the regen window end (ops/window_end.py, ops/csrc/window_end.cu, "
+        f"CUB's sort) vs its plain twin (wavefront._flush_refill) on the {n}-lane pools of "
+        f"the benchmark's LightTest frame ({W_}x{H}, {spp} spp, {nb} bounces), bit for bit")
+    from rust_pathtracer_tpu_torch import wavefront
+    from rust_pathtracer_tpu_torch.models import get_scene
+    from rust_pathtracer_tpu_torch.ops import window_end as W
+    from rust_pathtracer_tpu_torch.render import RenderSettings
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+    from torch.profiler import ProfilerActivity, profile
+
+    sd = get_scene("LightTest")
+    scene, cam = sd.build(device=device), sd.camera_at(0.0, device=device)
+    settings = RenderSettings(W_, H, spp, nb, sd.output.image.background)
+    key = prng_key(cfg["seed"], device=device)
+    total, npix = W_ * H * spp, W_ * H
+    calls, fr = capture_window_ends(torch, scene, cam, settings, key, n, device)
+    we = W.WindowEnd(n, width=W_, height=H, spp=spp, cam=fr.cam, key=fr.key, device=device)
+    out = {}
+    for label, (rows, acc0, hist0, issued) in calls.items():
+        pool = wavefront._Pool(**{r: x.clone() for r, x in rows.items()})
+        acc, hist = acc0.clone(), hist0.clone()
+
+        def restore():
+            for r, x in rows.items():
+                getattr(pool, r).copy_(x)
+            acc.copy_(acc0)
+            hist.copy_(hist0)
+            we.ctl.zero_()
+            we.ctl[W.CTL_HANDED] = issued
+
+        def kernel():
+            we(pool, acc, hist)
+
+        alive = int((rows["state"][12] > 0.5).sum())
+        twin = wavefront._Pool(**{r: x.clone() for r, x in rows.items()})
+        acc_t = acc0.clone()
+        hist_t, issued_t, take_t, fin_t = twin_window_end(torch, fr, twin, acc_t, hist0.clone(),
+                                                          issued, total)
+        restore()
+        before = W.launches
+        kernel()
+        _sync(torch, device)
+        check(W.launches == before + 3, "a window end launched other than three kernels")
+        ctl = we.ctl.tolist()
+        bad = {}
+        for what, a, b in (("acc", acc, acc_t), ("hist", hist, hist_t),
+                           *((r, getattr(pool, r), getattr(twin, r)) for r in WE_POOL_ROWS)):
+            a, b = a.cpu(), b.cpu()
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            bad[what] = int((a != b).sum())
+        words = {"n_fin": (ctl[W.CTL_N_FIN], fin_t), "n_take": (ctl[W.CTL_N_TAKE], take_t),
+                 "issued": (ctl[W.CTL_HANDED], issued_t),
+                 "live": (ctl[W.CTL_LIVE], alive + take_t)}
+        log(f"{label}: {fin_t} lanes finished, {take_t} took work, {alive} alive; entries "
+            f"differing from the twin {bad}; device block (kernel, twin) {words}")
+        check(not any(bad.values()), f"the window end differs from its twin ({label})")
+        check(all(a == b for a, b in words.values()),
+              f"the window end's device block differs from the twin's ({label})")
+
+        def plain():  # the tensor-op window end as the card runs it
+            wavefront._flush_refill(fr, pool, acc, hist, issued, total)
+
+        ev = {"kernel": [], "twin": []}  # events around the call alone, in turns
+        for side in ("twin", "kernel", "kernel", "twin"):
+            for _ in range(reps if side == "kernel" else PLAIN_REPS):
+                restore()
+                ev[side].append(_events_ms(torch, kernel if side == "kernel" else plain)[0])
+        restore()
+        kernel()
+        _sync(torch, device)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                restore()
+                kernel()
+            _sync(torch, device)
+        by = {}
+        for a in prof.key_averages():
+            if a.device_type.name != "CUDA":
+                continue
+            name = next((k for k in ("window_end_finish", "window_end_add",
+                                     "window_end_respawn") + WE_SORT_KERNELS if k in a.key),
+                        None)
+            if name is not None:
+                t = getattr(a, "device_time_total", getattr(a, "cuda_time_total", 0.0))
+                by[name] = by.get(name, 0.0) + t / 1e3 / reps
+        dev_ms = sum(by.values())
+        n_fin, n_pix, n_bytes, sort_bytes = window_end_bytes(torch, rows, take_t, we.end_bit)
+        b_ms, b_by = bound(n_bytes, 0)
+        sb_ms, _ = bound(sort_bytes, 0)
+        k_ms, t_ms = statistics.median(ev["kernel"]), statistics.median(ev["twin"])
+        log(f"window end, {label}, {n} lanes on {card}: {k_ms:.4f} ms by events (median of "
+            f"{len(ev['kernel'])}; {[round(x, 4) for x in ev['kernel'][:4]]}...), device "
+            f"{dev_ms:.4f} ms {({k: round(v, 4) for k, v in by.items()})}; the tensor-op twin "
+            f"on the card {t_ms:.4f} ms ({[round(x, 3) for x in ev['twin']]}); bound "
+            f"{b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, the sort apart) and the sort's "
+            f"{sb_ms:.4f} ms ({sort_bytes / 1e6:.1f} MB, {-(-we.end_bit // 8)} passes)")
+        out[label] = dict(lanes=n, finished=n_fin, taken=take_t, pixels=n_pix, ms=k_ms,
+                          device_ms=dev_ms, by_kernel=by, plain_ms=t_ms, bound_ms=b_ms,
+                          bound_by=b_by, sort_bound_ms=sb_ms)
+
+    # CUB's sort (on the key's low end_bit bits, int32 lanes) against
+    # torch.sort(stable=True) (all 32 bits, int64 indices) on the keys of
+    # the full queue's window end: the same permutation
+    rows = calls["full queue"][0]
+    fin = (rows["state"][12] <= 0.5) & (rows["work"] >= 0)
+    keys0 = torch.where(fin, rows["pixel"], npix).to(torch.int32)
+    lanes0 = torch.arange(n, dtype=torch.int32, device=device)
+    keys = torch.empty((2, n), dtype=torch.int32, device=device)
+    vals = torch.empty((2, n), dtype=torch.int32, device=device)
+    sel = [0]
+
+    def cub():
+        keys[0].copy_(keys0)
+        vals[0].copy_(lanes0)
+        sel[0] = W.sort_pairs(keys, vals, we.end_bit, we.scratch)
+
+    cub()
+    got = vals[sel[0]].clone()
+    want = torch.sort(keys0, stable=True)
+    check(torch.equal(got.long(), want.indices) and torch.equal(keys[sel[0]], want.values),
+          "CUB's sort and torch.sort(stable=True) give other permutations")
+    t = {"cub": [], "torch": []}  # CUB's with its copies of the keys and lanes in
+    for side in ("torch", "cub", "cub", "torch"):
+        for _ in range(reps):
+            t[side].append(_events_ms(torch, cub if side == "cub" else
+                                      (lambda: torch.sort(keys0, stable=True)))[0])
+    copy_ms = statistics.median(_events_ms(torch, lambda: (keys[0].copy_(keys0),
+                                                           vals[0].copy_(lanes0)))[0]
+                                for _ in range(reps))
+    sort = {k: statistics.median(v) for k, v in t.items()}
+    log(f"sort of the full queue's {n} (pixel, lane) pairs on {card}: CUB on {we.end_bit} "
+        f"bits {sort['cub'] - copy_ms:.4f} ms (events {sort['cub']:.4f} less the copies in "
+        f"{copy_ms:.4f}); torch.sort(stable=True) {sort['torch']:.4f} ms; the same "
+        f"permutation")
+    out["sort"] = dict(cub_ms=sort["cub"] - copy_ms, torch_sort_ms=sort["torch"],
+                       end_bit=we.end_bit)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # shared helpers: launch counts, batches, splits, bounds
 # ---------------------------------------------------------------------------
 
@@ -5183,12 +5476,12 @@ def reset_counts():
     from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
     from rust_pathtracer_tpu_torch.ops import fused_bounce_bwd as fbb
     from rust_pathtracer_tpu_torch.ops import (
-        lanes, passset, projected, resident, shade, worklist,
+        lanes, passset, projected, resident, shade, window_end, worklist,
     )
 
     fb.launches = fb.residual_launches = fbb.launches = draws.launches = 0
     ch.hit_launches = ch.record_launches = 0
-    projected.launches = resident.launches = 0
+    projected.launches = resident.launches = window_end.launches = 0
     worklist.launches = passset.launches = lanes.launches = shade.launches = 0
 
 
@@ -5200,14 +5493,14 @@ def read_counts():
     from rust_pathtracer_tpu_torch.ops import fused_bounce as fb
     from rust_pathtracer_tpu_torch.ops import fused_bounce_bwd as fbb
     from rust_pathtracer_tpu_torch.ops import (
-        lanes, passset, projected, resident, shade, worklist,
+        lanes, passset, projected, resident, shade, window_end, worklist,
     )
 
     return {"K1": fb.launches - fb.residual_launches, "K1-res": fb.residual_launches,
             "K2": fbb.launches, "K3": ch.record_launches, "K4": ch.hit_launches,
             "K5": projected.launches, "K6": resident.launches, "K7": worklist.launches,
             "draws": draws.launches, "keys": passset.launches, "lanes": lanes.launches,
-            "shade": shade.launches}
+            "shade": shade.launches, "window_end": window_end.launches}
 
 
 def _grad_sums(grads):
@@ -5714,7 +6007,9 @@ def main() -> int:
     took(46)
     shade47 = phase_shade(torch, device, card, scenes, reps=20)
     took(47)
-    log(f"phases 2-47 took {clock[-1] - clock[0]:.1f} s")
+    we48 = phase_window_end(torch, device, card, reps=20)
+    took(48)
+    log(f"phases 2-48 took {clock[-1] - clock[0]:.1f} s")
 
     def sweep_err(kernel, main):
         errs = [main["max_abs_err"]] + [v["max_abs_err"] for (_, k), v in ph14.items()
@@ -5869,6 +6164,24 @@ def main() -> int:
              second_bounce={"device_ms": shade47["bounce 2"]["device_ms"][0],
                             **{k: shade47["bounce 2"][k]
                                for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}),
+        # phase 48's full-queue window end of the benchmark's LightTest frame
+        # (8,388,608 lanes; the window where the queue runs out under
+        # "queue_runs_out"): ms and device_ms the three kernels and CUB's
+        # sort between them (by kernel under "by_kernel"), bound_ms the
+        # kernels' bytes and sort_bound_ms the sort's; plain_ms the tensor-op
+        # twin on the card; launches: the LightTest regen's (phase 21)
+        dict(entry("window_end", "window_end.cu", "", regen["window_end_launches"], 0.0,
+                   we48["full queue"]["ms"], we48["full queue"]["plain_ms"],
+                   (we48["full queue"]["bound_ms"], we48["full queue"]["bound_by"])),
+             replaces="rust_pathtracer_tpu/wavefront.py:374-409 (flush_refill: XLA's "
+                      "scatter-add, cumsum and spawn; no Pallas kernel)",
+             device_ms=we48["full queue"]["device_ms"],
+             **{k: we48["full queue"][k] for k in ("lanes", "finished", "taken", "by_kernel",
+                                                    "sort_bound_ms")},
+             queue_runs_out={k: we48["queue runs out"][k]
+                             for k in ("finished", "taken", "ms", "device_ms", "plain_ms",
+                                       "bound_ms", "sort_bound_ms")},
+             sort=we48["sort"], library_ms=we48["sort"]["cub_ms"]),
     ]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

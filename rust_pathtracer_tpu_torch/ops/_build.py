@@ -106,6 +106,45 @@ SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
         ),
         "error_string": ([_c_int], ctypes.c_char_p),
     },
+    "window_end": {
+        # n_lanes -> entries of the rows' counts
+        "window_end_rows": ([ctypes.c_longlong], ctypes.c_longlong),
+        # alive, work, pixel, depth, n_lanes, npix, total, sort_keys,
+        # sort_vals, row_fin, hist_count, hist, ctl, stream
+        "window_end_finish_launch": (
+            [_c_void_p, _c_void_p, _c_void_p, _c_void_p, ctypes.c_longlong, _c_int,
+             ctypes.c_longlong, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+             _c_void_p, _c_void_p],
+            _c_int,
+        ),
+        # sorted keys, sorted lanes, rad (state row 9), n_lanes, npix, acc, stream
+        "window_end_add_launch": (
+            [_c_void_p, _c_void_p, _c_void_p, ctypes.c_longlong, _c_int, _c_void_p,
+             _c_void_p],
+            _c_int,
+        ),
+        # state, key words, depth, work, pixel, n_lanes, row ranks, ctl,
+        # base key, camera, width, height, spp_total, stream
+        "window_end_respawn_launch": (
+            [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, ctypes.c_longlong,
+             _c_void_p, _c_void_p, _c_void_p, _c_void_p, ctypes.c_longlong,
+             ctypes.c_longlong, ctypes.c_longlong, _c_void_p],
+            _c_int,
+        ),
+        "error_string": ([_c_int], ctypes.c_char_p),
+    },
+    "pool_sort": {
+        # n_items, end_bit -> scratch bytes (-1 on an error)
+        "pool_sort_temp_bytes": ([ctypes.c_longlong, _c_int], ctypes.c_longlong),
+        # temp, temp_bytes, keys0, keys1, vals0, vals1, n_items, end_bit,
+        # selector (int32 out), stream
+        "pool_sort_launch": (
+            [_c_void_p, ctypes.c_longlong, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+             ctypes.c_longlong, _c_int, _c_void_p, _c_void_p],
+            _c_int,
+        ),
+        "error_string": ([_c_int], ctypes.c_char_p),
+    },
     "closest_hit": {
         # table, n_prims, o, d, t_min, record (0: K4, 1: K3), out (one
         # buffer, planes at multiples of 16 bytes), n_lanes, stream

@@ -46,7 +46,8 @@
 // 756 of them IMAD, LOP3, SHF and IADD3, most of those the threefry
 // rounds' adds, xors and rotations; 32 registers, no spills.  Measured: 0.028 ms of device time for 1M lanes,
 // 1.6x the bound (chip_smoke.py phase 46; NVIDIA H100 80GB HBM3, 700 W).
-// Design, simple and right first, as
+// The per-lane body is camera_lane.cuh's, which the regen window end's
+// respawn (window_end.cu) shares.  Design, simple and right first, as
 // draws.cu: one thread a lane, a grid of 16 blocks an SM with a grid
 // stride, rows planar so that a warp's loads and stores are coalesced, no
 // shared memory; the base key is read from device memory, so the launch
@@ -56,14 +57,13 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "threefry.cuh"
+#include "camera_lane.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int BLOCKS_PER_SM = 16;
 constexpr int MAX_DEVICES = 64;
-constexpr float TWO_PI = 6.2831855f;  // 2 * pi rounded to f32, as torch takes the scalar
 
 __global__ void __launch_bounds__(THREADS)
 camera_lanes_kernel(const long long* __restrict__ base, const long long* __restrict__ pixel,
@@ -73,35 +73,14 @@ camera_lanes_kernel(const long long* __restrict__ base, const long long* __restr
   const uint32_t b0 = (uint32_t)base[0], b1 = (uint32_t)base[1];
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x) {
-    const long long p = pixel[i];
-    const uint32_t c = (uint32_t)((unsigned long long)p * (unsigned long long)spp_total +
-                                  (unsigned long long)sample[i]);
-    uint32_t l0 = 0u, l1 = c;
-    rpt::threefry2x32(b0, b1, l0, l1);  // the lane key: fold_in(base, c)
-    keys[i] = l0;
-    keys[n + i] = l1;
-
-    long long col, row;
-    if ((unsigned long long)p <= 0xFFFFFFFFull && (unsigned long long)width <= 0xFFFFFFFFull) {
-      const uint32_t p32 = (uint32_t)p, w32 = (uint32_t)width;
-      col = p32 % w32;
-      row = p32 / w32;
-    } else {
-      col = p % width;
-      row = p / width;
-    }
-    uint32_t k0, k1;
-    rpt::bounce_key(l0, l1, 0u, rpt::P_PIXEL_JITTER, k0, k1);
-    const float j0 = rpt::uniform_at(k0, k1, 0u), j1 = rpt::uniform_at(k0, k1, 1u);
-    rows[i] = ((float)col + j0) / w_div;
-    rows[n + i] = ((float)(height - 1 - row) + j1) / h_div;
-
-    rpt::bounce_key(l0, l1, 0u, rpt::P_LENS, k0, k1);
-    const float u0 = rpt::uniform_at(k0, k1, 0u), u1 = rpt::uniform_at(k0, k1, 1u);
-    const float r = sqrtf(u0);
-    const float theta = TWO_PI * u1;
-    rows[2 * n + i] = r * cosf(theta);
-    rows[3 * n + i] = r * sinf(theta);
+    const rpt::CameraLane c = rpt::camera_lane(b0, b1, pixel[i], sample[i], width, height,
+                                               spp_total, w_div, h_div);
+    keys[i] = c.k0;
+    keys[n + i] = c.k1;
+    rows[i] = c.s_vp;
+    rows[n + i] = c.t_vp;
+    rows[2 * n + i] = c.disk_x;
+    rows[3 * n + i] = c.disk_y;
   }
 }
 

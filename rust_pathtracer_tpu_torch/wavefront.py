@@ -12,8 +12,8 @@ work item.  Every ``FLUSH_EVERY`` bounces a window ends: the finished
 lanes' radiance goes into the image, and each of them takes a work item
 and spawns its camera ray.  Under a profiler each window end is one
 ``rpt.flush`` span (its argument the bounces done), from the finished
-mask to the respawn and, once the queue is spent, the read of whether a
-lane still lives: every host read between two windows lies inside it.
+mask to the respawn and the read that decides whether the frame goes on
+(below): every host read between two windows lies inside it.
 
 Each lane carries its own path depth, and its draws are those of the
 chunked renderer for the same (pixel, sample) at that depth, so a path
@@ -43,11 +43,28 @@ the next work ids in lane order (JAX's exclusive cumsum: a finished
 lane's rank among the finished lanes is its slot) and their radiance is
 added into the image each window; "stripe": each lane owns a
 pixel-aligned run of consecutive ids of one pixel, banks its radiance
-lane-locally, and the image takes one flush at the end.  The radiance
-flush is ``index_put_(accumulate=True)``, which adds in a fixed order on
-the card as on the CPU (a sort by pixel, then each pixel's values in
-turn), so one key gives the same image bit for bit; never
-``index_add_``, whose CUDA adds are atomics.
+lane-locally, and the image takes one flush at the end.  Every flush
+on the card adds in a fixed order, so one key gives the same image bit
+for bit: the window-end kernels add a pixel's values in lane order, one
+f32 add at a time, as the CPU's ``index_put_(accumulate=True)`` does on
+one thread; CUDA's ``index_put_`` (stripe mode's flush) sums a pixel's
+values first, then adds the sum.  Never ``index_add_``, whose CUDA adds
+are atomics.
+
+Where the window end runs (``ops/window_end.window_end_ok``): queue mode
+on a CUDA device takes the window-end kernels (``ops/window_end.py``):
+a pass that finds and ranks the finished lanes and counts their lengths,
+a stable sort of (pixel, lane) pairs, an ordered per-pixel add and a
+respawn that writes camera lanes in place, sized on the device.  The
+host reads their counts one window late, so the device never waits on
+it: the frame ends at the window whose reading shows no lane taking work
+and none alive, after one more window over the all-dead pool, which
+changes nothing (dead lanes without work are left alone, and trace no
+segment); ``TraceStats.bounces`` counts the bounces up to the deciding
+window.  The CPU's window ends, and stripe mode's, are tensor ops
+(``_flush_refill``, the kernels' plain twin, and ``_advance_stripe``):
+``index_put_(accumulate=True)``, with a ``nonzero`` and a ``bincount``
+that the host reads, and a liveness read once the queue is spent.
 
 The between-bounce reorder of big scenes (JAX ``reorder_lanes``; routed
 by ``RenderSettings.reorder`` as in ``integrator.use_wavefront_reorder``):
@@ -91,6 +108,7 @@ from rust_pathtracer_tpu_torch.ops.fused_bounce import (
     pack_prims_shaded,
 )
 from rust_pathtracer_tpu_torch.ops.projected import passset_perm
+from rust_pathtracer_tpu_torch.ops.window_end import WindowEnd, window_end_ok
 from rust_pathtracer_tpu_torch.render import RenderSettings, camera_lanes, resolve_device
 from rust_pathtracer_tpu_torch.utils.metrics import span
 
@@ -251,10 +269,11 @@ def _depth_hist(depth):
 
 
 def _flush_refill(fr: _Frame, pool: _Pool, acc, hist, issued: int, total: int):
-    """Queue mode's window end (JAX ``flush_refill``, :374-409): the
-    finished lanes' radiance into ``acc`` and their lengths into
-    ``hist``; each takes the next work id, in lane order, while the queue
-    lasts.  Returns (hist, issued, lanes that took work)."""
+    """Queue mode's window end in tensor ops (JAX ``flush_refill``,
+    :374-409), the window-end kernels' plain twin: the finished lanes'
+    radiance into ``acc`` and their lengths into ``hist``; each takes the
+    next work id, in lane order, while the queue lasts.  Returns (hist,
+    issued, lanes that took work)."""
     finished = (pool.state[12] <= 0.5) & (pool.work >= 0)
     with span("rpt.sync"):
         fin = torch.nonzero(finished).squeeze(1)  # ascending: each lane's queue slot
@@ -286,6 +305,23 @@ def _advance_stripe(fr: _Frame, pool: _Pool, hist):
         pool.nxt[take] += 1
         _respawn(fr, pool, take, wid)
     return hist, take.shape[0]
+
+
+def _live(pool: _Pool) -> bool:
+    with span("rpt.sync"):
+        return bool((pool.state[12] > 0.5).any())
+
+
+def _window_end_device(we: WindowEnd, pool: _Pool, acc, hist) -> bool:
+    """Queue mode's window end in the kernels (``acc`` and ``hist`` added
+    to in place), then the read of the window before's counts.  Returns
+    whether that window ended the frame: no lane took work, none lives."""
+    we(pool, acc, hist)
+    if we.windows < 2:
+        return False
+    with span("rpt.sync"):
+        n_take, live = we.previous()
+    return n_take == 0 and live == 0
 
 
 def render_radiance_regen(scene, cam: Camera, settings: RenderSettings, key,
@@ -361,6 +397,8 @@ def render_radiance_regen(scene, cam: Camera, settings: RenderSettings, key,
         acc = torch.zeros((fr.npix, 3), dtype=torch.float32, device=dev)
         hist = torch.zeros(MAX_BOUNCE_STATS, dtype=torch.float32, device=dev)
         segments = torch.zeros((), dtype=torch.float32, device=dev)
+        we = (WindowEnd(lanes, width=width, height=height, spp=spp, cam=cam, key=fr.key,
+                        device=dev) if window_end_ok(dev, mode) else None)
         issued, iters = lanes, 0
         while True:  # every lane is alive entering the first window
             for _ in range(FLUSH_EVERY):
@@ -369,17 +407,20 @@ def render_radiance_regen(scene, cam: Camera, settings: RenderSettings, key,
                         _reorder_pool(fr, pool)
                     segments = segments + _bounce(fr, pool)
                 iters += 1
+            # no lane is pending after a flush: the loop ends once none is alive
             with span("rpt.flush", iters):
-                if stripe:
+                if we is not None:
+                    done = _window_end_device(we, pool, acc, hist)
+                elif stripe:
                     hist, n_take = _advance_stripe(fr, pool, hist)
+                    done = n_take == 0 and not _live(pool)
                 else:
                     hist, issued, n_take = _flush_refill(fr, pool, acc, hist, issued, total)
-                # no lane is pending after a flush: the loop ends once none is alive
-                if n_take == 0:
-                    with span("rpt.sync"):
-                        live = bool((pool.state[12] > 0.5).any())
-                    if not live:
-                        break
+                    done = n_take == 0 and not _live(pool)
+            if done:
+                break
+        if we is not None:  # the window read last was the one before
+            iters -= FLUSH_EVERY
         if stripe:
             acc.index_put_((pool.pixel,), pool.acc_lane, accumulate=True)
 

@@ -3,7 +3,8 @@
 // std::thread a CUDA thread, blocks of up to 256 threads run one after
 // another, warp collectives (__ballot_sync, __match_any_sync, __shfl_sync,
 // __shfl_xor_sync, __syncwarp), __syncthreads and __syncthreads_and through
-// std::barrier.  The tests rewrite a source's
+// std::barrier, and integer atomicAdd and __threadfence through the
+// compiler's atomic builtins.  The tests rewrite a source's
 // launches to EMU_LAUNCH and its cp.async to a copy
 // (tests/test_torch_projected_rows.py, tests/test_torch_fused_bounce_bwd.py,
 // tests/test_torch_closest_hit_emu.py; tests/test_torch_fused_bounce_emu.py
@@ -87,6 +88,11 @@ inline unsigned __match_any_sync(unsigned, int v) {
   return m;
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
 inline int __ffs(unsigned x) { return __builtin_ffs(x); }
 inline void __syncwarp() { g_warps[threadIdx.x / 32].bar->arrive_and_wait(); }
 inline void __syncthreads() { g_block_bar->arrive_and_wait(); }

@@ -11,6 +11,7 @@ also feed ``test_torch_fused_bounce.py`` and
 ``test_torch_fused_bounce_bwd.py``.
 """
 
+import functools
 import os
 
 import numpy as np
@@ -666,13 +667,14 @@ def test_lanes_kernel_matches_plain_on_gpu(n):
 def test_regen_on_gpu_matches_cpu():
     """A 24x16 regen render of LightTest (K1 at per-lane depth) and of the
     image-textured scene (K3 and the draw kernel), 8 spp, 8 bounces,
-    roulette from bounce 3, 256 lanes: on the card against the CPU under
-    the image contract, and two renders on the card bit for bit."""
+    roulette from bounce 3, 256 lanes: on the card, where every window end
+    launches the window-end kernels, against the CPU under the image
+    contract, and two renders on the card bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     from rust_pathtracer_tpu_torch.camera import make_camera
     from rust_pathtracer_tpu_torch.models import get_scene
-    from rust_pathtracer_tpu_torch.ops import draws
+    from rust_pathtracer_tpu_torch.ops import draws, window_end
     from rust_pathtracer_tpu_torch.render import RenderSettings
     from rust_pathtracer_tpu_torch.sampling import prng_key
     from rust_pathtracer_tpu_torch.utils.image import image_agreement
@@ -693,13 +695,16 @@ def test_regen_on_gpu_matches_cpu():
         s = RenderSettings(24, 16, 8, 8, bg, russian_roulette_start=3)
         imgs = {}
         for dev in ("cpu", "cuda", "cuda2"):
-            before = (fb.launches, draws.launches)
-            img, _ = render_radiance_regen(scene, cam, s, prng_key(5), lanes=256,
-                                           device=dev[:4])
+            before = (fb.launches, draws.launches, window_end.launches)
+            img, st = render_radiance_regen(scene, cam, s, prng_key(5), lanes=256,
+                                            device=dev[:4])
             imgs[dev] = img.cpu().numpy()
+            ends = window_end.launches - before[2]
             if dev == "cuda":
                 launched = (fb.launches - before[0], draws.launches - before[1])
                 assert launched[0 if name == "LightTest" else 1] > 0, (name, launched)
+            # three kernels a window end, one window past the deciding one
+            assert ends == (0 if dev == "cpu" else 3 * (st.bounces // 2 + 1)), (name, ends)
         a = image_agreement(imgs["cuda"], imgs["cpu"])
         assert a["ok"], (name, a)
         np.testing.assert_array_equal(imgs["cuda"].view(np.int32),
@@ -1134,3 +1139,142 @@ def test_shade_kernel_frames_on_gpu_match_tensor_ops(monkeypatch):
         assert torch.equal(a, b), label
         assert torch.equal(sa.segments, sb.segments), label
         assert torch.equal(sa.occupancy, sb.occupancy), label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mixed", "none_finished", "all_finished", "queue_runs_out",
+                                  "queue_spent", "big"])
+def test_window_end_matches_twin_on_gpu(case):
+    """One window end in the kernels (the finish, CUB's sort, the add, the
+    respawn) against its plain twin ``wavefront._flush_refill`` on copies
+    of the same CUDA pool, its radiance added in lane order
+    (``flush_refill_in_lane_order``; CUDA's index_put_ sums a pixel's
+    values first), bit for bit: the image sums, the length histogram, the state
+    rows, key words, depth, work, pixel and the work handed out (the
+    twin's respawn draws with the lanes kernel).  The pools of
+    ``test_torch_window_end_emu.py``; "big" is a 1,048,576-lane pool of a
+    854x480 frame (256 tiles, keys of 19 bits)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from test_torch_window_end_emu import WIDTH, HEIGHT, SPP, _clone, _frame, _pool
+
+    from rust_pathtracer_tpu_torch import wavefront
+    from rust_pathtracer_tpu_torch.ops import window_end as W
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+
+    dev = torch.device("cuda")
+    w, h, spp = WIDTH, HEIGHT, SPP
+    if case == "big":
+        pool, issued = _big_pool(1 << 20, 854, 480, 2000, seed=5)
+        w, h, spp = 854, 480, 2000
+    else:
+        pool, issued = _pool(case, seed=len(case))
+    pool = wavefront._Pool(**{k: v.to(dev) for k, v in vars(pool).items() if v is not None})
+    key = prng_key(11 + len(case), device="cuda")
+    fr = _frame(key)
+    fr.cam = fr.cam.to(dev)
+    fr.width, fr.height, fr.spp = w, h, spp
+    rng = np.random.default_rng(5)
+    acc0 = torch.tensor(rng.uniform(0.0, 9.0, (w * h, 3)), dtype=torch.float32, device=dev)
+    hist0 = torch.tensor(rng.integers(0, 1000, W.HIST_BINS), dtype=torch.float32, device=dev)
+    twin, acc_t = _clone(pool), acc0.clone()
+    hist_t, issued_t, take_t = flush_refill_in_lane_order(
+        wavefront._flush_refill, fr, twin, acc_t, hist0.clone(), issued, w * h * spp)
+    got, acc_k, hist_k = _clone(pool), acc0.clone(), hist0.clone()
+    we = W.WindowEnd(pool.work.shape[0], width=w, height=h, spp=spp, cam=fr.cam, key=key,
+                     device=dev)
+    we.ctl[W.CTL_HANDED] = issued
+    before = W.launches
+    we(got, acc_k, hist_k)
+    torch.cuda.synchronize()
+    assert W.launches == before + 3
+    ctl = we.ctl.tolist()
+    assert ctl[W.CTL_N_TAKE] == take_t and ctl[W.CTL_HANDED] == issued_t
+    assert ctl[W.CTL_LIVE] == int((pool.state[12] > 0.5).sum()) + take_t
+    for what, a, b in (("acc", acc_k, acc_t), ("hist", hist_k, hist_t),
+                       *((name, getattr(got, name), getattr(twin, name))
+                         for name in ("state", "keys", "depth", "work", "pixel"))):
+        a, b = a.cpu(), b.cpu()
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), (case, what, int((a != b).sum()))
+
+
+def flush_refill_in_lane_order(twin, fr, pool, acc, hist, issued, total):
+    """The tensor-op window end ``twin`` (``wavefront._flush_refill``) with
+    its radiance added in lane order, one f32 add at a time, as the
+    window-end kernels add (CUDA's index_put_ sums a pixel's values
+    first): the finished lanes' pixels and radiance gathered before the
+    twin runs on a scratch image, then added on the CPU with one thread."""
+    fin = torch.nonzero((pool.state[12] <= 0.5) & (pool.work >= 0)).squeeze(1)
+    pixel, rad = pool.pixel[fin].cpu(), pool.state[9:12, fin].T.cpu()
+    out = twin(fr, pool, torch.zeros_like(acc), hist, issued, total)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        acc.copy_(acc.cpu().index_put_((pixel,), rad, accumulate=True))
+    finally:
+        torch.set_num_threads(threads)
+    return out
+
+
+def _big_pool(n, w, h, spp, seed):
+    """A pool of n lanes of a w x h frame, ~70% finished (a tenth of those
+    idle), ~20 lanes a pixel."""
+    from rust_pathtracer_tpu_torch import wavefront
+
+    rng = np.random.default_rng(seed)
+    state = rng.normal(size=(13, n)).astype(np.float32)
+    state[9:12] = rng.uniform(0.0, 4.0, (3, n))
+    state[12] = rng.random(n) < 0.3
+    work = rng.integers(0, w * h * spp, n).astype(np.int32)
+    work[rng.random(n) < 0.07] = -1
+    pool = wavefront._Pool(
+        state=torch.from_numpy(state),
+        keys=torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (2, n)).astype(np.int32)),
+        depth=torch.from_numpy(rng.integers(0, 70, n).astype(np.int32)),
+        work=torch.from_numpy(work), pixel=torch.from_numpy(rng.integers(0, w * h, n)))
+    return pool, w * h * spp // 2
+
+
+@pytest.mark.cuda
+def test_regen_window_end_frames_on_gpu_match_tensor_ops(monkeypatch):
+    """LightTest regen frames on the card through the window-end kernels
+    against the same frames with the tensor-op window end (the predicate
+    turned off, its radiance added in lane order:
+    ``flush_refill_in_lane_order``),
+    bit for bit: image, segments, occupancy and bounces; at 64x36, 32 spp,
+    50 bounces on a pool of 4,096 lanes (many refills), and roulette from
+    bounce 3 on 1,000 lanes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from rust_pathtracer_tpu_torch import wavefront
+    from rust_pathtracer_tpu_torch.models import get_scene
+    from rust_pathtracer_tpu_torch.ops import window_end as W
+    from rust_pathtracer_tpu_torch.render import RenderSettings
+    from rust_pathtracer_tpu_torch.sampling import prng_key
+
+    sd = get_scene("LightTest")
+    scene, cam = sd.build(device="cuda"), sd.camera_at(0.0, device="cuda")
+    key = prng_key(7, device="cuda")
+    for rr, lanes in ((None, 4096), (3, 1000)):
+        s = RenderSettings(64, 36, 32, 50, (0.0, 0.0, 0.0), russian_roulette_start=rr)
+        runs = []
+        for ok in (True, False):
+            with monkeypatch.context() as m:
+                if not ok:
+                    m.setattr(wavefront, "window_end_ok", lambda *a: False)
+                    m.setattr(wavefront, "_flush_refill", functools.partial(
+                        flush_refill_in_lane_order, wavefront._flush_refill))
+                before = W.launches
+                img, st = wavefront.render_radiance_regen(scene, cam, s, key, lanes=lanes,
+                                                          device="cuda")
+                n = W.launches - before
+            assert n == (3 * (st.bounces // 2 + 1) if ok else 0), (rr, n, st.bounces)
+            runs.append((img, st))
+        (a, sa), (b, sb) = runs
+        assert float(a.sum()) > 0
+        assert torch.equal(a, b), rr
+        assert sa.bounces == sb.bounces, rr
+        assert torch.equal(sa.segments, sb.segments), rr
+        assert torch.equal(sa.occupancy, sb.occupancy), rr

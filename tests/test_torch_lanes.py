@@ -307,25 +307,28 @@ def test_wrapper_dispatch(monkeypatch):
 
 @pytest.fixture(scope="module", params=["source", "one_block_an_sm", "no_trig"])
 def emu_lib(request, tmp_path_factory):
-    """``lanes.cu`` built by ``emu_build`` with ``threefry.cuh`` beside it:
-    as it is; with BLOCKS_PER_SM = 1 (2 blocks walk the tiles); and with
-    cosf(theta) and sinf(theta) replaced by 1 and theta, so that the disk
-    rows are r and r * theta (bit for bit)."""
+    """``lanes.cu`` built by ``emu_build`` with ``camera_lane.cuh`` (its
+    per-lane body) and ``threefry.cuh`` beside it: as it is; with
+    BLOCKS_PER_SM = 1 (2 blocks walk the tiles); and with cosf(theta) and
+    sinf(theta) replaced by 1 and theta, so that the disk rows are r and
+    r * theta (bit for bit)."""
     from test_torch_projected_rows import emu_build
 
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the kernel source for the host")
     src = (CSRC / "lanes.cu").read_text()
+    lane = (CSRC / "camera_lane.cuh").read_text()  # the per-lane body
     if request.param == "one_block_an_sm":
         src, n = re.subn(r"constexpr int BLOCKS_PER_SM = \d+;",
                          "constexpr int BLOCKS_PER_SM = 1;", src)
         assert n == 1
     elif request.param == "no_trig":
-        src, n = re.subn(r"r \* cosf\(theta\)", "r * 1.0f", src)
-        src, m = re.subn(r"r \* sinf\(theta\)", "r * theta", src)
+        lane, n = re.subn(r"r \* cosf\(theta\)", "r * 1.0f", lane)
+        lane, m = re.subn(r"r \* sinf\(theta\)", "r * theta", lane)
         assert n == m == 1
     tmp = tmp_path_factory.mktemp("lanes")
     shutil.copy(CSRC / "threefry.cuh", tmp / "threefry.cuh")
+    (tmp / "camera_lane.cuh").write_text(lane)
     lib, n_launch = emu_build(tmp, "lanes", src)
     assert n_launch == 1
     return request.param, lib
